@@ -1,0 +1,198 @@
+// One step of the scalar Chebyshev filter recurrence, for Hopper (sm_90a).
+//
+// Replaces the TPU kernel gcm_filters_tpu/ops/pallas/cheb_pass.py::_build_pass_call
+// (kernel body `kernel`, built by build_cheb_pass): the fused, end-fused
+// scalar Chebyshev pass. This file ports WHAT that kernel computes, not its
+// TPU layout (no lane-tail wrap, no VMEM blocks, no strip views).
+//
+// With coefficients pre-scaled on the host, X' = -2*lap_scale*X, and
+//   g       = [pre *] (zap ? nan_to_num(t) : t)
+//   lap'(t) = [post *] (c'g + n'g_N + s'g_S + e'g_E + w'g_W)
+// (x periodic; y periodic, or with `fold` the north neighbour of the top
+// row at column i is the top row at column nx-1-i), one launch computes:
+//   FIRST  : fbar = field[*area]; h = drop_pre ? post*nan_to_num(fbar) : fbar
+//            T1 = -h + 0.5*lap'(h); acc = p_a*h + p_b*T1
+//            writes h, T1 (t_next) and acc
+//   MIDDLE : t_next = -2t + lap'(t) - t_prev; acc += p_a*t_next
+//            t_next may be the t_prev buffer (updated in place), acc is
+//            updated in place
+//   LAST   : acc += p_a*(-2t + lap'(t) - t_prev); then, under drop_pre,
+//            acc = post == 0 ? land_gain*fbar : acc + 0*fbar (the 0*fbar
+//            keeps a NaN at a wet cell NaN); then acc /= area.
+//            acc is updated in place and holds the result.
+//
+// Design: one thread per cell, one launch per Chebyshev step; the four
+// neighbour reads come through L1/L2. Batch rides gridDim.z; coefficients
+// are shared by every batch entry. Constant coefficients arrive as
+// immediates (null pointer + value).
+//
+// Bound: memory. A middle step of the 2400x3600 float32 tripolar headline
+// reads t, t_prev, acc, c', post and writes t_next, acc: 7 arrays of 34.6 MB,
+// about 72 us at 3.35 TB/s; ~15 flops per cell are ~2 us at 67 TFLOP/s.
+// The whole 11-step filter needs only one read of field, c, post, area and
+// one write of the result (~173 MB, ~0.05 ms); closing that gap is the job of
+// temporal blocking (n steps per launch on shared-memory tiles with a halo,
+// as the TPU kernel does in VMEM), which is later work.
+//
+// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
+// 0*fbar NaN poison.
+
+#include <cfloat>
+#include <cstdint>
+#include <cuda_runtime.h>
+
+namespace {
+
+enum Kind { FIRST = 0, MIDDLE = 1, LAST = 2 };
+
+template <typename T> struct Lim;
+template <> struct Lim<float> { static __device__ __forceinline__ float max() { return FLT_MAX; } };
+template <> struct Lim<double> { static __device__ __forceinline__ double max() { return DBL_MAX; } };
+
+// torch.nan_to_num / jnp.nan_to_num: NaN -> 0, +-inf -> +-largest finite.
+template <typename T>
+__device__ __forceinline__ T nan_to_num(T x) {
+  if (isnan(x)) return T(0);
+  if (isinf(x)) return x > T(0) ? Lim<T>::max() : -Lim<T>::max();
+  return x;
+}
+
+template <typename T>
+struct Args {
+  int ny, nx;
+  const T* field;   // raw field (FIRST, LAST)
+  const T* t;       // T_k (MIDDLE, LAST)
+  const T* t_prev;  // T_{k-1} (MIDDLE, LAST)
+  T* t_next;        // T_{k+1} (FIRST, MIDDLE); may alias t_prev
+  T* acc;           // running sum, updated in place
+  T* h;             // T_0 output (FIRST)
+  const T* coef[5]; // c, n, s, e, w (pre-scaled); null -> cval
+  T cval[5];
+  const T* pre;
+  const T* post;
+  const T* area;
+  T p_a, p_b, land_gain;
+  int zap, fold, drop_pre;
+};
+
+// The value the stencil contracts over at plane offset `k` (batch base `b`).
+template <typename T, int KIND>
+__device__ __forceinline__ T gathered(const Args<T>& a, int64_t b, int64_t k) {
+  T x;
+  if (KIND == FIRST) {
+    x = a.field[b + k];
+    if (a.area) x = x * a.area[k];
+    if (a.drop_pre) x = a.post[k] * nan_to_num(x);
+  } else {
+    x = a.t[b + k];
+  }
+  if (a.zap) x = nan_to_num(x);
+  if (a.pre) x = a.pre[k] * x;
+  return x;
+}
+
+template <typename T>
+__device__ __forceinline__ T coef(const Args<T>& a, int m, int64_t k) {
+  return a.coef[m] ? a.coef[m][k] : a.cval[m];
+}
+
+template <typename T, int KIND>
+__global__ void cheb_pass_kernel(const Args<T> a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= a.nx || j >= a.ny) return;
+  const int nx = a.nx, ny = a.ny;
+  const int64_t b = (int64_t)blockIdx.z * ny * nx;
+  const int64_t k = (int64_t)j * nx + i;
+
+  int64_t kn;
+  if (j + 1 < ny) kn = k + nx;
+  else if (a.fold) kn = (int64_t)j * nx + (nx - 1 - i);
+  else kn = i;
+  const int64_t ks = j > 0 ? k - nx : (int64_t)(ny - 1) * nx + i;
+  const int64_t ke = i + 1 < nx ? k + 1 : (int64_t)j * nx;
+  const int64_t kw = i > 0 ? k - 1 : (int64_t)j * nx + nx - 1;
+
+  const T g = gathered<T, KIND>(a, b, k);
+  T lap = coef(a, 0, k) * g + coef(a, 1, k) * gathered<T, KIND>(a, b, kn) +
+          coef(a, 2, k) * gathered<T, KIND>(a, b, ks);
+  lap = lap + coef(a, 3, k) * gathered<T, KIND>(a, b, ke) +
+        coef(a, 4, k) * gathered<T, KIND>(a, b, kw);
+  if (a.post) lap = a.post[k] * lap;
+
+  if (KIND == FIRST) {
+    // T_0 = h is the un-masked-by-pre value at this cell
+    T h = a.field[b + k];
+    if (a.area) h = h * a.area[k];
+    if (a.drop_pre) h = a.post[k] * nan_to_num(h);
+    const T t1 = -h + T(0.5) * lap;
+    a.h[b + k] = h;
+    a.t_next[b + k] = t1;
+    a.acc[b + k] = a.p_a * h + a.p_b * t1;
+    return;
+  }
+
+  const T nxt = T(-2) * a.t[b + k] + lap - a.t_prev[b + k];
+  T acc = a.acc[b + k] + a.p_a * nxt;
+  if (KIND == MIDDLE) {
+    a.t_next[b + k] = nxt;  // in place over t_prev: only this cell read it
+    a.acc[b + k] = acc;     // in place
+    return;
+  }
+  T fbar = a.field[b + k];
+  if (a.area) fbar = fbar * a.area[k];
+  if (a.drop_pre) acc = a.post[k] == T(0) ? a.land_gain * fbar : acc + fbar * T(0);
+  if (a.area) acc = acc / a.area[k];
+  a.acc[b + k] = acc;  // in place: the filtered result
+}
+
+template <typename T>
+int launch(int kind, int batch, int ny, int nx, const T* field, const T* t,
+           const T* t_prev, T* t_next, T* acc, T* h, const T* c, const T* n,
+           const T* s, const T* e, const T* w, double cv, double nv, double sv,
+           double ev, double wv, const T* pre, const T* post, const T* area,
+           double p_a, double p_b, double land_gain, int zap, int fold,
+           int drop_pre, void* stream) {
+  cudaGetLastError();  // clear a stale error so the result below is this launch's
+  if (batch < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
+  Args<T> a;
+  a.ny = ny; a.nx = nx;
+  a.field = field; a.t = t; a.t_prev = t_prev; a.t_next = t_next; a.acc = acc; a.h = h;
+  a.coef[0] = c; a.coef[1] = n; a.coef[2] = s; a.coef[3] = e; a.coef[4] = w;
+  a.cval[0] = T(cv); a.cval[1] = T(nv); a.cval[2] = T(sv); a.cval[3] = T(ev); a.cval[4] = T(wv);
+  a.pre = pre; a.post = post; a.area = area;
+  a.p_a = T(p_a); a.p_b = T(p_b); a.land_gain = T(land_gain);
+  a.zap = zap; a.fold = fold; a.drop_pre = drop_pre;
+  const dim3 block(32, 8);
+  const dim3 grid((nx + 31) / 32, (ny + 7) / 8, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (kind) {
+    case FIRST: cheb_pass_kernel<T, FIRST><<<grid, block, 0, st>>>(a); break;
+    case MIDDLE: cheb_pass_kernel<T, MIDDLE><<<grid, block, 0, st>>>(a); break;
+    case LAST: cheb_pass_kernel<T, LAST><<<grid, block, 0, st>>>(a); break;
+    default: return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+#define CHEB_PASS_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(int kind, int batch, int ny, int nx, const T* field,        \
+                      const T* t, const T* t_prev, T* t_next, T* acc, T* h,       \
+                      const T* c, const T* n, const T* s, const T* e, const T* w, \
+                      double cv, double nv, double sv, double ev, double wv,      \
+                      const T* pre, const T* post, const T* area, double p_a,     \
+                      double p_b, double land_gain, int zap, int fold,            \
+                      int drop_pre, void* stream) {                               \
+    return launch<T>(kind, batch, ny, nx, field, t, t_prev, t_next, acc, h, c, n, \
+                     s, e, w, cv, nv, sv, ev, wv, pre, post, area, p_a, p_b,      \
+                     land_gain, zap, fold, drop_pre, stream);                     \
+  }
+
+CHEB_PASS_ENTRY(cheb_pass_f32, float)
+CHEB_PASS_ENTRY(cheb_pass_f64, double)
+
+extern "C" const char* cheb_pass_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
