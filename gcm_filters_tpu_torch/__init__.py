@@ -6,12 +6,12 @@ the reference that the port is tested against, and the port imports none of
 it (nor JAX).
 
 Public API:
-  - ``Filter``             -- the user-facing filter class (``device`` picks
-    the card, default ``cuda``; ``device="cpu"`` runs the plain PyTorch
-    versions of the kernels)
+  - ``Filter``             -- the user-facing filter class: ``apply`` for the
+    9 scalar grids, ``apply_to_vector`` for the 2 vector grids, and their
+    streamed twins (``device`` picks the card, default ``cuda``;
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels)
   - ``FilterShape``        -- GAUSSIAN | TAPER target shapes
-  - ``GridType``           -- the 11 grid discretizations (the 9 scalar ones
-    run; the 2 vector ones are validated and refused for now)
+  - ``GridType``           -- the 11 grid discretizations
   - ``required_grid_vars`` -- grid-variable introspection per grid type
 """
 

@@ -1,19 +1,21 @@
-"""The user-facing ``Filter`` class, scalar surface.
+"""The user-facing ``Filter`` class.
 
 PyTorch-port counterpart of ``gcm_filters_tpu/filter.py``: the same
-constructor arguments, validation order, error messages and warnings, and
-``.apply`` on arrays, tensors and dicts of them. ``device`` (default the CUDA
-card) replaces the JAX package's ``use_pallas``: on ``cuda`` every step runs
-the hand-written kernel, on ``cpu`` its plain PyTorch version. There is no
-switch that turns the kernel off, and no silent move to the CPU when no card
-is present.
+constructor arguments, validation order, error messages and warnings,
+``.apply`` on arrays, tensors and dicts of them (scalar grids),
+``.apply_to_vector`` on (u, v) pairs (vector grids), and the host chunk loops
+``.apply_streamed`` and ``.apply_to_vector_streamed``. ``device`` (default
+the CUDA card) replaces the JAX package's ``use_pallas``: on ``cuda`` every
+step runs the hand-written kernel, on ``cpu`` its plain PyTorch version.
+There is no switch that turns the kernel off, and no silent move to the CPU
+when no card is present.
 
 Inputs have the spatial dims last (``(..., y, x)``, latitude first); leading
-dims are batched. ``apply`` returns a tensor on ``device``.
+dims are batched. ``apply`` and ``apply_to_vector`` return tensors on
+``device``; the streamed methods return numpy arrays.
 
-Not ported yet (see ROADMAP.md): ``apply_to_vector`` and the vector grids,
-``apply_streamed`` and ``apply_to_vector_streamed``, the xarray adapter,
-``plot_shape``, ``grid_ds``, ``mesh`` sharding and ``custom_operator``.
+Not ported yet (see ROADMAP.md): the xarray adapter, ``plot_shape``,
+``grid_ds``, ``mesh`` sharding and ``custom_operator``.
 """
 from __future__ import annotations
 
@@ -25,9 +27,10 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
+from .engine import _compute_dtype
 from .filter_spec import FilterShape, compute_filter_spec, compute_n_steps_default
-from .models.grids import GridType, is_area_weighted, required_grid_vars
-from .ops.cuda.dispatch import make_cuda_scalar_apply
+from .models.grids import GridType, is_area_weighted, is_vector_grid, required_grid_vars
+from .ops.cuda.dispatch import make_cuda_scalar_apply, make_cuda_vector_apply
 from .ops.laplacians import build_operator
 
 
@@ -39,6 +42,17 @@ def _validate_dims(dims):
     if len(dims) != 2:
         raise ValueError("`dims` must name exactly two spatial dimensions")
     return dims
+
+
+def _read_chunk(a, lead, start: int, stop: int) -> np.ndarray:
+    """Entries ``start:stop`` of the flattened leading dims ``lead`` of the
+    array-like ``a``, as one numpy array."""
+    if len(lead) == 1:
+        # one contiguous range read per chunk: the access pattern a chunked
+        # store serves best
+        return np.asarray(a[start:stop])
+    idx = np.unravel_index(np.arange(start, stop), lead)
+    return np.stack([np.asarray(a[tuple(i[j] for i in idx)]) for j in range(stop - start)])
 
 
 @dataclasses.dataclass
@@ -61,7 +75,8 @@ class Filter:
     n_steps : int
         Number of Chebyshev steps; 0 selects the default heuristic.
     grid_type : GridType
-        Which grid discretization / Laplacian to use (the 9 scalar grids).
+        Which grid discretization / Laplacian to use (9 scalar grids, 2
+        vector grids).
     grid_vars : dict
         Grid variables required by ``grid_type``
         (see :func:`required_grid_vars`).
@@ -136,8 +151,10 @@ class Filter:
 
         # Build the grid operator (validates grid_vars names and physics).
         self.operator = build_operator(self.grid_type, self.grid_vars)
+        self._is_vector = is_vector_grid(self.grid_type)
         self.device = torch.device("cuda" if self.device is None else self.device)
         self._scalar = None
+        self._vector = None
 
     def _scalar_fn(self):
         if self._scalar is None:
@@ -145,6 +162,14 @@ class Filter:
                 self.operator, self.filter_spec, exact_nan=self.exact_nan
             )
         return self._scalar
+
+    def _vector_fn(self):
+        if self._vector is None:
+            self._vector = make_cuda_vector_apply(self.operator, self.filter_spec)
+        return self._vector
+
+    def _operator_name(self) -> str:
+        return str(self.grid_type)
 
     def _coerce(self, arr) -> torch.Tensor:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -172,6 +197,11 @@ class Filter:
             Names of the two spatial dimensions (dict entries given as
             ``(array, dims)`` pairs only). Latitude first.
         """
+        if self._is_vector:
+            raise ValueError(
+                f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
+                "The ``.apply`` method is only suitable for scalar Laplacians."
+            )
         if isinstance(ds, dict):
             return self._apply_dict(ds, dims)
         return self._scalar_fn()(self._coerce(ds))
@@ -279,3 +309,100 @@ class Filter:
             if v is not None and np.ndim(v) >= 2:
                 return tuple(np.shape(v)[-2:])
         return None
+
+    def apply_to_vector(self, ufield, vfield, dims: Optional[Sequence[str]] = None):
+        """Filter a vector field (u, v) with a vector Laplacian.
+
+        ``ufield`` and ``vfield`` are arrays or tensors of equal shape with
+        the spatial dims last, latitude first (``(..., y, x)``); leading dims
+        are batched. Returns the filtered pair as tensors on ``device``.
+        ``dims`` is accepted for the JAX package's signature; plain arrays
+        carry no dim names, so it is not read.
+        """
+        if not self._is_vector:
+            raise ValueError(
+                f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
+                "The ``.apply_to_vector`` method is only suitable for vector Laplacians."
+            )
+        return self._vector_fn()(self._coerce(ufield), self._coerce(vfield))
+
+    def _empty_dtype(self, *arrays) -> np.dtype:
+        """The result dtype of an empty batch: what a non-empty one returns."""
+        def torch_dtype(a):
+            d = getattr(a, "dtype", np.float64)
+            return d if isinstance(d, torch.dtype) else torch.from_numpy(np.zeros(0, d)).dtype
+
+        dtypes = [self.dtype] if self.dtype is not None else [torch_dtype(a) for a in arrays]
+        return torch.empty(0, dtype=_compute_dtype(*dtypes)).numpy().dtype
+
+    def apply_streamed(self, data, chunk: int = 16):
+        """Filter an out-of-core batch by streaming leading-dim chunks.
+
+        ``data`` may be any array-like (numpy, memory-mapped, zarr array) with
+        shape ``(batch..., y, x)`` too large for device memory; chunks of
+        ``chunk`` slices are moved to ``device``, filtered, and returned as
+        one numpy array.
+        """
+        if self._is_vector:
+            raise ValueError(
+                f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
+                "The ``.apply_streamed`` method is only suitable for scalar Laplacians."
+            )
+        shape = tuple(data.shape)
+        if len(shape) < 3:
+            return self.apply(np.asarray(data)).cpu().numpy()
+        lead = shape[:-2]
+        n = int(np.prod(lead))
+        if n == 0:
+            return np.empty(shape, dtype=self._empty_dtype(data))
+        fn = self._scalar_fn()
+        out = None
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            res = fn(self._coerce(_read_chunk(data, lead, start, stop))).cpu().numpy()
+            if out is None:
+                out = np.empty(shape, dtype=res.dtype)
+            out.reshape((n,) + shape[-2:])[start:stop] = res
+        return out
+
+    def apply_to_vector_streamed(self, ufield, vfield, chunk: int = 16):
+        """Filter an out-of-core (u, v) batch by streaming leading-dim chunks.
+
+        Vector twin of :meth:`apply_streamed`: ``ufield`` and ``vfield`` are
+        array-likes of equal shape ``(batch..., y, x)``; chunks of ``chunk``
+        slice pairs are moved to ``device``, filtered, and returned as two
+        numpy arrays.
+        """
+        if not self._is_vector:
+            raise ValueError(
+                f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
+                "The ``.apply_to_vector_streamed`` method is only suitable "
+                "for vector Laplacians."
+            )
+        shape = tuple(ufield.shape)
+        if tuple(vfield.shape) != shape:
+            raise ValueError(
+                "ufield and vfield must have the same shape; got "
+                f"{shape} and {tuple(vfield.shape)}"
+            )
+        if len(shape) < 3:
+            fu, fv = self.apply_to_vector(np.asarray(ufield), np.asarray(vfield))
+            return fu.cpu().numpy(), fv.cpu().numpy()
+        lead = shape[:-2]
+        n = int(np.prod(lead))
+        if n == 0:
+            dtype = self._empty_dtype(ufield, vfield)
+            return np.empty(shape, dtype=dtype), np.empty(shape, dtype=dtype)
+        fn = self._vector_fn()
+        out_u = out_v = None
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            ru, rv = fn(self._coerce(_read_chunk(ufield, lead, start, stop)),
+                        self._coerce(_read_chunk(vfield, lead, start, stop)))
+            ru, rv = ru.cpu().numpy(), rv.cpu().numpy()
+            if out_u is None:
+                out_u = np.empty(shape, dtype=ru.dtype)
+                out_v = np.empty(shape, dtype=rv.dtype)
+            out_u.reshape((n,) + shape[-2:])[start:stop] = ru
+            out_v.reshape((n,) + shape[-2:])[start:stop] = rv
+        return out_u, out_v

@@ -1,10 +1,11 @@
-"""Carry stencil coefficients across from host arrays to the port's tensors.
+"""Carry operator coefficients across from host arrays to the port's tensors.
 
-The port's stencil builders compute in numpy float64 on the host, exactly as
-the JAX package's do, and hand their arrays to :func:`stencil_from_numpy`.
-The same function takes the fields of a stencil built by the JAX package
-(``dataclasses.asdict`` of its ``ScalarStencil5``, each array through
-``np.asarray``), so both packages can compute with the same coefficients.
+The port's builders compute in numpy float64 on the host, exactly as the JAX
+package's do, and hand their arrays to :func:`stencil_from_numpy` (scalar
+grids) or :func:`vector_operator_from_numpy` (vector grids). The same
+functions take the fields of an operator built by the JAX package
+(``dataclasses.asdict`` of it, each array through ``np.asarray``), so both
+packages can compute with the same coefficients.
 """
 from __future__ import annotations
 
@@ -13,7 +14,17 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from .ops.stencil import ARRAY_FIELDS, COEF_FIELDS, ScalarStencil5
+from .ops.stencil import (
+    ARRAY_FIELDS,
+    BGRID_FIELDS,
+    CGRID_FIELDS,
+    COEF_FIELDS,
+    BGridVectorStencil,
+    CGridVectorOperator,
+    ScalarStencil5,
+)
+
+_VECTOR_FLAGS = ("is_dimensional", "zap_nans", "fold_north")
 
 
 def stencil_from_numpy(
@@ -53,4 +64,26 @@ def stencil_from_numpy(
         out[name] = seen[id(v)]
     return ScalarStencil5(
         **out, fold_north=fold_north, zap_nans=zap_nans, is_dimensional=is_dimensional
+    )
+
+
+def vector_operator_from_numpy(fields: Dict):
+    """A :class:`BGridVectorStencil` or :class:`CGridVectorOperator` from
+    host arrays.
+
+    ``fields`` maps every array field of one of the two classes to a numpy
+    array (the class is the one whose field names they are) and may also
+    hold the boolean flags ``is_dimensional``, ``zap_nans`` and
+    ``fold_north``. Arrays are copied to float64 CPU tensors: the vector
+    dispatch computes its coefficient planes from them on the host.
+    """
+    arrays = {k: v for k, v in fields.items() if k not in _VECTOR_FLAGS}
+    flags = {k: bool(v) for k, v in fields.items() if k in _VECTOR_FLAGS}
+    for cls, names in ((BGridVectorStencil, BGRID_FIELDS), (CGridVectorOperator, CGRID_FIELDS)):
+        if set(arrays) == set(names):
+            return cls(**{k: torch.tensor(np.asarray(arrays[k]), dtype=torch.float64)
+                          for k in names}, **flags)
+    raise ValueError(
+        f"Fields {sorted(arrays)} are neither a B-grid {BGRID_FIELDS} nor a "
+        f"C-grid {CGRID_FIELDS} vector operator"
     )

@@ -1,12 +1,13 @@
-"""Builders: grid variables -> scalar stencil, with host-side validation.
+"""Builders: grid variables -> stencil operators, with host-side validation.
 
-PyTorch-port counterpart of the scalar builders of
-``gcm_filters_tpu/ops/laplacians.py``. Each builder folds the grid-specific
-discretization into precomputed per-cell 5-point coefficients, once, in numpy
-float64 on the host, with the same arithmetic, validation order and messages
-as the JAX package; only the last step differs: :func:`_stencil` hands the
-arrays to the port as float64 CPU tensors. ``tests/test_torch_stencil.py``
-holds the coefficients bit for bit against the JAX builders.
+PyTorch-port counterpart of ``gcm_filters_tpu/ops/laplacians.py``. Each
+builder folds the grid-specific discretization into precomputed per-cell
+coefficients, once, in numpy float64 on the host, with the same arithmetic,
+roll axes, validation order and messages as the JAX package; only the last
+step differs: the arrays go to the port as float64 CPU tensors
+(:func:`_stencil` for scalar grids, :func:`_vector` for vector grids).
+``tests/test_torch_stencil.py`` and ``tests/test_torch_vector.py`` hold the
+coefficients bit for bit against the JAX builders.
 
 The flux-form operators (divergence of masked metric-weighted gradients)
 expand algebraically into 5-point form::
@@ -23,13 +24,13 @@ is baked into the top-row coefficients; at apply time only the folded
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Union
 
 import numpy as np
 
-from ..interop import stencil_from_numpy
+from ..interop import stencil_from_numpy, vector_operator_from_numpy
 from ..models.grids import GridType, GRID_VAR_NAMES, is_vector_grid
-from .stencil import ScalarStencil5
+from .stencil import BGridVectorStencil, CGridVectorOperator, ScalarStencil5
 
 
 def _stencil(*, fold_north=False, zap_nans=False, is_dimensional=False, **fields):
@@ -240,6 +241,99 @@ def _tripolar_pop(gv) -> ScalarStencil5:
                           zap_nans=True, fold_north=True, is_dimensional=True)
 
 
+# ---------------------------------------------------------------------------
+# Vector grids
+# ---------------------------------------------------------------------------
+
+
+def _vector(**fields):
+    """The built host arrays as a float64 CPU vector operator."""
+    return vector_operator_from_numpy(fields)
+
+
+def _safe_recip(a) -> np.ndarray:
+    """1/a with zeros mapped to 0 (zero-area cells contribute no flux).
+    np.errstate silences the divide-by-zero warning that np.where would
+    still emit for the unselected branch."""
+    a = np.asarray(a)
+    with np.errstate(divide="ignore"):
+        return np.where(a > 0, 1.0 / np.where(a > 0, a, 1.0), 0.0)
+
+
+def _vector_c_grid(gv) -> CGridVectorOperator:
+    # Griffies & Hallberg (2000) viscosity operator (kernels.py:591-699),
+    # with every metric combination and reciprocal hoisted to build time.
+    wet_t, wet_q = gv["wet_mask_t"], gv["wet_mask_q"]
+    dxT, dyT = gv["dxT"], gv["dyT"]
+    dxCu, dyCu = gv["dxCu"], gv["dyCu"]
+    dxCv, dyCv = gv["dxCv"], gv["dyCv"]
+    dxBu, dyBu = gv["dxBu"], gv["dyBu"]
+    return _vector(
+        dy_dxT=dyT / dxT * wet_t,
+        dx_dyT=dxT / dyT * wet_t,
+        dy_dxBu=dyBu / dxBu * wet_q,
+        dx_dyBu=dxBu / dyBu * wet_q,
+        dx2h=dxT * dxT,
+        dy2h=dyT * dyT,
+        dx2q=dxBu * dxBu,
+        dy2q=dyBu * dyBu,
+        r_dxCu=1.0 / dxCu,
+        r_dyCu=1.0 / dyCu,
+        r_dxCv=1.0 / dxCv,
+        r_dyCv=1.0 / dyCv,
+        recip_area_u=_safe_recip(gv["area_u"]),
+        recip_area_v=_safe_recip(gv["area_v"]),
+        kappa_tension=gv["kappa_iso"] + 0.5 * gv["kappa_aniso"],
+        kappa_iso=gv["kappa_iso"],
+    )
+
+
+def _vector_b_grid(gv) -> BGridVectorStencil:
+    # POP B-grid friction operator (kernels.py:702-840), every stencil
+    # coefficient built once. The roll axes below replicate the reference's
+    # exact coefficient construction.
+    DXU, DYU = gv["DXU"], gv["DYU"]
+    HUS, HUW = gv["HUS"], gv["HUW"]
+    HTE, HTN = gv["HTE"], gv["HTN"]
+    uarea_r = 1.0 / gv["UAREA"]
+    tarea_r = 1.0 / gv["TAREA"]
+    dxur, dyur = 1.0 / DXU, 1.0 / DYU
+
+    work = HUS / HTE
+    dus = work * uarea_r
+    dun = _roll(work, 1, -1) * uarea_r
+    work = HUW / HTN
+    duw = work * uarea_r
+    due = _roll(work, 1, -2) * uarea_r
+
+    kxu = (_roll(HUW, 1, -2) - HUW) * uarea_r
+    kyu = (_roll(HUS, 1, -1) - HUS) * uarea_r
+
+    kxt = (HTE - _roll(HTE, -1, -2)) * tarea_r
+    work2 = 0.5 * (kxt + _roll(kxt, 1, -1))
+    dxkx = (_roll(work2, 1, -2) - work2) * dxur
+    work2 = 0.5 * (kxt + _roll(kxt, 1, -2))
+    dykx = (_roll(work2, 1, -1) - work2) * dyur
+
+    kyt = (HTN - _roll(HTN, -1, -1)) * tarea_r
+    work2 = 0.5 * (kyt + _roll(kyt, 1, -2))
+    dyky = (_roll(work2, 1, -1) - work2) * dyur
+    work2 = 0.5 * (kyt + _roll(kyt, 1, -1))
+    dxky = (_roll(work2, 1, -2) - work2) * dxur
+
+    dum = -(dxkx + dyky + 2.0 * (kxu * kxu + kyu * kyu))
+    dmc = dxky - dykx
+    dme = 2.0 * kyu / (HTN + _roll(HTN, 1, -2))
+    dmn = -2.0 * kxu / (HTE + _roll(HTE, 1, -1))
+    duc = -(dun + dus + due + duw)
+
+    return _vector(
+        cc=duc + dum,
+        dun=dun, dus=dus, due=due, duw=duw,
+        dmc=dmc, dmn=dmn, dms=-dmn, dme=dme, dmw=-dme,
+    )
+
+
 _SCALAR_BUILDERS = {
     GridType.REGULAR: lambda gv: _regular(gv),
     GridType.REGULAR_AREA_WEIGHTED: lambda gv: _regular(gv, area=gv["area"]),
@@ -263,17 +357,24 @@ def build_scalar_stencil(grid_type: GridType, grid_vars: Dict) -> ScalarStencil5
     return _SCALAR_BUILDERS[grid_type](gv)
 
 
-def build_operator(grid_type: GridType, grid_vars: Dict) -> ScalarStencil5:
-    """Build the Laplacian operator for ``grid_type``.
+_VECTOR_BUILDERS = {
+    GridType.VECTOR_C_GRID: _vector_c_grid,
+    GridType.VECTOR_B_GRID: _vector_b_grid,
+}
 
-    Vector grids are validated like the JAX package validates them, then
-    refused: their operators are still to be ported (ROADMAP.md, "Modules to
-    port", item 8, vector path).
-    """
+Operator = Union[ScalarStencil5, BGridVectorStencil, CGridVectorOperator]
+
+
+def build_vector_operator(grid_type: GridType, grid_vars: Dict) -> Operator:
+    """Build the vector (viscosity) operator for ``grid_type``."""
+    if grid_type not in _VECTOR_BUILDERS:
+        raise ValueError(f"{grid_type} is not a vector grid type")
+    gv = _validate_grid_vars(grid_type, grid_vars)
+    return _VECTOR_BUILDERS[grid_type](gv)
+
+
+def build_operator(grid_type: GridType, grid_vars: Dict) -> Operator:
+    """Build the Laplacian operator (scalar or vector) for ``grid_type``."""
     if is_vector_grid(grid_type):
-        _validate_grid_vars(grid_type, grid_vars)
-        raise NotImplementedError(
-            f"{grid_type} is a vector grid; the PyTorch port has no vector "
-            "operators yet (ROADMAP.md, 'Modules to port', item 8: vector path)"
-        )
+        return build_vector_operator(grid_type, grid_vars)
     return build_scalar_stencil(grid_type, grid_vars)

@@ -2,7 +2,7 @@
 
 ``gcm_filters_tpu_torch.Filter(..., device="cpu")`` must give the JAX
 ``Filter``'s results on arrays, batches and dicts (f64 rtol 1e-11 / atol
-1e-13), raise the same errors and warnings, refuse to run on the CPU unless
+1e-13), raise the same errors and warnings (scalar and vector surfaces), refuse to run on the CPU unless
 asked, carry a JAX stencil across through ``stencil_from_numpy``, and never
 import JAX or the JAX package.
 """
@@ -128,9 +128,10 @@ def test_dict_selection_errors_match(case):
     _same_error(makers[case], ValueError)
 
 
-def _filter(mod):
+def _filter(mod, grid_name="REGULAR", grid_vars=None):
     kw = {"use_pallas": False} if mod is gj else {"device": "cpu"}
-    return mod.Filter(filter_scale=3.0, dx_min=1.0, **kw)
+    return mod.Filter(filter_scale=3.0, dx_min=1.0, grid_type=mod.GridType[grid_name],
+                      grid_vars={} if grid_vars is None else grid_vars, **kw)
 
 
 @pytest.mark.parametrize("case", ["n_steps_low", "nothing_filtered", "coincidental_shape"])
@@ -159,11 +160,16 @@ def test_n_steps_and_spec_match():
     assert "Filter" in repr(tf)
 
 
-def test_vector_grid_not_ported_yet(vector_grid_data):
-    grid_type, _, grid_vars = vector_grid_data
-    with pytest.raises(NotImplementedError, match="vector"):
-        gt.Filter(filter_scale=3.0, dx_min=1.0, grid_type=gt.GridType[grid_type.name],
-                  grid_vars=grid_vars, device="cpu")
+def test_vector_grid_builds_and_refuses_scalar_apply(vector_grid_data):
+    """A vector grid builds; ``apply`` on it raises the JAX package's error,
+    and so does ``apply_to_vector`` on a scalar grid."""
+    grid_type, (u, v), grid_vars = vector_grid_data
+    name = grid_type.name
+    tf = gt.Filter(filter_scale=3.0, dx_min=1.0, grid_type=gt.GridType[name],
+                   grid_vars=grid_vars, device="cpu")
+    assert type(tf.operator).__name__ in ("BGridVectorStencil", "CGridVectorOperator")
+    _same_error(lambda m: _filter(m, name, grid_vars).apply(u), ValueError)
+    _same_error(lambda m: _filter(m).apply_to_vector(u, v), ValueError)
 
 
 def test_default_device_is_the_card_and_refuses_cpu(monkeypatch):

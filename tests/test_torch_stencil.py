@@ -2,7 +2,9 @@
 
 Coefficients of all 9 scalar grids must equal the JAX builders' bit for bit
 in float64; every validation error must have the same type and message; the
-port's Laplacian must reproduce the ``laplacian_*.npz`` goldens.
+port's Laplacian must reproduce the ``laplacian_*.npz`` goldens. The vector
+grids validate like the JAX package's and build (their coefficients are held
+against the JAX builders in test_torch_vector.py).
 """
 import dataclasses
 import pathlib
@@ -122,12 +124,13 @@ def test_error_fold_does_not_close(which):
     assert isinstance(err, AssertionError) and which in str(err)
 
 
-def test_vector_grid_validated_then_refused(vector_grid_data):
+def test_vector_grid_validated_then_built(vector_grid_data):
     grid_type, _, grid_vars = vector_grid_data
     missing = dict(list(grid_vars.items())[1:])
     assert isinstance(_same_error(grid_type, missing), ValueError)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        tbuild(_tgrid(grid_type), grid_vars)
+    op = tbuild(_tgrid(grid_type), grid_vars)
+    assert type(op).__name__ == type(jbuild(grid_type, grid_vars)).__name__
+    assert op.is_dimensional and op.zap_nans and not op.fold_north
 
 
 def test_hspace_drop_pre_compares_values():
