@@ -33,13 +33,28 @@ and runs these phases; any failed check raises and the script exits non-zero:
    with launches = 11 x applies and no fallback;
 8. each step kind of both vector kernels against its plain version at the
    headline shape;
-9. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+9. sharded small grids: a one-rank NCCL process group and a 1x1
+   ``DeviceMesh``; all 9 scalar grids at 128x256 in float32 and float64, plus
+   ``exact_nan``, 97x300, a batch, NaN fields and ``halo_steps`` 1, 3 and
+   None, each through ``Filter(mesh=..., spatial_axes=("y", "x")).apply``
+   against the same sharded apply driven by the plain local step
+   ``local_pass_reference`` on the card, and against the unsharded
+   ``Filter.apply``; each apply must launch the local step kernel exactly
+   n_steps times and the unsharded step kernel not at all;
+10. sharded headline (the sharded path): the phase-4 workload through the
+    mesh path, checked against the float64 eager engine and timed, with
+    launches = 11 x applies and no fallback; the halo exchange and the chain
+    of 11 local steps are also timed alone;
+11. each step kind of the local step kernel against its plain version at the
+    headline's extended shape;
+12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
 """
 import json
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -127,6 +142,35 @@ def step_bytes(kind, ops, batch, ny, nx, itemsize):
     if kind == MIDDLE:  # t, t_prev, acc in; t_next, acc out
         return static * plane + 5 * batch * plane
     return (static + masks["area"]) * plane + 5 * batch * plane  # t, t_prev, acc, field in; acc out
+
+
+def local_step_bytes(kind, ops, batch, ly, lx, cells, shrink, itemsize):
+    """Bytes one launch of the local step must move on its shrinking windows:
+    each input read once where the step reads it, each output written once.
+    ``win(s)`` is the extended block shrunk by s cells; the core is win(cells)."""
+    from gcm_filters_tpu_torch.ops.cuda.cheb_pass import FIRST, MIDDLE
+
+    st = ops.stencil
+    win = lambda s: (ly + 2 * (cells - s)) * (lx + 2 * (cells - s))  # noqa: E731
+    core = ly * lx
+    coefs = sum(1 for k in ("c", "n", "s", "e", "w") if not isinstance(getattr(st, k), float))
+    has = {k: getattr(st, k) is not None for k in ("pre", "post", "area")}
+    if kind == FIRST:
+        # field, area, pre and post on the whole block; h out on the whole
+        # block, T1 on win(1), acc on the core
+        static = (has["area"] + has["pre"] + has["post"]) * win(0) + coefs * win(1)
+        carries = 2 * win(0) + win(1) + core
+    elif kind == MIDDLE:
+        # t on win(shrink-1), t_prev on win(shrink), acc on the core in;
+        # t_next on win(shrink), acc on the core out
+        static = (coefs + has["post"]) * win(shrink) + has["pre"] * win(shrink - 1)
+        carries = win(shrink - 1) + 2 * win(shrink) + 2 * core
+    else:
+        # t on win(cells-1); t_prev, acc and (h-space) the raw field on the
+        # core in; the result on the core out
+        static = (coefs + has["post"] + has["area"]) * core + has["pre"] * win(cells - 1)
+        carries = win(cells - 1) + (3 + ops.drop_pre) * core
+    return (static + batch * carries) * itemsize
 
 
 def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso):
@@ -606,6 +650,217 @@ def main():
         }
         del vbufs, w3, plain_v, fu, fv, vhead, fn, vops
 
+    # 9. sharded small grids: a one-rank process group and a 1x1 mesh
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from torch.distributed.tensor import DTensor
+
+    from gcm_filters_tpu_torch.ops.cuda.local_pass import local_pass, local_pass_reference
+    from gcm_filters_tpu_torch.parallel import halo
+    from gcm_filters_tpu_torch.parallel.sharded import make_sharded_scalar_apply
+
+    torch.cuda.set_device(0)
+    store_dir = tempfile.TemporaryDirectory()
+    dist.init_process_group("nccl", init_method=f"file://{store_dir.name}/store",
+                            world_size=1, rank=0, device_id=torch.device("cuda", 0))
+    mesh = init_device_mesh("cuda", (1, 1), mesh_dim_names=("y", "x"))
+    axes = ("y", "x")
+    sworst = {"float32": [0.0, 0.0], "float64": [0.0, 0.0]}
+    # sharded against unsharded: the bar of the JAX package's sharded tests in
+    # float64 (the same arithmetic, another summation order at block edges)
+    tol_unsharded = {"float64": dict(rtol=1e-10, atol=1e-12), "float32": TOL["float32"]}
+
+    def check_sharded(label, x, dtype_name, **kw):
+        filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
+        plain = make_sharded_scalar_apply(
+            filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps,
+            exact_nan=filt.exact_nan, pass_fn=local_pass_reference)
+        before = (local_pass.launches, cheb_pass.launches)
+        got = filt.apply(x)
+        torch.cuda.synchronize()
+        launched = (local_pass.launches - before[0], cheb_pass.launches - before[1])
+        if launched != (filt.n_steps, 0):
+            raise AssertionError(f"{label}: (local_pass, cheb_pass) launches {launched}, "
+                                 f"expected {(filt.n_steps, 0)}")
+        if not isinstance(got, DTensor):
+            raise AssertionError(f"{label}: the mesh path returned {type(got).__name__}")
+        got = got.full_tensor()
+        want = plain(filt._coerce(x)).full_tensor()
+        if got.shape != want.shape or got.device.type != "cuda":
+            raise AssertionError(f"{label}: result {tuple(got.shape)} on {got.device}")
+        a, r = compare(label, got, want, dtype_name)
+        sworst[dtype_name] = [max(sworst[dtype_name][0], a), max(sworst[dtype_name][1], r)]
+        kw.pop("halo_steps", None)
+        unsharded = Filter(device=dev, **kw).apply(x)
+        if not torch.equal(torch.isnan(got), torch.isnan(unsharded)):
+            raise AssertionError(f"{label}: NaN positions differ from the unsharded filter")
+        torch.testing.assert_close(got, unsharded, equal_nan=True, **tol_unsharded[dtype_name],
+                                   msg=lambda m: f"{label} vs unsharded: {m}")
+        ok = ~torch.isnan(unsharded)
+        u = float((got[ok] - unsharded[ok]).abs().max())
+        log(f"  {label}: vs plain max abs {a:.3e} max rel {r:.3e}; vs unsharded max abs "
+            f"{u:.3e} ({launched[0]} launches)")
+        return got
+
+    both = ((torch.float32, "float32"), (torch.float64, "float64"))
+    log(f"sharded small grids on a 1x1 mesh at {shape}:")
+    for g in scalar:
+        d, v = scalar_grid_data(g, required_grid_vars(g), shape)
+        for dt, name in both:
+            check_sharded(f"sharded {g.name} {name}", d, name, filter_scale=6.0, dx_min=1.0,
+                          grid_type=g, grid_vars=v, dtype=dt)
+    for g in (tri, GridType.REGULAR_WITH_LAND):
+        d, v = scalar_grid_data(g, required_grid_vars(g), shape)
+        nan_d = d.copy()
+        nan_d[0, 5] = np.nan       # land
+        nan_d[100, 200] = np.nan   # wet
+        check_sharded(f"sharded {g.name} exact_nan float64", nan_d, "float64",
+                      filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=v, exact_nan=True)
+    d, v = scalar_grid_data(tri, required_grid_vars(tri), odd)
+    for dt, name in both:
+        check_sharded(f"sharded {tri.name} {odd} {name}", d, name, filter_scale=6.0,
+                      dx_min=1.0, grid_type=tri, grid_vars=v, dtype=dt)
+    data, gv = scalar_grid_data(tri, required_grid_vars(tri), shape)
+    check_sharded(f"sharded {tri.name} batch (2, 128, 256) float64",
+                  np.stack([data, data[::-1].copy()]), "float64", filter_scale=6.0,
+                  dx_min=1.0, grid_type=tri, grid_vars=gv)
+    for dt, name in both:
+        out_nan = check_sharded(f"sharded {tri.name} NaN land+wet {name}", nan_d, name,
+                                filter_scale=6.0, dx_min=1.0, grid_type=tri, grid_vars=gv,
+                                dtype=dt)
+        if not (bool(torch.isnan(out_nan[0, 5])) and bool(torch.isnan(out_nan[100, 200]))):
+            raise AssertionError("NaN cells must stay NaN")
+        for hs in (1, 3, None):
+            check_sharded(f"sharded {tri.name} halo_steps={hs} {name}", data, name,
+                          filter_scale=6.0, dx_min=1.0, grid_type=tri, grid_vars=gv,
+                          dtype=dt, halo_steps=hs)
+
+    # 10. sharded headline: the phase-4 workload through the mesh path
+    shead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri,
+                   grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32,
+                   device=dev, mesh=mesh, spatial_axes=axes)
+    torch.cuda.synchronize()
+    reset_fallback_counts()
+    cheb_pass.launches = 0
+    vec_pass.launches = {BGRID: 0, CTAP: 0}
+    local_pass.launches = 0
+    s_out = shead.apply(field)
+    y = s_out
+    for _ in range(warm):
+        y = shead.apply(y)
+    ms_sharded = event_ms(lambda: shead.apply(x_dev), chain)
+    s_launches = local_pass.launches
+    s_other = dict(vec_pass.launches, cheb_pass=cheb_pass.launches)
+    s_fallbacks = fallback_counts()
+    log(f"sharded headline {ny}x{nx} float32 {tri.name} on a 1x1 mesh, n_steps {n_steps}: "
+        f"{s_launches} local_pass launches over {applies} applies, other kernels {s_other}, "
+        f"fallbacks {s_fallbacks}")
+    if s_launches != n_steps * applies:
+        raise AssertionError(f"expected {n_steps * applies} kernel launches, saw {s_launches}")
+    if any(s_other.values()):
+        raise AssertionError(f"the sharded path launched another kernel: {s_other}")
+    if s_fallbacks:
+        raise AssertionError(f"fallbacks recorded on the kernel path: {s_fallbacks}")
+    if not isinstance(s_out, DTensor):
+        raise AssertionError(f"the mesh path returned {type(s_out).__name__}")
+    s_full = s_out.full_tensor()
+    want64 = scalar_filter_apply(shead.operator, shead.filter_spec, x_dev.double())
+    if (s_full.shape != (ny, nx) or s_full.dtype != torch.float32
+            or not bool(torch.isfinite(s_full).all())):
+        raise AssertionError("sharded headline result is not a finite float32 (ny, nx) tensor")
+    torch.testing.assert_close(s_full.double(), want64, rtol=1e-4, atol=1e-5)
+    s_head_err = float((s_full.double() - want64).abs().max())
+    s_vs_k1 = float((s_full - out).abs().max())
+    log(f"sharded headline vs eager engine in float64: max abs {s_head_err:.3e}; "
+        f"vs the unsharded kernel path: max abs {s_vs_k1:.3e}")
+    del want64
+
+    sfn = shead._scalar_fn()
+    lops, cells, rounds, lp_ = sfn.operands(ny, nx, torch.float32)
+    if rounds != (n_steps,):
+        raise AssertionError(f"expected one round of {n_steps} steps, planned {rounds}")
+    plain_shead = make_sharded_scalar_apply(shead.operator, shead.filter_spec, mesh, axes,
+                                            pass_fn=local_pass_reference)
+    plain_shead(x_dev)
+    ms_s_plain = event_ms(lambda: plain_shead(x_dev), 10)
+
+    # the exchange alone, and the chain of local steps alone on an extended block
+    local_axis = (None, 1)
+    ms_exchange = event_ms(lambda: halo.exchange_2d(x3, cells, local_axis, local_axis, True), chain)
+    xe = halo.exchange_2d(x3, cells, local_axis, local_axis, True)
+    kbuf = [torch.zeros_like(xe), torch.zeros_like(xe), torch.zeros_like(x3)]
+
+    def local_chain():
+        h_, t_, acc_ = kbuf
+        local_pass(lops, FIRST, lp_[0], lp_[1], cells=cells, shrink=1,
+                   field=xe, t_next=t_, acc=acc_, h=h_)
+        t_prev_ = h_
+        for k in range(2, n_steps):
+            local_pass(lops, MIDDLE, lp_[k], cells=cells, shrink=k,
+                       t=t_, t_prev=t_prev_, t_next=t_prev_, acc=acc_)
+            t_, t_prev_ = t_prev_, t_
+        local_pass(lops, LAST, lp_[n_steps], cells=cells, field=x3, t=t_, t_prev=t_prev_,
+                   acc=acc_)
+
+    local_chain()
+    ms_chain = event_ms(local_chain, chain)
+    chain_err = compare("local step chain vs sharded apply", kbuf[2][0], s_full, "float32")[0]
+
+    skinds = [(FIRST, 1)] + [(MIDDLE, k) for k in range(2, n_steps)] + [(LAST, cells)]
+    s_bytes = sum(local_step_bytes(k, lops, 1, ny, nx, cells, sh, item) for k, sh in skinds)
+    s_cells = sum((ny + 2 * (cells - sh)) * (nx + 2 * (cells - sh)) for _, sh in skinds)
+    s_flops = FLOPS_PER_CELL_STEP * s_cells
+    sb_ms, sb_by = bound_ms(s_bytes, s_flops, "float32")
+    sfb_ms, _ = bound_ms(filter_bytes, s_flops, "float32")
+    log(f"sharded headline: {ms_sharded:.4f} ms/apply = "
+        f"{ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}")
+    log(f"  halo exchange alone ({cells} cells, block {tuple(xe.shape[-2:])}) "
+        f"{ms_exchange:.4f} ms; the {n_steps} local steps alone {ms_chain:.4f} ms "
+        f"(result vs the apply: max abs {chain_err:.3e}); unsharded kernel path "
+        f"{ms_apply:.4f} ms/apply")
+    log(f"  per-launch bound {sb_ms:.4f} ms ({s_bytes / 1e9:.3f} GB, {sb_by}); "
+        f"whole-filter bound {sfb_ms:.4f} ms ({filter_bytes / 1e6:.1f} MB); "
+        f"plain PyTorch steps {ms_s_plain:.4f} ms/apply")
+
+    # 11. each step kind of the local step against its plain version, at the
+    # headline's extended shape (buffers start at zero: a step leaves the
+    # cells outside its window untouched, in both versions)
+    rbuf = [torch.zeros_like(b) for b in kbuf]
+    for b in kbuf:
+        b.zero_()
+    ls_err = 0.0
+    for bufs_, f in ((kbuf, local_pass), (rbuf, local_pass_reference)):
+        h_, t_, acc_ = bufs_
+        f(lops, FIRST, lp_[0], lp_[1], cells=cells, shrink=1, field=xe, t_next=t_, acc=acc_, h=h_)
+    torch.cuda.synchronize()
+    for i in range(3):
+        ls_err = max(ls_err, compare(f"local FIRST step out {i}", kbuf[i], rbuf[i], "float32")[0])
+    for i in range(3):
+        rbuf[i].copy_(kbuf[i])
+    for bufs_, f in ((kbuf, local_pass), (rbuf, local_pass_reference)):
+        h_, t_, acc_ = bufs_
+        f(lops, MIDDLE, lp_[2], cells=cells, shrink=2, t=t_, t_prev=h_, t_next=h_, acc=acc_)
+    torch.cuda.synchronize()
+    for i in range(3):
+        ls_err = max(ls_err, compare(f"local MIDDLE step out {i}", kbuf[i], rbuf[i], "float32")[0])
+    for i in range(3):
+        rbuf[i].copy_(kbuf[i])
+    for bufs_, f in ((kbuf, local_pass), (rbuf, local_pass_reference)):
+        h_, t_, acc_ = bufs_
+        f(lops, LAST, lp_[3], cells=cells, field=x3, t=h_, t_prev=t_, acc=acc_)
+    torch.cuda.synchronize()
+    ls_err = max(ls_err, compare("local LAST step", kbuf[2], rbuf[2], "float32")[0])
+    h_, t_, acc_ = kbuf
+    ms_lmid = event_ms(lambda: local_pass(lops, MIDDLE, lp_[2], cells=cells, shrink=2,
+                                          t=t_, t_prev=h_, t_next=h_, acc=acc_), 100)
+    lmid_ms, _ = bound_ms(local_step_bytes(MIDDLE, lops, 1, ny, nx, cells, 2, item),
+                          FLOPS_PER_CELL_STEP * (ny + 2 * (cells - 2)) * (nx + 2 * (cells - 2)),
+                          "float32")
+    log(f"local step kinds vs plain at block {tuple(xe.shape[-2:])}: max abs {ls_err:.3e}; "
+        f"middle step {ms_lmid:.4f} ms vs bound {lmid_ms:.4f} ms")
+    dist.destroy_process_group()
+    store_dir.cleanup()
+
     kernels = [{
         "name": "cheb_pass",
         "route": "cuda",
@@ -623,7 +878,28 @@ def main():
         "filter_bound_ms": fb_ms,
         "middle_step_ms": ms_mid,
         "middle_step_bound_ms": mid_ms,
-    }, vec_results[BGRID], vec_results[CTAP]]
+    }, vec_results[BGRID], vec_results[CTAP], {
+        "name": "local_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
+        "launches": s_launches,
+        "max_abs_err": max(ls_err, sworst["float32"][0], sworst["float64"][0]),
+        "headline_vs_f64_engine_max_abs": s_head_err,
+        "max_rel_err_f64": sworst["float64"][1],
+        "ms": ms_sharded,
+        "plain_ms": ms_s_plain,
+        "bound_ms": sb_ms,
+        "bound_by": sb_by,
+        "library_ms": None,
+        "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + {n_steps} "
+                f"launches, {ny}x{nx} float32, block {tuple(xe.shape[-2:])}",
+        "filter_bound_ms": sfb_ms,
+        "middle_step_ms": ms_lmid,
+        "middle_step_bound_ms": lmid_ms,
+        "exchange_ms": ms_exchange,
+        "steps_alone_ms": ms_chain,
+    }]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

@@ -9,7 +9,10 @@ Public API:
   - ``Filter``             -- the user-facing filter class: ``apply`` for the
     9 scalar grids, ``apply_to_vector`` for the 2 vector grids, and their
     streamed twins (``device`` picks the card, default ``cuda``;
-    ``device="cpu"`` runs the plain PyTorch versions of the kernels)
+    ``device="cpu"`` runs the plain PyTorch versions of the kernels;
+    ``mesh``/``spatial_axes`` shard scalar filtering over a ``DeviceMesh``)
+  - ``BaseScalarOperator``, ``BaseVectorOperator`` -- bases for free-form
+    ``Filter(custom_operator=...)`` operators
   - ``FilterShape``        -- GAUSSIAN | TAPER target shapes
   - ``GridType``           -- the 11 grid discretizations
   - ``required_grid_vars`` -- grid-variable introspection per grid type
@@ -18,11 +21,14 @@ Public API:
 from .models.grids import GridType, required_grid_vars
 from .filter_spec import FilterShape, FilterSpec, filter_params
 from .filter import Filter
+from .ops.custom import BaseScalarOperator, BaseVectorOperator
 
 __version__ = "0.1.0"
 
 __all__ = [
     "Filter",
+    "BaseScalarOperator",
+    "BaseVectorOperator",
     "FilterShape",
     "FilterSpec",
     "GridType",

@@ -3,19 +3,22 @@
 PyTorch-port counterpart of ``gcm_filters_tpu/filter.py``: the same
 constructor arguments, validation order, error messages and warnings,
 ``.apply`` on arrays, tensors and dicts of them (scalar grids),
-``.apply_to_vector`` on (u, v) pairs (vector grids), and the host chunk loops
-``.apply_streamed`` and ``.apply_to_vector_streamed``. ``device`` (default
-the CUDA card) replaces the JAX package's ``use_pallas``: on ``cuda`` every
-step runs the hand-written kernel, on ``cpu`` its plain PyTorch version.
-There is no switch that turns the kernel off, and no silent move to the CPU
-when no card is present.
+``.apply_to_vector`` on (u, v) pairs (vector grids), the host chunk loops
+``.apply_streamed`` and ``.apply_to_vector_streamed``, ``custom_operator``
+and, for scalar filters, ``mesh`` sharding. ``device`` (default the CUDA
+card) replaces the JAX package's ``use_pallas``: on ``cuda`` every step runs
+the hand-written kernel, on ``cpu`` its plain PyTorch version. There is no
+switch that turns the kernel off, and no silent move to the CPU when no card
+is present.
 
 Inputs have the spatial dims last (``(..., y, x)``, latitude first); leading
 dims are batched. ``apply`` and ``apply_to_vector`` return tensors on
-``device``; the streamed methods return numpy arrays.
+``device``; the streamed methods return numpy arrays. With a ``mesh``,
+``apply`` returns a ``DTensor`` sharded over it (``.full_tensor()``
+gathers).
 
 Not ported yet (see ROADMAP.md): the xarray adapter, ``plot_shape``,
-``grid_ds``, ``mesh`` sharding and ``custom_operator``.
+``grid_ds`` and ``mesh`` sharding of vector filters.
 """
 from __future__ import annotations
 
@@ -27,11 +30,13 @@ from typing import Dict, Optional, Sequence, Tuple, Union
 import numpy as np
 import torch
 
-from .engine import _compute_dtype
+from .engine import _compute_dtype, scalar_filter_apply, vector_filter_apply
 from .filter_spec import FilterShape, compute_filter_spec, compute_n_steps_default
 from .models.grids import GridType, is_area_weighted, is_vector_grid, required_grid_vars
 from .ops.cuda.dispatch import make_cuda_scalar_apply, make_cuda_vector_apply
+from .ops.custom import as_protocol_adapter, operator_is_vector
 from .ops.laplacians import build_operator
+from .ops.stencil import BGridVectorStencil, CGridVectorOperator, ScalarStencil5
 
 
 def _validate_dims(dims):
@@ -53,6 +58,13 @@ def _read_chunk(a, lead, start: int, stop: int) -> np.ndarray:
         return np.asarray(a[start:stop])
     idx = np.unravel_index(np.arange(start, stop), lead)
     return np.stack([np.asarray(a[tuple(i[j] for i in idx)]) for j in range(stop - start)])
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    """A result as one numpy array; a sharded result is gathered first."""
+    if hasattr(t, "full_tensor"):
+        t = t.full_tensor()
+    return t.cpu().numpy()
 
 
 @dataclasses.dataclass
@@ -85,9 +97,28 @@ class Filter:
         filter computes in float64 for float64 inputs, else in float32.
     device : optional torch device or str
         Where the filter runs; ``None`` means ``torch.device("cuda")``.
+    mesh, spatial_axes :
+        A ``torch.distributed.device_mesh.DeviceMesh`` with named dims plus
+        the two dim names to shard the (y, x) spatial dims over, enabling
+        the halo-exchange domain decomposition (scalar filters). ``None``
+        entries leave that dim unsharded. Every rank of the mesh builds the
+        same ``Filter`` from the global ``grid_vars`` and calls ``apply``
+        together; the mesh's device type must be ``device``'s.
+    batch_axis : optional str
+        A mesh dim to shard dim 0 of a ``(batch, y, x)`` field over.
+    halo_steps : optional int
+        Chebyshev steps per halo exchange round (default: up to 16).
     exact_nan : bool
         Keep the per-step NaN scrub of wet cells in the kernel instead of
         the h-space elimination (see ops/cuda/dispatch.py).
+    custom_operator : optional object
+        A user-built operator instead of a registry grid type;
+        ``grid_type``/``grid_vars`` are then ignored. Framework stencil
+        types (``ops.stencil.ScalarStencil5``, ``BGridVectorStencil``,
+        ``CGridVectorOperator``) run through the step kernels and, for
+        scalar stencils, mesh sharding. Free-form protocol operators (see
+        ops/custom.py) run arbitrary torch math through the eager engine on
+        ``device``, single-device only.
     """
 
     filter_scale: float
@@ -100,20 +131,28 @@ class Filter:
     grid_vars: dict = dc_field(default_factory=dict, repr=False)
     dtype: Optional[torch.dtype] = None
     device: Optional[Union[str, torch.device]] = None
+    mesh: Optional[object] = dc_field(default=None, repr=False)
+    spatial_axes: Tuple[Optional[str], Optional[str]] = (None, None)
+    batch_axis: Optional[str] = None
+    halo_steps: Optional[int] = None
     exact_nan: bool = False
+    custom_operator: Optional[object] = dc_field(default=None, repr=False)
 
     def __post_init__(self):
-        # An unknown grid type is a KeyError before any other validation.
-        if not isinstance(self.grid_type, GridType):
-            raise KeyError(self.grid_type)
-        # Fixed-factor (area-weighted) filtering happens on the unit-spacing
-        # transformed grid, so dx_min must be 1.
-        if is_area_weighted(self.grid_type) and self.dx_min != 1:
-            raise ValueError(
-                "Provided Laplacian is for simple fixed factor filtering, "
-                "where transformed field is filtered on a regular grid with "
-                "dx = dy = 1. dx_min must be set to 1."
-            )
+        # grid_type/grid_vars are ignored with a custom operator, so its
+        # grid-derived validations are skipped too.
+        if self.custom_operator is None:
+            # An unknown grid type is a KeyError before any other validation.
+            if not isinstance(self.grid_type, GridType):
+                raise KeyError(self.grid_type)
+            # Fixed-factor (area-weighted) filtering happens on the
+            # unit-spacing transformed grid, so dx_min must be 1.
+            if is_area_weighted(self.grid_type) and self.dx_min != 1:
+                raise ValueError(
+                    "Provided Laplacian is for simple fixed factor filtering, "
+                    "where transformed field is filtered on a regular grid with "
+                    "dx = dy = 1. dx_min must be set to 1."
+                )
 
         if self.transition_width <= 1:
             raise ValueError("Transition width must be > 1.")
@@ -149,27 +188,69 @@ class Filter:
             self.n_steps,
         )
 
-        # Build the grid operator (validates grid_vars names and physics).
-        self.operator = build_operator(self.grid_type, self.grid_vars)
-        self._is_vector = is_vector_grid(self.grid_type)
+        # Build the grid operator (validates grid_vars names and physics),
+        # unless the user supplied one directly.
+        if self.custom_operator is not None:
+            self.operator = self.custom_operator
+            self._is_vector = operator_is_vector(self.operator)
+            if self.mesh is not None and not self._is_framework_operator():
+                raise ValueError(
+                    "Free-form (protocol) custom operators cannot be sharded "
+                    "with mesh=: the engine cannot know their communication "
+                    "pattern. Express the operator as a framework stencil "
+                    "type (ScalarStencil5 / BGridVectorStencil / "
+                    "CGridVectorOperator) to use the mesh machinery, or drop "
+                    "mesh= to run it single-device."
+                )
+        else:
+            self.operator = build_operator(self.grid_type, self.grid_vars)
+            self._is_vector = is_vector_grid(self.grid_type)
         self.device = torch.device("cuda" if self.device is None else self.device)
+        if self.mesh is not None and self.mesh.device_type != self.device.type:
+            raise ValueError(
+                f"mesh is a {self.mesh.device_type!r} mesh but the filter's device is "
+                f"{str(self.device)!r}; pass device={self.mesh.device_type!r} or a mesh "
+                f"of the filter's device type"
+            )
         self._scalar = None
         self._vector = None
 
+    def _is_framework_operator(self) -> bool:
+        return isinstance(
+            self.operator, (ScalarStencil5, BGridVectorStencil, CGridVectorOperator))
+
     def _scalar_fn(self):
         if self._scalar is None:
-            self._scalar = make_cuda_scalar_apply(
-                self.operator, self.filter_spec, exact_nan=self.exact_nan
-            )
+            if self.mesh is not None:
+                from .parallel.sharded import make_sharded_scalar_apply
+
+                self._scalar = make_sharded_scalar_apply(
+                    self.operator, self.filter_spec, self.mesh, self.spatial_axes,
+                    batch_axis=self.batch_axis, halo_steps=self.halo_steps,
+                    exact_nan=self.exact_nan,
+                )
+            elif self._is_framework_operator():
+                self._scalar = make_cuda_scalar_apply(
+                    self.operator, self.filter_spec, exact_nan=self.exact_nan
+                )
+            else:
+                # free-form protocol operator: the eager engine, no kernel
+                adapter = as_protocol_adapter(self.operator)
+                self._scalar = lambda f: scalar_filter_apply(adapter, self.filter_spec, f)
         return self._scalar
 
     def _vector_fn(self):
         if self._vector is None:
-            self._vector = make_cuda_vector_apply(self.operator, self.filter_spec)
+            if self._is_framework_operator():
+                self._vector = make_cuda_vector_apply(self.operator, self.filter_spec)
+            else:
+                adapter = as_protocol_adapter(self.operator)
+                self._vector = lambda u, v: vector_filter_apply(
+                    adapter, self.filter_spec, u, v)
         return self._vector
 
     def _operator_name(self) -> str:
-        return str(self.grid_type)
+        return "custom_operator" if self.custom_operator is not None else str(self.grid_type)
 
     def _coerce(self, arr) -> torch.Tensor:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -181,6 +262,8 @@ class Filter:
         x = torch.as_tensor(arr)
         if self.dtype is not None:
             x = x.to(self.dtype)
+        if self.mesh is not None:
+            return x  # the sharded apply moves only this rank's block
         return x.to(self.device)
 
     def apply(self, ds, dims: Optional[Sequence[str]] = None):
@@ -324,6 +407,12 @@ class Filter:
                 f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
                 "The ``.apply_to_vector`` method is only suitable for vector Laplacians."
             )
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "mesh sharding of vector filters is not ported yet (ROADMAP.md, "
+                "item 14: the sharded vector engine); build the Filter without "
+                "mesh= to filter vectors on one device."
+            )
         return self._vector_fn()(self._coerce(ufield), self._coerce(vfield))
 
     def _empty_dtype(self, *arrays) -> np.dtype:
@@ -350,7 +439,7 @@ class Filter:
             )
         shape = tuple(data.shape)
         if len(shape) < 3:
-            return self.apply(np.asarray(data)).cpu().numpy()
+            return _to_numpy(self.apply(np.asarray(data)))
         lead = shape[:-2]
         n = int(np.prod(lead))
         if n == 0:
@@ -359,7 +448,7 @@ class Filter:
         out = None
         for start in range(0, n, chunk):
             stop = min(start + chunk, n)
-            res = fn(self._coerce(_read_chunk(data, lead, start, stop))).cpu().numpy()
+            res = _to_numpy(fn(self._coerce(_read_chunk(data, lead, start, stop))))
             if out is None:
                 out = np.empty(shape, dtype=res.dtype)
             out.reshape((n,) + shape[-2:])[start:stop] = res
