@@ -47,7 +47,23 @@ and runs these phases; any failed check raises and the script exits non-zero:
     of 11 local steps are also timed alone;
 11. each step kind of the local step kernel against its plain version at the
     headline's extended shape;
-12. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+12. sharded small vector grids, on the same 1x1 mesh: both vector grids at
+    128x256 in float32 and float64 (C-grid at kappa_aniso 1 and 0), the
+    spherical metrics in float64, 97x300, a batch, NaN fields, a C-grid
+    operator with ``zap_nans=False`` and ``halo_steps`` 1, 3 and None, each
+    through ``Filter(mesh=..., spatial_axes=("y", "x")).apply_to_vector``
+    against the same sharded apply driven by the plain local step
+    ``vec_local_pass_reference`` on the card, and against the unsharded
+    ``apply_to_vector``; each apply must launch the windowed local kernel of
+    its grid exactly n_steps times and no other kernel;
+13. sharded vector headlines (the sharded vector path): the phase-7 B-grid
+    and C-grid workloads through the mesh path, checked against the float64
+    eager engine and timed beside the unsharded time of the same run, with
+    launches = 11 x applies, every other counter 0 and no fallback; the halo
+    exchange and the chain of 11 local steps are also timed alone;
+14. each step kind of both windowed local vector kernels against its plain
+    version at the headlines' extended shape;
+15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
 """
@@ -59,10 +75,8 @@ import time
 
 import numpy as np
 
-# Published H100 SXM peaks (NVIDIA data sheet, 700 W): HBM3 rate and
-# non-tensor-core FP32 / FP64 rates.
-HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"float32": 67e12, "float64": 34e12}
+# The bounds (``bound_ms``) use the published H100 SXM peaks kept in
+# gcm_filters_tpu_torch/utils/profiling.py.
 # Floating-point operations one step does per cell: 5 multiplies and 4 adds
 # for the contraction, 1 post multiply, 3 for the recurrence, 2 for the sum.
 FLOPS_PER_CELL_STEP = 15
@@ -228,22 +242,45 @@ def vec_step_bytes(kind, n_coef, batch, ny, nx, itemsize):
     return (n_coef + carries * batch) * ny * nx * itemsize
 
 
-def bound_ms(nbytes, flops, dtype_name):
-    t_bytes = nbytes / HBM_BYTES_PER_S
-    t_ops = flops / PEAK_FLOPS[dtype_name]
-    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+def vec_local_step_bytes(kind, n_coef, batch, ly, lx, cells, shrink, itemsize):
+    """Bytes one launch of the windowed local vector step must move on its
+    shrinking windows: the coefficient planes on the step's window, and 2
+    planes (u and v) per batch entry for each carry where the step reads or
+    writes it. ``win(s)`` is the extended block shrunk by s cells; the core is
+    win(cells)."""
+    from gcm_filters_tpu_torch.ops.cuda.cheb_pass import FIRST, MIDDLE
+
+    win = lambda s: (ly + 2 * (cells - s)) * (lx + 2 * (cells - s))  # noqa: E731
+    core = ly * lx
+    if kind == FIRST:
+        # the extended input on the whole block in; T1 on win(1), acc on the core out
+        static, carries = n_coef * win(1), win(0) + win(1) + core
+    elif kind == MIDDLE:
+        # t on win(shrink-1), t_prev on win(shrink), acc on the core in;
+        # t_next on win(shrink), acc on the core out
+        static, carries = n_coef * win(shrink), win(shrink - 1) + 2 * win(shrink) + 2 * core
+    else:
+        # t on win(cells-1), t_prev and acc on the core in; the result on the core out
+        static, carries = n_coef * core, win(cells - 1) + 3 * core
+    return (static + 2 * batch * carries) * itemsize
 
 
-def event_ms(fn, n):
+def event_ms(fn, n, host=False):
+    """Device ms per call over ``n`` calls, from CUDA events. With ``host``
+    also the host's ms per call to enqueue them (no synchronize inside): where
+    that is not well below the device time, the host holds the card back."""
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
+    t0 = time.perf_counter()
     for _ in range(n):
         fn()
+    host_ms = 1e3 * (time.perf_counter() - t0) / n
     end.record()
     torch.cuda.synchronize()
-    return start.elapsed_time(end) / n
+    ms = start.elapsed_time(end) / n
+    return (ms, host_ms) if host else ms
 
 
 def main():
@@ -266,6 +303,7 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, vec_pass, vec_pass_reference,
     )
+    from gcm_filters_tpu_torch.utils.profiling import bound_ms
     from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -373,7 +411,7 @@ def main():
     y = out
     for _ in range(warm):
         y = head.apply(y)
-    ms_apply = event_ms(lambda: head.apply(out), chain)
+    ms_apply, host_apply = event_ms(lambda: head.apply(out), chain, host=True)
     launches = cheb_pass.launches
     other = dict(vec_pass.launches)
     fallbacks = fallback_counts()
@@ -416,7 +454,8 @@ def main():
     filter_bytes = (2 + n_operands) * ny * nx * item
     fb_ms, _ = bound_ms(filter_bytes, apply_flops, "float32")
     gps = ny * nx * n_steps / (ms_apply * 1e-3)
-    log(f"headline: {ms_apply:.4f} ms/apply = {gps:.4e} grid-point-steps/s on {smi}")
+    log(f"headline: {ms_apply:.4f} ms/apply (host enqueue {host_apply:.4f} ms/apply) = "
+        f"{gps:.4e} grid-point-steps/s on {smi}")
     log(f"  per-launch bound {b_ms:.4f} ms ({apply_bytes / 1e9:.3f} GB, {b_by}); "
         f"whole-filter bound {fb_ms:.4f} ms ({filter_bytes / 1e6:.1f} MB); "
         f"plain PyTorch steps {ms_plain:.4f} ms/apply")
@@ -527,12 +566,13 @@ def main():
     u_dev = torch.as_tensor(u_h, device=dev)
     v_dev = torch.as_tensor(v_h, device=dev)
     vec_results = {}
+    vec_kept = {}  # per grid: metrics, unsharded results and float64 answers, for phase 13
     for gname, op in vec_ops.items():
         # kappa_aniso=0: with 1, kappa_tension = 1.5 lifts the C-grid operator's
         # spectrum above s_max on unit metrics and the filter amplifies
+        vhead_gv = unit_vector_grid_vars(gname, (ny, nx), vrng, 0.0)
         vhead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname],
-                       grid_vars=unit_vector_grid_vars(gname, (ny, nx), vrng, 0.0),
-                       dtype=torch.float32, device=dev)
+                       grid_vars=vhead_gv, dtype=torch.float32, device=dev)
         vn = vhead.n_steps
         torch.cuda.synchronize()
         reset_fallback_counts()
@@ -544,7 +584,7 @@ def main():
         first_s = time.perf_counter() - t0
         for _ in range(warm):
             vhead.apply_to_vector(u_dev, v_dev)
-        ms_v = event_ms(lambda: vhead.apply_to_vector(u_dev, v_dev), chain)
+        ms_v, host_v = event_ms(lambda: vhead.apply_to_vector(u_dev, v_dev), chain, host=True)
         v_launches = vec_pass.launches[op]
         v_other = {k: n for k, n in vec_pass.launches.items() if k != op}
         v_fallbacks = fallback_counts()
@@ -568,6 +608,7 @@ def main():
             v_err = max(v_err, float((g.double() - w).abs().max()))
         log(f"{gname} headline vs eager engine in float64: max abs {v_err:.3e}; variance "
             f"u {float(u_dev.double().var()):.4e} -> {float(fu.double().var()):.4e}")
+        vec_kept[op] = dict(gv=vhead_gv, out=(fu, fv), want=(want_u, want_v))
         del want_u, want_v
 
         plain_v = make_cuda_vector_apply(vhead.operator, vhead.filter_spec,
@@ -585,8 +626,8 @@ def main():
         vb_ms, vb_by = bound_ms(v_bytes, v_flops, "float32")
         v_filter_bytes = (n_coef + 4) * ny * nx * item  # u, v, coefficients in; u, v out
         vfb_ms, _ = bound_ms(v_filter_bytes, v_flops, "float32")
-        log(f"{gname} headline: {ms_v:.4f} ms/apply = {ny * nx * vn / (ms_v * 1e-3):.4e} "
-            f"grid-point-steps/s on {smi}")
+        log(f"{gname} headline: {ms_v:.4f} ms/apply (host enqueue {host_v:.4f} ms/apply) = "
+            f"{ny * nx * vn / (ms_v * 1e-3):.4e} grid-point-steps/s on {smi}")
         log(f"  per-launch bound {vb_ms:.4f} ms ({v_bytes / 1e9:.3f} GB, {vb_by}); "
             f"whole-filter bound {vfb_ms:.4f} ms ({v_filter_bytes / 1e6:.1f} MB); "
             f"plain PyTorch steps {ms_v_plain:.4f} ms/apply")
@@ -647,6 +688,7 @@ def main():
             "filter_bound_ms": vfb_ms,
             "middle_step_ms": ms_vmid,
             "middle_step_bound_ms": vmid_ms,
+            "host_enqueue_ms": host_v,
         }
         del vbufs, w3, plain_v, fu, fv, vhead, fn, vops
 
@@ -748,7 +790,7 @@ def main():
     y = s_out
     for _ in range(warm):
         y = shead.apply(y)
-    ms_sharded = event_ms(lambda: shead.apply(x_dev), chain)
+    ms_sharded, host_sharded = event_ms(lambda: shead.apply(x_dev), chain, host=True)
     s_launches = local_pass.launches
     s_other = dict(vec_pass.launches, cheb_pass=cheb_pass.launches)
     s_fallbacks = fallback_counts()
@@ -812,8 +854,8 @@ def main():
     s_flops = FLOPS_PER_CELL_STEP * s_cells
     sb_ms, sb_by = bound_ms(s_bytes, s_flops, "float32")
     sfb_ms, _ = bound_ms(filter_bytes, s_flops, "float32")
-    log(f"sharded headline: {ms_sharded:.4f} ms/apply = "
-        f"{ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}")
+    log(f"sharded headline: {ms_sharded:.4f} ms/apply (host enqueue {host_sharded:.4f} "
+        f"ms/apply) = {ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}")
     log(f"  halo exchange alone ({cells} cells, block {tuple(xe.shape[-2:])}) "
         f"{ms_exchange:.4f} ms; the {n_steps} local steps alone {ms_chain:.4f} ms "
         f"(result vs the apply: max abs {chain_err:.3e}); unsharded kernel path "
@@ -858,6 +900,277 @@ def main():
                           "float32")
     log(f"local step kinds vs plain at block {tuple(xe.shape[-2:])}: max abs {ls_err:.3e}; "
         f"middle step {ms_lmid:.4f} ms vs bound {lmid_ms:.4f} ms")
+    # 12. sharded small vector grids on the same 1x1 mesh
+    import dataclasses
+
+    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import (
+        vec_local_pass, vec_local_pass_reference,
+    )
+    from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
+
+    svworst = {op: {"float32": [0.0, 0.0], "float64": [0.0, 0.0]} for op in (BGRID, CTAP)}
+
+    def counters():
+        """Every kernel's launch count, by name."""
+        return {"cheb_pass": cheb_pass.launches, "local_pass": local_pass.launches,
+                "vec_pass_bgrid": vec_pass.launches[BGRID],
+                "vec_pass_ctap": vec_pass.launches[CTAP],
+                "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
+                "vec_local_pass_ctap": vec_local_pass.launches[CTAP]}
+
+    def reset_counters():
+        cheb_pass.launches = 0
+        local_pass.launches = 0
+        vec_pass.launches = {BGRID: 0, CTAP: 0}
+        vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+
+    def check_sharded_vector(label, op, u, v, dtype_name, **kw):
+        filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
+        plain = make_sharded_vector_apply(
+            filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps,
+            pass_fn=vec_local_pass_reference)
+        mine = "vec_local_pass_" + ("bgrid" if op == BGRID else "ctap")
+        before = counters()
+        got = filt.apply_to_vector(u, v)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in counters().items()}
+        want_launched = {k: filt.n_steps if k == mine else 0 for k in before}
+        if launched != want_launched:
+            raise AssertionError(f"{label}: kernel launches {launched}, expected {want_launched}")
+        if not all(isinstance(g, DTensor) for g in got):
+            raise AssertionError(f"{label}: the mesh path returned {[type(g).__name__ for g in got]}")
+        got = [g.full_tensor() for g in got]
+        want = [w.full_tensor() for w in plain(filt._coerce(u), filt._coerce(v))]
+        kw.pop("halo_steps", None)
+        unsharded = Filter(device=dev, **kw).apply_to_vector(u, v)
+        errs, uerr = [], 0.0
+        for comp, g, w, un in zip("uv", got, want, unsharded):
+            if g.shape != w.shape or g.device.type != "cuda":
+                raise AssertionError(f"{label} {comp}: result {tuple(g.shape)} on {g.device}")
+            errs.append(compare(f"{label} {comp}", g, w, dtype_name))
+            if not torch.equal(torch.isnan(g), torch.isnan(un)):
+                raise AssertionError(f"{label} {comp}: NaN positions differ from the unsharded filter")
+            torch.testing.assert_close(g, un, equal_nan=True, **tol_unsharded[dtype_name],
+                                       msg=lambda m: f"{label} {comp} vs unsharded: {m}")
+            ok = ~torch.isnan(un)
+            uerr = max(uerr, float((g[ok] - un[ok]).abs().max()))
+        a, r = max(e[0] for e in errs), max(e[1] for e in errs)
+        w8 = svworst[op][dtype_name]
+        svworst[op][dtype_name] = [max(w8[0], a), max(w8[1], r)]
+        log(f"  {label}: vs plain max abs {a:.3e} max rel {r:.3e}; vs unsharded max abs "
+            f"{uerr:.3e} ({launched[mine]} launches)")
+        return got
+
+    log(f"sharded small vector grids on a 1x1 mesh at {vshape}:")
+    for gname, ka in cases:
+        op = vec_ops[gname]
+        gv = unit_vector_grid_vars(gname, vshape, np.random.default_rng(42), ka)
+        tag = f" kappa_aniso={ka:g}" if gname == "VECTOR_C_GRID" else ""
+        for dt, name in both:
+            check_sharded_vector(f"sharded {gname} unit metrics{tag} {name}", op, u_s, v_s, name,
+                                 filter_scale=6.0, dx_min=1.0, grid_type=GridType[gname],
+                                 grid_vars=gv, dtype=dt)
+    for gname, op in vec_ops.items():
+        g = GridType[gname]
+        gv = spherical_vector_grid_vars(required_grid_vars(g), vshape)
+        check_sharded_vector(f"sharded {gname} spherical float64", op, u_s, v_s, "float64",
+                             filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv)
+        gv = unit_vector_grid_vars(gname, odd, np.random.default_rng(42), 0.0)
+        for dt, name in both:
+            check_sharded_vector(f"sharded {gname} {odd} {name}", op, u_o, v_o, name,
+                                 filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv,
+                                 dtype=dt)
+        gv = unit_vector_grid_vars(gname, vshape, np.random.default_rng(42), 0.0)
+        check_sharded_vector(f"sharded {gname} batch (2, 128, 256) float64", op,
+                             np.stack([u_s, v_s]), np.stack([v_s[::-1].copy(), u_s]), "float64",
+                             filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv)
+        for dt, name in both:
+            fu, fv = check_sharded_vector(f"sharded {gname} NaN in u and v {name}", op, u_n, v_n,
+                                          name, filter_scale=6.0, dx_min=1.0, grid_type=g,
+                                          grid_vars=gv, dtype=dt)
+            if not (bool(torch.isnan(fu[10, 20])) and bool(torch.isnan(fv[50, 7]))):
+                raise AssertionError("NaN cells must stay NaN")
+            for hs in (1, 3, None):
+                check_sharded_vector(f"sharded {gname} halo_steps={hs} {name}", op, u_s, v_s,
+                                     name, filter_scale=6.0, dx_min=1.0, grid_type=g,
+                                     grid_vars=gv, dtype=dt, halo_steps=hs)
+    # a C-grid operator that does not scrub NaNs: the NaN spreads through the
+    # sharded rounds exactly as through the unsharded kernel path
+    c_gv = unit_vector_grid_vars("VECTOR_C_GRID", vshape, np.random.default_rng(42), 0.0)
+    c_op = Filter(filter_scale=6.0, dx_min=1.0, grid_type=GridType.VECTOR_C_GRID,
+                  grid_vars=c_gv, device=dev).operator
+    fu, fv = check_sharded_vector("sharded VECTOR_C_GRID zap_nans=False float64", CTAP, u_n, v_n,
+                                  "float64", filter_scale=6.0, dx_min=1.0, halo_steps=3,
+                                  custom_operator=dataclasses.replace(c_op, zap_nans=False))
+    spread = int(torch.isnan(fu).sum()), int(torch.isnan(fv).sum())
+    log(f"  zap_nans=False: NaN cells in (u, v) after the filter {spread}")
+    if min(spread) <= 1:
+        raise AssertionError(f"an unscrubbed NaN must spread, saw {spread} NaN cells")
+
+    # 13. sharded vector headlines: the phase-7 workloads through the mesh path
+    w_dev = torch.stack([u_dev, v_dev]).unsqueeze(0)  # (1, 2, ny, nx), as the rounds stack it
+    svec_results = {}
+    for gname, op in vec_ops.items():
+        key = "bgrid" if op == BGRID else "ctap"
+        mine = f"vec_local_pass_{key}"
+        kept = vec_kept[op]
+        svhead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname],
+                        grid_vars=kept["gv"], dtype=torch.float32, device=dev,
+                        mesh=mesh, spatial_axes=axes)
+        vn = svhead.n_steps
+        torch.cuda.synchronize()
+        reset_fallback_counts()
+        reset_counters()
+        t0 = time.perf_counter()
+        su, sv = svhead.apply_to_vector(u_h, v_h)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for _ in range(warm):
+            svhead.apply_to_vector(u_dev, v_dev)
+        ms_sv, host_sv = event_ms(lambda: svhead.apply_to_vector(u_dev, v_dev), chain,
+                                  host=True)
+        counts = counters()
+        sv_launches = counts.pop(mine)
+        sv_fallbacks = fallback_counts()
+        log(f"sharded headline {ny}x{nx} float32 {gname} on a 1x1 mesh, n_steps {vn}: "
+            f"{sv_launches} {mine} launches over {applies} applies (first apply with operand "
+            f"set-up {first_s:.2f} s), other kernels {counts}, fallbacks {sv_fallbacks}")
+        if sv_launches != vn * applies:
+            raise AssertionError(f"expected {vn * applies} kernel launches, saw {sv_launches}")
+        if any(counts.values()):
+            raise AssertionError(f"the sharded vector path launched another kernel: {counts}")
+        if sv_fallbacks:
+            raise AssertionError(f"fallbacks recorded on the kernel path: {sv_fallbacks}")
+        if not (isinstance(su, DTensor) and isinstance(sv, DTensor)):
+            raise AssertionError(f"the mesh path returned {type(su).__name__}")
+        sv_err = sv_vs_k = 0.0
+        for comp, g, w, un in zip("uv", (su, sv), kept["want"], kept["out"]):
+            g = g.full_tensor()
+            if g.shape != (ny, nx) or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
+                raise AssertionError(
+                    f"sharded {gname} headline {comp} is not a finite float32 (ny, nx) tensor")
+            torch.testing.assert_close(g.double(), w, rtol=1e-4, atol=1e-5)
+            sv_err = max(sv_err, float((g.double() - w).abs().max()))
+            sv_vs_k = max(sv_vs_k, float((g - un).abs().max()))
+        log(f"sharded {gname} headline vs eager engine in float64: max abs {sv_err:.3e}; "
+            f"vs the unsharded kernel path: max abs {sv_vs_k:.3e}")
+
+        svfn = svhead._vector_fn()
+        lvops, cells, rounds, lvp = svfn.operands(ny, nx, torch.float32)
+        if rounds != (vn,):
+            raise AssertionError(f"expected one round of {vn} steps, planned {rounds}")
+        n_coef = lvops.coef.shape[0]
+        plain_sv = make_sharded_vector_apply(svhead.operator, svhead.filter_spec, mesh, axes,
+                                             pass_fn=vec_local_pass_reference)
+        plain_sv(u_dev, v_dev)
+        ms_sv_plain = event_ms(lambda: plain_sv(u_dev, v_dev), 5)
+
+        # the exchange alone, and the chain of local steps alone on an extended block
+        ms_vex = event_ms(lambda: halo.exchange_2d(w_dev, cells, local_axis, local_axis), chain)
+        we = halo.exchange_2d(w_dev, cells, local_axis, local_axis)
+        vc = [torch.zeros_like(we), torch.zeros_like(we), torch.zeros_like(w_dev)]
+
+        def vec_local_chain():
+            # as the rounds run it, but T_2 goes to a third buffer so that the
+            # input `we` survives for the next repeat (same bytes moved)
+            a_, b_, acc_ = vc
+            vec_local_pass(lvops, FIRST, lvp[0], lvp[1], cells=cells, w=we, t_next=a_, acc=acc_)
+            vec_local_pass(lvops, MIDDLE, lvp[2], cells=cells, shrink=2,
+                           t=a_, t_prev=we, t_next=b_, acc=acc_)
+            t_, t_prev_ = b_, a_
+            for k in range(3, vn):
+                vec_local_pass(lvops, MIDDLE, lvp[k], cells=cells, shrink=k,
+                               t=t_, t_prev=t_prev_, t_next=t_prev_, acc=acc_)
+                t_, t_prev_ = t_prev_, t_
+            vec_local_pass(lvops, LAST, lvp[vn], cells=cells, t=t_, t_prev=t_prev_, acc=acc_)
+
+        vec_local_chain()
+        ms_vchain = event_ms(vec_local_chain, chain)
+        vchain_err = max(compare(f"{gname} local step chain vs sharded apply {comp}",
+                                 vc[2][0, m], g.full_tensor(), "float32")[0]
+                         for m, (comp, g) in enumerate((("u", su), ("v", sv))))
+        del vc
+
+        svkinds = [(FIRST, 1)] + [(MIDDLE, k) for k in range(2, vn)] + [(LAST, cells)]
+        sv_bytes = sum(vec_local_step_bytes(k, n_coef, 1, ny, nx, cells, sh, item)
+                       for k, sh in svkinds)
+        sv_cells = sum((ny + 2 * (cells - sh)) * (nx + 2 * (cells - sh)) for _, sh in svkinds)
+        sv_flops = VEC_FLOPS_PER_CELL_STEP[key] * sv_cells
+        svb_ms, svb_by = bound_ms(sv_bytes, sv_flops, "float32")
+        svfb_ms, _ = bound_ms((n_coef + 4) * ny * nx * item, sv_flops, "float32")
+        log(f"sharded {gname} headline: {ms_sv:.4f} ms/apply (host enqueue {host_sv:.4f} "
+            f"ms/apply) = {ny * nx * vn / (ms_sv * 1e-3):.4e} grid-point-steps/s on {smi}")
+        log(f"  halo exchange alone ({cells} cells, block {tuple(we.shape[-2:])}) {ms_vex:.4f} ms; "
+            f"the {vn} local steps alone {ms_vchain:.4f} ms (result vs the apply: "
+            f"max abs {vchain_err:.3e}); unsharded kernel path "
+            f"{vec_results[op]['ms']:.4f} ms/apply")
+        log(f"  per-launch bound {svb_ms:.4f} ms ({sv_bytes / 1e9:.3f} GB, {svb_by}); "
+            f"whole-filter bound {svfb_ms:.4f} ms; plain PyTorch steps {ms_sv_plain:.4f} ms/apply")
+
+        # 14. each step kind of the windowed local kernel against its plain
+        # version, at the headline's extended shape (buffers start at zero: a
+        # step leaves the cells outside its window untouched, in both versions)
+        vk, vr = ([we.clone(), torch.zeros_like(we), torch.zeros_like(w_dev)] for _ in "kr")
+        lv_err = 0.0
+        for bufs_, f in ((vk, vec_local_pass), (vr, vec_local_pass_reference)):
+            w0_, t_, acc_ = bufs_
+            f(lvops, FIRST, lvp[0], lvp[1], cells=cells, shrink=1, w=w0_, t_next=t_, acc=acc_)
+        torch.cuda.synchronize()
+        for i in (1, 2):
+            lv_err = max(lv_err, compare(f"{gname} local FIRST step out {i}", vk[i], vr[i],
+                                         "float32")[0])
+        for i in range(3):
+            vr[i].copy_(vk[i])
+        for bufs_, f in ((vk, vec_local_pass), (vr, vec_local_pass_reference)):
+            w0_, t_, acc_ = bufs_
+            f(lvops, MIDDLE, lvp[2], cells=cells, shrink=2, t=t_, t_prev=w0_, t_next=w0_, acc=acc_)
+        torch.cuda.synchronize()
+        for i in (0, 2):
+            lv_err = max(lv_err, compare(f"{gname} local MIDDLE step out {i}", vk[i], vr[i],
+                                         "float32")[0])
+        for i in range(3):
+            vr[i].copy_(vk[i])
+        for bufs_, f in ((vk, vec_local_pass), (vr, vec_local_pass_reference)):
+            w0_, t_, acc_ = bufs_
+            f(lvops, LAST, lvp[3], cells=cells, t=w0_, t_prev=t_, acc=acc_)
+        torch.cuda.synchronize()
+        lv_err = max(lv_err, compare(f"{gname} local LAST step", vk[2], vr[2], "float32")[0])
+        w0_, t_, acc_ = vk
+        ms_lvmid = event_ms(lambda: vec_local_pass(lvops, MIDDLE, lvp[2], cells=cells, shrink=2,
+                                                   t=t_, t_prev=w0_, t_next=w0_, acc=acc_), 100)
+        lvmid_ms, _ = bound_ms(
+            vec_local_step_bytes(MIDDLE, n_coef, 1, ny, nx, cells, 2, item),
+            VEC_FLOPS_PER_CELL_STEP[key] * (ny + 2 * (cells - 2)) * (nx + 2 * (cells - 2)),
+            "float32")
+        log(f"{gname} local step kinds vs plain at block {tuple(we.shape[-2:])}: max abs "
+            f"{lv_err:.3e}; middle step {ms_lvmid:.4f} ms vs bound {lvmid_ms:.4f} ms")
+        worst_sv = svworst[op]
+        svec_results[op] = {
+            "name": mine,
+            "route": "cuda",
+            "source": "gcm_filters_tpu_torch/csrc/vec_pass.cu",
+            "replaces": "gcm_filters_tpu/parallel/sharded.py:908 (gcm_filters_tpu/ops/pallas/"
+                        "vec_pass.py:" + ("567" if op == BGRID else "575") + ")",
+            "launches": sv_launches,
+            "max_abs_err": max(lv_err, worst_sv["float32"][0], worst_sv["float64"][0]),
+            "headline_vs_f64_engine_max_abs": sv_err,
+            "max_rel_err_f64": worst_sv["float64"][1],
+            "ms": ms_sv,
+            "plain_ms": ms_sv_plain,
+            "bound_ms": svb_ms,
+            "bound_by": svb_by,
+            "library_ms": None,
+            "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + {vn} "
+                    f"launches, {ny}x{nx} float32 {gname}, block {tuple(we.shape[-2:])}",
+            "filter_bound_ms": svfb_ms,
+            "middle_step_ms": ms_lvmid,
+            "middle_step_bound_ms": lvmid_ms,
+            "exchange_ms": ms_vex,
+            "steps_alone_ms": ms_vchain,
+            "unsharded_ms": vec_results[op]["ms"],
+            "host_enqueue_ms": host_sv,
+        }
+        del vk, vr, we, plain_sv, svhead, svfn, lvops, su, sv
     dist.destroy_process_group()
     store_dir.cleanup()
 
@@ -878,6 +1191,7 @@ def main():
         "filter_bound_ms": fb_ms,
         "middle_step_ms": ms_mid,
         "middle_step_bound_ms": mid_ms,
+        "host_enqueue_ms": host_apply,
     }, vec_results[BGRID], vec_results[CTAP], {
         "name": "local_pass",
         "route": "cuda",
@@ -899,7 +1213,8 @@ def main():
         "middle_step_bound_ms": lmid_ms,
         "exchange_ms": ms_exchange,
         "steps_alone_ms": ms_chain,
-    }]
+        "host_enqueue_ms": host_sharded,
+    }, svec_results[BGRID], svec_results[CTAP]]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

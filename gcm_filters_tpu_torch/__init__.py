@@ -10,7 +10,8 @@ Public API:
     9 scalar grids, ``apply_to_vector`` for the 2 vector grids, and their
     streamed twins (``device`` picks the card, default ``cuda``;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels;
-    ``mesh``/``spatial_axes`` shard scalar filtering over a ``DeviceMesh``)
+    ``mesh``/``spatial_axes`` shard scalar and vector filtering over a
+    ``DeviceMesh``), plus ``plot_shape`` and ``grid_ds``
   - ``BaseScalarOperator``, ``BaseVectorOperator`` -- bases for free-form
     ``Filter(custom_operator=...)`` operators
   - ``FilterShape``        -- GAUSSIAN | TAPER target shapes

@@ -1,6 +1,8 @@
-// One step of the coupled vector Chebyshev filter recurrence, for Hopper (sm_90a).
+// One step of the coupled vector Chebyshev filter recurrence, for Hopper (sm_90a):
+// periodic entries on a whole field (vec_pass_f32/f64) and windowed local
+// entries on a halo-extended shard block (vec_local_pass_f32/f64, below).
 //
-// Replaces the two TPU kernels built by
+// The periodic entries replace the two TPU kernels built by
 // gcm_filters_tpu/ops/pallas/vec_pass.py::_build_coupled_pass (kernel body
 // `kernel`):
 //   - build_vec_pass  (B-grid, contraction `_bgrid_lap`), op = BGRID;
@@ -45,6 +47,34 @@
 // the result; closing that gap is the job of temporal blocking (several steps
 // per launch on shared-memory tiles with a halo), which is later work.
 //
+// Windowed local entries (vec_local_pass_f32/f64): the same step on a
+// halo-extended shard block, the per-shard compute of the sharded vector
+// engine. They replace the local use of the same two TPU kernels
+// (gcm_filters_tpu/parallel/sharded.py::make_sharded_vector_apply builds
+// build_vec_pass / build_ctap_pass over the extended, padded local block). A
+// rank holds an (ly, lx) core block; one halo exchange per round extends the
+// carries by `c` cells on each side to (ey, ex) = (ly+2c, lx+2c); the halos
+// carry the periodic wrap, so the block has no wrap: every neighbour offset is
+// a constant of the pitch (n = +ex, s = -ex, e = +1, w = -1, nw = +ex-1,
+// se = -ex+1). The diagonal taps read the halo's corner cells from the first
+// step on. Step j of a round (j = 1..n_ops <= c) computes only the WINDOW of
+// the block shrunk by `w0 = j` cells on each side, reads one cell further out
+// and never outside the block; nothing outside the window is written. No row
+// or lane padding, and no periodic roll that lets garbage creep into the halo
+// as the TPU version does. State and t_next are extended (batch, 2, ey, ex),
+// the coefficients (n_coef, ey, ex), acc is core-shaped (batch, 2, ly, lx)
+// with its own pitch:
+//   FIRST  : w is the extended input T_0 (vector grids have no mask, area or
+//            pre, so there is no separate T_0 output); on the window (w0 = 1)
+//            t_next = T1 = -w + 0.5*lap'(w); on the core acc = p_a*w + p_b*T1
+//   MIDDLE : on the window t_next = -2t + lap'(t) - t_prev (t_next may be the
+//            t_prev buffer); on the core acc += p_a*t_next
+//   LAST   : the window is the core (w0 = c): acc += p_a*(-2t + lap'(t) - t_prev)
+// Bound: memory, as for the periodic entries, on windows of up to
+// (1 + 2c/ly)(1 + 2c/lx) cells per core cell: a MIDDLE step of the headline on
+// one rank (c = 11, block 2422x3622) moves ~20 (B-grid) or ~28 (C-grid)
+// planes of 34.6-35.1 MB.
+//
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num.
 
 #include <cfloat>
@@ -81,7 +111,8 @@ struct Args {
   int zap;
 };
 
-// Plane offsets of a cell's neighbours, periodic on both axes.
+// Plane offsets of a cell's neighbours: periodic on both axes in the global
+// entries, constants of the pitch in the windowed local entries.
 struct Nbr {
   int64_t c, n, s, e, w, nw, se;
 };
@@ -216,6 +247,110 @@ int launch(int op, int kind, int batch, int ny, int nx, const T* w, const T* t,
   return (int)cudaGetLastError();
 }
 
+template <typename T>
+struct LocalArgs {
+  int ey, ex;       // extended block
+  int c;            // halo cells: the core is [c, ey-c) x [c, ex-c)
+  int w0;           // the window is [w0, ey-w0) x [w0, ex-w0)
+  const T* w;       // T_0, the extended stacked input (FIRST)
+  const T* t;       // T_k, extended (MIDDLE, LAST)
+  const T* t_prev;  // T_{k-1}, extended (MIDDLE, LAST)
+  T* t_next;        // T_{k+1}, extended (FIRST, MIDDLE); may alias t_prev
+  T* acc;           // running sum, core-shaped, updated in place
+  const T* coef;    // (n_coef, ey, ex), extended and pre-scaled
+  T p_a, p_b;
+  int zap;
+};
+
+template <typename T, typename OP, int KIND>
+__global__ void vec_local_pass_kernel(const LocalArgs<T> a) {
+  const int i = a.w0 + blockIdx.x * blockDim.x + threadIdx.x;
+  const int j = a.w0 + blockIdx.y * blockDim.y + threadIdx.y;
+  if (i >= a.ex - a.w0 || j >= a.ey - a.w0) return;
+  const int ex = a.ex, ey = a.ey, c = a.c;
+  const int64_t P = (int64_t)ey * ex;
+  const int64_t bu = (int64_t)blockIdx.z * 2 * P;  // this entry's extended u plane
+  const int64_t bv = bu + P;                       // and its v plane
+
+  // inside the window (w0 >= 1) every neighbour lies inside the block: no wrap
+  Nbr x;
+  x.c = (int64_t)j * ex + i;
+  x.n = x.c + ex;
+  x.s = x.c - ex;
+  x.e = x.c + 1;
+  x.w = x.c - 1;
+  x.nw = x.c + ex - 1;
+  x.se = x.c - ex + 1;
+
+  T lu, lv;
+  OP::apply(a.coef, P, x, Gather<T>{(KIND == FIRST ? a.w : a.t) + bu, P, a.zap}, lu, lv);
+  const int64_t k = x.c;
+
+  const bool in_core = i >= c && i < ex - c && j >= c && j < ey - c;
+  const int lx = ex - 2 * c;
+  const int64_t Pc = (int64_t)(ey - 2 * c) * lx;
+  const int64_t ku = (int64_t)blockIdx.z * 2 * Pc + (int64_t)(j - c) * lx + (i - c);
+  const int64_t kv = ku + Pc;
+
+  if (KIND == FIRST) {
+    const T u0 = a.w[bu + k], v0 = a.w[bv + k];  // raw values
+    const T tu = -u0 + T(0.5) * lu;
+    const T tv = -v0 + T(0.5) * lv;
+    a.t_next[bu + k] = tu;
+    a.t_next[bv + k] = tv;
+    if (in_core) {
+      a.acc[ku] = a.p_a * u0 + a.p_b * tu;
+      a.acc[kv] = a.p_a * v0 + a.p_b * tv;
+    }
+    return;
+  }
+  const T nu = T(-2) * a.t[bu + k] + lu - a.t_prev[bu + k];
+  const T nv = T(-2) * a.t[bv + k] + lv - a.t_prev[bv + k];
+  if (KIND == MIDDLE) {
+    // in place over t_prev: only this cell read it
+    a.t_next[bu + k] = nu;
+    a.t_next[bv + k] = nv;
+  }
+  if (in_core) {  // LAST: the window is the core
+    a.acc[ku] = a.acc[ku] + a.p_a * nu;  // in place
+    a.acc[kv] = a.acc[kv] + a.p_a * nv;
+  }
+}
+
+template <typename T, typename OP>
+void launch_local_kind(int kind, dim3 grid, dim3 block, cudaStream_t st,
+                       const LocalArgs<T>& a) {
+  switch (kind) {
+    case FIRST: vec_local_pass_kernel<T, OP, FIRST><<<grid, block, 0, st>>>(a); break;
+    case MIDDLE: vec_local_pass_kernel<T, OP, MIDDLE><<<grid, block, 0, st>>>(a); break;
+    default: vec_local_pass_kernel<T, OP, LAST><<<grid, block, 0, st>>>(a); break;
+  }
+}
+
+template <typename T>
+int launch_local(int op, int kind, int batch, int ey, int ex, int cells, int shrink,
+                 const T* w, const T* t, const T* t_prev, T* t_next, T* acc,
+                 const T* coef, double p_a, double p_b, int zap, void* stream) {
+  cudaGetLastError();  // clear a stale error so the result below is this launch's
+  if (batch < 1 || cells < 1 || shrink < 1 || shrink > cells) return (int)cudaErrorInvalidValue;
+  if (ey <= 2 * cells || ex <= 2 * cells) return (int)cudaErrorInvalidValue;
+  if (kind != FIRST && kind != MIDDLE && kind != LAST) return (int)cudaErrorInvalidValue;
+  if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
+  LocalArgs<T> a;
+  a.ey = ey; a.ex = ex; a.c = cells;
+  a.w0 = kind == FIRST ? 1 : kind == LAST ? cells : shrink;
+  a.w = w; a.t = t; a.t_prev = t_prev; a.t_next = t_next; a.acc = acc; a.coef = coef;
+  a.p_a = T(p_a); a.p_b = T(p_b);
+  a.zap = zap;
+  const int wy = ey - 2 * a.w0, wx = ex - 2 * a.w0;
+  const dim3 block(32, 8);
+  const dim3 grid((wx + 31) / 32, (wy + 7) / 8, batch);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (op == BGRID) launch_local_kind<T, BGridLap>(kind, grid, block, st, a);
+  else launch_local_kind<T, CTapLap>(kind, grid, block, st, a);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 #define VEC_PASS_ENTRY(NAME, T)                                                      \
@@ -228,6 +363,18 @@ int launch(int op, int kind, int batch, int ny, int nx, const T* w, const T* t,
 
 VEC_PASS_ENTRY(vec_pass_f32, float)
 VEC_PASS_ENTRY(vec_pass_f64, double)
+
+#define VEC_LOCAL_PASS_ENTRY(NAME, T)                                                  \
+  extern "C" int NAME(int op, int kind, int batch, int ey, int ex, int cells,          \
+                      int shrink, const T* w, const T* t, const T* t_prev, T* t_next,  \
+                      T* acc, const T* coef, double p_a, double p_b, int zap,          \
+                      void* stream) {                                                  \
+    return launch_local<T>(op, kind, batch, ey, ex, cells, shrink, w, t, t_prev,       \
+                           t_next, acc, coef, p_a, p_b, zap, stream);                  \
+  }
+
+VEC_LOCAL_PASS_ENTRY(vec_local_pass_f32, float)
+VEC_LOCAL_PASS_ENTRY(vec_local_pass_f64, double)
 
 extern "C" const char* vec_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -4,25 +4,24 @@ PyTorch-port counterpart of ``gcm_filters_tpu/filter.py``: the same
 constructor arguments, validation order, error messages and warnings,
 ``.apply`` on arrays, tensors and dicts of them (scalar grids),
 ``.apply_to_vector`` on (u, v) pairs (vector grids), the host chunk loops
-``.apply_streamed`` and ``.apply_to_vector_streamed``, ``custom_operator``
-and, for scalar filters, ``mesh`` sharding. ``device`` (default the CUDA
-card) replaces the JAX package's ``use_pallas``: on ``cuda`` every step runs
-the hand-written kernel, on ``cpu`` its plain PyTorch version. There is no
+``.apply_streamed`` and ``.apply_to_vector_streamed``, ``.plot_shape``,
+``.grid_ds``, ``custom_operator``, ``mesh`` sharding of scalar and vector
+filters, and xarray objects when xarray is installed. ``device`` (default
+the CUDA card) replaces the JAX package's ``use_pallas``: on ``cuda`` every
+step runs the hand-written kernel, on ``cpu`` its plain PyTorch version. There is no
 switch that turns the kernel off, and no silent move to the CPU when no card
 is present.
 
 Inputs have the spatial dims last (``(..., y, x)``, latitude first); leading
 dims are batched. ``apply`` and ``apply_to_vector`` return tensors on
 ``device``; the streamed methods return numpy arrays. With a ``mesh``,
-``apply`` returns a ``DTensor`` sharded over it (``.full_tensor()``
-gathers).
-
-Not ported yet (see ROADMAP.md): the xarray adapter, ``plot_shape``,
-``grid_ds`` and ``mesh`` sharding of vector filters.
+``apply`` returns a ``DTensor`` sharded over it and ``apply_to_vector`` a
+pair of them (``.full_tensor()`` gathers).
 """
 from __future__ import annotations
 
 import dataclasses
+import sys
 import warnings
 from dataclasses import field as dc_field
 from typing import Dict, Optional, Sequence, Tuple, Union
@@ -31,7 +30,13 @@ import numpy as np
 import torch
 
 from .engine import _compute_dtype, scalar_filter_apply, vector_filter_apply
-from .filter_spec import FilterShape, compute_filter_spec, compute_n_steps_default
+from .filter_spec import (
+    FilterShape,
+    TargetSpec,
+    compute_filter_spec,
+    compute_n_steps_default,
+    target_function,
+)
 from .models.grids import GridType, is_area_weighted, is_vector_grid, required_grid_vars
 from .ops.cuda.dispatch import make_cuda_scalar_apply, make_cuda_vector_apply
 from .ops.custom import as_protocol_adapter, operator_is_vector
@@ -39,14 +44,42 @@ from .ops.laplacians import build_operator
 from .ops.stencil import BGridVectorStencil, CGridVectorOperator, ScalarStencil5
 
 
-def _validate_dims(dims):
+def _validate_dims(dims, required: bool = False):
     """Normalize/validate the `dims` argument (two spatial dim names)."""
     if dims is None:
+        if required:
+            raise ValueError("xarray inputs require the `dims` argument")
         return None
     dims = tuple(dims)
     if len(dims) != 2:
         raise ValueError("`dims` must name exactly two spatial dimensions")
     return dims
+
+
+def _maybe_xarray():
+    """The xarray module, or None: it is an optional dependency."""
+    try:
+        import xarray as xr
+
+        # reject stand-ins (a test harness may stub an `xarray` module with
+        # bare Dataset/DataArray classes for isinstance checks)
+        if not hasattr(xr, "apply_ufunc"):
+            return None
+        return xr
+    except ImportError:
+        return None
+
+
+def _loaded_xarray():
+    """The xarray module if the program has already imported it, else None.
+
+    ``apply`` and ``apply_to_vector`` ask this on every call: an xarray input
+    implies that xarray is loaded, and unlike :func:`_maybe_xarray` this never
+    attempts an import (a failed import costs the host about a millisecond
+    per call, as much as a whole 11-step apply takes it to enqueue).
+    """
+    xr = sys.modules.get("xarray")
+    return xr if xr is not None and hasattr(xr, "apply_ufunc") else None
 
 
 def _read_chunk(a, lead, start: int, stop: int) -> np.ndarray:
@@ -100,10 +133,11 @@ class Filter:
     mesh, spatial_axes :
         A ``torch.distributed.device_mesh.DeviceMesh`` with named dims plus
         the two dim names to shard the (y, x) spatial dims over, enabling
-        the halo-exchange domain decomposition (scalar filters). ``None``
-        entries leave that dim unsharded. Every rank of the mesh builds the
-        same ``Filter`` from the global ``grid_vars`` and calls ``apply``
-        together; the mesh's device type must be ``device``'s.
+        the halo-exchange domain decomposition (scalar and vector filters).
+        ``None`` entries leave that dim unsharded. Every rank of the mesh
+        builds the same ``Filter`` from the global ``grid_vars`` and calls
+        ``apply`` or ``apply_to_vector`` together; the mesh's device type
+        must be ``device``'s.
     batch_axis : optional str
         A mesh dim to shard dim 0 of a ``(batch, y, x)`` field over.
     halo_steps : optional int
@@ -115,8 +149,8 @@ class Filter:
         A user-built operator instead of a registry grid type;
         ``grid_type``/``grid_vars`` are then ignored. Framework stencil
         types (``ops.stencil.ScalarStencil5``, ``BGridVectorStencil``,
-        ``CGridVectorOperator``) run through the step kernels and, for
-        scalar stencils, mesh sharding. Free-form protocol operators (see
+        ``CGridVectorOperator``) run through the step kernels and mesh
+        sharding. Free-form protocol operators (see
         ops/custom.py) run arbitrary torch math through the eager engine on
         ``device``, single-device only.
     """
@@ -241,7 +275,14 @@ class Filter:
 
     def _vector_fn(self):
         if self._vector is None:
-            if self._is_framework_operator():
+            if self.mesh is not None:
+                from .parallel.sharded import make_sharded_vector_apply
+
+                self._vector = make_sharded_vector_apply(
+                    self.operator, self.filter_spec, self.mesh, self.spatial_axes,
+                    batch_axis=self.batch_axis, halo_steps=self.halo_steps,
+                )
+            elif self._is_framework_operator():
                 self._vector = make_cuda_vector_apply(self.operator, self.filter_spec)
             else:
                 adapter = as_protocol_adapter(self.operator)
@@ -251,6 +292,67 @@ class Filter:
 
     def _operator_name(self) -> str:
         return "custom_operator" if self.custom_operator is not None else str(self.grid_type)
+
+    @property
+    def grid_ds(self):
+        """The grid variables as a dataset.
+
+        An ``xarray.Dataset`` when xarray is installed; otherwise a plain
+        dict copy: xarray is an optional dependency. Grid variables supplied
+        as DataArrays keep their own dim names; plain 2-D arrays get the
+        default ``("y", "x")`` labels.
+        """
+        xr = _maybe_xarray()
+        if xr is not None:
+            def entry(v):
+                if hasattr(v, "dims"):  # DataArray: preserve the user's dims
+                    return v
+                if np.ndim(v) == 2:
+                    return (("y", "x"), np.asarray(v))
+                return v
+
+            return xr.Dataset({k: entry(v) for k, v in self.grid_vars.items()})
+        return dict(self.grid_vars)
+
+    def plot_shape(self, ax=None):
+        """Plot the target filter response and its Chebyshev approximation."""
+        import matplotlib.pyplot as plt
+
+        spec = self.filter_spec
+        F = target_function(
+            self.filter_shape,
+            TargetSpec(spec.s_max, self.filter_scale, self.transition_width),
+        )
+        t = np.linspace(-1, 1, 10001)
+        k = np.sqrt(spec.s_max * (t + 1) / 2)
+        if ax is None:
+            _, ax = plt.subplots()
+        ax.plot(k, F(t), color="tab:blue", label="target filter", linewidth=2.5)
+        ax.plot(
+            k,
+            np.polynomial.chebyshev.chebval(t, spec.p),
+            color="tab:orange",
+            linestyle="--",
+            label=f"Chebyshev approximation (n_steps={self.n_steps})",
+            linewidth=2.5,
+        )
+        ax.axvline(
+            2 * np.pi / self.filter_scale,
+            color="0.3",
+            linestyle=":",
+            label="filter cutoff wavenumber",
+        )
+        # Zoom to the transition band when the grid resolves scales far
+        # below the cutoff; otherwise the interesting region is a sliver.
+        ax.set_xlim(left=0)
+        if self.filter_scale / self.dx_min > 10:
+            ax.set_xlim(right=4 * np.pi / self.filter_scale)
+        ax.set_ylim(bottom=-0.1, top=1.1)
+        ax.set_xlabel("wavenumber k")
+        ax.set_ylabel("filter response")
+        ax.grid(True, alpha=0.4)
+        ax.legend()
+        return ax
 
     def _coerce(self, arr) -> torch.Tensor:
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -271,20 +373,23 @@ class Filter:
 
         Parameters
         ----------
-        ds : array, tensor, or dict of them
+        ds : array, tensor, dict of them, xarray.DataArray or xarray.Dataset
             Data to filter. Arrays must have the spatial dims last, latitude
             first among them (``(..., y, x)``); leading dims are batched.
-            For dicts every variable carrying both spatial dims is
-            filtered; everything else passes through unchanged.
+            For dicts and Datasets every variable carrying both spatial dims
+            is filtered; everything else passes through unchanged.
         dims : sequence of str, optional
-            Names of the two spatial dimensions (dict entries given as
-            ``(array, dims)`` pairs only). Latitude first.
+            Names of the two spatial dimensions (xarray inputs, and dict
+            entries given as ``(array, dims)`` pairs). Latitude first.
         """
         if self._is_vector:
             raise ValueError(
                 f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
                 "The ``.apply`` method is only suitable for scalar Laplacians."
             )
+        xr = _loaded_xarray()
+        if xr is not None and isinstance(ds, (xr.DataArray, xr.Dataset)):
+            return self._apply_xarray(ds, dims)
         if isinstance(ds, dict):
             return self._apply_dict(ds, dims)
         return self._scalar_fn()(self._coerce(ds))
@@ -393,25 +498,80 @@ class Filter:
                 return tuple(np.shape(v)[-2:])
         return None
 
+    def _apply_xarray(self, ds, dims):
+        import xarray as xr
+
+        dims = _validate_dims(dims, required=True)
+
+        if isinstance(ds, xr.Dataset):
+            filtered = ds.copy(deep=True)
+            any_filtered = False
+            for key, var in filtered.variables.items():
+                if all(d in var.dims for d in dims):
+                    filtered[key] = self._apply_xr_dataarray(var, dims)
+                    any_filtered = True
+            if not any_filtered:
+                warnings.warn(
+                    f"No variables in the dataset had all of the given "
+                    f"dimensions ({dims}), so nothing was filtered.",
+                    stacklevel=2,
+                )
+            return filtered
+        return self._apply_xr_dataarray(ds, dims)
+
+    def _xr_out_dtype(self, da) -> np.dtype:
+        if self.dtype is None:
+            return da.dtype
+        return torch.empty(0, dtype=self.dtype).numpy().dtype
+
+    def _apply_xr_dataarray(self, da, dims):
+        import xarray as xr
+
+        fn = self._scalar_fn()
+        return xr.apply_ufunc(
+            lambda x: _to_numpy(fn(self._coerce(x))),
+            da,
+            input_core_dims=[dims],
+            output_core_dims=[dims],
+            output_dtypes=[self._xr_out_dtype(da)],
+            dask="parallelized",
+        )
+
     def apply_to_vector(self, ufield, vfield, dims: Optional[Sequence[str]] = None):
         """Filter a vector field (u, v) with a vector Laplacian.
 
         ``ufield`` and ``vfield`` are arrays or tensors of equal shape with
         the spatial dims last, latitude first (``(..., y, x)``); leading dims
-        are batched. Returns the filtered pair as tensors on ``device``.
-        ``dims`` is accepted for the JAX package's signature; plain arrays
-        carry no dim names, so it is not read.
+        are batched. Returns the filtered pair as tensors on ``device``, or,
+        with a ``mesh``, as ``DTensor``s sharded over it (the inputs are then
+        global fields, identical on every rank, or ``DTensor``s sharded like
+        the results). xarray DataArrays need ``dims``, the names of the two
+        spatial dimensions; plain arrays carry no dim names, so for them it
+        is not read.
         """
         if not self._is_vector:
             raise ValueError(
                 f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
                 "The ``.apply_to_vector`` method is only suitable for vector Laplacians."
             )
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "mesh sharding of vector filters is not ported yet (ROADMAP.md, "
-                "item 14: the sharded vector engine); build the Filter without "
-                "mesh= to filter vectors on one device."
+        xr = _loaded_xarray()
+        if xr is not None and isinstance(ufield, xr.DataArray):
+            dims = _validate_dims(dims, required=True)
+            fn = self._vector_fn()
+
+            def _np_fn(u, v):
+                fu, fv = fn(self._coerce(u), self._coerce(v))
+                return _to_numpy(fu), _to_numpy(fv)
+
+            out_dtype = self._xr_out_dtype(ufield)
+            return xr.apply_ufunc(
+                _np_fn,
+                ufield,
+                vfield,
+                input_core_dims=2 * [dims],
+                output_core_dims=2 * [dims],
+                output_dtypes=[out_dtype, out_dtype],
+                dask="parallelized",
             )
         return self._vector_fn()(self._coerce(ufield), self._coerce(vfield))
 
@@ -430,7 +590,9 @@ class Filter:
         ``data`` may be any array-like (numpy, memory-mapped, zarr array) with
         shape ``(batch..., y, x)`` too large for device memory; chunks of
         ``chunk`` slices are moved to ``device``, filtered, and returned as
-        one numpy array.
+        one numpy array. With a ``mesh`` every chunk goes through the sharded
+        apply and is gathered (a collective: every rank streams the same
+        data and gets the whole result).
         """
         if self._is_vector:
             raise ValueError(
@@ -460,7 +622,8 @@ class Filter:
         Vector twin of :meth:`apply_streamed`: ``ufield`` and ``vfield`` are
         array-likes of equal shape ``(batch..., y, x)``; chunks of ``chunk``
         slice pairs are moved to ``device``, filtered, and returned as two
-        numpy arrays.
+        numpy arrays. With a ``mesh`` every chunk goes through the sharded
+        apply and is gathered, as in :meth:`apply_streamed`.
         """
         if not self._is_vector:
             raise ValueError(
@@ -476,7 +639,7 @@ class Filter:
             )
         if len(shape) < 3:
             fu, fv = self.apply_to_vector(np.asarray(ufield), np.asarray(vfield))
-            return fu.cpu().numpy(), fv.cpu().numpy()
+            return _to_numpy(fu), _to_numpy(fv)
         lead = shape[:-2]
         n = int(np.prod(lead))
         if n == 0:
@@ -488,7 +651,7 @@ class Filter:
             stop = min(start + chunk, n)
             ru, rv = fn(self._coerce(_read_chunk(ufield, lead, start, stop)),
                         self._coerce(_read_chunk(vfield, lead, start, stop)))
-            ru, rv = ru.cpu().numpy(), rv.cpu().numpy()
+            ru, rv = _to_numpy(ru), _to_numpy(rv)
             if out_u is None:
                 out_u = np.empty(shape, dtype=ru.dtype)
                 out_v = np.empty(shape, dtype=rv.dtype)

@@ -8,7 +8,7 @@ engines of both packages, the same arithmetic in the same order, so the
 results agree at f64 rtol 1e-11 / atol 1e-13 (the bar of the JAX tests).
 Framework stencil types passed as ``custom_operator`` go through the step
 kernels' plain versions. Also here: the ``mesh=`` rejection of protocol
-operators and ``apply_to_vector`` with a mesh.
+operators, and scalar and vector filters on a one-rank mesh.
 """
 import numpy as np
 import pytest
@@ -235,10 +235,11 @@ def _one_rank_mesh(tmp_path):
 
 def test_mesh_rejections_and_one_rank_mesh(tmp_path):
     """Protocol operators cannot be sharded (the JAX message); vector filters
-    with a mesh raise NotImplementedError instead of running unsharded; a
-    mesh of another device type than the filter's raises; and a framework
-    stencil as custom_operator runs on a 1x1 mesh and equals the unsharded
-    filter."""
+    with a mesh, registry grids and framework stencils as custom_operator
+    alike, return DTensors equal to the unsharded filter's results, streamed
+    too; a mesh of another device type than the filter's raises; and a
+    framework scalar stencil as custom_operator runs on a 1x1 mesh and
+    equals the unsharded filter."""
     import torch.distributed as dist
     from torch.distributed.tensor import DTensor
 
@@ -257,13 +258,27 @@ def test_mesh_rejections_and_one_rank_mesh(tmp_path):
                       mesh=jmesh, spatial_axes=("y", "x"))
         assert str(et.value) == str(ej.value)
 
-        m = np.ones((16, 32))
-        gv = dict(wet_mask_t=m, wet_mask_q=m, dxT=m, dyT=m, dxCu=m, dyCu=m, dxCv=m, dyCv=m,
-                  dxBu=m, dyBu=m, area_u=m, area_v=m, kappa_iso=m, kappa_aniso=0 * m)
-        vf = gt.Filter(filter_scale=4.0, dx_min=1.0, grid_type=gt.GridType.VECTOR_C_GRID,
-                       grid_vars=gv, device="cpu", mesh=mesh, spatial_axes=("y", "x"))
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            vf.apply_to_vector(m, m)
+        rng = np.random.default_rng(4)
+        m = 0.9 + 0.2 * rng.random((16, 32))
+        one = np.ones((16, 32))
+        gv = dict(wet_mask_t=one, wet_mask_q=one, dxT=m, dyT=m, dxCu=m, dyCu=m, dxCv=m, dyCv=m,
+                  dxBu=m, dyBu=m, area_u=m * m, area_v=m * m, kappa_iso=one, kappa_aniso=0 * one)
+        vkw = dict(filter_scale=4.0, dx_min=1.0, device="cpu")
+        vbase = gt.Filter(grid_type=gt.GridType.VECTOR_C_GRID, grid_vars=gv, **vkw)
+        u, v = rng.random((3, 16, 32)), rng.random((3, 16, 32))
+        want = [a.numpy() for a in vbase.apply_to_vector(u, v)]
+        for vf in (gt.Filter(grid_type=gt.GridType.VECTOR_C_GRID, grid_vars=gv, mesh=mesh,
+                             spatial_axes=("y", "x"), halo_steps=2, **vkw),
+                   gt.Filter(custom_operator=vbase.operator, mesh=mesh,
+                             spatial_axes=("y", "x"), **vkw)):
+            got = vf.apply_to_vector(u, v)
+            assert all(isinstance(g, DTensor) for g in got)
+            streamed = vf.apply_to_vector_streamed(u, v, chunk=2)
+            for g, s, w in zip(got, streamed, want):
+                np.testing.assert_allclose(g.full_tensor().numpy(), w, rtol=1e-12, atol=1e-14)
+                np.testing.assert_allclose(s, w, rtol=1e-12, atol=1e-14)
+        with pytest.raises(ValueError, match="is a vector Laplacian"):
+            vf.apply(one)
 
         with pytest.raises(ValueError, match="'cpu' mesh but the filter's device is 'cuda'"):
             gt.Filter(filter_scale=4.0, dx_min=1.0, mesh=mesh, spatial_axes=("y", "x"))

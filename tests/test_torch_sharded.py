@@ -238,28 +238,14 @@ def _spawn(mesh_key, tmp_path_factory):
     return _SPAWNED[mesh_key]
 
 
-def _run_ranks(mesh_key, tmp_path_factory):
-    workdir = str(tmp_path_factory.mktemp(f"sharded_{mesh_key}"))
-    cases = _cases(mesh_key)
-    arrays, inputs = {}, {}
-    for name, case in cases.items():
-        x, gv = _inputs(case)
-        inputs[name] = (x, gv)
-        arrays[name + "/x"] = x
-        for k, v in gv.items():
-            arrays[f"{name}/gv/{k}"] = v
-    rng = np.random.default_rng(17)
-    arrays["halo/g"] = rng.random((2, 16, 24))
-    arrays["halo/s"] = rng.random((2, 16, 24))
-    np.savez(os.path.join(workdir, "inputs.npz"), **arrays)
-    with open(os.path.join(workdir, "cases.json"), "w") as f:
-        json.dump(cases, f)
-
+def spawn_ranks(script, workdir, mesh_key):
+    """Run ``python <script> <rank> 4 <workdir> <mesh_key>`` for the 4 ranks
+    under a hard timeout; return rank 0's outputs and every rank's report."""
     env = dict(os.environ, OMP_NUM_THREADS="1")
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env["PYTHONPATH"] = root + os.pathsep + env.get("PYTHONPATH", "")
     logs = [open(os.path.join(workdir, f"rank{r}.log"), "w") for r in range(4)]
-    procs = [subprocess.Popen([sys.executable, os.path.abspath(__file__), str(r), "4",
+    procs = [subprocess.Popen([sys.executable, script, str(r), "4",
                                workdir, mesh_key], stdout=logs[r], stderr=subprocess.STDOUT,
                               env=env, cwd=workdir)
              for r in range(4)]
@@ -281,6 +267,27 @@ def _run_ranks(mesh_key, tmp_path_factory):
     assert codes == [0] * 4, f"rank exit codes {codes}:\n{tails}"
     outputs = dict(np.load(os.path.join(workdir, "outputs.npz")))
     reports = [dict(np.load(os.path.join(workdir, f"report{r}.npz"))) for r in range(4)]
+    return outputs, reports
+
+
+def _run_ranks(mesh_key, tmp_path_factory):
+    workdir = str(tmp_path_factory.mktemp(f"sharded_{mesh_key}"))
+    cases = _cases(mesh_key)
+    arrays, inputs = {}, {}
+    for name, case in cases.items():
+        x, gv = _inputs(case)
+        inputs[name] = (x, gv)
+        arrays[name + "/x"] = x
+        for k, v in gv.items():
+            arrays[f"{name}/gv/{k}"] = v
+    rng = np.random.default_rng(17)
+    arrays["halo/g"] = rng.random((2, 16, 24))
+    arrays["halo/s"] = rng.random((2, 16, 24))
+    np.savez(os.path.join(workdir, "inputs.npz"), **arrays)
+    with open(os.path.join(workdir, "cases.json"), "w") as f:
+        json.dump(cases, f)
+
+    outputs, reports = spawn_ranks(os.path.abspath(__file__), workdir, mesh_key)
     return mesh_key, cases, inputs, outputs, reports
 
 
