@@ -63,7 +63,26 @@ and runs these phases; any failed check raises and the script exits non-zero:
     exchange and the chain of 11 local steps are also timed alone;
 14. each step kind of both windowed local vector kernels against its plain
     version at the headlines' extended shape;
-15. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+15. ring small grids: the cases of tests/test_ring.py in float32 (REGULAR,
+    also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
+    with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
+    kappa_aniso 0 and 1 and with 37 steps) through
+    ``Filter(mesh=ResidentMesh(p_y, "cuda"), spatial_axes=("y", None))`` at
+    ``p_y`` 2, 4 and 8: several y-shards resident on the one card, whose step
+    kernel exchanges the halo rows itself. Each result must equal the
+    unsharded kernel path bit for bit and agree with the same ring apply
+    driven by the plain versions on the card; each apply must launch the ring
+    kernel exactly n_steps times (one launch per step, whatever ``p_y``) and
+    no other kernel;
+16. ring headlines (the ring path): the phase-4 workload at ``p_y`` 4, 2 and
+    8 and the phase-7 workloads at ``p_y`` 4, each bitwise equal to the
+    unsharded result of this run, checked against the float64 eager engine
+    and timed beside the unsharded time of this run, with launches = 11 x
+    applies, every other counter 0 and no fallback; then 200 more scalar
+    applies, each bitwise equal to the first;
+17. each step kind of the three ring kernels against its plain version at the
+    headline shape, in float32 and float64;
+18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
 """
@@ -442,6 +461,7 @@ def main():
     # bounds for one apply: per launch (what this kernel design moves) and
     # for the whole filter (one read of field and operands, one write)
     fn = head._scalar_fn()
+    fn_scalar_operands = fn.operands
     ops, p = fn.operands(torch.float32, dev)
     item = 4
     kinds = [FIRST] + [MIDDLE] * (n_steps - 2) + [LAST]
@@ -906,6 +926,9 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import (
         vec_local_pass, vec_local_pass_reference,
     )
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
+        RingState, ring_pass, ring_pass_reference, vec_ring_pass, vec_ring_pass_reference,
+    )
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
 
     svworst = {op: {"float32": [0.0, 0.0], "float64": [0.0, 0.0]} for op in (BGRID, CTAP)}
@@ -916,13 +939,18 @@ def main():
                 "vec_pass_bgrid": vec_pass.launches[BGRID],
                 "vec_pass_ctap": vec_pass.launches[CTAP],
                 "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
-                "vec_local_pass_ctap": vec_local_pass.launches[CTAP]}
+                "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
+                "ring_pass": ring_pass.launches,
+                "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
+                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
 
     def reset_counters():
         cheb_pass.launches = 0
         local_pass.launches = 0
         vec_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+        ring_pass.launches = 0
+        vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 
     def check_sharded_vector(label, op, u, v, dtype_name, **kw):
         filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
@@ -1174,6 +1202,349 @@ def main():
     dist.destroy_process_group()
     store_dir.cleanup()
 
+    # 15. ring small grids: several y-shards resident on the card
+    from gcm_filters_tpu_torch import ResidentMesh
+    from gcm_filters_tpu_torch.parallel.ring import (
+        make_ring_scalar_apply, make_ring_vector_apply,
+    )
+
+    ring_axes = ("y", None)
+    rworst = {"ring_pass": 0.0, "vec_ring_pass_bgrid": 0.0, "vec_ring_pass_ctap": 0.0}
+
+    def bitwise(label, got, want):
+        """Max abs difference, after requiring equality bit for bit (NaNs in
+        the same cells)."""
+        if got.shape != want.shape or got.dtype != want.dtype or got.device.type != "cuda":
+            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} on {got.device}")
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"{label}: NaN positions differ from the unsharded kernel path")
+        ok = ~torch.isnan(want)
+        diff = float((got[ok] - want[ok]).abs().max())
+        if diff != 0.0 or not torch.equal(got[ok], want[ok]):
+            raise AssertionError(f"{label}: differs from the unsharded kernel path, max abs {diff:.3e}")
+        return diff
+
+    def check_ring(label, p_y, fields, **kw):
+        """One ring apply against the unsharded kernel path (bitwise) and the
+        same ring apply on the plain steps (float32 tolerance)."""
+        rmesh = ResidentMesh(p_y, dev)
+        filt = Filter(device=dev, dtype=torch.float32, mesh=rmesh, spatial_axes=ring_axes, **kw)
+        base = Filter(device=dev, dtype=torch.float32, **kw)
+        vector = len(fields) == 2
+        if vector:
+            mine = "vec_ring_pass_" + ("bgrid" if vec_ops[filt.grid_type.name] == BGRID else "ctap")
+            plain = make_ring_vector_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
+                                           pass_fn=vec_ring_pass_reference)
+        else:
+            mine = "ring_pass"
+            plain = make_ring_scalar_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
+                                           exact_nan=filt.exact_nan, pass_fn=ring_pass_reference)
+        reset_fallback_counts()
+        before = counters()
+        got = filt.apply_to_vector(*fields) if vector else (filt.apply(fields[0]),)
+        torch.cuda.synchronize()
+        launched = {k: n - before[k] for k, n in counters().items()}
+        want_launched = {k: filt.n_steps if k == mine else 0 for k in before}
+        if launched != want_launched:
+            raise AssertionError(f"{label}: kernel launches {launched}, expected {want_launched}")
+        if fallback_counts():
+            raise AssertionError(f"{label}: fallbacks recorded: {fallback_counts()}")
+        want = base.apply_to_vector(*fields) if vector else (base.apply(fields[0]),)
+        ref = plain(*(filt._coerce(f) for f in fields))
+        ref = ref if vector else (ref,)
+        a = vs_un = 0.0
+        for comp, g, w, r in zip("uv", got, want, ref):
+            if type(g) is not torch.Tensor:
+                raise AssertionError(f"{label}: the ring returned {type(g).__name__}")
+            vs_un = max(vs_un, bitwise(f"{label} {comp}", g, w))
+            a = max(a, compare(f"{label} {comp} vs plain ring", g, r, "float32")[0])
+        rworst[mine] = max(rworst[mine], a)
+        log(f"  {label}: vs the unsharded kernel path max abs {vs_un:.3e}; vs the plain ring "
+            f"max abs {a:.3e} ({launched[mine]} launches for {p_y} shards)")
+        return got
+
+    rshape = (768, 256)
+    rrng = np.random.default_rng(5)
+    ones_r = np.ones(rshape)
+    wet2 = ones_r.copy()
+    wet2[:2] = 0
+    wet1 = ones_r.copy()
+    wet1[0] = 0
+    pop = GridType.TRIPOLAR_POP_WITH_LAND
+    _, pop_gv = scalar_grid_data(pop, required_grid_vars(pop), rshape)
+    x_r = rrng.random(rshape)
+    x_nan = x_r.copy()
+    x_nan[10, 20] = np.nan  # a wet cell
+    std = dict(filter_scale=6.0, dx_min=1.0)
+    ring_scalar_cases = [
+        ("REGULAR", x_r, dict(std)),
+        ("REGULAR n_steps=37", x_r, dict(std, n_steps=37)),
+        ("IRREGULAR_WITH_LAND", x_r, dict(
+            std, grid_type=GridType.IRREGULAR_WITH_LAND,
+            grid_vars=dict(wet_mask=wet2, dxw=ones_r, dyw=ones_r, dxs=ones_r, dys=ones_r,
+                           area=ones_r, kappa_w=ones_r, kappa_s=ones_r))),
+        (tri.name, x_nan, dict(std, grid_type=tri, grid_vars={
+            "area": 0.9 + 0.2 * rrng.random(rshape), "wet_mask": wet1})),
+        (pop.name, x_nan, dict(std, grid_type=pop, grid_vars=pop_gv)),
+        ("REGULAR_WITH_LAND exact_nan, wet NaN", x_nan, dict(
+            std, grid_type=GridType.REGULAR_WITH_LAND, grid_vars={"wet_mask": wet2},
+            exact_nan=True)),
+        ("REGULAR nx=250", rrng.random((768, 250)), dict(std)),
+    ]
+    log(f"ring small grids at {rshape}, float32, y-shards resident on the card "
+        f"(one launch per step for all shards):")
+    for p_y in (2, 4, 8):
+        for name, x, kw in ring_scalar_cases:
+            got = check_ring(f"ring p_y={p_y} {name}", p_y, (x,), **kw)[0]
+            if x is x_nan and not bool(torch.isnan(got[10, 20])):
+                raise AssertionError("a NaN cell must stay NaN")
+        one_row = (p_y, 70)
+        d, v = scalar_grid_data(tri, required_grid_vars(tri), (8, 70))
+        check_ring(f"ring p_y={p_y} {tri.name} one-row shards {one_row}", p_y,
+                   (d[:p_y],), **dict(std, filter_scale=4.0, grid_type=tri,
+                                      grid_vars={k: a[:p_y] for k, a in v.items()}))
+        u_r, v_r = rrng.random(rshape), rrng.random(rshape)
+        for gname, ka, extra in (("VECTOR_B_GRID", 0.0, {}), ("VECTOR_C_GRID", 0.0, {}),
+                                 ("VECTOR_C_GRID", 1.0, {}),
+                                 ("VECTOR_C_GRID", 0.0, {"n_steps": 37})):
+            gv = unit_vector_grid_vars(gname, rshape, np.random.default_rng(9), ka)
+            tag = f" kappa_aniso={ka:g}" if gname == "VECTOR_C_GRID" else ""
+            tag += "".join(f" {k}={val}" for k, val in extra.items())
+            check_ring(f"ring p_y={p_y} {gname}{tag}", p_y, (u_r, v_r),
+                       **dict(std, grid_type=GridType[gname], grid_vars=gv, **extra))
+
+    # 16. ring headlines: the phase-4 and phase-7 workloads on resident shards
+    def ring_state(fn):
+        """The one (RingState, p) of a ring apply that has run one shape."""
+        (state, p_), = fn.shape_cache.values()
+        return state, p_
+
+    def ring_headline(label, mine, p_y, fields_np, fields_dev, unsharded, want64, **kw):
+        filt = Filter(device=dev, dtype=torch.float32, mesh=ResidentMesh(p_y, dev),
+                      spatial_axes=ring_axes, **kw)
+        vector = len(fields_np) == 2
+        run = filt.apply_to_vector if vector else filt.apply
+        torch.cuda.synchronize()
+        reset_fallback_counts()
+        reset_counters()
+        t0 = time.perf_counter()
+        first = run(*fields_np)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        for _ in range(warm):
+            run(*fields_dev)
+        ms, host = event_ms(lambda: run(*fields_dev), chain, host=True)
+        counts = counters()
+        n_launched = counts.pop(mine)
+        fb = fallback_counts()
+        log(f"ring headline {label}, p_y={p_y}, n_steps {filt.n_steps}: {n_launched} {mine} "
+            f"launches over {applies} applies (first apply with operand set-up {first_s:.2f} s), "
+            f"other kernels {counts}, fallbacks {fb}")
+        if n_launched != filt.n_steps * applies:
+            raise AssertionError(f"expected {filt.n_steps * applies} launches, saw {n_launched}")
+        if any(counts.values()):
+            raise AssertionError(f"the ring path launched another kernel: {counts}")
+        if fb:
+            raise AssertionError(f"fallbacks recorded on the kernel path: {fb}")
+        first = first if vector else (first,)
+        err = vs_un = 0.0
+        for comp, g, un, w in zip("uv", first, unsharded, want64):
+            vs_un = max(vs_un, bitwise(f"ring headline {label} p_y={p_y} {comp}", g, un))
+            if not bool(torch.isfinite(g).all()):
+                raise AssertionError(f"ring headline {label} {comp} is not finite")
+            torch.testing.assert_close(g.double(), w, rtol=1e-4, atol=1e-5)
+            err = max(err, float((g.double() - w).abs().max()))
+        log(f"  vs the unsharded kernel path max abs {vs_un:.3e} (bit for bit); vs eager engine in "
+            f"float64 max abs {err:.3e}; {ms:.4f} ms/apply (host enqueue {host:.4f} ms/apply) on {smi}")
+        return filt, first, ms, host, n_launched, err, vs_un
+
+    head_kw = dict(filter_scale=10.0, dx_min=1.0, grid_type=tri,
+                   grid_vars={"area": area, "wet_mask": wet})
+    want64 = scalar_filter_apply(head.operator, head.filter_spec, x_dev.double())
+    ring_by_p = {}
+    for p_y in (4, 2, 8):
+        rhead, (r_out,), ms_r, host_r, r_launches, r_err, r_vs_un = ring_headline(
+            f"{ny}x{nx} float32 {tri.name}", "ring_pass", p_y, (field,), (x_dev,), (out,),
+            (want64,), **head_kw)
+        ring_by_p[p_y] = dict(ms=ms_r, host_enqueue_ms=host_r)
+        if p_y == 4:
+            kept4 = (rhead, r_out, ms_r, host_r, r_launches, r_err, r_vs_un)
+        else:
+            del rhead, r_out
+    del want64
+    rhead, r_out, ms_ring, host_ring, ring_launches, ring_err, ring_vs_un = kept4
+    if host_ring > ms_ring:
+        log(f"  the host holds the card back: {host_ring:.4f} ms to enqueue a {ms_ring:.4f} ms apply")
+    # a race in the exchange would show as a flicker between repeats
+    for k in range(200):
+        if not torch.equal(rhead.apply(x_dev), r_out):
+            raise AssertionError(f"ring apply {k + 2} differs from the first")
+    log("  200 more scalar ring applies, each bitwise equal to the first")
+    ms_unsharded_again = event_ms(lambda: head.apply(x_dev), chain)
+
+    rfn = rhead._scalar_fn()
+    rstate, rp_ = ring_state(rfn)
+    plain_ring = make_ring_scalar_apply(rhead.operator, rhead.filter_spec, rhead.mesh, ring_axes,
+                                        pass_fn=ring_pass_reference)
+    plain_ring(x_dev)
+    ms_ring_plain = event_ms(lambda: plain_ring(x_dev), 5)
+    del plain_ring
+    # the unsharded steps' bytes plus, per step, 2*p_y halo rows written and read
+    halo_bytes = lambda p_y, comps: 2 * (2 * p_y) * comps * nx * item  # noqa: E731
+    ring_bytes = apply_bytes + n_steps * halo_bytes(4, 1)
+    rb_ms, rb_by = bound_ms(ring_bytes, apply_flops, "float32")
+    ms_rmid = event_ms(lambda: ring_pass(rstate, MIDDLE, rp_[2], swap=0), 100)
+    rmid_ms, _ = bound_ms(step_bytes(MIDDLE, ops, 1, ny, nx, item) + halo_bytes(4, 1),
+                          FLOPS_PER_CELL_STEP * ny * nx, "float32")
+    log(f"ring scalar headline: {ms_ring:.4f} ms/apply at p_y=4 ({ring_by_p[2]['ms']:.4f} at 2, "
+        f"{ring_by_p[8]['ms']:.4f} at 8) beside the unsharded {ms_apply:.4f} (again just now "
+        f"{ms_unsharded_again:.4f}); per-launch bound {rb_ms:.4f} ms ({ring_bytes / 1e9:.3f} GB, "
+        f"{rb_by}); plain ring steps {ms_ring_plain:.4f} ms/apply; middle step {ms_rmid:.4f} ms "
+        f"vs bound {rmid_ms:.4f} ms")
+
+    # 17 (scalar). each step kind against its plain version, headline shape
+    def ring_step_kinds(label, ops_r, ly, p_, load, pass_fn, ref_fn, dtype, dtype_name):
+        """FIRST, MIDDLE and LAST of a ring kernel against its plain version
+        on twin states, the plain one fed the kernel's carries before each
+        step; returns the largest abs difference."""
+        k_state, r_state = (RingState(ops_r, ly, nx, dtype, dev) for _ in "kr")
+        names = ("a", "b", "acc")
+        worst_ = 0.0
+        for kind, args, kw_ in ((FIRST, (p_[0], p_[1]), {}), (MIDDLE, (p_[2],), {"swap": 0}),
+                                (LAST, (p_[3],), {"swap": 1})):
+            if kind == FIRST:
+                load(k_state), load(r_state)
+            else:
+                for nm in names:
+                    for kb, rb in zip(getattr(k_state, nm), getattr(r_state, nm)):
+                        rb.copy_(kb)
+            pass_fn(k_state, kind, *args, **kw_)
+            ref_fn(r_state, kind, *args, **kw_)
+            torch.cuda.synchronize()
+            for nm in (("acc",) if kind == LAST else names):
+                for r, (kb, rb) in enumerate(zip(getattr(k_state, nm), getattr(r_state, nm))):
+                    worst_ = max(worst_, compare(f"{label} kind {kind} {nm} of shard {r}",
+                                                 kb, rb, dtype_name)[0])
+        return worst_
+
+    def load_scalar(dtype):
+        def load(state):
+            for r, f in enumerate(state.field):
+                f.copy_(x_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
+        return load
+
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import RingOperands, VecRingOperands
+
+    rstep_err = ring_step_kinds("ring step float32", rstate.ops, ny // 4, rp_,
+                                load_scalar(torch.float32), ring_pass, ring_pass_reference,
+                                torch.float32, "float32")
+    ops64, p64 = fn_scalar_operands(torch.float64, dev)
+    rstep_err64 = ring_step_kinds("ring step float64", RingOperands.cut(ops64, 4), ny // 4, p64,
+                                  load_scalar(torch.float64), ring_pass, ring_pass_reference,
+                                  torch.float64, "float64")
+    del ops64
+    log(f"ring step kinds vs plain at {ny}x{nx}, 4 shards: max abs {rstep_err:.3e} (float32), "
+        f"{rstep_err64:.3e} (float64)")
+    ring_results = [{
+        "name": "ring_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1377",
+        "launches": ring_launches,
+        "max_abs_err": max(rstep_err, rstep_err64, rworst["ring_pass"]),
+        "vs_unsharded_kernel_max_abs": ring_vs_un,
+        "headline_vs_f64_engine_max_abs": ring_err,
+        "ms": ms_ring,
+        "plain_ms": ms_ring_plain,
+        "bound_ms": rb_ms,
+        "bound_by": rb_by,
+        "library_ms": None,
+        "unit": f"one ring headline apply = {n_steps} launches for 4 resident y-shards, "
+                f"{ny}x{nx} float32",
+        "filter_bound_ms": fb_ms,
+        "middle_step_ms": ms_rmid,
+        "middle_step_bound_ms": rmid_ms,
+        "unsharded_ms": ms_apply,
+        "host_enqueue_ms": host_ring,
+        "p_y": 4,
+        "ms_by_p_y": {str(k): v["ms"] for k, v in sorted(ring_by_p.items())},
+    }]
+    del rhead, rstate, rfn, r_out, kept4
+
+    # 16 and 17 (vector). the B-grid and C-grid ring headlines and their step kinds
+    def load_vector(dtype):
+        def load(state):
+            for r, w_ in enumerate(state.input):
+                w_[0].copy_(u_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
+                w_[1].copy_(v_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
+        return load
+
+    for gname, op in vec_ops.items():
+        key = "bgrid" if op == BGRID else "ctap"
+        mine = f"vec_ring_pass_{key}"
+        kept = vec_kept[op]
+        vkw = dict(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname], grid_vars=kept["gv"])
+        rv, _, ms_rv, host_rv, rv_launches, rv_err, rv_vs_un = ring_headline(
+            f"{ny}x{nx} float32 {gname}", mine, 4, (u_h, v_h), (u_dev, v_dev), kept["out"],
+            kept["want"], **vkw)
+        vn = rv.n_steps
+        vstate, vp4 = ring_state(rv._vector_fn())
+        n_coef = vstate.ops.coefs[0].shape[0]
+        plain_rv = make_ring_vector_apply(rv.operator, rv.filter_spec, rv.mesh, ring_axes,
+                                          pass_fn=vec_ring_pass_reference)
+        plain_rv(u_dev, v_dev)
+        ms_rv_plain = event_ms(lambda: plain_rv(u_dev, v_dev), 3)
+        del plain_rv
+        vkinds = [FIRST] + [MIDDLE] * (vn - 2) + [LAST]
+        rv_bytes = (sum(vec_step_bytes(k, n_coef, 1, ny, nx, item) for k in vkinds)
+                    + vn * halo_bytes(4, 2))
+        rv_flops = VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * vn
+        rvb_ms, rvb_by = bound_ms(rv_bytes, rv_flops, "float32")
+        ms_rvmid = event_ms(lambda: vec_ring_pass(vstate, MIDDLE, vp4[2], swap=0), 100)
+        rvmid_ms, _ = bound_ms(vec_step_bytes(MIDDLE, n_coef, 1, ny, nx, item) + halo_bytes(4, 2),
+                               VEC_FLOPS_PER_CELL_STEP[key] * ny * nx, "float32")
+        log(f"ring {gname} headline: {ms_rv:.4f} ms/apply at p_y=4 beside the unsharded "
+            f"{vec_results[op]['ms']:.4f}; per-launch bound {rvb_ms:.4f} ms "
+            f"({rv_bytes / 1e9:.3f} GB, {rvb_by}); plain ring steps {ms_rv_plain:.4f} ms/apply; "
+            f"middle step {ms_rvmid:.4f} ms vs bound {rvmid_ms:.4f} ms")
+        rvstep = ring_step_kinds(f"ring {gname} step float32", vstate.ops, ny // 4, vp4,
+                                 load_vector(torch.float32), vec_ring_pass,
+                                 vec_ring_pass_reference, torch.float32, "float32")
+        vops64, vp64 = make_cuda_vector_apply(rv.operator, rv.filter_spec).operands(
+            torch.float64, dev)
+        vops64 = VecRingOperands.cut(vops64, 4)
+        rvstep64 = ring_step_kinds(f"ring {gname} step float64", vops64, ny // 4, vp64,
+                                   load_vector(torch.float64), vec_ring_pass,
+                                   vec_ring_pass_reference, torch.float64, "float64")
+        del vops64
+        log(f"ring {gname} step kinds vs plain at {ny}x{nx}, 4 shards: max abs {rvstep:.3e} "
+            f"(float32), {rvstep64:.3e} (float64)")
+        ring_results.append({
+            "name": mine,
+            "route": "cuda",
+            "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
+            "replaces": "gcm_filters_tpu/ops/pallas/vec_pass.py:"
+                        + ("567" if op == BGRID else "575") + " (ring mode, :280-343)",
+            "launches": rv_launches,
+            "max_abs_err": max(rvstep, rvstep64, rworst[mine]),
+            "vs_unsharded_kernel_max_abs": rv_vs_un,
+            "headline_vs_f64_engine_max_abs": rv_err,
+            "ms": ms_rv,
+            "plain_ms": ms_rv_plain,
+            "bound_ms": rvb_ms,
+            "bound_by": rvb_by,
+            "library_ms": None,
+            "unit": f"one ring headline apply = {vn} launches for 4 resident y-shards, "
+                    f"{ny}x{nx} float32 {gname}",
+            "filter_bound_ms": vec_results[op]["filter_bound_ms"],
+            "middle_step_ms": ms_rvmid,
+            "middle_step_bound_ms": rvmid_ms,
+            "unsharded_ms": vec_results[op]["ms"],
+            "host_enqueue_ms": host_rv,
+            "p_y": 4,
+        })
+        del rv, vstate
+
     kernels = [{
         "name": "cheb_pass",
         "route": "cuda",
@@ -1214,7 +1585,7 @@ def main():
         "exchange_ms": ms_exchange,
         "steps_alone_ms": ms_chain,
         "host_enqueue_ms": host_sharded,
-    }, svec_results[BGRID], svec_results[CTAP]]
+    }, svec_results[BGRID], svec_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

@@ -11,7 +11,10 @@ Public API:
     streamed twins (``device`` picks the card, default ``cuda``;
     ``device="cpu"`` runs the plain PyTorch versions of the kernels;
     ``mesh``/``spatial_axes`` shard scalar and vector filtering over a
-    ``DeviceMesh``), plus ``plot_shape`` and ``grid_ds``
+    ``DeviceMesh``, or over a ``ResidentMesh`` through the ring engine), plus
+    ``plot_shape`` and ``grid_ds``
+  - ``ResidentMesh``       -- several y-shards held on one device, the mesh
+    of the ring engine (parallel/ring.py)
   - ``BaseScalarOperator``, ``BaseVectorOperator`` -- bases for free-form
     ``Filter(custom_operator=...)`` operators
   - ``FilterShape``        -- GAUSSIAN | TAPER target shapes
@@ -23,6 +26,7 @@ from .models.grids import GridType, required_grid_vars
 from .filter_spec import FilterShape, FilterSpec, filter_params
 from .filter import Filter
 from .ops.custom import BaseScalarOperator, BaseVectorOperator
+from .parallel.ring import ResidentMesh
 
 __version__ = "0.1.0"
 
@@ -33,6 +37,7 @@ __all__ = [
     "FilterShape",
     "FilterSpec",
     "GridType",
+    "ResidentMesh",
     "required_grid_vars",
     "filter_params",
     "__version__",

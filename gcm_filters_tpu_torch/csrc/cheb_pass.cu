@@ -22,7 +22,9 @@
 //            acc is updated in place and holds the result.
 //
 // Design: one thread per cell, one launch per Chebyshev step; the four
-// neighbour reads come through L1/L2. Batch rides gridDim.z; coefficients
+// neighbour reads come through L1/L2. The per-cell arithmetic (gathered(),
+// step_cell()) lives in cheb_step.cuh, shared with the ring step kernel
+// (ring_pass.cu); a thread gathers its five values first, then steps. Batch rides gridDim.z; coefficients
 // are shared by every batch entry. Constant coefficients arrive as
 // immediates (null pointer + value).
 //
@@ -37,64 +39,9 @@
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cheb_step.cuh"
 
 namespace {
-
-enum Kind { FIRST = 0, MIDDLE = 1, LAST = 2 };
-
-template <typename T> struct Lim;
-template <> struct Lim<float> { static __device__ __forceinline__ float max() { return FLT_MAX; } };
-template <> struct Lim<double> { static __device__ __forceinline__ double max() { return DBL_MAX; } };
-
-// torch.nan_to_num / jnp.nan_to_num: NaN -> 0, +-inf -> +-largest finite.
-template <typename T>
-__device__ __forceinline__ T nan_to_num(T x) {
-  if (isnan(x)) return T(0);
-  if (isinf(x)) return x > T(0) ? Lim<T>::max() : -Lim<T>::max();
-  return x;
-}
-
-template <typename T>
-struct Args {
-  int ny, nx;
-  const T* field;   // raw field (FIRST, LAST)
-  const T* t;       // T_k (MIDDLE, LAST)
-  const T* t_prev;  // T_{k-1} (MIDDLE, LAST)
-  T* t_next;        // T_{k+1} (FIRST, MIDDLE); may alias t_prev
-  T* acc;           // running sum, updated in place
-  T* h;             // T_0 output (FIRST)
-  const T* coef[5]; // c, n, s, e, w (pre-scaled); null -> cval
-  T cval[5];
-  const T* pre;
-  const T* post;
-  const T* area;
-  T p_a, p_b, land_gain;
-  int zap, fold, drop_pre;
-};
-
-// The value the stencil contracts over at plane offset `k` (batch base `b`).
-template <typename T, int KIND>
-__device__ __forceinline__ T gathered(const Args<T>& a, int64_t b, int64_t k) {
-  T x;
-  if (KIND == FIRST) {
-    x = a.field[b + k];
-    if (a.area) x = x * a.area[k];
-    if (a.drop_pre) x = a.post[k] * nan_to_num(x);
-  } else {
-    x = a.t[b + k];
-  }
-  if (a.zap) x = nan_to_num(x);
-  if (a.pre) x = a.pre[k] * x;
-  return x;
-}
-
-template <typename T>
-__device__ __forceinline__ T coef(const Args<T>& a, int m, int64_t k) {
-  return a.coef[m] ? a.coef[m][k] : a.cval[m];
-}
 
 template <typename T, int KIND>
 __global__ void cheb_pass_kernel(const Args<T> a) {
@@ -113,37 +60,9 @@ __global__ void cheb_pass_kernel(const Args<T> a) {
   const int64_t ke = i + 1 < nx ? k + 1 : (int64_t)j * nx;
   const int64_t kw = i > 0 ? k - 1 : (int64_t)j * nx + nx - 1;
 
-  const T g = gathered<T, KIND>(a, b, k);
-  T lap = coef(a, 0, k) * g + coef(a, 1, k) * gathered<T, KIND>(a, b, kn) +
-          coef(a, 2, k) * gathered<T, KIND>(a, b, ks);
-  lap = lap + coef(a, 3, k) * gathered<T, KIND>(a, b, ke) +
-        coef(a, 4, k) * gathered<T, KIND>(a, b, kw);
-  if (a.post) lap = a.post[k] * lap;
-
-  if (KIND == FIRST) {
-    // T_0 = h is the un-masked-by-pre value at this cell
-    T h = a.field[b + k];
-    if (a.area) h = h * a.area[k];
-    if (a.drop_pre) h = a.post[k] * nan_to_num(h);
-    const T t1 = -h + T(0.5) * lap;
-    a.h[b + k] = h;
-    a.t_next[b + k] = t1;
-    a.acc[b + k] = a.p_a * h + a.p_b * t1;
-    return;
-  }
-
-  const T nxt = T(-2) * a.t[b + k] + lap - a.t_prev[b + k];
-  T acc = a.acc[b + k] + a.p_a * nxt;
-  if (KIND == MIDDLE) {
-    a.t_next[b + k] = nxt;  // in place over t_prev: only this cell read it
-    a.acc[b + k] = acc;     // in place
-    return;
-  }
-  T fbar = a.field[b + k];
-  if (a.area) fbar = fbar * a.area[k];
-  if (a.drop_pre) acc = a.post[k] == T(0) ? a.land_gain * fbar : acc + fbar * T(0);
-  if (a.area) acc = acc / a.area[k];
-  a.acc[b + k] = acc;  // in place: the filtered result
+  step_cell<T, KIND>(a, b, k, gathered<T, KIND>(a, b, k), gathered<T, KIND>(a, b, kn),
+                     gathered<T, KIND>(a, b, ks), gathered<T, KIND>(a, b, ke),
+                     gathered<T, KIND>(a, b, kw));
 }
 
 template <typename T>

@@ -35,7 +35,9 @@
 // Design: one thread per cell computes both the u and the v output, so each
 // neighbour load serves both components' contractions and each coefficient
 // is read once per cell. One template step kernel, instantiated for the two
-// contraction functors, three step kinds, float and double. Batch rides
+// contraction functors (BGridLap, CTapLap in vec_step.cuh, shared with the
+// ring step kernels of ring_pass.cu, as is the recurrence vec_step_cell()),
+// three step kinds, float and double. Batch rides
 // gridDim.z. Neighbour reads come through L1/L2.
 //
 // Bound: memory. A MIDDLE step of the 2400x3600 float32 headline reads t,
@@ -77,100 +79,12 @@
 //
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "vec_step.cuh"
 
 namespace {
 
-enum Kind { FIRST = 0, MIDDLE = 1, LAST = 2 };
-enum Op { BGRID = 0, CTAP = 1 };
-
-template <typename T> struct Lim;
-template <> struct Lim<float> { static __device__ __forceinline__ float max() { return FLT_MAX; } };
-template <> struct Lim<double> { static __device__ __forceinline__ double max() { return DBL_MAX; } };
-
-// torch.nan_to_num / jnp.nan_to_num: NaN -> 0, +-inf -> +-largest finite.
-template <typename T>
-__device__ __forceinline__ T nan_to_num(T x) {
-  if (isnan(x)) return T(0);
-  if (isinf(x)) return x > T(0) ? Lim<T>::max() : -Lim<T>::max();
-  return x;
-}
-
-template <typename T>
-struct Args {
-  int ny, nx;
-  const T* w;       // T_0, the stacked input (FIRST)
-  const T* t;       // T_k (MIDDLE, LAST)
-  const T* t_prev;  // T_{k-1} (MIDDLE, LAST)
-  T* t_next;        // T_{k+1} (FIRST, MIDDLE); may alias t_prev
-  T* acc;           // running sum, updated in place
-  const T* coef;    // (n_coef, ny, nx), pre-scaled
-  T p_a, p_b;
-  int zap;
-};
-
-// Plane offsets of a cell's neighbours: periodic on both axes in the global
-// entries, constants of the pitch in the windowed local entries.
-struct Nbr {
-  int64_t c, n, s, e, w, nw, se;
-};
-
-// The contraction input of component `comp` at plane offset `k`.
-template <typename T>
-struct Gather {
-  const T* src;  // this batch entry's u plane; v follows one plane later
-  int64_t plane;
-  int zap;
-  __device__ __forceinline__ T operator()(int comp, int64_t k) const {
-    const T x = src[comp * plane + k];
-    return zap ? nan_to_num(x) : x;
-  }
-};
-
-// B-grid (_bgrid_lap): diffusion 5-point set on each component plus the
-// mixing 5-point set of the other component.
-struct BGridLap {
-  template <typename T, typename G>
-  static __device__ __forceinline__ void apply(const T* c, int64_t P, const Nbr& x,
-                                               const G& g, T& lu, T& lv) {
-    const T u0 = g(0, x.c), uN = g(0, x.n), uS = g(0, x.s), uE = g(0, x.e), uW = g(0, x.w);
-    const T v0 = g(1, x.c), vN = g(1, x.n), vS = g(1, x.s), vE = g(1, x.e), vW = g(1, x.w);
-    const T cc = c[0 * P + x.c], dn = c[1 * P + x.c], ds = c[2 * P + x.c],
-            de = c[3 * P + x.c], dw = c[4 * P + x.c];
-    const T mc = c[5 * P + x.c], mn = c[6 * P + x.c], ms = c[7 * P + x.c],
-            me = c[8 * P + x.c], mw = c[9 * P + x.c];
-    const T diff_u = cc * u0 + dn * uN + ds * uS + de * uE + dw * uW;
-    const T diff_v = cc * v0 + dn * vN + ds * vS + de * vE + dw * vW;
-    const T mix_u = mc * u0 + mn * uN + ms * uS + me * uE + mw * uW;
-    const T mix_v = mc * v0 + mn * vN + ms * vS + me * vE + mw * vW;
-    lu = diff_u + mix_v;  // u picks up S_mix(v)
-    lv = diff_v + mix_u;  // v picks up S_mix(u)
-  }
-};
-
-// C-grid taps (_ctap_lap), coefficient planes in CTAPS order.
-struct CTapLap {
-  template <typename T, typename G>
-  static __device__ __forceinline__ void apply(const T* c, int64_t P, const Nbr& x,
-                                               const G& g, T& lu, T& lv) {
-    const T u0 = g(0, x.c), uW = g(0, x.w), uE = g(0, x.e), uS = g(0, x.s), uN = g(0, x.n);
-    const T uNW = g(0, x.nw);  // u[j+1, i-1]
-    const T v0 = g(1, x.c), vW = g(1, x.w), vE = g(1, x.e), vS = g(1, x.s), vN = g(1, x.n);
-    const T vSE = g(1, x.se);  // v[j-1, i+1]
-    const int64_t k = x.c;
-    lu = c[0 * P + k] * u0 + c[1 * P + k] * uW + c[2 * P + k] * uE + c[3 * P + k] * uS +
-         c[4 * P + k] * uN + c[5 * P + k] * v0 + c[6 * P + k] * vS + c[7 * P + k] * vE +
-         c[8 * P + k] * vSE;
-    lv = c[9 * P + k] * v0 + c[10 * P + k] * vW + c[11 * P + k] * vE + c[12 * P + k] * vS +
-         c[13 * P + k] * vN + c[14 * P + k] * u0 + c[15 * P + k] * uW + c[16 * P + k] * uN +
-         c[17 * P + k] * uNW;
-  }
-};
-
 template <typename T, typename OP, int KIND>
-__global__ void vec_pass_kernel(const Args<T> a) {
+__global__ void vec_pass_kernel(const VecArgs<T> a) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   const int j = blockIdx.y * blockDim.y + threadIdx.y;
   if (i >= a.nx || j >= a.ny) return;
@@ -194,31 +108,11 @@ __global__ void vec_pass_kernel(const Args<T> a) {
 
   T lu, lv;
   OP::apply(a.coef, P, x, Gather<T>{(KIND == FIRST ? a.w : a.t) + bu, P, a.zap}, lu, lv);
-  const int64_t k = x.c;
-
-  if (KIND == FIRST) {
-    const T u0 = a.w[bu + k], v0 = a.w[bv + k];  // raw values
-    const T tu = -u0 + T(0.5) * lu;
-    const T tv = -v0 + T(0.5) * lv;
-    a.t_next[bu + k] = tu;
-    a.t_next[bv + k] = tv;
-    a.acc[bu + k] = a.p_a * u0 + a.p_b * tu;
-    a.acc[bv + k] = a.p_a * v0 + a.p_b * tv;
-    return;
-  }
-  const T nu = T(-2) * a.t[bu + k] + lu - a.t_prev[bu + k];
-  const T nv = T(-2) * a.t[bv + k] + lv - a.t_prev[bv + k];
-  if (KIND == MIDDLE) {
-    // in place over t_prev: only this cell read it
-    a.t_next[bu + k] = nu;
-    a.t_next[bv + k] = nv;
-  }
-  a.acc[bu + k] = a.acc[bu + k] + a.p_a * nu;  // in place
-  a.acc[bv + k] = a.acc[bv + k] + a.p_a * nv;
+  vec_step_cell<T, KIND>(a, bu + x.c, bv + x.c, bu + x.c, bv + x.c, true, lu, lv);
 }
 
 template <typename T, typename OP>
-void launch_kind(int kind, dim3 grid, dim3 block, cudaStream_t st, const Args<T>& a) {
+void launch_kind(int kind, dim3 grid, dim3 block, cudaStream_t st, const VecArgs<T>& a) {
   switch (kind) {
     case FIRST: vec_pass_kernel<T, OP, FIRST><<<grid, block, 0, st>>>(a); break;
     case MIDDLE: vec_pass_kernel<T, OP, MIDDLE><<<grid, block, 0, st>>>(a); break;
@@ -234,7 +128,7 @@ int launch(int op, int kind, int batch, int ny, int nx, const T* w, const T* t,
   if (batch < 1 || ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;
   if (kind != FIRST && kind != MIDDLE && kind != LAST) return (int)cudaErrorInvalidValue;
   if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
-  Args<T> a;
+  VecArgs<T> a;
   a.ny = ny; a.nx = nx;
   a.w = w; a.t = t; a.t_prev = t_prev; a.t_next = t_next; a.acc = acc; a.coef = coef;
   a.p_a = T(p_a); a.p_b = T(p_b);
@@ -286,35 +180,11 @@ __global__ void vec_local_pass_kernel(const LocalArgs<T> a) {
   OP::apply(a.coef, P, x, Gather<T>{(KIND == FIRST ? a.w : a.t) + bu, P, a.zap}, lu, lv);
   const int64_t k = x.c;
 
-  const bool in_core = i >= c && i < ex - c && j >= c && j < ey - c;
+  const bool in_core = i >= c && i < ex - c && j >= c && j < ey - c;  // LAST: the window is the core
   const int lx = ex - 2 * c;
   const int64_t Pc = (int64_t)(ey - 2 * c) * lx;
   const int64_t ku = (int64_t)blockIdx.z * 2 * Pc + (int64_t)(j - c) * lx + (i - c);
-  const int64_t kv = ku + Pc;
-
-  if (KIND == FIRST) {
-    const T u0 = a.w[bu + k], v0 = a.w[bv + k];  // raw values
-    const T tu = -u0 + T(0.5) * lu;
-    const T tv = -v0 + T(0.5) * lv;
-    a.t_next[bu + k] = tu;
-    a.t_next[bv + k] = tv;
-    if (in_core) {
-      a.acc[ku] = a.p_a * u0 + a.p_b * tu;
-      a.acc[kv] = a.p_a * v0 + a.p_b * tv;
-    }
-    return;
-  }
-  const T nu = T(-2) * a.t[bu + k] + lu - a.t_prev[bu + k];
-  const T nv = T(-2) * a.t[bv + k] + lv - a.t_prev[bv + k];
-  if (KIND == MIDDLE) {
-    // in place over t_prev: only this cell read it
-    a.t_next[bu + k] = nu;
-    a.t_next[bv + k] = nv;
-  }
-  if (in_core) {  // LAST: the window is the core
-    a.acc[ku] = a.acc[ku] + a.p_a * nu;  // in place
-    a.acc[kv] = a.acc[kv] + a.p_a * nv;
-  }
+  vec_step_cell<T, KIND>(a, bu + k, bv + k, ku, ku + Pc, in_core, lu, lv);
 }
 
 template <typename T, typename OP>

@@ -14,9 +14,11 @@ is present.
 
 Inputs have the spatial dims last (``(..., y, x)``, latitude first); leading
 dims are batched. ``apply`` and ``apply_to_vector`` return tensors on
-``device``; the streamed methods return numpy arrays. With a ``mesh``,
+``device``; the streamed methods return numpy arrays. With a ``DeviceMesh``,
 ``apply`` returns a ``DTensor`` sharded over it and ``apply_to_vector`` a
-pair of them (``.full_tensor()`` gathers).
+pair of them (``.full_tensor()`` gathers). With a
+``parallel.ring.ResidentMesh`` (several y-shards held on one device) the
+ring engine runs and both return plain global tensors on ``device``.
 """
 from __future__ import annotations
 
@@ -137,7 +139,12 @@ class Filter:
         ``None`` entries leave that dim unsharded. Every rank of the mesh
         builds the same ``Filter`` from the global ``grid_vars`` and calls
         ``apply`` or ``apply_to_vector`` together; the mesh's device type
-        must be ``device``'s.
+        must be ``device``'s. A ``parallel.ring.ResidentMesh(p_y, device)``
+        with ``spatial_axes=("y", None)`` instead cuts the field into ``p_y``
+        y-shards on one device and runs the ring engine (parallel/ring.py),
+        whose step kernel exchanges the halo rows itself: unbatched 2-D
+        float32 fields with ``ny`` divisible by ``p_y``; anything else raises
+        a ``ValueError``.
     batch_axis : optional str
         A mesh dim to shard dim 0 of a ``(batch, y, x)`` field over.
     halo_steps : optional int
@@ -253,7 +260,36 @@ class Filter:
         return isinstance(
             self.operator, (ScalarStencil5, BGridVectorStencil, CGridVectorOperator))
 
+    def _resident_ring(self, make):
+        """The ring apply built by ``make(ring_module)``, when ``mesh`` is a
+        ``ResidentMesh``; None for any other mesh. Behind a resident mesh
+        there is no other engine, so whatever keeps the ring from running
+        raises."""
+        if self.mesh is None:
+            return None
+        from .parallel import ring
+
+        if not isinstance(self.mesh, ring.ResidentMesh):
+            return None
+        if self.batch_axis is not None:
+            raise ValueError("batch_axis cannot be sharded over a ResidentMesh: the ring "
+                             "engine takes unbatched 2-D fields")
+        if not ring.ring_enabled():
+            raise ValueError("the ring engine is switched off (GCM_FILTERS_TPU_RING=0) and a "
+                             "ResidentMesh has no other engine")
+        fn = make(ring)
+        if fn is None:
+            raise ValueError(
+                f"a ResidentMesh runs the ring engine, which needs a strict 1-D y "
+                f"decomposition of a framework stencil operator: spatial_axes must be "
+                f"({self.mesh.name!r}, None), got {tuple(self.spatial_axes)}")
+        return fn
+
     def _scalar_fn(self):
+        if self._scalar is None:
+            self._scalar = self._resident_ring(lambda ring: ring.make_ring_scalar_apply(
+                self.operator, self.filter_spec, self.mesh, self.spatial_axes,
+                exact_nan=self.exact_nan, halo_steps=self.halo_steps))
         if self._scalar is None:
             if self.mesh is not None:
                 from .parallel.sharded import make_sharded_scalar_apply
@@ -274,6 +310,10 @@ class Filter:
         return self._scalar
 
     def _vector_fn(self):
+        if self._vector is None:
+            self._vector = self._resident_ring(lambda ring: ring.make_ring_vector_apply(
+                self.operator, self.filter_spec, self.mesh, self.spatial_axes,
+                halo_steps=self.halo_steps))
         if self._vector is None:
             if self.mesh is not None:
                 from .parallel.sharded import make_sharded_vector_apply

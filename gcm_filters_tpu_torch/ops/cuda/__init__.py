@@ -7,6 +7,9 @@
   - local_pass.py, vec_local_pass.py: the same steps on a halo-extended
     shard block (the sharded engine's local compute), with their plain
     versions ``local_pass_reference`` and ``vec_local_pass_reference``;
+  - ring_pass.py: the same steps on all y-shards of a ring in one launch,
+    the halo rows exchanged by the kernel itself, with their plain versions
+    ``ring_pass_reference`` and ``vec_ring_pass_reference``;
   - dispatch.py: the scalar and vector filter applies built on those kernels;
   - build.py: compiles ``gcm_filters_tpu_torch/csrc/*.cu`` with nvcc at first
     use and loads the shared libraries with ctypes.

@@ -41,29 +41,27 @@ class PassOperands:
     land_gain: float
 
 
-def cheb_pass_reference(
-    ops: PassOperands, kind: int, p_a: float, p_b: float = 0.0, *,
+def reference_step(
+    ops: PassOperands, kind: int, p_a: float, p_b: float, laplacian, *,
     field: Optional[Tensor] = None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_next: Optional[Tensor] = None,
     acc: Tensor, h: Optional[Tensor] = None,
 ) -> None:
-    """The plain PyTorch version of one kernel launch, on any device.
-
-    Writes its outputs into the given buffers, as the kernel does: FIRST
-    writes ``h``, ``t_next`` and ``acc``; MIDDLE writes ``t_next`` (which
-    may be ``t_prev``) and ``acc``; LAST writes the result into ``acc``.
-    """
+    """One step with torch ops around ``laplacian``, which maps a state to
+    ``lap'`` of it: the whole-field stencil for the unsharded step, the same
+    contraction fed from halo rows for a shard of the ring step
+    (ops/cuda/ring_pass.py)."""
     st = ops.stencil
     if kind == FIRST:
         fbar = st.prepare(field)
         h0 = st.post * torch.nan_to_num(fbar) if ops.drop_pre else fbar
-        t1 = -h0 + 0.5 * st.laplacian(h0)
+        t1 = -h0 + 0.5 * laplacian(h0)
         a = p_a * h0 + p_b * t1
         h.copy_(h0)
         t_next.copy_(t1)
         acc.copy_(a)
         return
-    nxt = -2.0 * t + st.laplacian(t) - t_prev
+    nxt = -2.0 * t + laplacian(t) - t_prev
     a = acc + p_a * nxt
     if kind == MIDDLE:
         t_next.copy_(nxt)
@@ -76,6 +74,22 @@ def cheb_pass_reference(
         # 0*fbar poisons a wet-cell NaN back into the result
         a = torch.where(st.post == 0, ops.land_gain * fbar, a + fbar * 0.0)
     acc.copy_(st.finalize(a))
+
+
+def cheb_pass_reference(
+    ops: PassOperands, kind: int, p_a: float, p_b: float = 0.0, *,
+    field: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_next: Optional[Tensor] = None,
+    acc: Tensor, h: Optional[Tensor] = None,
+) -> None:
+    """The plain PyTorch version of one kernel launch, on any device.
+
+    Writes its outputs into the given buffers, as the kernel does: FIRST
+    writes ``h``, ``t_next`` and ``acc``; MIDDLE writes ``t_next`` (which
+    may be ``t_prev``) and ``acc``; LAST writes the result into ``acc``.
+    """
+    reference_step(ops, kind, p_a, p_b, ops.stencil.laplacian, field=field, t=t,
+                   t_prev=t_prev, t_next=t_next, acc=acc, h=h)
 
 
 _ARGTYPES = (

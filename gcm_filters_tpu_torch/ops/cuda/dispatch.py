@@ -58,6 +58,43 @@ from .vec_pass import BGRID, CTAP, VecPassOperands, vec_pass
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
 
+def scalar_setup(stencil: ScalarStencil5, spec: FilterSpec, exact_nan: bool):
+    """``(hot_host, drop_pre, land_gain, neg2s, p_host)``: what the scalar
+    applies derive from the host stencil and the filter spec before any
+    device is known. ``hot_host`` is the stencil of the hot loop (without its
+    pre-mask under the h-space elimination), ``neg2s = -2*lap_scale``."""
+    if spec.n_steps < 2:
+        raise ValueError(f"the step kernels need n_steps >= 2, got {spec.n_steps}")
+    p_host = np.asarray(spec.p, dtype=np.float64)
+    drop_pre = hspace_drop_pre(stencil) and not exact_nan
+    land_gain = float(np.polynomial.chebyshev.chebval(-1.0, p_host))
+    hot_host = (
+        dataclasses.replace(stencil, pre=None, zap_nans=False) if drop_pre else stencil
+    )
+    neg2s = -2.0 * _laplacian_scale(spec, stencil.is_dimensional)
+    return hot_host, drop_pre, land_gain, neg2s, p_host
+
+
+def scalar_operands(hot_host: ScalarStencil5, neg2s: float, drop_pre: bool,
+                    land_gain: float, dtype, device) -> PassOperands:
+    """The hot stencil for one (dtype, device): coefficients cast, then
+    pre-scaled by -2*lap_scale in the compute dtype (constants are scaled in
+    float64 and rounded once), as the JAX kernel's host side does."""
+    npdt = _NP_DTYPES[dtype]
+    st = hot_host.to(dtype, device)
+    scaled = {}
+    for k in COEF_FIELDS:
+        v = getattr(st, k)
+        if isinstance(v, torch.Tensor):
+            scaled[k] = (v * float(npdt(neg2s))).contiguous()
+        else:
+            scaled[k] = float(npdt(neg2s * v))
+    masks = {k: getattr(st, k).contiguous() for k in ("pre", "post", "area")
+             if getattr(st, k) is not None}
+    st = dataclasses.replace(st, **scaled, **masks)
+    return PassOperands(st, drop_pre, float(npdt(land_gain)))
+
+
 def make_cuda_scalar_apply(
     stencil: ScalarStencil5, spec: FilterSpec, exact_nan: bool = False,
     pass_fn=cheb_pass,
@@ -70,39 +107,17 @@ def make_cuda_scalar_apply(
     version for CPU tensors) unless a caller passes the plain version to
     compare the two on one device.
     """
-    if spec.n_steps < 2:
-        raise ValueError(f"the step kernels need n_steps >= 2, got {spec.n_steps}")
-    p_host = np.asarray(spec.p, dtype=np.float64)
-    drop_pre = hspace_drop_pre(stencil) and not exact_nan
-    land_gain = float(np.polynomial.chebyshev.chebval(-1.0, p_host))
-    hot_host = (
-        dataclasses.replace(stencil, pre=None, zap_nans=False) if drop_pre else stencil
-    )
-    neg2s = -2.0 * _laplacian_scale(spec, stencil.is_dimensional)
+    hot_host, drop_pre, land_gain, neg2s, p_host = scalar_setup(stencil, spec, exact_nan)
     shapes = {tuple(v.shape) for v in (getattr(hot_host, k) for k in ARRAY_FIELDS)
               if isinstance(v, torch.Tensor)}
     cache = {}
 
     def operands(dtype, device):
-        """Hot stencil and p for one (dtype, device): coefficients cast, then
-        pre-scaled by -2*lap_scale in the compute dtype (constants are scaled
-        in float64 and rounded once), as the JAX kernel's host side does."""
+        """Hot stencil and p for one (dtype, device), see :func:`scalar_operands`."""
         key = (dtype, device)
         if key not in cache:
-            npdt = _NP_DTYPES[dtype]
-            st = hot_host.to(dtype, device)
-            scaled = {}
-            for k in COEF_FIELDS:
-                v = getattr(st, k)
-                if isinstance(v, torch.Tensor):
-                    scaled[k] = (v * float(npdt(neg2s))).contiguous()
-                else:
-                    scaled[k] = float(npdt(neg2s * v))
-            masks = {k: getattr(st, k).contiguous() for k in ("pre", "post", "area")
-                     if getattr(st, k) is not None}
-            st = dataclasses.replace(st, **scaled, **masks)
-            ops = PassOperands(st, drop_pre, float(npdt(land_gain)))
-            cache[key] = (ops, [float(v) for v in p_host.astype(npdt)])
+            ops = scalar_operands(hot_host, neg2s, drop_pre, land_gain, dtype, device)
+            cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
         return cache[key]
 
     def apply_fn(field):
@@ -135,16 +150,12 @@ def make_cuda_scalar_apply(
     return apply_fn
 
 
-def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass):
-    """``(u, v) -> (fu, fv)`` on the fields' device, ``n_steps`` launches per call.
-
-    ``u`` and ``v`` have equal shapes with the spatial dims last; leading
-    dims are batched. Both are promoted to ``_compute_dtype(u.dtype,
-    v.dtype)`` (mixed float32/float64 computes in float64), which is the
-    results' dtype. ``pass_fn`` runs one step; it is :func:`vec_pass` (kernel
-    for CUDA tensors, plain version for CPU tensors) unless a caller passes
-    the plain version to compare the two on one device.
-    """
+def vector_setup(operator, spec: FilterSpec):
+    """``(op, grid_shape, neg2s, p_host, host_planes)`` of a vector operator:
+    the kernel's contraction, the grid's shape, ``-2*lap_scale``, the
+    polynomial in float64 and a function that returns the coefficient planes
+    in the kernel's order, float64 on the host (the C-grid taps are computed
+    once, at first use: ~1.2 GB of float64 at 2400x3600)."""
     if isinstance(operator, BGridVectorStencil):
         op = BGRID
     elif isinstance(operator, CGridVectorOperator):
@@ -156,30 +167,49 @@ def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass):
     p_host = np.asarray(spec.p, dtype=np.float64)
     neg2s = -2.0 * _laplacian_scale(spec, operator.is_dimensional)
     grid_shape = tuple(operator.r_dyCu.shape if op == CTAP else operator.cc.shape)
-    taps = []  # C-grid taps, computed once at first use (~1.2 GB of f64 at 2400x3600)
-    cache = {}
+    taps = []
 
     def host_planes():
-        """The coefficient planes in the kernel's order, float64 on the host."""
         if op == BGRID:
             return [getattr(operator, k).numpy() for k in BGRID_FIELDS]
         if not taps:
             taps.append(cgrid_tap_arrays(operator))
         return [taps[0][k] for k in CTAP_NAMES]
 
+    return op, grid_shape, neg2s, p_host, host_planes
+
+
+def vector_operands(op: int, planes, neg2s: float, zap: bool, dtype, device) -> VecPassOperands:
+    """The coefficients for one (dtype, device): each host plane cast to the
+    compute dtype, then scaled by -2*lap_scale rounded to that dtype, as the
+    JAX kernel's host side does (vec_pass.host_*_ext_inputs)."""
+    npdt = _NP_DTYPES[dtype]
+    coef = torch.empty((len(planes),) + tuple(np.shape(planes[0])), dtype=dtype, device=device)
+    for k, a in enumerate(planes):
+        coef[k].copy_(torch.from_numpy(np.asarray(a, dtype=npdt) * npdt(neg2s)))
+    return VecPassOperands(op, coef, zap)
+
+
+def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass):
+    """``(u, v) -> (fu, fv)`` on the fields' device, ``n_steps`` launches per call.
+
+    ``u`` and ``v`` have equal shapes with the spatial dims last; leading
+    dims are batched. Both are promoted to ``_compute_dtype(u.dtype,
+    v.dtype)`` (mixed float32/float64 computes in float64), which is the
+    results' dtype. ``pass_fn`` runs one step; it is :func:`vec_pass` (kernel
+    for CUDA tensors, plain version for CPU tensors) unless a caller passes
+    the plain version to compare the two on one device.
+    """
+    op, grid_shape, neg2s, p_host, host_planes = vector_setup(operator, spec)
+    cache = {}
+
     def operands(dtype, device):
-        """Coefficients and p for one (dtype, device): each plane cast to the
-        compute dtype, then scaled by -2*lap_scale rounded to that dtype, as
-        the JAX kernel's host side does (vec_pass.host_*_ext_inputs)."""
+        """Coefficients and p for one (dtype, device), see :func:`vector_operands`."""
         key = (dtype, device)
         if key not in cache:
-            npdt = _NP_DTYPES[dtype]
-            planes = host_planes()
-            coef = torch.empty((len(planes),) + grid_shape, dtype=dtype, device=device)
-            for k, a in enumerate(planes):
-                coef[k].copy_(torch.from_numpy(np.asarray(a, dtype=npdt) * npdt(neg2s)))
-            ops = VecPassOperands(op, coef, bool(operator.zap_nans))
-            cache[key] = (ops, [float(v) for v in p_host.astype(npdt)])
+            ops = vector_operands(op, host_planes(), neg2s, bool(operator.zap_nans),
+                                  dtype, device)
+            cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
         return cache[key]
 
     def apply_fn(u, v):

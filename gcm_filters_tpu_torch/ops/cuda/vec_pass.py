@@ -62,6 +62,31 @@ def _lap(ops: VecPassOperands, t: Tensor) -> Tensor:
     return torch.stack([lu, lv], dim=1)
 
 
+def reference_step(
+    kind: int, p_a: float, p_b: float, laplacian, *,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_next: Optional[Tensor] = None,
+    acc: Tensor,
+) -> None:
+    """One coupled step with torch ops around ``laplacian``, which maps a
+    stacked state to ``lap'`` of it: the periodic contraction for the
+    unsharded step, the same contraction fed from halo rows for a shard of
+    the ring step (ops/cuda/ring_pass.py)."""
+    if kind == FIRST:
+        t1 = -w + 0.5 * laplacian(w)
+        a = p_a * w + p_b * t1
+        t_next.copy_(t1)
+        acc.copy_(a)
+        return
+    if kind not in (MIDDLE, LAST):
+        raise ValueError(f"unknown step kind {kind}")
+    nxt = -2.0 * t + laplacian(t) - t_prev
+    a = acc + p_a * nxt
+    if kind == MIDDLE:
+        t_next.copy_(nxt)
+    acc.copy_(a)
+
+
 def vec_pass_reference(
     ops: VecPassOperands, kind: int, p_a: float, p_b: float = 0.0, *,
     w: Optional[Tensor] = None, t: Optional[Tensor] = None,
@@ -75,19 +100,8 @@ def vec_pass_reference(
     ``t_next`` (which may be ``t_prev``) and ``acc``; LAST writes the result
     into ``acc``.
     """
-    if kind == FIRST:
-        t1 = -w + 0.5 * _lap(ops, w)
-        a = p_a * w + p_b * t1
-        t_next.copy_(t1)
-        acc.copy_(a)
-        return
-    if kind not in (MIDDLE, LAST):
-        raise ValueError(f"unknown step kind {kind}")
-    nxt = -2.0 * t + _lap(ops, t) - t_prev
-    a = acc + p_a * nxt
-    if kind == MIDDLE:
-        t_next.copy_(nxt)
-    acc.copy_(a)
+    reference_step(kind, p_a, p_b, lambda x: _lap(ops, x), w=w, t=t, t_prev=t_prev,
+                   t_next=t_next, acc=acc)
 
 
 _ARGTYPES = (

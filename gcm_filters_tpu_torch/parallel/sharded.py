@@ -24,11 +24,20 @@ sharded results match unsharded ones to roundoff.
 Leading batch dims stay local to each rank unless ``batch_axis`` names a mesh
 dim to shard them over (dim 0 of ``(batch, y, x)`` fields only).
 
-What the JAX module has and this one leaves out, as TPU layout or as other
-work: the VMEM / sublane / lane-padding planners of the scalar and coupled
-passes, the packed coefficient blocks, a second (XLA) local compute with its
-compile fallback (the port has no fallback tier), and the ring engine hook
-(see ROADMAP.md).
+The ring engine hook sits where the JAX module has it, at the top of both
+applies (``_ring_hook``): a 1-D y-sharded mesh whose shards the ring step
+kernel can reach by pointer goes through parallel/ring.py instead of the
+rounds. The hook is a static predicate, never a ``try`` around a launch. It
+declines every ``DeviceMesh`` for now: between ranks the kernel's halo
+pointers would have to come from peer access, which is not set up, so the
+rounds below run (the JAX package's own default on real hardware). Shards
+held by one process on one card run the ring through
+``Filter(mesh=ResidentMesh(...))``, which does not come through this module.
+
+What the JAX module has and this one leaves out, as TPU layout: the VMEM /
+sublane / lane-padding planners of the scalar and coupled passes, the packed
+coefficient blocks, and a second (XLA) local compute with its compile
+fallback (the port has no fallback tier).
 """
 from __future__ import annotations
 
@@ -84,6 +93,24 @@ def _normalize(field: Tensor):
     lead = field.shape[:-2]
     flat = field.reshape((-1,) + tuple(field.shape[-2:]))
     return flat, lambda out: out.reshape(tuple(lead) + tuple(out.shape[-2:]))
+
+
+def _ring_hook(make, batch_axis):
+    """``ring() -> apply or None``: the ring apply for this mesh, built at
+    first use by ``make(ring_module)``; None where the ring engine declines
+    the mesh (every ``DeviceMesh`` today, see the module docstring), is
+    switched off, or a batch axis is sharded."""
+    built = []
+
+    def ring():
+        if not built:
+            from . import ring as ring_mod
+
+            built.append(make(ring_mod) if batch_axis is None and ring_mod.ring_enabled()
+                         else None)
+        return built[0]
+
+    return ring
 
 
 def _balanced(n_steps: int, k: int) -> Tuple[int, ...]:
@@ -325,6 +352,8 @@ def make_sharded_scalar_apply(
     grid_shape = next((tuple(v.shape) for v in (getattr(hot_host, k) for k in ARRAY_FIELDS)
                        if isinstance(v, Tensor)), None)
     cache = {}
+    ring = _ring_hook(lambda m: m.make_ring_scalar_apply(
+        stencil, spec, mesh, spatial_axes, exact_nan, halo_steps=halo_steps), batch_axis)
 
     def operands(ly: int, lx: int, dtype):
         """The extended, pre-scaled local operands, the halo width, the
@@ -349,6 +378,8 @@ def make_sharded_scalar_apply(
         return cache[key]
 
     def apply_fn(field):
+        if ring() is not None:
+            return ring()(field)
         local, placements = lay.local(field, grid_shape)
         # the local compute runs in the compute dtype, so integer inputs are
         # promoted here (same values whether before or after slicing)
@@ -364,6 +395,7 @@ def make_sharded_scalar_apply(
         return DTensor.from_local(restore(out), mesh, placements, run_check=False)
 
     apply_fn.operands = operands  # (ly, lx, dtype) -> (PassOperands, cells, rounds, p)
+    apply_fn.ring = ring  # the ring apply, or None where the ring declines this mesh
     return apply_fn
 
 
@@ -498,6 +530,8 @@ def make_sharded_vector_apply(
     neg2s = -2.0 * _laplacian_scale(spec, operator.is_dimensional)
     host = {}  # the global coefficient planes, made at first use
     cache = {}
+    ring = _ring_hook(lambda m: m.make_ring_vector_apply(
+        operator, spec, mesh, spatial_axes, halo_steps=halo_steps), batch_axis)
 
     def host_planes() -> Dict[str, Tensor]:
         """The global coefficient planes in the kernel's order, float64 on
@@ -524,6 +558,8 @@ def make_sharded_vector_apply(
         return cache[key]
 
     def apply_fn(u, v):
+        if ring() is not None:
+            return ring()(u, v)
         if np.shape(u) != np.shape(v):
             raise ValueError(
                 f"u and v must have the same shape; got {np.shape(u)} and {np.shape(v)}")
@@ -546,4 +582,5 @@ def make_sharded_vector_apply(
                      for m in (0, 1))
 
     apply_fn.operands = operands  # (ly, lx, dtype) -> (VecPassOperands, cells, rounds, p)
+    apply_fn.ring = ring  # the ring apply, or None where the ring declines this mesh
     return apply_fn
