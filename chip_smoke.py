@@ -10,17 +10,29 @@ and runs these phases; any failed check raises and the script exits non-zero:
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compiles ``gcm_filters_tpu_torch/csrc/*.cu`` (one nvcc per source,
    all at once);
-3. small grids: all 9 scalar grids at 128x256 in float32 and float64, plus
-   ``exact_nan``, a 97x300 shape, a batch and NaN fields, each through
-   ``Filter(device="cuda").apply`` against the same dispatch driven by the
-   plain PyTorch step ``cheb_pass_reference`` on the card;
+3. small grids: all 9 scalar grids at 128x256 in float32 and float64, with
+   the Gaussian and the Taper filter (several fused passes), plus
+   ``exact_nan``, a 97x300 shape, a batch, NaN fields, a spike on the fold
+   row at a tile seam, and a shape below the fused plan's predicate, each
+   through ``Filter(device="cuda").apply``: against the same dispatch driven
+   by the plain versions (``cheb_fused_pass_reference``,
+   ``cheb_pass_reference``) on the card, against the chain of step-kernel
+   launches bit for bit (NaNs in the same cells), and against the tiled
+   plain version of the fused pass; each apply must launch the fused kernel
+   once per planned pass (or, below the predicate, the step kernel n_steps
+   times) and no other kernel;
 4. scalar headline (the scalar path): the ``bench.py`` workload, 2400x3600
    float32 TRIPOLAR_REGULAR_WITH_LAND_AREA_WEIGHTED, Gaussian factor 10
    (11 steps), through ``Filter.apply`` on the card, checked against the
-   eager engine in float64 and timed with CUDA events; the launch counter
-   must equal 11 x applies and no fallback may be recorded;
-5. each step kind of the scalar kernel against its plain version at the
-   headline shape;
+   eager engine in float64 and against the step-kernel chain bit for bit,
+   and timed with CUDA events beside the step chain; the fused launch
+   counter must equal passes x applies, every other counter 0, and no
+   fallback may be recorded; then the fused plan's tile sweep (each tile
+   with its best split, timed) and two more headlines on the same footing:
+   the Taper filter (factor 10, several passes) on the same grid, and
+   IRREGULAR_WITH_LAND (five coefficient planes);
+5. each step kind of the scalar step kernel, and the fused pass, against its
+   plain version at the headline shape;
 6. small vector grids: VECTOR_B_GRID and VECTOR_C_GRID at 128x256 through
    ``Filter(device="cuda").apply_to_vector`` against the same dispatch driven
    by the plain step ``vec_pass_reference`` on the card: unit-scale metrics in
@@ -35,16 +47,20 @@ and runs these phases; any failed check raises and the script exits non-zero:
    headline shape;
 9. sharded small grids: a one-rank NCCL process group and a 1x1
    ``DeviceMesh``; all 9 scalar grids at 128x256 in float32 and float64, plus
-   ``exact_nan``, 97x300, a batch, NaN fields and ``halo_steps`` 1, 3 and
-   None, each through ``Filter(mesh=..., spatial_axes=("y", "x")).apply``
-   against the same sharded apply driven by the plain local step
-   ``local_pass_reference`` on the card, and against the unsharded
-   ``Filter.apply``; each apply must launch the local step kernel exactly
-   n_steps times and the unsharded step kernel not at all;
+   ``exact_nan``, 97x300, a batch, NaN fields, ``halo_steps`` 1, 3 and None
+   and a block below the fused predicate, each through
+   ``Filter(mesh=..., spatial_axes=("y", "x")).apply`` against the same
+   sharded apply driven by the plain versions (``local_fused_pass_reference``,
+   ``local_pass_reference``) on the card, against the chain of local
+   step-kernel launches bit for bit, and against the unsharded
+   ``Filter.apply``; each apply must launch the fused local round once per
+   round (below the predicate: the local step kernel n_steps times) and no
+   other kernel;
 10. sharded headline (the sharded path): the phase-4 workload through the
-    mesh path, checked against the float64 eager engine and timed, with
-    launches = 11 x applies and no fallback; the halo exchange and the chain
-    of 11 local steps are also timed alone;
+    mesh path, checked against the float64 eager engine and against the
+    local step chain bit for bit, and timed beside it, with one fused launch
+    per round x applies and no fallback; the halo exchange, the fused round
+    and the chain of 11 local steps are also timed alone;
 11. each step kind of the local step kernel against its plain version at the
     headline's extended shape;
 12. sharded small vector grids, on the same 1x1 mesh: both vector grids at
@@ -82,11 +98,15 @@ and runs these phases; any failed check raises and the script exits non-zero:
     applies, each bitwise equal to the first;
 17. each step kind of the three ring kernels against its plain version at the
     headline shape, in float32 and float64;
-18. a ``{"kernels": [...]}`` line, then ``{"ok": true, "device": ...}`` last.
+18. a ``{"kernels": [...]}`` line (eleven entries: the step kernels, timed as
+    step chains, and the two fused passes), then ``{"ok": true, "device": ...}``
+    last.
 
 Without a CUDA device it prints no result and exits 2.
 """
+import dataclasses
 import json
+import math
 import subprocess
 import sys
 import tempfile
@@ -206,6 +226,31 @@ def local_step_bytes(kind, ops, batch, ly, lx, cells, shrink, itemsize):
     return (static + batch * carries) * itemsize
 
 
+def plan_cost(ops, plan, batch, ny, nx, itemsize):
+    """``(bytes, flops)`` of one apply as a fused plan runs it: each pass reads
+    its inputs once and writes its outputs once (the first pass the field, a
+    later one t, t_prev and acc, the last one the field again; the array
+    coefficients, pre and post on every pass, area on the first and the
+    last), and computes every cell of its shrinking windows, the trapezoid's
+    redundant cells included."""
+    import torch
+
+    st = ops.stencil
+    plane = ny * nx * itemsize
+    static = sum(1 for k in ("c", "n", "s", "e", "w", "pre", "post")
+                 if isinstance(getattr(st, k), torch.Tensor))
+    area = int(st.area is not None)
+    by, bx = plan.tile
+    tiles = math.ceil(ny / by) * math.ceil(nx / bx)
+    nbytes = cells = 0
+    for i, s in enumerate(plan.steps):
+        first, last = i == 0, i == len(plan.steps) - 1
+        carries = (1 if first else 3) + (1 if last and not first else 0) + (1 if last else 3)
+        nbytes += (static + area * (first or last) + batch * carries) * plane
+        cells += tiles * sum((by + 2 * s - 2 * j) * (bx + 2 * s - 2 * j) for j in range(1, s + 1))
+    return nbytes, FLOPS_PER_CELL_STEP * batch * cells
+
+
 def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso):
     """Unit-scale metrics, m = 0.9 + 0.2 * uniform, as
     benchmarks/bench_suite.py builds the vector grids."""
@@ -309,16 +354,21 @@ def main():
         print("chip_smoke: torch finds no CUDA device; nothing was checked", file=sys.stderr)
         return 2
 
-    from gcm_filters_tpu_torch import Filter, GridType, required_grid_vars
+    from gcm_filters_tpu_torch import Filter, FilterShape, GridType, required_grid_vars
     from gcm_filters_tpu_torch.engine import scalar_filter_apply, vector_filter_apply
     from gcm_filters_tpu_torch.models.grids import is_vector_grid
     from gcm_filters_tpu_torch.ops.cuda import build
     from gcm_filters_tpu_torch.ops.cuda.cheb_pass import (
-        FIRST, LAST, MIDDLE, cheb_pass, cheb_pass_reference,
+        FIRST, LAST, MIDDLE, TILES, _pass_cost, cheb_fused_pass, cheb_fused_pass_reference,
+        cheb_fused_pass_tiled_reference, cheb_pass, cheb_pass_reference, fused_planes,
+        plan_fused_passes,
     )
     from gcm_filters_tpu_torch.ops.cuda.dispatch import (
-        make_cuda_scalar_apply, make_cuda_vector_apply,
+        _fused_chain, make_cuda_scalar_apply, make_cuda_vector_apply,
     )
+    from gcm_filters_tpu_torch.ops.cuda.local_pass import local_fused_pass, local_pass
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import ring_pass, vec_ring_pass
+    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, vec_pass, vec_pass_reference,
     )
@@ -348,24 +398,93 @@ def main():
                 log(f"  {name}: {line.strip()}")
     dev = torch.device("cuda")
 
-    # 3. small grids: kernel dispatch vs the same dispatch on the plain step
-    worst = {"float32": [0.0, 0.0], "float64": [0.0, 0.0]}
+    def counters():
+        """Every kernel's launch count, by name."""
+        return {"cheb_pass": cheb_pass.launches, "cheb_fused_pass": cheb_fused_pass.launches,
+                "local_pass": local_pass.launches,
+                "local_fused_pass": local_fused_pass.launches,
+                "vec_pass_bgrid": vec_pass.launches[BGRID],
+                "vec_pass_ctap": vec_pass.launches[CTAP],
+                "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
+                "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
+                "ring_pass": ring_pass.launches,
+                "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
+                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
 
-    def check_filter(label, filt, x, dtype_name):
-        plain = make_cuda_scalar_apply(filt.operator, filt.filter_spec,
-                                       exact_nan=filt.exact_nan, pass_fn=cheb_pass_reference)
-        before = cheb_pass.launches
+    def reset_counters():
+        cheb_pass.launches = 0
+        cheb_fused_pass.launches = 0
+        local_pass.launches = 0
+        local_fused_pass.launches = 0
+        vec_pass.launches = {BGRID: 0, CTAP: 0}
+        vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+        ring_pass.launches = 0
+        vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
+
+    def launched_since(before, label, want):
+        """The launches since ``before``; raises unless they are ``want``
+        (kernel -> count) and 0 for every other kernel."""
+        got = {k: n - before[k] for k, n in counters().items()}
+        expected = {k: want.get(k, 0) for k in got}
+        if got != expected:
+            raise AssertionError(f"{label}: kernel launches {got}, expected {expected}")
+        return got
+
+    def bitwise(label, got, want, what="the unsharded kernel path"):
+        """Max abs difference, after requiring equality bit for bit (NaNs in
+        the same cells)."""
+        if got.shape != want.shape or got.dtype != want.dtype or got.device.type != "cuda":
+            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} on {got.device}")
+        if not torch.equal(torch.isnan(got), torch.isnan(want)):
+            raise AssertionError(f"{label}: NaN positions differ from {what}")
+        ok = ~torch.isnan(want)
+        diff = float((got[ok] - want[ok]).abs().max()) if bool(ok.any()) else 0.0
+        if diff != 0.0 or not torch.equal(got[ok], want[ok]):
+            raise AssertionError(f"{label}: differs from {what}, max abs {diff:.3e}")
+        return diff
+
+    # 3. small grids: the fused dispatch vs the plain versions, the step-kernel
+    # chain (bit for bit) and the tiled plain version of the fused pass
+    worst = {"float32": [0.0, 0.0], "float64": [0.0, 0.0]}
+    fworst = {"vs_plain": 0.0, "vs_tiled": 0.0, "vs_steps": 0.0, "cases": 0}
+    step_path = {"launches": 0}  # cheb_pass launched by Filter.apply below the predicate
+
+    def check_filter(label, filt, x, dtype_name, want_fused=True):
+        kw = dict(exact_nan=filt.exact_nan)
+        plain = make_cuda_scalar_apply(filt.operator, filt.filter_spec, pass_fn=cheb_pass_reference,
+                                       fused_fn=cheb_fused_pass_reference, **kw)
+        steps = make_cuda_scalar_apply(filt.operator, filt.filter_spec, fused_fn=None, **kw)
+        xs = filt._coerce(x)
+        plan = filt._scalar_fn().plan(*xs.shape[-2:], xs.dtype if xs.is_floating_point()
+                                      else torch.float64)
+        if plan.fused != want_fused:
+            raise AssertionError(f"{label}: fused route {plan.fused}, expected {want_fused}")
+        before = counters()
         got = filt.apply(x)
         torch.cuda.synchronize()
-        launched = cheb_pass.launches - before
-        if launched != filt.n_steps:
-            raise AssertionError(f"{label}: {launched} kernel launches, expected {filt.n_steps}")
-        want = plain(filt._coerce(x))
+        want_l = ({"cheb_fused_pass": len(plan.steps)} if plan.fused
+                  else {"cheb_pass": filt.n_steps})
+        launched = launched_since(before, label, want_l)
+        step_path["launches"] += launched["cheb_pass"]
+        want = plain(xs)
         if got.shape != want.shape or got.device.type != "cuda":
             raise AssertionError(f"{label}: result {tuple(got.shape)} on {got.device}")
         a, r = compare(label, got, want, dtype_name)
         worst[dtype_name] = [max(worst[dtype_name][0], a), max(worst[dtype_name][1], r)]
-        log(f"  {label}: max abs {a:.3e} max rel {r:.3e} ({launched} launches)")
+        chain_err = bitwise(label, got, steps(xs), "the step-kernel chain")
+        tiled = ""
+        if plan.fused:
+            tiled_fn = make_cuda_scalar_apply(filt.operator, filt.filter_spec,
+                                              fused_fn=cheb_fused_pass_tiled_reference, **kw)
+            t_err = compare(f"{label} vs tiled", got, tiled_fn(xs), dtype_name)[0]
+            fworst["vs_tiled"] = max(fworst["vs_tiled"], t_err)
+            fworst["vs_plain"] = max(fworst["vs_plain"], a)
+            fworst["cases"] += 1
+            tiled = f", vs tiled plain {t_err:.3e}"
+        log(f"  {label}: plan {plan.tile} {plan.steps} {'fused' if plan.fused else 'step chain'}: "
+            f"vs plain max abs {a:.3e} max rel {r:.3e}{tiled}; vs step chain {chain_err:.1e} "
+            f"({sum(launched.values())} launches)")
+        return got
 
     scalar = [g for g in GridType if not is_vector_grid(g)]
     shape = (128, 256)
@@ -373,9 +492,10 @@ def main():
     for g in scalar:
         data, gv = scalar_grid_data(g, required_grid_vars(g), shape)
         for dt, name in ((torch.float32, "float32"), (torch.float64, "float64")):
-            filt = Filter(filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv,
-                          dtype=dt, device=dev)
-            check_filter(f"{g.name} {name}", filt, data, name)
+            for fshape in ("GAUSSIAN", "TAPER"):
+                filt = Filter(filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv,
+                              filter_shape=FilterShape[fshape], dtype=dt, device=dev)
+                check_filter(f"{g.name} {fshape} n_steps {filt.n_steps} {name}", filt, data, name)
 
     tri = GridType.TRIPOLAR_REGULAR_WITH_LAND_AREA_WEIGHTED
     data, gv = scalar_grid_data(tri, required_grid_vars(tri), shape)
@@ -404,10 +524,24 @@ def main():
     for dt, name in ((torch.float32, "float32"), (torch.float64, "float64")):
         f_nan = Filter(filter_scale=6.0, dx_min=1.0, grid_type=tri, grid_vars=gv,
                        dtype=dt, device=dev)
-        check_filter(f"{tri.name} NaN land+wet {name}", f_nan, nan_d, name)
-        out = f_nan.apply(nan_d)
+        out = check_filter(f"{tri.name} NaN land+wet {name}", f_nan, nan_d, name)
         if not (bool(torch.isnan(out[0, 7])) and bool(torch.isnan(out[90, 150]))):
             raise AssertionError("NaN cells must stay NaN")
+        # spikes on the fold row at a tile seam and at its mirror column
+        bx = f_nan._scalar_fn().plan(*shape, dt).tile[1]
+        spike = data.copy()
+        spike[-1, bx - 1], spike[-1, bx], spike[-1, shape[1] - bx] = 50.0, -40.0, 30.0
+        check_filter(f"{tri.name} fold-row spikes at the tile seam {bx} {name}", f_nan, spike,
+                     name)
+    # below the predicate the step chain runs, by a static test
+    for g in (tri, GridType.IRREGULAR_WITH_LAND):
+        d, v = scalar_grid_data(g, required_grid_vars(g), (40, 100))
+        filt = Filter(filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=v, device=dev)
+        check_filter(f"{g.name} (40, 100) below the fused predicate float64", filt, d, "float64",
+                     want_fused=False)
+    log(f"fused route on {fworst['cases']} small cases: vs the step-kernel chain max abs 0 "
+        f"(bit for bit, NaNs in the same cells); vs plain max abs {fworst['vs_plain']:.3e}; "
+        f"vs the tiled plain version max abs {fworst['vs_tiled']:.3e}")
 
     # 4. headline: the main path, at full size
     ny, nx = 2400, 3600
@@ -421,30 +555,35 @@ def main():
                   grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32, device=dev)
     n_steps = head.n_steps
     warm, chain = 3, 50
+    item = 4
     torch.cuda.synchronize()
+    fn = head._scalar_fn()
+    fn_scalar_operands = fn.operands
+    plan = fn.plan(ny, nx, torch.float32)
 
     reset_fallback_counts()
-    cheb_pass.launches = 0
-    vec_pass.launches = {BGRID: 0, CTAP: 0}
+    reset_counters()
     out = head.apply(field)
     y = out
     for _ in range(warm):
         y = head.apply(y)
     ms_apply, host_apply = event_ms(lambda: head.apply(out), chain, host=True)
-    launches = cheb_pass.launches
-    other = dict(vec_pass.launches)
+    counts = counters()
+    launches = counts.pop("cheb_fused_pass")
     fallbacks = fallback_counts()
     applies = 1 + warm + chain
-    if any(other.values()):
-        raise AssertionError(f"the scalar path launched vector kernels: {other}")
-    log(f"headline {ny}x{nx} float32 {tri.name}, n_steps {n_steps}: "
-        f"{launches} launches over {applies} applies, fallbacks {fallbacks}")
-    if launches != n_steps * applies:
-        raise AssertionError(f"expected {n_steps * applies} kernel launches, saw {launches}")
+    log(f"headline {ny}x{nx} float32 {tri.name}, n_steps {n_steps}, fused plan tile {plan.tile} "
+        f"passes {plan.steps}: {launches} cheb_fused_pass launches over {applies} applies, "
+        f"other kernels {counts}, fallbacks {fallbacks}")
+    if launches != len(plan.steps) * applies:
+        raise AssertionError(f"expected {len(plan.steps) * applies} launches, saw {launches}")
+    if any(counts.values()):
+        raise AssertionError(f"the scalar path launched another kernel: {counts}")
     if fallbacks:
         raise AssertionError(f"fallbacks recorded on the kernel path: {fallbacks}")
 
     x_dev = torch.as_tensor(field, device=dev)
+    x3 = x_dev.reshape(1, ny, nx)
     want64 = scalar_filter_apply(head.operator, head.filter_spec, x_dev.double())
     if out.shape != (ny, nx) or out.dtype != torch.float32 or not bool(torch.isfinite(out).all()):
         raise AssertionError("headline result is not a finite float32 (ny, nx) tensor")
@@ -453,17 +592,23 @@ def main():
     log(f"headline vs eager engine in float64: max abs {head_err:.3e}")
     del want64
 
+    # the chain of step-kernel launches: the same bits, timed in the same run
+    steps_head = make_cuda_scalar_apply(head.operator, head.filter_spec, fused_fn=None)
+    head_vs_steps = bitwise("headline", out, steps_head(x_dev), "the step-kernel chain")
+    before = cheb_pass.launches
+    ms_steps, host_steps = event_ms(lambda: steps_head(x_dev), chain, host=True)
+    step_chain_launches = (cheb_pass.launches - before) // chain
+
     plain_head = make_cuda_scalar_apply(head.operator, head.filter_spec,
-                                        pass_fn=cheb_pass_reference)
+                                        pass_fn=cheb_pass_reference,
+                                        fused_fn=cheb_fused_pass_reference)
     plain_head(x_dev)
     ms_plain = event_ms(lambda: plain_head(x_dev), 10)
 
-    # bounds for one apply: per launch (what this kernel design moves) and
-    # for the whole filter (one read of field and operands, one write)
-    fn = head._scalar_fn()
-    fn_scalar_operands = fn.operands
+    # bounds for one apply: per step launch (what the step chain moves), the
+    # fused plan's (its passes' bytes and its redundant cell-steps), and the
+    # whole filter's (one read of field and operands, one write)
     ops, p = fn.operands(torch.float32, dev)
-    item = 4
     kinds = [FIRST] + [MIDDLE] * (n_steps - 2) + [LAST]
     apply_bytes = sum(step_bytes(k, ops, 1, ny, nx, item) for k in kinds)
     apply_flops = FLOPS_PER_CELL_STEP * ny * nx * n_steps
@@ -472,13 +617,80 @@ def main():
     n_operands = sum(1 for k in ("c", "n", "s", "e", "w", "pre", "post", "area")
                      if isinstance(getattr(st, k), torch.Tensor))
     filter_bytes = (2 + n_operands) * ny * nx * item
-    fb_ms, _ = bound_ms(filter_bytes, apply_flops, "float32")
+    fb_ms, fb_by = bound_ms(filter_bytes, apply_flops, "float32")
+    p_bytes, p_flops = plan_cost(ops, plan, 1, ny, nx, item)
+    pb_ms, pb_by = bound_ms(p_bytes, p_flops, "float32")
     gps = ny * nx * n_steps / (ms_apply * 1e-3)
-    log(f"headline: {ms_apply:.4f} ms/apply (host enqueue {host_apply:.4f} ms/apply) = "
-        f"{gps:.4e} grid-point-steps/s on {smi}")
-    log(f"  per-launch bound {b_ms:.4f} ms ({apply_bytes / 1e9:.3f} GB, {b_by}); "
-        f"whole-filter bound {fb_ms:.4f} ms ({filter_bytes / 1e6:.1f} MB); "
-        f"plain PyTorch steps {ms_plain:.4f} ms/apply")
+    log(f"headline: {ms_apply:.4f} ms/apply fused (host enqueue {host_apply:.4f} ms/apply) = "
+        f"{gps:.4e} grid-point-steps/s on {smi}; bit for bit equal to the step-kernel chain, "
+        f"{ms_steps:.4f} ms/apply in {step_chain_launches} launches (host enqueue "
+        f"{host_steps:.4f})")
+    log(f"  plan bound {pb_ms:.4f} ms ({p_bytes / 1e9:.3f} GB, {p_flops / 1e9:.2f} GFLOP with "
+        f"the trapezoid's redundant cells, {pb_by}); whole-filter bound {fb_ms:.4f} ms "
+        f"({filter_bytes / 1e6:.1f} MB); step chain's per-launch bound {b_ms:.4f} ms "
+        f"({apply_bytes / 1e9:.3f} GB); plain PyTorch {ms_plain:.4f} ms/apply")
+
+    # 4b. the fused plan's tiles: each with the planner's best split for it,
+    # and the chosen tile with fewer steps per pass, each bitwise equal
+    n_planes = fused_planes(ops)
+    sweep = {}
+    cands = [plan_fused_passes(n_steps, ny, nx, torch.float32, n_planes, tile=tl) for tl in TILES]
+    cands += [plan_fused_passes(n_steps, ny, nx, torch.float32, n_planes, max_fuse=cap,
+                                tile=plan.tile) for cap in (6, 4)]
+    for pl in cands:
+        run = lambda: _fused_chain(cheb_fused_pass, ops, p, pl, x3)  # noqa: E731
+        bitwise(f"tile sweep {pl.tile} {pl.steps}", run()[0], out, "the fused headline")
+        ms = event_ms(run, 20)
+        key = f"{pl.tile[0]}x{pl.tile[1]} {'+'.join(map(str, pl.steps))}"
+        sweep[key] = ms
+        log(f"  tile {key}: {ms:.4f} ms/apply; model cost "
+            f"{_pass_cost(pl.tile, pl.steps, n_planes, item):.2f} cell-steps per cell")
+
+    # 4c. two more headlines on the same footing: the Taper filter (several
+    # passes) and a grid with five coefficient planes
+    def fused_headline(label, filt):
+        x = torch.as_tensor(field, device=dev)
+        pl = filt._scalar_fn().plan(ny, nx, torch.float32)
+        reset_counters()
+        o = filt.apply(x)
+        torch.cuda.synchronize()
+        launched_since({k: 0 for k in counters()}, label, {"cheb_fused_pass": len(pl.steps)})
+        ms_f, host_f = event_ms(lambda: filt.apply(x), 20, host=True)
+        steps_fn = make_cuda_scalar_apply(filt.operator, filt.filter_spec, fused_fn=None)
+        vs = bitwise(label, o, steps_fn(x), "the step-kernel chain")
+        ms_s = event_ms(lambda: steps_fn(x), 10)
+        w64 = scalar_filter_apply(filt.operator, filt.filter_spec, x.double())
+        if not bool(torch.isfinite(o).all()):
+            raise AssertionError(f"{label} is not finite")
+        torch.testing.assert_close(o.double(), w64, rtol=1e-4, atol=1e-5)
+        err = float((o.double() - w64).abs().max())
+        del w64
+        fops, _ = filt._scalar_fn().operands(torch.float32, dev)
+        fst = fops.stencil
+        n_op = sum(1 for k in ("c", "n", "s", "e", "w", "pre", "post", "area")
+                   if isinstance(getattr(fst, k), torch.Tensor))
+        flops = FLOPS_PER_CELL_STEP * ny * nx * filt.n_steps
+        fbm, _ = bound_ms((2 + n_op) * ny * nx * item, flops, "float32")
+        pbm, pbb = bound_ms(*plan_cost(fops, pl, 1, ny, nx, item), "float32")
+        log(f"headline {label} {ny}x{nx} float32, n_steps {filt.n_steps}, plan {pl.tile} "
+            f"{pl.steps}: {ms_f:.4f} ms/apply fused (host enqueue {host_f:.4f}), step chain "
+            f"{ms_s:.4f} ms/apply, bit for bit equal; vs eager engine in float64 max abs "
+            f"{err:.3e}; plan bound {pbm:.4f} ms ({pbb}), whole-filter bound {fbm:.4f} ms")
+        return {"ms": ms_f, "host_enqueue_ms": host_f, "step_chain_ms": ms_s,
+                "n_steps": filt.n_steps, "passes": list(pl.steps), "tile": list(pl.tile),
+                "plan_bound_ms": pbm, "filter_bound_ms": fbm, "vs_step_chain_max_abs": vs,
+                "vs_f64_engine_max_abs": err}
+
+    more_heads = {"taper": fused_headline("TAPER " + tri.name, Filter(
+        filter_scale=10.0, dx_min=1.0, filter_shape=FilterShape.TAPER, grid_type=tri,
+        grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32, device=dev))}
+    m = 0.9 + 0.2 * rng.random((ny, nx))
+    ones = np.ones((ny, nx))
+    more_heads["irregular_with_land"] = fused_headline("IRREGULAR_WITH_LAND", Filter(
+        filter_scale=10.0, dx_min=1.0, grid_type=GridType.IRREGULAR_WITH_LAND,
+        grid_vars=dict(wet_mask=wet, dxw=m, dyw=m, dxs=m, dys=m, area=m * m, kappa_w=ones,
+                       kappa_s=ones), dtype=torch.float32, device=dev))
+    del m, ones
 
     # 5. each step kind of the kernel against its plain version, headline shape
     x3 = x_dev.reshape(1, ny, nx)
@@ -512,6 +724,15 @@ def main():
                          FLOPS_PER_CELL_STEP * ny * nx, "float32")
     log(f"step kinds vs plain at {ny}x{nx}: max abs {step_err:.3e}; "
         f"middle step {ms_mid:.4f} ms vs bound {mid_ms:.4f} ms")
+    # the fused pass: the planned single pass, and two passes (middle carries)
+    fused_err = 0.0
+    for steps_ in (plan.steps, (6, 5)):
+        pl = dataclasses.replace(plan, steps=steps_, halo=max(steps_))
+        got_k = _fused_chain(cheb_fused_pass, ops, p, pl, x3)
+        got_r = _fused_chain(cheb_fused_pass_reference, ops, p, pl, x3)
+        fused_err = max(fused_err, compare(f"fused passes {steps_}", got_k, got_r, "float32")[0])
+    log(f"fused passes vs plain at {ny}x{nx}: max abs {fused_err:.3e}")
+    del got_k, got_r
 
     # 6. small vector grids: kernel dispatch vs the same dispatch on the plain step
     vec_ops = {"VECTOR_B_GRID": BGRID, "VECTOR_C_GRID": CTAP}
@@ -596,8 +817,7 @@ def main():
         vn = vhead.n_steps
         torch.cuda.synchronize()
         reset_fallback_counts()
-        cheb_pass.launches = 0
-        vec_pass.launches = {BGRID: 0, CTAP: 0}
+        reset_counters()
         t0 = time.perf_counter()
         fu, fv = vhead.apply_to_vector(u_h, v_h)
         torch.cuda.synchronize()
@@ -605,15 +825,15 @@ def main():
         for _ in range(warm):
             vhead.apply_to_vector(u_dev, v_dev)
         ms_v, host_v = event_ms(lambda: vhead.apply_to_vector(u_dev, v_dev), chain, host=True)
-        v_launches = vec_pass.launches[op]
-        v_other = {k: n for k, n in vec_pass.launches.items() if k != op}
+        v_other = counters()
+        v_launches = v_other.pop("vec_pass_" + ("bgrid" if op == BGRID else "ctap"))
         v_fallbacks = fallback_counts()
         log(f"headline {ny}x{nx} float32 {gname}, n_steps {vn}: {v_launches} launches "
             f"over {applies} applies (first apply with operand set-up {first_s:.2f} s), "
-            f"other kernels {v_other} + cheb_pass {cheb_pass.launches}, fallbacks {v_fallbacks}")
+            f"other kernels {v_other}, fallbacks {v_fallbacks}")
         if v_launches != vn * applies:
             raise AssertionError(f"expected {vn * applies} kernel launches, saw {v_launches}")
-        if any(v_other.values()) or cheb_pass.launches:
+        if any(v_other.values()):
             raise AssertionError("the vector path launched another kernel")
         if v_fallbacks:
             raise AssertionError(f"fallbacks recorded on the kernel path: {v_fallbacks}")
@@ -706,6 +926,9 @@ def main():
             "library_ms": None,
             "unit": f"one headline apply = {vn} launches, {ny}x{nx} float32 {gname}",
             "filter_bound_ms": vfb_ms,
+            "launches_per_apply": vn,
+            "bytes_moved": v_bytes,
+            "plan_bound_ms": vb_ms,
             "middle_step_ms": ms_vmid,
             "middle_step_bound_ms": vmid_ms,
             "host_enqueue_ms": host_v,
@@ -717,7 +940,9 @@ def main():
     from torch.distributed.device_mesh import init_device_mesh
     from torch.distributed.tensor import DTensor
 
-    from gcm_filters_tpu_torch.ops.cuda.local_pass import local_pass, local_pass_reference
+    from gcm_filters_tpu_torch.ops.cuda.local_pass import (
+        local_fused_pass_reference, local_pass_reference,
+    )
     from gcm_filters_tpu_torch.parallel import halo
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_scalar_apply
 
@@ -732,26 +957,36 @@ def main():
     # float64 (the same arithmetic, another summation order at block edges)
     tol_unsharded = {"float64": dict(rtol=1e-10, atol=1e-12), "float32": TOL["float32"]}
 
-    def check_sharded(label, x, dtype_name, **kw):
+    local_step_path = {"launches": 0}  # local_pass launched by Filter.apply below the predicate
+
+    def check_sharded(label, x, dtype_name, want_fused=True, **kw):
         filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
-        plain = make_sharded_scalar_apply(
+        mk = lambda **k: make_sharded_scalar_apply(  # noqa: E731
             filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps,
-            exact_nan=filt.exact_nan, pass_fn=local_pass_reference)
-        before = (local_pass.launches, cheb_pass.launches)
+            exact_nan=filt.exact_nan, **k)
+        plain = mk(pass_fn=local_pass_reference, fused_fn=local_fused_pass_reference)
+        steps = mk(fused_fn=None)
+        xs = filt._coerce(x)
+        lops, cells, rounds, _ = filt._scalar_fn().operands(*xs.shape[-2:], xs.dtype)
+        lplan = plan_fused_passes(cells, *xs.shape[-2:], xs.dtype, fused_planes(lops),
+                                  one_pass=True)
+        if lplan.fused != want_fused:
+            raise AssertionError(f"{label}: fused rounds {lplan.fused}, expected {want_fused}")
+        before = counters()
         got = filt.apply(x)
         torch.cuda.synchronize()
-        launched = (local_pass.launches - before[0], cheb_pass.launches - before[1])
-        if launched != (filt.n_steps, 0):
-            raise AssertionError(f"{label}: (local_pass, cheb_pass) launches {launched}, "
-                                 f"expected {(filt.n_steps, 0)}")
+        launched = launched_since(before, label, {"local_fused_pass": len(rounds)} if lplan.fused
+                                  else {"local_pass": filt.n_steps})
+        local_step_path["launches"] += launched["local_pass"]
         if not isinstance(got, DTensor):
             raise AssertionError(f"{label}: the mesh path returned {type(got).__name__}")
         got = got.full_tensor()
-        want = plain(filt._coerce(x)).full_tensor()
+        want = plain(xs).full_tensor()
         if got.shape != want.shape or got.device.type != "cuda":
             raise AssertionError(f"{label}: result {tuple(got.shape)} on {got.device}")
         a, r = compare(label, got, want, dtype_name)
         sworst[dtype_name] = [max(sworst[dtype_name][0], a), max(sworst[dtype_name][1], r)]
+        bitwise(label, got, steps(xs).full_tensor(), "the local step-kernel chain")
         kw.pop("halo_steps", None)
         unsharded = Filter(device=dev, **kw).apply(x)
         if not torch.equal(torch.isnan(got), torch.isnan(unsharded)):
@@ -760,8 +995,9 @@ def main():
                                    msg=lambda m: f"{label} vs unsharded: {m}")
         ok = ~torch.isnan(unsharded)
         u = float((got[ok] - unsharded[ok]).abs().max())
-        log(f"  {label}: vs plain max abs {a:.3e} max rel {r:.3e}; vs unsharded max abs "
-            f"{u:.3e} ({launched[0]} launches)")
+        log(f"  {label}: {'fused rounds' if lplan.fused else 'step chain'} {rounds} tile "
+            f"{lplan.tile}: vs plain max abs {a:.3e} max rel {r:.3e}; vs the local step chain "
+            f"0 (bit for bit); vs unsharded max abs {u:.3e} ({sum(launched.values())} launches)")
         return got
 
     both = ((torch.float32, "float32"), (torch.float64, "float64"))
@@ -796,29 +1032,33 @@ def main():
             check_sharded(f"sharded {tri.name} halo_steps={hs} {name}", data, name,
                           filter_scale=6.0, dx_min=1.0, grid_type=tri, grid_vars=gv,
                           dtype=dt, halo_steps=hs)
+    d, v = scalar_grid_data(tri, required_grid_vars(tri), (40, 100))
+    check_sharded(f"sharded {tri.name} (40, 100) below the fused predicate float64", d,
+                  "float64", want_fused=False, filter_scale=6.0, dx_min=1.0, grid_type=tri,
+                  grid_vars=v)
 
     # 10. sharded headline: the phase-4 workload through the mesh path
     shead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri,
                    grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32,
                    device=dev, mesh=mesh, spatial_axes=axes)
     torch.cuda.synchronize()
+    sfn = shead._scalar_fn()
     reset_fallback_counts()
-    cheb_pass.launches = 0
-    vec_pass.launches = {BGRID: 0, CTAP: 0}
-    local_pass.launches = 0
+    reset_counters()
     s_out = shead.apply(field)
     y = s_out
     for _ in range(warm):
         y = shead.apply(y)
     ms_sharded, host_sharded = event_ms(lambda: shead.apply(x_dev), chain, host=True)
-    s_launches = local_pass.launches
-    s_other = dict(vec_pass.launches, cheb_pass=cheb_pass.launches)
+    s_other = counters()
+    s_launches = s_other.pop("local_fused_pass")
     s_fallbacks = fallback_counts()
-    log(f"sharded headline {ny}x{nx} float32 {tri.name} on a 1x1 mesh, n_steps {n_steps}: "
-        f"{s_launches} local_pass launches over {applies} applies, other kernels {s_other}, "
-        f"fallbacks {s_fallbacks}")
-    if s_launches != n_steps * applies:
-        raise AssertionError(f"expected {n_steps * applies} kernel launches, saw {s_launches}")
+    lops, cells, rounds, lp_ = sfn.operands(ny, nx, torch.float32)
+    log(f"sharded headline {ny}x{nx} float32 {tri.name} on a 1x1 mesh, n_steps {n_steps}, "
+        f"rounds {rounds}: {s_launches} local_fused_pass launches over {applies} applies, "
+        f"other kernels {s_other}, fallbacks {s_fallbacks}")
+    if s_launches != len(rounds) * applies:
+        raise AssertionError(f"expected {len(rounds) * applies} launches, saw {s_launches}")
     if any(s_other.values()):
         raise AssertionError(f"the sharded path launched another kernel: {s_other}")
     if s_fallbacks:
@@ -837,14 +1077,22 @@ def main():
         f"vs the unsharded kernel path: max abs {s_vs_k1:.3e}")
     del want64
 
-    sfn = shead._scalar_fn()
-    lops, cells, rounds, lp_ = sfn.operands(ny, nx, torch.float32)
     if rounds != (n_steps,):
         raise AssertionError(f"expected one round of {n_steps} steps, planned {rounds}")
+    lplan = plan_fused_passes(cells, ny, nx, torch.float32, fused_planes(lops), one_pass=True)
     plain_shead = make_sharded_scalar_apply(shead.operator, shead.filter_spec, mesh, axes,
-                                            pass_fn=local_pass_reference)
+                                            pass_fn=local_pass_reference,
+                                            fused_fn=local_fused_pass_reference)
     plain_shead(x_dev)
     ms_s_plain = event_ms(lambda: plain_shead(x_dev), 10)
+    # the chain of local step-kernel launches: the same bits, timed in the same run
+    steps_shead = make_sharded_scalar_apply(shead.operator, shead.filter_spec, mesh, axes,
+                                            fused_fn=None)
+    s_vs_steps = bitwise("sharded headline", s_full, steps_shead(x_dev).full_tensor(),
+                         "the local step-kernel chain")
+    before = local_pass.launches
+    ms_s_steps, host_s_steps = event_ms(lambda: steps_shead(x_dev), chain, host=True)
+    s_step_chain_launches = (local_pass.launches - before) // chain
 
     # the exchange alone, and the chain of local steps alone on an extended block
     local_axis = (None, 1)
@@ -866,7 +1114,22 @@ def main():
 
     local_chain()
     ms_chain = event_ms(local_chain, chain)
-    chain_err = compare("local step chain vs sharded apply", kbuf[2][0], s_full, "float32")[0]
+    chain_err = bitwise("the local step chain alone", kbuf[2][0], s_full, "the sharded apply")
+    facc = torch.empty_like(x3)
+    fused_round = lambda: local_fused_pass(  # noqa: E731
+        lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=xe, field_own=x3, acc=facc)
+    fused_round()
+    ms_round = event_ms(fused_round, chain)
+    bitwise("the fused round alone", facc[0], s_full, "the sharded apply")
+    # the fused round against its plain version, at the headline's block
+    racc = torch.empty_like(x3)
+    local_fused_pass_reference(lops, lp_, 0, n_steps, cells=cells, field=xe, field_own=x3,
+                               acc=racc)
+    lfused_err = compare("fused round vs plain", facc, racc, "float32")[0]
+    del racc
+    slp_bytes, slp_flops = plan_cost(lops, dataclasses.replace(lplan, steps=rounds), 1, ny, nx,
+                                     item)
+    slb_ms, slb_by = bound_ms(slp_bytes, slp_flops, "float32")
 
     skinds = [(FIRST, 1)] + [(MIDDLE, k) for k in range(2, n_steps)] + [(LAST, cells)]
     s_bytes = sum(local_step_bytes(k, lops, 1, ny, nx, cells, sh, item) for k, sh in skinds)
@@ -874,15 +1137,18 @@ def main():
     s_flops = FLOPS_PER_CELL_STEP * s_cells
     sb_ms, sb_by = bound_ms(s_bytes, s_flops, "float32")
     sfb_ms, _ = bound_ms(filter_bytes, s_flops, "float32")
-    log(f"sharded headline: {ms_sharded:.4f} ms/apply (host enqueue {host_sharded:.4f} "
-        f"ms/apply) = {ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}")
+    log(f"sharded headline: {ms_sharded:.4f} ms/apply fused (host enqueue {host_sharded:.4f} "
+        f"ms/apply) = {ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}; "
+        f"bit for bit equal to the local step chain, {ms_s_steps:.4f} ms/apply in "
+        f"{s_step_chain_launches} launches")
     log(f"  halo exchange alone ({cells} cells, block {tuple(xe.shape[-2:])}) "
-        f"{ms_exchange:.4f} ms; the {n_steps} local steps alone {ms_chain:.4f} ms "
-        f"(result vs the apply: max abs {chain_err:.3e}); unsharded kernel path "
-        f"{ms_apply:.4f} ms/apply")
-    log(f"  per-launch bound {sb_ms:.4f} ms ({s_bytes / 1e9:.3f} GB, {sb_by}); "
-        f"whole-filter bound {sfb_ms:.4f} ms ({filter_bytes / 1e6:.1f} MB); "
-        f"plain PyTorch steps {ms_s_plain:.4f} ms/apply")
+        f"{ms_exchange:.4f} ms; the fused round alone (tile {lplan.tile}) {ms_round:.4f} ms; "
+        f"the {n_steps} local steps alone {ms_chain:.4f} ms (both bit for bit equal to the "
+        f"apply); unsharded fused path {ms_apply:.4f} ms/apply; fused round vs plain max abs "
+        f"{lfused_err:.3e}")
+    log(f"  plan bound {slb_ms:.4f} ms ({slb_by}); whole-filter bound {sfb_ms:.4f} ms "
+        f"({filter_bytes / 1e6:.1f} MB); step chain's per-launch bound {sb_ms:.4f} ms "
+        f"({s_bytes / 1e9:.3f} GB, {sb_by}); plain PyTorch {ms_s_plain:.4f} ms/apply")
 
     # 11. each step kind of the local step against its plain version, at the
     # headline's extended shape (buffers start at zero: a step leaves the
@@ -921,36 +1187,13 @@ def main():
     log(f"local step kinds vs plain at block {tuple(xe.shape[-2:])}: max abs {ls_err:.3e}; "
         f"middle step {ms_lmid:.4f} ms vs bound {lmid_ms:.4f} ms")
     # 12. sharded small vector grids on the same 1x1 mesh
-    import dataclasses
-
-    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import (
-        vec_local_pass, vec_local_pass_reference,
-    )
+    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_pass_reference
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        RingState, ring_pass, ring_pass_reference, vec_ring_pass, vec_ring_pass_reference,
+        RingState, ring_pass_reference, vec_ring_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
 
     svworst = {op: {"float32": [0.0, 0.0], "float64": [0.0, 0.0]} for op in (BGRID, CTAP)}
-
-    def counters():
-        """Every kernel's launch count, by name."""
-        return {"cheb_pass": cheb_pass.launches, "local_pass": local_pass.launches,
-                "vec_pass_bgrid": vec_pass.launches[BGRID],
-                "vec_pass_ctap": vec_pass.launches[CTAP],
-                "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
-                "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
-                "ring_pass": ring_pass.launches,
-                "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
-                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
-
-    def reset_counters():
-        cheb_pass.launches = 0
-        local_pass.launches = 0
-        vec_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_local_pass.launches = {BGRID: 0, CTAP: 0}
-        ring_pass.launches = 0
-        vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 
     def check_sharded_vector(label, op, u, v, dtype_name, **kw):
         filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
@@ -1191,6 +1434,9 @@ def main():
             "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + {vn} "
                     f"launches, {ny}x{nx} float32 {gname}, block {tuple(we.shape[-2:])}",
             "filter_bound_ms": svfb_ms,
+            "launches_per_apply": vn,
+            "bytes_moved": sv_bytes,
+            "plan_bound_ms": svb_ms,
             "middle_step_ms": ms_lvmid,
             "middle_step_bound_ms": lvmid_ms,
             "exchange_ms": ms_vex,
@@ -1210,19 +1456,6 @@ def main():
 
     ring_axes = ("y", None)
     rworst = {"ring_pass": 0.0, "vec_ring_pass_bgrid": 0.0, "vec_ring_pass_ctap": 0.0}
-
-    def bitwise(label, got, want):
-        """Max abs difference, after requiring equality bit for bit (NaNs in
-        the same cells)."""
-        if got.shape != want.shape or got.dtype != want.dtype or got.device.type != "cuda":
-            raise AssertionError(f"{label}: {got.dtype} {tuple(got.shape)} on {got.device}")
-        if not torch.equal(torch.isnan(got), torch.isnan(want)):
-            raise AssertionError(f"{label}: NaN positions differ from the unsharded kernel path")
-        ok = ~torch.isnan(want)
-        diff = float((got[ok] - want[ok]).abs().max())
-        if diff != 0.0 or not torch.equal(got[ok], want[ok]):
-            raise AssertionError(f"{label}: differs from the unsharded kernel path, max abs {diff:.3e}")
-        return diff
 
     def check_ring(label, p_y, fields, **kw):
         """One ring apply against the unsharded kernel path (bitwise) and the
@@ -1462,6 +1695,9 @@ def main():
         "unit": f"one ring headline apply = {n_steps} launches for 4 resident y-shards, "
                 f"{ny}x{nx} float32",
         "filter_bound_ms": fb_ms,
+        "launches_per_apply": n_steps,
+        "bytes_moved": ring_bytes,
+        "plan_bound_ms": rb_ms,
         "middle_step_ms": ms_rmid,
         "middle_step_bound_ms": rmid_ms,
         "unsharded_ms": ms_apply,
@@ -1537,6 +1773,9 @@ def main():
             "unit": f"one ring headline apply = {vn} launches for 4 resident y-shards, "
                     f"{ny}x{nx} float32 {gname}",
             "filter_bound_ms": vec_results[op]["filter_bound_ms"],
+            "launches_per_apply": vn,
+            "bytes_moved": rv_bytes,
+            "plan_bound_ms": rvb_ms,
             "middle_step_ms": ms_rvmid,
             "middle_step_bound_ms": rvmid_ms,
             "unsharded_ms": vec_results[op]["ms"],
@@ -1545,45 +1784,105 @@ def main():
         })
         del rv, vstate
 
+    fb_fused, fb_fused_by = bound_ms(p_bytes, apply_flops, "float32")
+    sb_fused, sb_fused_by = bound_ms(slp_bytes, apply_flops, "float32")
     kernels = [{
         "name": "cheb_pass",
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/cheb_pass.cu",
         "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:771",
-        "launches": launches,
+        "launches": step_path["launches"],
+        "launches_from": "Filter.apply of fields below the fused plan's predicate (phase 3)",
         "max_abs_err": max(step_err, worst["float32"][0], worst["float64"][0]),
         "max_rel_err_f64": worst["float64"][1],
-        "ms": ms_apply,
+        "ms": ms_steps,
         "plain_ms": ms_plain,
         "bound_ms": b_ms,
         "bound_by": b_by,
         "library_ms": None,
-        "unit": f"one headline apply = {n_steps} launches, {ny}x{nx} float32",
+        "unit": f"one headline apply as the step chain = {step_chain_launches} launches, "
+                f"{ny}x{nx} float32",
         "filter_bound_ms": fb_ms,
+        "launches_per_apply": step_chain_launches,
+        "bytes_moved": apply_bytes,
+        "plan_bound_ms": b_ms,
         "middle_step_ms": ms_mid,
         "middle_step_bound_ms": mid_ms,
+        "host_enqueue_ms": host_steps,
+    }, {
+        "name": "cheb_fused_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/cheb_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1150",
+        "launches": launches,
+        "launches_per_apply": len(plan.steps),
+        "max_abs_err": max(fused_err, fworst["vs_plain"], fworst["vs_tiled"]),
+        "vs_step_chain_max_abs": head_vs_steps,
+        "headline_vs_f64_engine_max_abs": head_err,
+        "ms": ms_apply,
+        "plain_ms": ms_plain,
+        "bound_ms": fb_fused,
+        "bound_by": fb_fused_by,
+        "library_ms": None,
+        "unit": f"one headline apply = {len(plan.steps)} launch(es) of {plan.steps} steps on "
+                f"{plan.tile[0]}x{plan.tile[1]} tiles, {ny}x{nx} float32",
+        "bytes_moved": p_bytes,
+        "plan_bound_ms": pb_ms,
+        "filter_bound_ms": fb_ms,
+        "step_chain_ms": ms_steps,
         "host_enqueue_ms": host_apply,
+        "tile_sweep_ms": sweep,
+        "taper": more_heads["taper"],
+        "irregular_with_land": more_heads["irregular_with_land"],
     }, vec_results[BGRID], vec_results[CTAP], {
         "name": "local_pass",
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
         "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
-        "launches": s_launches,
+        "launches": local_step_path["launches"],
+        "launches_from": "Filter(mesh=...).apply of a block below the fused predicate (phase 9)",
         "max_abs_err": max(ls_err, sworst["float32"][0], sworst["float64"][0]),
-        "headline_vs_f64_engine_max_abs": s_head_err,
         "max_rel_err_f64": sworst["float64"][1],
-        "ms": ms_sharded,
+        "ms": ms_s_steps,
         "plain_ms": ms_s_plain,
         "bound_ms": sb_ms,
         "bound_by": sb_by,
         "library_ms": None,
-        "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + {n_steps} "
-                f"launches, {ny}x{nx} float32, block {tuple(xe.shape[-2:])}",
+        "unit": f"one sharded headline apply on a 1x1 mesh as the step chain = one halo "
+                f"exchange + {s_step_chain_launches} launches, {ny}x{nx} float32, block "
+                f"{tuple(xe.shape[-2:])}",
         "filter_bound_ms": sfb_ms,
+        "launches_per_apply": s_step_chain_launches,
+        "bytes_moved": s_bytes,
+        "plan_bound_ms": sb_ms,
         "middle_step_ms": ms_lmid,
         "middle_step_bound_ms": lmid_ms,
-        "exchange_ms": ms_exchange,
         "steps_alone_ms": ms_chain,
+        "host_enqueue_ms": host_s_steps,
+    }, {
+        "name": "local_fused_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
+        "launches": s_launches,
+        "launches_per_apply": len(rounds),
+        "max_abs_err": max(lfused_err, sworst["float32"][0], sworst["float64"][0]),
+        "vs_step_chain_max_abs": s_vs_steps,
+        "headline_vs_f64_engine_max_abs": s_head_err,
+        "ms": ms_sharded,
+        "plain_ms": ms_s_plain,
+        "bound_ms": sb_fused,
+        "bound_by": sb_fused_by,
+        "library_ms": None,
+        "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + "
+                f"{len(rounds)} fused round(s) on {lplan.tile[0]}x{lplan.tile[1]} tiles, "
+                f"{ny}x{nx} float32, block {tuple(xe.shape[-2:])}",
+        "bytes_moved": slp_bytes,
+        "plan_bound_ms": slb_ms,
+        "filter_bound_ms": sfb_ms,
+        "step_chain_ms": ms_s_steps,
+        "exchange_ms": ms_exchange,
+        "round_alone_ms": ms_round,
         "host_enqueue_ms": host_sharded,
     }, svec_results[BGRID], svec_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)

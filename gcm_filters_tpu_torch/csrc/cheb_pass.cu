@@ -28,18 +28,27 @@
 // are shared by every batch entry. Constant coefficients arrive as
 // immediates (null pointer + value).
 //
-// Bound: memory. A middle step of the 2400x3600 float32 tripolar headline
+// Bound of a step: memory. A middle step of the 2400x3600 float32 tripolar headline
 // reads t, t_prev, acc, c', post and writes t_next, acc: 7 arrays of 34.6 MB,
 // about 72 us at 3.35 TB/s; ~15 flops per cell are ~2 us at 67 TFLOP/s.
 // The whole 11-step filter needs only one read of field, c, post, area and
 // one write of the result (~173 MB, ~0.05 ms); closing that gap is the job of
-// temporal blocking (n steps per launch on shared-memory tiles with a halo,
-// as the TPU kernel does in VMEM), which is later work.
+// temporal blocking, the fused entries below.
+//
+// The fused entries cheb_fused_pass_f32/f64 run S <= 16 of these steps per
+// launch on shared-memory tiles (cheb_tile.cuh, WrapGeo: x periodic, y
+// periodic or folded, batch in gridDim.z, constant coefficients as
+// immediates), as the TPU kernel does in VMEM. A filter of n steps is then a
+// few launches, one per planned pass (ops/cuda/cheb_pass.py::
+// plan_fused_passes), and each result equals the chain of the step entry's
+// launches bit for bit. Bound of a fused pass: shared memory and issue (see
+// cheb_tile.cuh); the step entry stays for fields smaller than a tile and its
+// halo, and as what the fused pass is checked against.
 //
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
 
-#include "cheb_step.cuh"
+#include "cheb_tile.cuh"
 
 namespace {
 
@@ -111,6 +120,34 @@ int launch(int kind, int batch, int ny, int nx, const T* field, const T* t,
 
 CHEB_PASS_ENTRY(cheb_pass_f32, float)
 CHEB_PASS_ENTRY(cheb_pass_f64, double)
+
+// One fused pass: steps start+1 .. start+n_ops of the filter, where the
+// caller says whether the pass begins with FIRST (`first`: reads the raw
+// field) and ends with LAST (`last`: writes only the result into acc_out).
+// pa[i] is p_a of the pass's i-th step, p_b that of FIRST. The carries of a
+// pass that does not end the filter go to t_out and t_prev_out, which must
+// not alias t or t_prev (tiles read their neighbours' cells); acc_in may be
+// acc_out.
+#define CHEB_FUSED_ENTRY(NAME, T)                                                       \
+  extern "C" int NAME(int batch, int ny, int nx, int by, int bx, int n_ops, int first,  \
+                      int last, const double* pa, double p_b, const T* field,           \
+                      const T* t, const T* t_prev, const T* acc_in, T* t_out,           \
+                      T* t_prev_out, T* acc_out, const T* c, const T* n, const T* s,    \
+                      const T* e, const T* w, double cv, double nv, double sv,          \
+                      double ev, double wv, const T* pre, const T* post, const T* area, \
+                      double land_gain, int zap, int fold, int drop_pre, void* stream) { \
+    cudaGetLastError();                                                                 \
+    if (ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;                           \
+    const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, field,    \
+                                         field, t, t_prev, acc_in, t_out, t_prev_out,   \
+                                         acc_out, c, n, s, e, w, cv, nv, sv, ev, wv,    \
+                                         pre, post, area, land_gain, zap, drop_pre);    \
+    const WrapGeo g{ny, nx, fold};                                                      \
+    return launch_fused<T>(a, g, ny, nx, batch, static_cast<cudaStream_t>(stream));     \
+  }
+
+CHEB_FUSED_ENTRY(cheb_fused_pass_f32, float)
+CHEB_FUSED_ENTRY(cheb_fused_pass_f64, double)
 
 extern "C" const char* cheb_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

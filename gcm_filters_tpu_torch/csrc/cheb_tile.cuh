@@ -1,0 +1,401 @@
+// The fused scalar Chebyshev pass on shared-memory tiles: S steps per
+// launch, shared by the unsharded fused entry (cheb_pass.cu, WrapGeo) and the
+// fused local round of the sharded engine (local_pass.cu, BlockGeo).
+//
+// A block owns a by x bx tile of the output and runs the trapezoid
+// (overlapped-halo) decomposition of the TPU kernel
+// (gcm_filters_tpu/ops/pallas/cheb_pass.py, head comment), with a halo in
+// both y and x:
+//   1. load a window of (by+2H) x (bx+2H) cells, H = S, into shared memory:
+//      the carries (T_0 = h computed from the raw field on the first pass,
+//      else t and t_prev) and the coefficient planes that are arrays (c, n,
+//      s, e, w, post, pre); acc of the own cells;
+//   2. run the S steps in shared memory; step j updates the window shrunk by
+//      j cells on each side, so the last one ends exactly on the own tile.
+//      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
+//      it), acc of the own cells is updated in place;
+//   3. write the own cells of t, t_prev and acc, or, when the pass ends the
+//      filter, only the result (land reconstruction and /area fused).
+// Every value goes through the functions of cheb_step.cuh in the same order
+// as in the step kernels, so a cell that two tiles compute, or that a tile
+// computes as a mirror, gets the same bits as in the chain of one-step
+// launches.
+//
+// The tripolar fold (WrapGeo with fold): window rows above the top row are
+// mirror cells, ext row ny-1+m = real row ny-m reversed in x. A mirror cell
+// is stepped as the real cell R it mirrors: with R's own coefficients and
+// masks (loaded from R's index) and with its window neighbours in swapped
+// roles (R's north is the window's south, R's east the window's west). In
+// the fixed summation order c, n, s, e, w that is R's arithmetic exactly.
+// Window rows below row 0 wrap to the top rows (as the step kernel's south
+// neighbour of row 0 does); there the window's north neighbour of real row
+// ny-1 is row 0 and not the fold, so those cells drift from the step chain,
+// and the drift would reach row 0 one step later. Row 0 is land on every
+// fold grid (`_check_antarctica` raises otherwise) and its Laplacian is zero
+// whatever its south neighbour holds (post = 0, or all coefficients 0), so
+// no real cell reads the drift.
+//
+// Bound: shared memory and issue, no longer HBM. A cell-step reads about 9
+// shared words (5 gathered values, the coefficient arrays, post, t_prev) and
+// writes one; the redundant cells of the trapezoid add (1 + 2H/b)^2 - 1 at
+// most. Device memory moves each input once per pass plus the halos, which
+// neighbouring tiles share through L2.
+//
+// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
+// 0*fbar NaN poison.
+#pragma once
+
+#include "cheb_step.cuh"
+
+namespace {
+
+constexpr int MAX_FUSE = 16;       // steps per pass at most (the halo, H)
+constexpr int FUSED_THREADS = 512; // 16 warps; a warp walks one window row
+constexpr size_t MAX_SHARED = 232448;  // what a block may take on sm_90
+
+template <typename T>
+struct FusedArgs {
+  int by, bx;        // the own tile
+  int n_ops;         // steps in this pass, = H
+  int first, last;   // the pass starts with FIRST / ends with LAST
+  T pa[MAX_FUSE];    // p_a of each step of the pass
+  T p_b;             // p_b of FIRST
+  const T* field;    // raw field of the window (first pass), in-plane indexed
+  const T* field_own;  // raw field of the own cells (last pass), own-plane indexed
+  const T* t;        // T_k in (not first)
+  const T* t_prev;   // T_{k-1} in (not first)
+  const T* acc_in;   // acc in (not first); may alias acc_out
+  T* t_out;          // T_k out (not last)
+  T* t_prev_out;     // T_{k-1} out (not last)
+  T* acc_out;        // acc out, or the result on a last pass
+  const T* coef[5];  // c, n, s, e, w (pre-scaled); null -> cval
+  T cval[5];
+  const T* pre;
+  const T* post;
+  const T* area;
+  T land_gain;
+  int zap, drop_pre;
+};
+
+// Planes: "in" planes (t, t_prev, the first pass's field and every
+// coefficient plane) and "out" planes (t_out, t_prev_out) are indexed by
+// in_index/out_index, the own planes (acc, the result, the last pass's
+// field) by own_index. Window row gy, column gx are in the own domain's
+// coordinates and may lie outside it.
+
+// The whole field: x periodic, y periodic or folded at the top.
+struct WrapGeo {
+  int ny, nx, fold;
+  __device__ int rows() const { return ny; }
+  __device__ int cols() const { return nx; }
+  __device__ bool mirror(int gy) const { return fold && gy >= ny; }
+  // one add or subtract where the field is at least a window wide, as the
+  // planner's predicate makes it; the loops cover smaller fields too
+  __device__ int row(int gy) const {
+    if (mirror(gy)) gy = 2 * ny - 1 - gy;  // ext row ny-1+m -> real row ny-m
+    while (gy < 0) gy += ny;
+    while (gy >= ny) gy -= ny;
+    return gy;
+  }
+  __device__ int col(int gx, bool mir) const {
+    while (gx < 0) gx += nx;
+    while (gx >= nx) gx -= nx;
+    return mir ? nx - 1 - gx : gx;
+  }
+  __device__ int64_t in_plane() const { return (int64_t)ny * nx; }
+  __device__ int64_t in_index(int r, int c) const { return (int64_t)r * nx + c; }
+  __device__ int64_t own_plane() const { return (int64_t)ny * nx; }
+  __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
+  __device__ int64_t out_plane() const { return (int64_t)ny * nx; }
+  __device__ int64_t out_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
+};
+
+// A halo-extended block (ly+2c, lx+2c) of the sharded engine: the own domain
+// is its core, no wrap and no fold (the exchange placed them). Reads past
+// the block are clamped: such cells lie more than S cells from the core.
+struct BlockGeo {
+  int ly, lx, c;
+  __device__ int rows() const { return ly; }
+  __device__ int cols() const { return lx; }
+  __device__ bool mirror(int) const { return false; }
+  __device__ int row(int gy) const { return min(max(gy + c, 0), ly + 2 * c - 1); }
+  __device__ int col(int gx, bool) const { return min(max(gx + c, 0), lx + 2 * c - 1); }
+  __device__ int64_t in_plane() const { return (int64_t)(ly + 2 * c) * (lx + 2 * c); }
+  __device__ int64_t in_index(int r, int cc) const { return (int64_t)r * (lx + 2 * c) + cc; }
+  __device__ int64_t own_plane() const { return (int64_t)ly * lx; }
+  __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * lx + gx; }
+  __device__ int64_t out_plane() const { return in_plane(); }
+  __device__ int64_t out_index(int gy, int gx) const { return in_index(gy + c, gx + c); }
+};
+
+// Shared planes of one window: 2 carries, the array coefficients, post, pre
+// (each (by+2H) x (bx+2H)), then acc of the own tile.
+template <typename T>
+__host__ __device__ inline size_t fused_shared_bytes(const FusedArgs<T>& a) {
+  int planes = 2;
+  for (int m = 0; m < 5; ++m) planes += a.coef[m] != nullptr;
+  planes += (a.post != nullptr) + (a.pre != nullptr);
+  const size_t wy = a.by + 2 * a.n_ops, wx = a.bx + 2 * a.n_ops;
+  return (planes * wy * wx + (size_t)a.by * a.bx) * sizeof(T);
+}
+
+// Stencil shapes the kernel is compiled for. Every branch on them is
+// resolved at compile time; GENERIC reads them from the arguments.
+enum Mode {
+  GENERIC = 0,  // any combination of zap, pre, post and coefficient arrays
+  HSPACE = 1,   // no zap, no pre, post, c an array, n s e w constants (the
+                // masked grids under the h-space elimination)
+  FLUX = 2,     // zap, no pre, no post, c n s e w arrays (flux-form grids)
+};
+
+template <typename T, int MODE>
+struct Tile {
+  const FusedArgs<T>& a;
+  T* sm;       // the window planes
+  int wx;      // window width (pitch of every plane)
+  int o_coef[5], o_post, o_pre, o_acc;  // plane offsets; -1: absent
+
+  __device__ bool zap() const { return MODE == GENERIC ? a.zap != 0 : MODE == FLUX; }
+  __device__ bool has_pre() const { return MODE == GENERIC && o_pre >= 0; }
+  __device__ bool has_post() const { return MODE == GENERIC ? o_post >= 0 : MODE == HSPACE; }
+  __device__ bool coef_array(int m) const {
+    return MODE == GENERIC ? o_coef[m] >= 0 : MODE == FLUX || m == 0;
+  }
+  __device__ T coef(int m, int k) const { return coef_array(m) ? sm[o_coef[m] + k] : a.cval[m]; }
+  __device__ T gat(T x, int k) const {
+    return gather_value(x, zap(), has_pre(), has_pre() ? sm[o_pre + k] : T(0));
+  }
+};
+
+// Rows a thread steps per work item: it loads the strip's values first,
+// then does the arithmetic (one latency per strip instead of one per row),
+// and keeps the centre column in registers (a cell loads its east and west,
+// and one more centre value).
+constexpr int STRIP = 4;
+
+// One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
+// [j, wx-j): cur holds T_k, prev T_{k-1}, T_{k+1} goes over prev.
+template <typename T, int MODE, int KIND, class Geo>
+__device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const Geo& geo, int j,
+                                            int wy, int H, int y0, int x0, int cur,
+                                            int prev, T p_a, int64_t b_own) {
+  const FusedArgs<T>& a = tl.a;
+  T* const sm = tl.sm;
+  const int wx = tl.wx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int rows = wy - 2 * j, cols = wx - 2 * j;
+  const int chunks = (cols + 31) / 32, strips = (rows + STRIP - 1) / STRIP;
+  const int ny = geo.rows(), nx = geo.cols();
+  for (int item = warp; item < chunks * strips; item += nwarps) {
+    const int s_i = item / chunks;
+    const int q = j + (item - s_i * chunks) * 32 + lane;
+    if (q >= wx - j) continue;
+    const int r0 = j + s_i * STRIP;
+    const int r1 = min(r0 + STRIP, wy - j);  // rows past r1 load row r1-1 and are not stored
+    // loads: the centre column on rows r0-1 .. r0+STRIP, the rest on the strip
+    T tc[STRIP + 2], te[STRIP], tw[STRIP], cf[STRIP][5], po[STRIP], tp[STRIP], ac[STRIP];
+#pragma unroll
+    for (int s = 0; s < STRIP + 2; ++s) tc[s] = sm[cur + min(r0 - 1 + s, r1) * wx + q];
+    const unsigned ox = q - H;
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int k = min(r0 + s, r1 - 1) * wx + q;
+      te[s] = sm[cur + k + 1];
+      tw[s] = sm[cur + k - 1];
+#pragma unroll
+      for (int m = 0; m < 5; ++m) cf[s][m] = tl.coef(m, k);
+      po[s] = tl.has_post() ? sm[tl.o_post + k] : T(0);
+      tp[s] = KIND == FIRST ? T(0) : sm[prev + k];
+      const unsigned oy = min(r0 + s, r1 - 1) - H;
+      ac[s] = KIND != FIRST && oy < (unsigned)a.by && ox < (unsigned)a.bx
+                  ? sm[tl.o_acc + (int)oy * a.bx + (int)ox] : T(0);
+    }
+    T g[STRIP + 2];
+#pragma unroll
+    for (int s = 0; s < STRIP + 2; ++s) g[s] = tl.gat(tc[s], min(r0 - 1 + s, r1) * wx + q);
+#pragma unroll
+    for (int s = 0; s < STRIP; ++s) {
+      const int r = r0 + s;
+      if (r >= r1) break;
+      const int k = r * wx + q;
+      const T ge = tl.gat(te[s], k + 1), gw = tl.gat(tw[s], k - 1);
+      // a mirror cell's north is the window's south, its east the window's west
+      const bool mir = geo.mirror(y0 - H + r);
+      const T lap = lap_value(cf[s][0], cf[s][1], cf[s][2], cf[s][3], cf[s][4], g[s + 1],
+                              mir ? g[s] : g[s + 2], mir ? g[s + 2] : g[s], mir ? gw : ge,
+                              mir ? ge : gw, tl.has_post(), po[s]);
+      const unsigned oy = r - H;
+      const bool own = oy < (unsigned)a.by && ox < (unsigned)a.bx;
+      const int o = tl.o_acc + (int)oy * a.bx + (int)ox;
+      if (KIND == FIRST) {
+        const T t1 = t1_value(lap, tc[s + 1]);
+        sm[prev + k] = t1;
+        if (own) sm[o] = acc_first(p_a, a.p_b, tc[s + 1], t1);
+      } else if (KIND == MIDDLE) {
+        const T nxt = next_value(tc[s + 1], lap, tp[s]);
+        sm[prev + k] = nxt;
+        if (own) sm[o] = acc_add(p_a, nxt, ac[s]);
+      } else {
+        // LAST: the window is the own tile
+        const int gy = y0 + (int)oy, gx = x0 + (int)ox;
+        if (gy < ny && gx < nx) {
+          const T acc = acc_add(p_a, next_value(tc[s + 1], lap, tp[s]), ac[s]);
+          const int64_t kk = geo.in_index(geo.row(gy), geo.col(gx, false));
+          const int64_t ko = b_own + geo.own_index(gy, gx);
+          a.acc_out[ko] = finish_value(acc, at(a.field_own, ko), a.area != nullptr,
+                                       at(a.area, kk), a.drop_pre != 0, po[s], a.land_gain);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, class Geo, int MODE>
+__global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedArgs<T> a,
+                                                                    const Geo geo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int H = a.n_ops;
+  const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+  // plane offsets in the window (offsets, not pointers, keep every access in
+  // the shared address space); a plane that is absent has offset -1
+  Tile<T, MODE> tl{a, reinterpret_cast<T*>(smem_raw), wx, {}, -1, -1, 0};
+  int off = 2 * wa;
+#pragma unroll
+  for (int m = 0; m < 5; ++m) {
+    tl.o_coef[m] = a.coef[m] ? off : -1;
+    if (a.coef[m]) off += wa;
+  }
+  tl.o_post = a.post ? off : -1;
+  if (a.post) off += wa;
+  tl.o_pre = a.pre ? off : -1;
+  if (a.pre) off += wa;
+  tl.o_acc = off;
+  T* const sm = tl.sm;
+
+  const bool has_area = a.area != nullptr, drop_pre = a.drop_pre != 0;
+  const int y0 = blockIdx.y * a.by, x0 = blockIdx.x * a.bx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int64_t b_in = (int64_t)blockIdx.z * geo.in_plane();
+  const int64_t b_own = (int64_t)blockIdx.z * geo.own_plane();
+  const int64_t b_out = (int64_t)blockIdx.z * geo.out_plane();
+  const int ny = geo.rows(), nx = geo.cols();
+
+  // 1. the window, one warp per row
+  for (int r = warp; r < wy; r += nwarps) {
+    const int gy = y0 - H + r;
+    const bool mir = geo.mirror(gy);
+    const int64_t row = geo.in_index(geo.row(gy), 0);
+#pragma unroll 3
+    for (int q = lane; q < wx; q += 32) {
+      const int64_t kk = row + geo.col(x0 - H + q, mir);
+      const int k = r * wx + q;
+      const T post = at(a.post, kk);
+      if (a.post) sm[tl.o_post + k] = post;
+      if (a.pre) sm[tl.o_pre + k] = a.pre[kk];
+#pragma unroll
+      for (int m = 0; m < 5; ++m)
+        if (a.coef[m]) sm[tl.o_coef[m] + k] = a.coef[m][kk];
+      if (a.first) {
+        sm[k] = t0_value(a.field[b_in + kk], has_area, at(a.area, kk), drop_pre, post);
+      } else {
+        sm[k] = a.t_prev[b_in + kk];
+        sm[wa + k] = a.t[b_in + kk];
+      }
+    }
+  }
+  if (!a.first) {
+    for (int i = threadIdx.x; i < a.by * a.bx; i += blockDim.x) {
+      const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
+      sm[tl.o_acc + i] = gy < ny && gx < nx ? a.acc_in[b_own + geo.own_index(gy, gx)] : T(0);
+    }
+  }
+  __syncthreads();
+
+  // 2. the steps. On a first pass plane 0 holds T_0 and FIRST writes T_1
+  // into plane 1.
+  int cur = a.first ? 0 : wa;
+  int prev = a.first ? wa : 0;
+  for (int i = 0; i < H; ++i) {
+    const int j = i + 1;  // this step's window: shrunk by j
+    if (a.first && i == 0)
+      step_window<T, MODE, FIRST>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+    else if (a.last && i == H - 1)
+      step_window<T, MODE, LAST>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+    else
+      step_window<T, MODE, MIDDLE>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+    __syncthreads();
+    const int tmp = cur;
+    cur = prev;
+    prev = tmp;
+  }
+  if (a.last) return;
+
+  // 3. the own cells of the carries and of acc
+  for (int r = H + warp; r < H + a.by; r += nwarps) {
+    const int gy = y0 - H + r;
+    if (gy >= ny) break;
+    for (int q = H + lane; q < H + a.bx; q += 32) {
+      const int gx = x0 - H + q;
+      if (gx >= nx) break;
+      const int k = r * wx + q;
+      a.t_out[b_out + geo.out_index(gy, gx)] = sm[cur + k];
+      a.t_prev_out[b_out + geo.out_index(gy, gx)] = sm[prev + k];
+      a.acc_out[b_own + geo.own_index(gy, gx)] = sm[tl.o_acc + (r - H) * a.bx + (q - H)];
+    }
+  }
+}
+
+template <typename T, class Geo, int MODE>
+int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        fused_pass_kernel<T, Geo, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  fused_pass_kernel<T, Geo, MODE><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+// Launch one fused pass over the own domain of `geo`, tiles of by x bx, with
+// the kernel compiled for the stencil's shape.
+template <typename T, class Geo>
+int launch_fused(const FusedArgs<T>& a, const Geo& g, int ny, int nx, int batch,
+                 cudaStream_t st) {
+  if (a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 || batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = fused_shared_bytes(a);
+  if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  const dim3 grid((nx + a.bx - 1) / a.bx, (ny + a.by - 1) / a.by, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const bool c_only = a.coef[0] && !a.coef[1] && !a.coef[2] && !a.coef[3] && !a.coef[4];
+  const bool all = a.coef[0] && a.coef[1] && a.coef[2] && a.coef[3] && a.coef[4];
+  if (!a.zap && !a.pre && a.post && c_only) return launch_mode<T, Geo, HSPACE>(a, g, grid, bytes, st);
+  if (a.zap && !a.pre && !a.post && all) return launch_mode<T, Geo, FLUX>(a, g, grid, bytes, st);
+  return launch_mode<T, Geo, GENERIC>(a, g, grid, bytes, st);
+}
+
+// Fill the fields every fused entry passes the same way.
+template <typename T>
+FusedArgs<T> fused_args(int by, int bx, int n_ops, int first, int last, const double* pa,
+                        double p_b, const T* field, const T* field_own, const T* t,
+                        const T* t_prev,
+                        const T* acc_in, T* t_out, T* t_prev_out, T* acc_out, const T* c,
+                        const T* n, const T* s, const T* e, const T* w, double cv,
+                        double nv, double sv, double ev, double wv, const T* pre,
+                        const T* post, const T* area, double land_gain, int zap,
+                        int drop_pre) {
+  FusedArgs<T> a;
+  a.by = by; a.bx = bx; a.n_ops = n_ops; a.first = first; a.last = last;
+  for (int i = 0; i < MAX_FUSE; ++i) a.pa[i] = i < n_ops ? T(pa[i]) : T(0);
+  a.p_b = T(p_b);
+  a.field = field; a.field_own = field_own; a.t = t; a.t_prev = t_prev; a.acc_in = acc_in;
+  a.t_out = t_out; a.t_prev_out = t_prev_out; a.acc_out = acc_out;
+  a.coef[0] = c; a.coef[1] = n; a.coef[2] = s; a.coef[3] = e; a.coef[4] = w;
+  a.cval[0] = T(cv); a.cval[1] = T(nv); a.cval[2] = T(sv); a.cval[3] = T(ev); a.cval[4] = T(wv);
+  a.pre = pre; a.post = post; a.area = area;
+  a.land_gain = T(land_gain);
+  a.zap = zap; a.drop_pre = drop_pre;
+  return a;
+}
+
+}  // namespace

@@ -37,41 +37,33 @@
 //
 // Design: one thread per window cell, one launch per step; the four neighbour
 // reads come through L1/L2. Batch rides gridDim.z; the coefficient planes are
-// shared by every batch entry.
+// shared by every batch entry. The per-cell arithmetic is the value functions
+// of cheb_step.cuh, with every rounding spelled out, as in the unsharded step
+// kernel.
 //
 // Bound: memory. A MIDDLE step of the 2400x3600 float32 tripolar headline on
 // one rank (c = 11, block 2422x3622) reads t, t_prev, c', post on the window,
 // acc on the core, and writes t_next and acc: 7 planes of ~35 MB, ~73 us at
 // 3.35 TB/s; ~15 flops per cell are ~2 us at 67 TFLOP/s. The shrinking
 // windows are the redundant trapezoid work of wide halos: (1 + 2c/l)^2 cells
-// per core cell at most. Several steps per launch on shared-memory tiles is
-// later work, as for the unsharded step kernel.
+// per core cell at most.
+//
+// The fused entries local_fused_pass_f32/f64 run a whole round (n_ops <= c
+// steps) in one launch on shared-memory tiles of the core (cheb_tile.cuh,
+// BlockGeo: no wrap, no fold), reading the extended planes and writing the
+// carries into the core of extended output buffers, so the next round's
+// exchange reads them as it reads the step chain's. Their result equals the
+// chain of this file's step launches bit for bit.
 //
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
 
-#include <cfloat>
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "cheb_tile.cuh"
 
 namespace {
 
-enum Kind { FIRST = 0, MIDDLE = 1, LAST = 2 };
-
-template <typename T> struct Lim;
-template <> struct Lim<float> { static __device__ __forceinline__ float max() { return FLT_MAX; } };
-template <> struct Lim<double> { static __device__ __forceinline__ double max() { return DBL_MAX; } };
-
-// torch.nan_to_num: NaN -> 0, +-inf -> +-largest finite.
 template <typename T>
-__device__ __forceinline__ T nan_to_num(T x) {
-  if (isnan(x)) return T(0);
-  if (isinf(x)) return x > T(0) ? Lim<T>::max() : -Lim<T>::max();
-  return x;
-}
-
-template <typename T>
-struct Args {
+struct LocalArgs {
   int ey, ex;       // extended block
   int c;            // halo cells: the core is [c, ey-c) x [c, ex-c)
   int w0;           // the window is [w0, ey-w0) x [w0, ex-w0)
@@ -92,29 +84,25 @@ struct Args {
 
 // T_0 at extended plane offset `k` (batch base `b`), from the raw field.
 template <typename T>
-__device__ __forceinline__ T first_value(const Args<T>& a, int64_t b, int64_t k) {
-  T x = a.field[b + k];
-  if (a.area) x = x * a.area[k];
-  if (a.drop_pre) x = a.post[k] * nan_to_num(x);
-  return x;
+__device__ __forceinline__ T local_t0(const LocalArgs<T>& a, int64_t b, int64_t k) {
+  return t0_value(a.field[b + k], a.area != nullptr, at(a.area, k), a.drop_pre != 0,
+                  at(a.post, k));
 }
 
 // The value the stencil contracts over at extended plane offset `k`.
 template <typename T, int KIND>
-__device__ __forceinline__ T gathered(const Args<T>& a, int64_t b, int64_t k) {
-  T x = KIND == FIRST ? first_value(a, b, k) : a.t[b + k];
-  if (a.zap) x = nan_to_num(x);
-  if (a.pre) x = a.pre[k] * x;
-  return x;
+__device__ __forceinline__ T local_gathered(const LocalArgs<T>& a, int64_t b, int64_t k) {
+  const T x = KIND == FIRST ? local_t0(a, b, k) : a.t[b + k];
+  return gather_value(x, a.zap != 0, a.pre != nullptr, at(a.pre, k));
 }
 
 template <typename T>
-__device__ __forceinline__ T coef(const Args<T>& a, int m, int64_t k) {
+__device__ __forceinline__ T local_coef(const LocalArgs<T>& a, int m, int64_t k) {
   return a.coef[m] ? a.coef[m][k] : a.cval[m];
 }
 
 template <typename T, int KIND>
-__global__ void local_pass_kernel(const Args<T> a) {
+__global__ void local_pass_kernel(const LocalArgs<T> a) {
   // FIRST covers the whole block (h is needed everywhere); the other kinds
   // cover the window only.
   const int org = KIND == FIRST ? 0 : a.w0;
@@ -127,45 +115,43 @@ __global__ void local_pass_kernel(const Args<T> a) {
 
   T h = T(0);
   if (KIND == FIRST) {
-    h = first_value(a, b, k);
+    h = local_t0(a, b, k);
     a.h[b + k] = h;
     if (i < a.w0 || i >= ex - a.w0 || j < a.w0 || j >= ey - a.w0) return;
   }
 
-  // inside the window every neighbour lies inside the block: no wrap
-  T lap = coef(a, 0, k) * gathered<T, KIND>(a, b, k) +
-          coef(a, 1, k) * gathered<T, KIND>(a, b, k + ex) +
-          coef(a, 2, k) * gathered<T, KIND>(a, b, k - ex);
-  lap = lap + coef(a, 3, k) * gathered<T, KIND>(a, b, k + 1) +
-        coef(a, 4, k) * gathered<T, KIND>(a, b, k - 1);
-  if (a.post) lap = a.post[k] * lap;
+  // inside the window every neighbour lies inside the block: no wrap. The
+  // five gathered values are loaded first, then the arithmetic runs.
+  const T g = local_gathered<T, KIND>(a, b, k);
+  const T gn = local_gathered<T, KIND>(a, b, k + ex);
+  const T gs = local_gathered<T, KIND>(a, b, k - ex);
+  const T ge = local_gathered<T, KIND>(a, b, k + 1);
+  const T gw = local_gathered<T, KIND>(a, b, k - 1);
+  const T lap = lap_value(local_coef(a, 0, k), local_coef(a, 1, k), local_coef(a, 2, k),
+                          local_coef(a, 3, k), local_coef(a, 4, k), g, gn, gs, ge, gw,
+                          a.post != nullptr, at(a.post, k));
 
   const bool in_core = i >= c && i < ex - c && j >= c && j < ey - c;
   const int lx = ex - 2 * c;
   const int64_t kc = (int64_t)blockIdx.z * (ey - 2 * c) * lx + (int64_t)(j - c) * lx + (i - c);
 
   if (KIND == FIRST) {
-    const T t1 = -h + T(0.5) * lap;
+    const T t1 = t1_value(lap, h);
     a.t_next[b + k] = t1;
-    if (in_core) a.acc[kc] = a.p_a * h + a.p_b * t1;
+    if (in_core) a.acc[kc] = acc_first(a.p_a, a.p_b, h, t1);
     return;
   }
 
-  const T nxt = T(-2) * a.t[b + k] + lap - a.t_prev[b + k];
+  const T nxt = next_value(a.t[b + k], lap, a.t_prev[b + k]);
   if (KIND == MIDDLE) {
     a.t_next[b + k] = nxt;  // in place over t_prev: only this cell read it
-    if (in_core) a.acc[kc] = a.acc[kc] + a.p_a * nxt;
+    if (in_core) a.acc[kc] = acc_add(a.p_a, nxt, a.acc[kc]);
     return;
   }
-  // LAST: the window is the core
-  T acc = a.acc[kc] + a.p_a * nxt;
-  if (a.drop_pre) {
-    T fbar = a.field[kc];
-    if (a.area) fbar = fbar * a.area[k];
-    acc = a.post[k] == T(0) ? a.land_gain * fbar : acc + fbar * T(0);
-  }
-  if (a.area) acc = acc / a.area[k];
-  a.acc[kc] = acc;  // in place: the filtered result
+  // LAST: the window is the core; the result goes over acc in place
+  a.acc[kc] = finish_value(acc_add(a.p_a, nxt, a.acc[kc]), at(a.field, kc),
+                           a.area != nullptr, at(a.area, k), a.drop_pre != 0,
+                           at(a.post, k), a.land_gain);
 }
 
 template <typename T>
@@ -178,7 +164,7 @@ int launch(int kind, int batch, int ey, int ex, int cells, int shrink,
   cudaGetLastError();  // clear a stale error so the result below is this launch's
   if (batch < 1 || cells < 1 || shrink < 1 || shrink > cells) return (int)cudaErrorInvalidValue;
   if (ey <= 2 * cells || ex <= 2 * cells) return (int)cudaErrorInvalidValue;
-  Args<T> a;
+  LocalArgs<T> a;
   a.ey = ey; a.ex = ex; a.c = cells;
   a.w0 = kind == LAST ? cells : shrink;
   a.field = field; a.t = t; a.t_prev = t_prev; a.t_next = t_next; a.acc = acc; a.h = h;
@@ -218,6 +204,36 @@ int launch(int kind, int batch, int ey, int ex, int cells, int shrink,
 
 LOCAL_PASS_ENTRY(local_pass_f32, float)
 LOCAL_PASS_ENTRY(local_pass_f64, double)
+
+// One fused round on the extended block: steps start+1 .. start+n_ops of the
+// filter (n_ops <= cells) on tiles of by x bx core cells. `first`: the round
+// begins with FIRST and reads the raw extended field; `last`: it ends with
+// LAST, reconstructs land from the caller's core-shaped field_own, and writes
+// only the result into acc_out (core-shaped). Otherwise the carries go into
+// the core of the extended t_out and t_prev_out, which must not alias t or
+// t_prev; acc_in may be acc_out.
+#define LOCAL_FUSED_ENTRY(NAME, T)                                                       \
+  extern "C" int NAME(int batch, int ly, int lx, int cells, int by, int bx, int n_ops,   \
+                      int first, int last, const double* pa, double p_b, const T* field, \
+                      const T* field_own, const T* t, const T* t_prev, const T* acc_in,  \
+                      T* t_out, T* t_prev_out, T* acc_out, const T* c, const T* n,       \
+                      const T* s, const T* e, const T* w, double cv, double nv,          \
+                      double sv, double ev, double wv, const T* pre, const T* post,      \
+                      const T* area, double land_gain, int zap, int drop_pre,            \
+                      void* stream) {                                                    \
+    cudaGetLastError();                                                                  \
+    if (ly < 1 || lx < 1 || n_ops > cells) return (int)cudaErrorInvalidValue;           \
+    const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, field,     \
+                                         field_own, t, t_prev, acc_in, t_out,            \
+                                         t_prev_out, acc_out, c, n, s, e, w, cv, nv, sv, \
+                                         ev, wv, pre, post, area, land_gain, zap,        \
+                                         drop_pre);                                      \
+    const BlockGeo g{ly, lx, cells};                                                     \
+    return launch_fused<T>(a, g, ly, lx, batch, static_cast<cudaStream_t>(stream));      \
+  }
+
+LOCAL_FUSED_ENTRY(local_fused_pass_f32, float)
+LOCAL_FUSED_ENTRY(local_fused_pass_f64, double)
 
 extern "C" const char* local_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

@@ -401,6 +401,10 @@ class Filter:
                 "CUDA device. Pass device='cpu' to run the plain PyTorch "
                 "version on the CPU."
             )
+        if not isinstance(arr, (torch.Tensor, np.ndarray)):
+            # lists and scalars take numpy's dtypes (float64 for Python
+            # floats), as the JAX package's inputs do, not torch's float32
+            arr = np.asarray(arr)
         x = torch.as_tensor(arr)
         if self.dtype is not None:
             x = x.to(self.dtype)

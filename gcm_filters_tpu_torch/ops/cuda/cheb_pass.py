@@ -9,12 +9,24 @@ the same step with torch ops.
 
 :func:`cheb_pass` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; for a CUDA tensor it launches or raises.
+
+The fused pass runs S <= 16 steps per launch on shared-memory tiles, as the
+TPU kernel does in VMEM (``csrc/cheb_tile.cuh``; entries
+``cheb_fused_pass_f32/f64`` in ``csrc/cheb_pass.cu``): :func:`cheb_fused_pass`
+is its wrapper, :func:`cheb_fused_pass_reference` its plain version (the same
+steps as a chain of :func:`reference_step`, so its result equals the plain
+step chain exactly), :func:`cheb_fused_pass_tiled_reference` the kernel's tile
+decomposition in torch (windows, shrinking steps, mirror cells at the fold),
+and :func:`plan_fused_passes` the counterpart of the JAX ``plan_passes``: tile,
+halo, the balanced split of the steps into passes, and the static predicate
+that says whether the fused route applies.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
@@ -119,6 +131,35 @@ def _library():
     return _lib
 
 
+def _check(device, dtype, name, x, shape):
+    """The pointer of a tensor the kernel reads or writes, after checking it."""
+    if x is None:
+        return None
+    if x.device != device or x.dtype != dtype:
+        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
+    if tuple(x.shape) != shape:
+        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+    if not x.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    return x.data_ptr()
+
+
+def coefficient_args(st, check, shape):
+    """``(pointers, immediates, masks)`` of a stencil for a kernel call:
+    array coefficients as pointers (immediate 0), constants as immediates
+    (null pointer), then the pointers of pre, post and area."""
+    ptrs, vals = [], []
+    for k in COEF_FIELDS:
+        v = getattr(st, k)
+        if isinstance(v, Tensor):
+            ptrs.append(check(k, v, shape))
+            vals.append(0.0)
+        else:
+            ptrs.append(None)
+            vals.append(float(v))
+    return ptrs, vals, [check(k, getattr(st, k), shape) for k in ("pre", "post", "area")]
+
+
 _REQUIRED = {
     FIRST: ("field", "t_next", "acc", "h"),
     MIDDLE: ("t", "t_prev", "t_next", "acc"),
@@ -139,33 +180,14 @@ def _launch(ops, kind, p_a, p_b, bufs) -> None:
     if batch > 65535 or ny > 8 * 65535:
         raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
 
-    def check(name, x, shape):
-        if x is None:
-            return None
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return x.data_ptr()
-
+    check = functools.partial(_check, device, dtype)
     for name in _REQUIRED[kind]:
         if bufs[name] is None:
             raise ValueError(f"step kind {kind} needs {name}")
     ptr = {k: check(k, bufs[k], (batch, ny, nx)) if k in _REQUIRED[kind] else None
            for k in ("field", "t", "t_prev", "t_next", "acc", "h")}
     st = ops.stencil
-    coef_ptr, coef_val = [], []
-    for k in COEF_FIELDS:
-        v = getattr(st, k)
-        if isinstance(v, Tensor):
-            coef_ptr.append(check(k, v, (ny, nx)))
-            coef_val.append(0.0)
-        else:
-            coef_ptr.append(None)
-            coef_val.append(float(v))
-    masks = [check(k, getattr(st, k), (ny, nx)) for k in ("pre", "post", "area")]
+    coef_ptr, coef_val, masks = coefficient_args(st, check, (ny, nx))
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
 
@@ -206,3 +228,361 @@ def cheb_pass(
 
 
 cheb_pass.launches = 0  # kernel launches; the plain version does not count
+
+
+# -- the fused pass: S steps per launch on shared-memory tiles ---------------
+
+MAX_FUSE = 16              # steps per pass at most (csrc/cheb_tile.cuh)
+SHARED_BYTES = 232448      # shared memory one block may take on sm_90
+SM_SHARED_BYTES = 233472   # shared memory of one SM (1 KB of it reserved per block)
+# Tile shapes (by, bx) the planner chooses from, bx a multiple of the warp
+# width, each with the ratio of its measured time to the cost model's at the
+# 2400x3600 float32 headline, relative to 32x96 (the tile sweep that
+# chip_smoke.py runs and prints on one H100): what the model does not see
+# (lane and strip quantization, the load's access pattern).
+TILES = {(32, 96): 1.0, (16, 128): 0.943, (48, 64): 1.198, (32, 64): 1.199,
+         (16, 64): 1.225, (32, 32): 1.241, (16, 32): 1.274}
+# The cost model, in cell-steps of the f32 kernel: loading one window cell of
+# one plane costs about _LOAD cell-steps (the load is latency-bound and does
+# not overlap the steps), and steps cost _ONE_BLOCK times more where a block
+# takes more than half an SM's shared memory. Fitted to the same sweep.
+_LOAD, _ONE_BLOCK = 3.3, 1.25
+@dataclasses.dataclass(frozen=True)
+class FusedPlan:
+    """How a filter of ``sum(steps)`` steps runs as fused passes: tiles of
+    ``tile = (by, bx)`` output cells, a halo of ``halo = max(steps)`` cells,
+    one launch per entry of ``steps``. ``fused`` is the static predicate: where
+    it is False (a field smaller than a tile plus its halo in either
+    dimension) the step chain runs instead."""
+
+    tile: Tuple[int, int]
+    halo: int
+    steps: Tuple[int, ...]
+    fused: bool
+
+
+def fused_planes(ops: PassOperands) -> int:
+    """Shared planes of a window: the two carries, every coefficient that is
+    an array, ``post`` and ``pre``."""
+    st = ops.stencil
+    return 2 + sum(isinstance(getattr(st, k), Tensor) for k in COEF_FIELDS + ("post", "pre"))
+
+
+def fused_shared_bytes(tile, halo: int, n_planes: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block (``fused_shared_bytes`` of
+    cheb_tile.cuh): ``n_planes`` window planes and acc of the own tile."""
+    by, bx = tile
+    return (n_planes * (by + 2 * halo) * (bx + 2 * halo) + by * bx) * itemsize
+
+
+def _balanced(n_steps: int, cap: int) -> Tuple[int, ...]:
+    """``ceil(n_steps / cap)`` near-equal passes (``plan_passes:426-430``)."""
+    n_pass = -(-n_steps // cap)
+    base, extra = divmod(n_steps, n_pass)
+    return tuple(base + (1 if i < extra else 0) for i in range(n_pass))
+
+
+def _pass_cost(tile, steps, n_planes: int, itemsize: int) -> float:
+    """Modelled cost per own cell of a plan, in f32 cell-steps: per pass the
+    window's load and every step's shrinking window, scaled by the tile's
+    measured factor (:data:`TILES`)."""
+    by, bx = tile
+    cost = 0.0
+    for s in steps:
+        wy, wx = by + 2 * s, bx + 2 * s
+        cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, s + 1))
+        two = 2 * (fused_shared_bytes(tile, s, n_planes, itemsize) + 1024) <= SM_SHARED_BYTES
+        cost += (_LOAD * n_planes * wy * wx + cells * (1.0 if two else _ONE_BLOCK)) * itemsize / 4
+    return cost / (by * bx) * TILES.get(tuple(tile), 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse: int,
+          tile: Optional[Tuple[int, int]], one_pass: bool) -> FusedPlan:
+    best = None
+    for cap in range(1, min(max_fuse, MAX_FUSE, n_steps) + 1):
+        steps = _balanced(n_steps, cap)
+        halo = max(steps)
+        if halo != cap or (one_pass and len(steps) > 1):
+            continue  # the same split as a smaller cap, or more than one pass
+        for tl in (tile,) if tile else TILES:
+            if fused_shared_bytes(tl, halo, n_planes, itemsize) > SHARED_BYTES:
+                continue
+            cost = _pass_cost(tl, steps, n_planes, itemsize)
+            if best is None or cost < best[0]:
+                best = (cost, tl, halo, steps)
+    if best is None:
+        # one pass of more than MAX_FUSE steps: the step chain runs
+        return FusedPlan(tuple(tile or next(iter(TILES))), n_steps, (n_steps,), False)
+    _, tl, halo, steps = best
+    fused = ny >= tl[0] + 2 * halo and nx >= tl[1] + 2 * halo
+    return FusedPlan(tuple(tl), halo, steps, fused)
+
+
+def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_planes: int,
+                      max_fuse: int = MAX_FUSE, tile: Optional[Tuple[int, int]] = None,
+                      one_pass: bool = False) -> FusedPlan:
+    """The fused plan of an ``n_steps`` filter on ``(ny, nx)`` fields: the
+    counterpart of the JAX ``plan_passes``.
+
+    Every split of the steps into ``ceil(n_steps / cap)`` balanced passes
+    (``cap <= max_fuse``) and every tile of :data:`TILES` (or only ``tile``)
+    whose window fits in a block's shared memory is scored by a cost model
+    fitted to measured times (:func:`_pass_cost`); the cheapest wins. With
+    ``one_pass`` (a round of the sharded engine) only the split into one pass
+    is considered, and more than :data:`MAX_FUSE` steps plan no fused route.
+    The result depends on the shape, the dtype and ``n_planes``
+    (:func:`fused_planes`) only.
+    """
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _plan(int(n_steps), int(ny), int(nx), itemsize, int(n_planes), int(max_fuse),
+                 tuple(tile) if tile else None, bool(one_pass))
+
+
+def _kinds(p, start: int, n_ops: int):
+    """``(first, last)`` of the pass that runs steps ``start+1 .. start+n_ops``
+    of a filter whose polynomial is ``p`` (``len(p) - 1`` steps)."""
+    n_steps = len(p) - 1
+    if n_steps < 2 or start < 0 or n_ops < 1 or start + n_ops > n_steps:
+        raise ValueError(f"steps {start + 1}..{start + n_ops} of a {n_steps}-step filter")
+    return start == 0, start + n_ops == n_steps
+
+
+def cheb_fused_pass_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, tile=None,
+    field: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """The plain PyTorch version of one fused launch, on any device: steps
+    ``start+1 .. start+n_ops`` of the filter as a chain of
+    :func:`cheb_pass_reference`, so the result equals the plain step chain
+    exactly (``tile`` is not used).
+
+    A first pass (``start == 0``) reads the raw ``field``; any other reads
+    ``t``, ``t_prev`` and ``acc``. A pass that ends the filter reads ``field``
+    and leaves the result in ``acc``; any other writes ``t_out``,
+    ``t_prev_out`` and ``acc``. The inputs ``t`` and ``t_prev`` are not
+    written.
+    """
+    first, last = _kinds(p, start, n_ops)
+    if first:
+        prev, cur = torch.empty_like(acc), torch.empty_like(acc)
+        cheb_pass_reference(ops, FIRST, p[0], p[1], field=field, t_next=cur, acc=acc, h=prev)
+        done = 1
+    else:
+        cur, prev = t.clone(), t_prev.clone()
+        done = start
+    for k in range(done + 1, start + n_ops + 1):
+        if k == len(p) - 1:
+            cheb_pass_reference(ops, LAST, p[k], field=field, t=cur, t_prev=prev, acc=acc)
+        else:
+            cheb_pass_reference(ops, MIDDLE, p[k], t=cur, t_prev=prev, t_next=prev, acc=acc)
+            cur, prev = prev, cur
+    if not last:
+        t_out.copy_(cur)
+        t_prev_out.copy_(prev)
+
+
+def cheb_fused_pass_tiled_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, tile,
+    field: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """One fused launch computed as the kernel decomposes it, in torch.
+
+    For each ``tile = (by, bx)`` of output cells: gather a window of
+    ``(by+2H) x (bx+2H)`` cells (``H = n_ops``; x periodic, y periodic or
+    folded, the rows above the top row being mirror cells), run the steps on
+    the window shrunk by j at step j, stepping a mirror cell as the real cell
+    it mirrors (its own coefficients, its window neighbours in swapped roles:
+    the real north is the window's south, the real east the window's west),
+    and keep the own cells. Same arguments and outputs as
+    :func:`cheb_fused_pass_reference`, and the same torch arithmetic per cell,
+    so the two are equal bit for bit wherever the decomposition is right.
+    """
+    first, last = _kinds(p, start, n_ops)
+    st = ops.stencil
+    by, bx = tile
+    H = n_ops
+    batch, ny, nx = acc.shape
+    dev = acc.device
+    outs = {"acc": torch.empty_like(acc)}
+    if not last:
+        outs["t"], outs["t_prev"] = torch.empty_like(acc), torch.empty_like(acc)
+    flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
+
+    for y0 in range(0, ny, by):
+        rows = torch.arange(y0 - H, y0 + by + H, device=dev)
+        mirror = (rows >= ny) if st.fold_north else torch.zeros_like(rows, dtype=torch.bool)
+        src_r = torch.where(mirror, 2 * ny - 1 - rows, rows) % ny
+        for x0 in range(0, nx, bx):
+            cols = torch.arange(x0 - H, x0 + bx + H, device=dev) % nx
+            src_c = torch.where(mirror[:, None], nx - 1 - cols[None, :], cols[None, :])
+            idx = src_r[:, None] * nx + src_c
+            take = lambda x: flat(x)[..., idx] if isinstance(x, Tensor) else x  # noqa: E731
+            coef = {k: take(getattr(st, k)) for k in COEF_FIELDS}
+            post, pre, area = take(st.post), take(st.pre), take(st.area)
+            wy, wx = idx.shape
+            if first:
+                fbar = take(field) * area if area is not None else take(field)
+                cur = post * torch.nan_to_num(fbar) if ops.drop_pre else fbar
+                prev = torch.empty_like(cur)
+            else:
+                cur, prev = take(t), take(t_prev)
+            oy, ox = min(by, ny - y0), min(bx, nx - x0)  # own cells inside the field
+            own = (slice(None), slice(H, H + oy), slice(H, H + ox))
+            a = None if first else acc[:, y0:y0 + oy, x0:x0 + ox]
+            for i in range(H):
+                j = i + 1
+                kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
+                g = torch.nan_to_num(cur) if st.zap_nans else cur
+                if pre is not None:
+                    g = pre * g
+                win = lambda x, dy=0, dx=0: (  # noqa: E731
+                    x[..., j + dy:wy - j + dy, j + dx:wx - j + dx] if isinstance(x, Tensor) else x)
+                mir = mirror[j:wy - j][:, None]
+                north, south, east, west = win(g, 1), win(g, -1), win(g, 0, 1), win(g, 0, -1)
+                lap = (win(coef["c"]) * win(g) + win(coef["n"]) * torch.where(mir, south, north)
+                       + win(coef["s"]) * torch.where(mir, north, south)
+                       + win(coef["e"]) * torch.where(mir, west, east)
+                       + win(coef["w"]) * torch.where(mir, east, west))
+                if post is not None:
+                    lap = win(post) * lap
+                sl = (slice(None), slice(j, wy - j), slice(j, wx - j))
+                # own cells inside this step's window
+                o = (slice(None), slice(H - j, H - j + oy), slice(H - j, H - j + ox))
+                if kind == FIRST:
+                    h0 = cur[sl]
+                    t1 = -h0 + 0.5 * lap
+                    prev[sl] = t1
+                    a = p[0] * h0[o] + p[1] * t1[o]
+                    cur, prev = prev, cur
+                    continue
+                nxt = -2.0 * cur[sl] + lap - prev[sl]
+                a = a + p[start + i + 1] * nxt[o]
+                if kind == MIDDLE:
+                    prev[sl] = nxt
+                    cur, prev = prev, cur
+                    continue
+                fb = field[:, y0:y0 + oy, x0:x0 + ox]
+                if area is not None:
+                    fb = fb * area[own[1:]]
+                if ops.drop_pre:
+                    a = torch.where(post[own[1:]] == 0, ops.land_gain * fb, a + fb * 0.0)
+                if area is not None:
+                    a = a / area[own[1:]]
+            outs["acc"][:, y0:y0 + oy, x0:x0 + ox] = a
+            if not last:
+                outs["t"][:, y0:y0 + oy, x0:x0 + ox] = cur[own]
+                outs["t_prev"][:, y0:y0 + oy, x0:x0 + ox] = prev[own]
+    acc.copy_(outs["acc"])
+    if not last:
+        t_out.copy_(outs["t"])
+        t_prev_out.copy_(outs["t_prev"])
+
+
+_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 8            # batch, ny, nx, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 12      # field, t, t_prev, acc_in, t_out, t_prev_out, acc_out, c, n, s, e, w
+    + [ctypes.c_double] * 5       # immediate c, n, s, e, w
+    + [ctypes.c_void_p] * 3       # pre, post, area
+    + [ctypes.c_double]           # land_gain
+    + [ctypes.c_int] * 3          # zap, fold, drop_pre
+    + [ctypes.c_void_p]           # stream
+)
+
+
+def _fused_library():
+    lib = _library()
+    if not getattr(lib, "_fused_bound", False):
+        for fn in (lib.cheb_fused_pass_f32, lib.cheb_fused_pass_f64):
+            fn.argtypes = _FUSED_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib._fused_bound = True
+    return lib
+
+
+def _pass_args(p, start, n_ops, first, bufs, required):
+    """The host array of p_a for the pass's steps, p_b, and a check that the
+    pass got the buffers it needs."""
+    for name in required:
+        if bufs[name] is None:
+            raise ValueError(f"this fused pass needs {name}")
+    pa = [p[0] if first and i == 0 else p[start + i + 1] for i in range(n_ops)]
+    return (ctypes.c_double * MAX_FUSE)(*pa), float(p[1]) if first else 0.0
+
+
+def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
+    first, last = _kinds(p, start, n_ops)
+    if n_ops > MAX_FUSE:
+        raise ValueError(f"a fused pass runs at most {MAX_FUSE} steps, got {n_ops}")
+    acc = bufs["acc"]
+    dtype, device = acc.dtype, acc.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"cheb_fused_pass kernel takes float32 or float64, got {dtype}")
+    if acc.dim() != 3:
+        raise ValueError(f"cheb_fused_pass takes (batch, ny, nx) carries, got {tuple(acc.shape)}")
+    batch, ny, nx = acc.shape
+    by, bx = tile
+    if batch > 65535 or -(-ny // by) > 65535:
+        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
+    st = ops.stencil
+    planes = fused_planes(ops)
+    if fused_shared_bytes(tile, n_ops, planes, acc.element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    required = ("acc",) + (("field",) if first or last else ()) + (
+        () if first else ("t", "t_prev")) + (() if last else ("t_out", "t_prev_out"))
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
+    if not last and any(bufs[o] is not None and bufs[o].data_ptr() == bufs[i].data_ptr()
+                        for o in ("t_out", "t_prev_out") for i in ("t", "t_prev")
+                        if bufs[i] is not None):
+        raise ValueError("t_out and t_prev_out must not alias t or t_prev")
+    check = functools.partial(_check, device, dtype)
+    ptr = {k: check(k, bufs[k], (batch, ny, nx)) if k in required else None
+           for k in ("field", "t", "t_prev", "t_out", "t_prev_out", "acc")}
+    coef_ptr, coef_val, masks = coefficient_args(st, check, (ny, nx))
+    if ops.drop_pre and masks[1] is None:
+        raise ValueError("drop_pre needs the wet mask as post")
+
+    lib = _fused_library()
+    fn = lib.cheb_fused_pass_f32 if dtype == torch.float32 else lib.cheb_fused_pass_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(batch, ny, nx, by, bx, n_ops, int(first), int(last), pa, p_b,
+                 ptr["field"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                 ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
+                 float(ops.land_gain), int(st.zap_nans), int(st.fold_north),
+                 int(ops.drop_pre), stream)
+    if err != 0:
+        msg = lib.cheb_pass_error_string(err).decode()
+        raise RuntimeError(f"cheb_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    cheb_fused_pass.launches += 1
+
+
+def cheb_fused_pass(
+    ops: PassOperands, p, start: int, n_ops: int, *, tile,
+    field: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """Steps ``start+1 .. start+n_ops`` of the filter in one launch, on tiles
+    of ``tile = (by, bx)`` cells, as :func:`cheb_fused_pass_reference`
+    documents them.
+
+    CUDA tensors launch the kernel (counted in ``cheb_fused_pass.launches``)
+    on the current stream, without synchronizing; CPU tensors run the plain
+    version. Anything else raises.
+    """
+    bufs = dict(field=field, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
+    if acc.is_cuda:
+        _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+    elif acc.device.type == "cpu":
+        cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)
+    else:
+        raise RuntimeError(f"cheb_fused_pass has no kernel for device {acc.device}")
+
+
+cheb_fused_pass.launches = 0  # kernel launches; the plain version does not count

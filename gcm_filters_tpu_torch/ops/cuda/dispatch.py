@@ -21,10 +21,16 @@ sees it as zero initial data rather than a persistent zero source.
 ``exact_nan=True`` keeps the per-step pre-mask instead, reproducing the eager
 engine's semantics exactly.
 
-Each filter is ``n_steps`` launches of one step kernel (ops/cuda/cheb_pass.py):
-FIRST (prepare and masking fused), MIDDLE, ..., LAST (land reconstruction and
-finalize fused). The carries live in three buffers allocated per call; the
-kernel overwrites t_prev with t_next and updates acc in place.
+A scalar filter runs as the fused passes that ``plan_fused_passes`` plans
+(ops/cuda/cheb_pass.py): one launch of the fused kernel per pass, S <= 16
+steps each on shared-memory tiles. The first pass takes the raw field
+(prepare and masking fused), a middle pass carries t, t_prev and acc, the
+last one reads the raw field again for land reconstruction and finalize.
+Where the plan's static predicate fails (a field smaller than a tile plus
+its halo) the filter runs as ``n_steps`` launches of the one-step kernel:
+FIRST, MIDDLE, ..., LAST, with the carries in three buffers allocated per
+call, t_next written over t_prev and acc updated in place. Both routes give
+the same bits.
 
 Vector grids run their own recurrence on the stacked pair (batch, 2, ny, nx):
 B-grid with its ten diffusion and mixing planes, C-grid with the 18 tap planes
@@ -52,7 +58,10 @@ from ..stencil import (
     ScalarStencil5,
     hspace_drop_pre,
 )
-from .cheb_pass import FIRST, LAST, MIDDLE, PassOperands, cheb_pass
+from .cheb_pass import (
+    FIRST, LAST, MIDDLE, PassOperands, cheb_fused_pass, cheb_pass, fused_planes,
+    plan_fused_passes,
+)
 from .vec_pass import BGRID, CTAP, VecPassOperands, vec_pass
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
@@ -97,20 +106,28 @@ def scalar_operands(hot_host: ScalarStencil5, neg2s: float, drop_pre: bool,
 
 def make_cuda_scalar_apply(
     stencil: ScalarStencil5, spec: FilterSpec, exact_nan: bool = False,
-    pass_fn=cheb_pass,
+    pass_fn=cheb_pass, fused_fn=cheb_fused_pass,
 ):
-    """``field -> filtered`` on the field's device, ``n_steps`` launches per call.
+    """``field -> filtered`` on the field's device: one launch per planned
+    fused pass, or ``n_steps`` step launches below the plan's predicate.
 
     ``field`` has the spatial dims last; leading dims are batched. The
-    result has the compute dtype (:func:`engine._compute_dtype`). ``pass_fn``
-    runs one step; it is :func:`cheb_pass` (kernel for CUDA tensors, plain
-    version for CPU tensors) unless a caller passes the plain version to
-    compare the two on one device.
+    result has the compute dtype (:func:`engine._compute_dtype`).
+    ``fused_fn`` runs one fused pass and ``pass_fn`` one step; they are
+    :func:`cheb_fused_pass` and :func:`cheb_pass` (kernels for CUDA tensors,
+    plain versions for CPU tensors) unless a caller passes the plain versions
+    to compare them on one device. ``fused_fn=None`` runs the step chain on
+    purpose.
     """
     hot_host, drop_pre, land_gain, neg2s, p_host = scalar_setup(stencil, spec, exact_nan)
     shapes = {tuple(v.shape) for v in (getattr(hot_host, k) for k in ARRAY_FIELDS)
               if isinstance(v, torch.Tensor)}
     cache = {}
+    n_planes = fused_planes(PassOperands(hot_host, drop_pre, land_gain))
+
+    def plan(ny: int, nx: int, dtype):
+        """The fused plan of this filter for one field shape and dtype."""
+        return plan_fused_passes(spec.n_steps, ny, nx, dtype, n_planes)
 
     def operands(dtype, device):
         """Hot stencil and p for one (dtype, device), see :func:`scalar_operands`."""
@@ -135,19 +152,51 @@ def make_cuda_scalar_apply(
         if x.numel() == 0:
             return torch.empty(field.shape, dtype=dtype, device=field.device)
         ops, p = operands(dtype, x.device)
-        n = spec.n_steps
-        h, t, acc = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
-        pass_fn(ops, FIRST, p[0], p[1], field=x, t_next=t, acc=acc, h=h)
-        t_prev = h
-        for k in range(2, n):
-            # t_next overwrites t_prev in place; acc is updated in place
-            pass_fn(ops, MIDDLE, p[k], t=t, t_prev=t_prev, t_next=t_prev, acc=acc)
-            t, t_prev = t_prev, t
-        pass_fn(ops, LAST, p[n], field=x, t=t, t_prev=t_prev, acc=acc)
+        pl = plan(ny, nx, dtype)
+        if fused_fn is not None and pl.fused:
+            acc = _fused_chain(fused_fn, ops, p, pl, x)
+        else:
+            acc = _step_chain(pass_fn, ops, p, spec.n_steps, x)
         return acc.reshape(lead + (ny, nx))
 
     apply_fn.operands = operands  # (dtype, device) -> (PassOperands, p), for checks
+    apply_fn.plan = plan  # (ny, nx, dtype) -> FusedPlan
     return apply_fn
+
+
+def _step_chain(pass_fn, ops: PassOperands, p, n: int, x):
+    """``n`` one-step launches on ``(batch, ny, nx)`` ``x``: the result."""
+    h, t, acc = torch.empty_like(x), torch.empty_like(x), torch.empty_like(x)
+    pass_fn(ops, FIRST, p[0], p[1], field=x, t_next=t, acc=acc, h=h)
+    t_prev = h
+    for k in range(2, n):
+        # t_next overwrites t_prev in place; acc is updated in place
+        pass_fn(ops, MIDDLE, p[k], t=t, t_prev=t_prev, t_next=t_prev, acc=acc)
+        t, t_prev = t_prev, t
+    pass_fn(ops, LAST, p[n], field=x, t=t, t_prev=t_prev, acc=acc)
+    return acc
+
+
+def _fused_chain(fused_fn, ops: PassOperands, p, pl, x):
+    """One fused launch per pass of the plan ``pl`` on ``(batch, ny, nx)``
+    ``x``: the result. A pass reads its carries from one pair of buffers and
+    writes the next pass's into the other (a tile reads its neighbours'
+    cells, so a pass cannot update its carries in place); acc is updated in
+    place."""
+    acc = torch.empty_like(x)
+    pairs = [(torch.empty_like(x), torch.empty_like(x)) for _ in range(min(2, len(pl.steps) - 1))]
+    t = t_prev = None
+    start = 0
+    for i, n_ops in enumerate(pl.steps):
+        if i == len(pl.steps) - 1:
+            fused_fn(ops, p, start, n_ops, tile=pl.tile, field=x, t=t, t_prev=t_prev, acc=acc)
+        else:
+            t_out, t_prev_out = pairs[i % 2]
+            fused_fn(ops, p, start, n_ops, tile=pl.tile, field=x if i == 0 else None,
+                     t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
+            t, t_prev = t_out, t_prev_out
+        start += n_ops
+    return acc
 
 
 def vector_setup(operator, spec: FilterSpec):

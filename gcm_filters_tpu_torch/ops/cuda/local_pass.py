@@ -19,6 +19,13 @@ torch slices. :func:`local_pass` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors; for a CUDA tensor it launches or
 raises.
 
+:func:`local_fused_pass` runs a whole round (up to ``cells`` steps) in one
+launch on shared-memory tiles of the core (entries ``local_fused_pass_f32/f64``
+of the same source, built on ``csrc/cheb_tile.cuh``), and
+:func:`local_fused_pass_reference` is its plain version: the round's steps as
+a chain of :func:`local_pass_reference`, so the two routes give the same
+bits.
+
 The operands are a :class:`~.cheb_pass.PassOperands` whose stencil holds the
 *extended* coefficient planes (``c, n, s, e, w`` pre-scaled by
 ``-2*lap_scale``; ``pre``, ``post``, ``area`` unscaled) with ``fold_north``
@@ -27,12 +34,16 @@ cleared.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
 
 from ..stencil import COEF_FIELDS
-from .cheb_pass import FIRST, LAST, MIDDLE, PassOperands
+from .cheb_pass import (
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
+    coefficient_args, fused_planes, fused_shared_bytes,
+)
 
 Tensor = torch.Tensor
 
@@ -171,17 +182,7 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
     if batch > 65535 or ey > 8 * 65535:
         raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
 
-    def check(name, x, shape):
-        if x is None:
-            return None
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return x.data_ptr()
-
+    check = functools.partial(_check, device, dtype)
     needed = _REQUIRED[kind] + (("field",) if kind == LAST and ops.drop_pre else ())
     ptr = {}
     for name in ("field", "t", "t_prev", "t_next", "acc", "h"):
@@ -195,16 +196,7 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
     st = ops.stencil
     if st.fold_north:
         raise ValueError("local_pass has no fold: the halos carry the seam")
-    coef_ptr, coef_val = [], []
-    for k in COEF_FIELDS:
-        v = getattr(st, k)
-        if isinstance(v, Tensor):
-            coef_ptr.append(check(k, v, (ey, ex)))
-            coef_val.append(0.0)
-        else:
-            coef_ptr.append(None)
-            coef_val.append(float(v))
-    masks = [check(k, getattr(st, k), (ey, ex)) for k in ("pre", "post", "area")]
+    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
 
@@ -247,3 +239,150 @@ def local_pass(
 
 
 local_pass.launches = 0  # kernel launches; the plain version does not count
+
+
+# -- the fused round: a whole round per launch on shared-memory tiles --------
+
+def local_fused_pass_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile=None,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """The plain PyTorch version of one fused round, on any device: steps
+    ``start+1 .. start+n_ops`` of the filter (``n_ops <= cells``) as a chain
+    of :func:`local_pass_reference`, step j of the round on the window shrunk
+    by j (``tile`` is not used).
+
+    A first round (``start == 0``) reads the raw extended ``field``; any other
+    reads the extended ``t``, ``t_prev`` and the core-shaped ``acc``. A round
+    that ends the filter reconstructs land from the caller's core-shaped
+    ``field_own`` and leaves the result in ``acc``; any other writes the core
+    of the extended ``t_out`` and ``t_prev_out`` and ``acc``. ``t`` and
+    ``t_prev`` are not written.
+    """
+    first, last = _kinds(p, start, n_ops)
+    if n_ops > cells:
+        raise ValueError(f"a round runs at most cells = {cells} steps, got {n_ops}")
+    if first:
+        prev, cur = torch.empty_like(field), torch.empty_like(field)
+        local_pass_reference(ops, FIRST, p[0], p[1], cells=cells, shrink=1, field=field,
+                             t_next=cur, acc=acc, h=prev)
+        j0 = 2
+    else:
+        cur, prev = t.clone(), t_prev.clone()
+        j0 = 1
+    for j in range(j0, n_ops + 1):
+        k = start + j
+        if k == len(p) - 1:
+            local_pass_reference(ops, LAST, p[k], cells=cells, field=field_own, t=cur,
+                                 t_prev=prev, acc=acc)
+        else:
+            local_pass_reference(ops, MIDDLE, p[k], cells=cells, shrink=j, t=cur, t_prev=prev,
+                                 t_next=prev, acc=acc)
+            cur, prev = prev, cur
+    if not last:
+        _window(t_out, cells).copy_(_window(cur, cells))
+        _window(t_prev_out, cells).copy_(_window(prev, cells))
+
+
+_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 9            # batch, ly, lx, cells, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 13      # field, field_own, t, t_prev, acc_in, t_out, t_prev_out,
+                                  # acc_out, c, n, s, e, w
+    + [ctypes.c_double] * 5       # immediate c, n, s, e, w
+    + [ctypes.c_void_p] * 3       # pre, post, area
+    + [ctypes.c_double]           # land_gain
+    + [ctypes.c_int] * 2          # zap, drop_pre
+    + [ctypes.c_void_p]           # stream
+)
+
+
+def _fused_library():
+    lib = _library()
+    if not getattr(lib, "_fused_bound", False):
+        for fn in (lib.local_fused_pass_f32, lib.local_fused_pass_f64):
+            fn.argtypes = _FUSED_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib._fused_bound = True
+    return lib
+
+
+def _fused_launch(ops, p, start, n_ops, cells, tile, bufs) -> None:
+    first, last = _kinds(p, start, n_ops)
+    if not 1 <= n_ops <= min(cells, MAX_FUSE):
+        raise ValueError(f"a fused round runs 1..min(cells, {MAX_FUSE}) steps, got {n_ops}")
+    acc = bufs["acc"]
+    dtype, device = acc.dtype, acc.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"local_fused_pass kernel takes float32 or float64, got {dtype}")
+    if acc.dim() != 3:
+        raise ValueError(f"local_fused_pass takes a (batch, ly, lx) acc, got {tuple(acc.shape)}")
+    batch, ly, lx = acc.shape
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+    by, bx = tile
+    if batch > 65535 or -(-ly // by) > 65535:
+        raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
+    st = ops.stencil
+    if st.fold_north:
+        raise ValueError("local_fused_pass has no fold: the halos carry the seam")
+    if fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    required = ("acc",) + (("field",) if first else ("t", "t_prev")) + (
+        ("field_own",) if last and ops.drop_pre else ()) + (
+        () if last else ("t_out", "t_prev_out"))
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
+    if not last and any(bufs[o].data_ptr() == bufs[i].data_ptr()
+                        for o in ("t_out", "t_prev_out") for i in ("t", "t_prev")
+                        if bufs[i] is not None):
+        raise ValueError("t_out and t_prev_out must not alias t or t_prev")
+    check = functools.partial(_check, device, dtype)
+    ptr = {}
+    for name in ("field", "field_own", "t", "t_prev", "t_out", "t_prev_out", "acc"):
+        core = name in ("field_own", "acc")
+        ptr[name] = (check(name, bufs[name], (batch, ly, lx) if core else (batch, ey, ex))
+                     if name in required else None)
+    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
+    if ops.drop_pre and masks[1] is None:
+        raise ValueError("drop_pre needs the wet mask as post")
+
+    lib = _fused_library()
+    fn = lib.local_fused_pass_f32 if dtype == torch.float32 else lib.local_fused_pass_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(batch, ly, lx, cells, by, bx, n_ops, int(first), int(last), pa, p_b,
+                 ptr["field"], ptr["field_own"], ptr["t"], ptr["t_prev"], ptr["acc"],
+                 ptr["t_out"], ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
+                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre), stream)
+    if err != 0:
+        msg = lib.local_pass_error_string(err).decode()
+        raise RuntimeError(f"local_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    local_fused_pass.launches += 1
+
+
+def local_fused_pass(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """One whole round on the extended block in one launch, on tiles of
+    ``tile = (by, bx)`` core cells, as :func:`local_fused_pass_reference`
+    documents it.
+
+    CUDA tensors launch the kernel (counted in ``local_fused_pass.launches``)
+    on the current stream, without synchronizing; CPU tensors run the plain
+    version. Anything else raises.
+    """
+    bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
+                t_prev_out=t_prev_out, acc=acc)
+    if acc.is_cuda:
+        _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs)
+    elif acc.device.type == "cpu":
+        local_fused_pass_reference(ops, p, start, n_ops, cells=cells, **bufs)
+    else:
+        raise RuntimeError(f"local_fused_pass has no kernel for device {acc.device}")
+
+
+local_fused_pass.launches = 0  # kernel launches; the plain version does not count

@@ -8,10 +8,11 @@ the same program on its ``(ly, lx)`` block.
 Communication is *round-based* (wide halos): each round exchanges a
 ``cells``-wide halo once (two message phases, corners riding the second,
 halo.py) and then advances the recurrence up to ``cells`` steps purely
-locally on the halo-extended block (ops/cuda/local_pass.py for scalars,
-ops/cuda/vec_local_pass.py for (u, v) pairs: the step kernel on CUDA tensors,
-its plain version on CPU tensors). The tripolar fold is a
-reversed pairing among the ranks of the top mesh row, and the stencil
+locally on the halo-extended block (ops/cuda/local_pass.py for scalars: one
+launch of the fused round where its static predicate holds, else one step
+launch per step; ops/cuda/vec_local_pass.py for (u, v) pairs, one step launch
+per step; kernels on CUDA tensors, their plain versions on CPU tensors). The
+tripolar fold is a reversed pairing among the ranks of the top mesh row, and the stencil
 coefficients are halo-extended once per (local shape, dtype) with the seam's
 n<->s / e<->w coefficient swap in their fold chunks. Vector grids have no
 fold; the C-grid operator runs in its tap-expanded form (ops/ctaps.py), whose
@@ -51,9 +52,11 @@ from torch.distributed.tensor import DTensor, Replicate, Shard
 
 from ..engine import _compute_dtype, _laplacian_scale
 from ..filter_spec import FilterSpec
-from ..ops.cuda.cheb_pass import FIRST, LAST, MIDDLE, PassOperands
+from ..ops.cuda.cheb_pass import (
+    FIRST, LAST, MIDDLE, PassOperands, fused_planes, plan_fused_passes,
+)
 from ..ops.ctaps import CTAP_NAMES, cgrid_tap_arrays
-from ..ops.cuda.local_pass import local_pass
+from ..ops.cuda.local_pass import local_fused_pass, local_pass
 from ..ops.cuda.vec_local_pass import vec_local_pass
 from ..ops.cuda.vec_pass import BGRID, CTAP, VecPassOperands
 from ..ops.stencil import (
@@ -196,20 +199,28 @@ def local_scalar_operands(st: ScalarStencil5, cells: int, y_axis: halo.Axis,
 
 def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
                         y_axis: halo.Axis, x_axis: halo.Axis, fold: bool,
-                        pass_fn=local_pass) -> Tensor:
+                        pass_fn=local_pass, fused_fn=local_fused_pass) -> Tensor:
     """Wide-halo rounds on one rank: ``(batch, ly, lx) -> (batch, ly, lx)``.
 
     Counterpart of the JAX ``local_pallas_rounds_scalar``. Per round one halo
     exchange extends the carries by ``cells`` (messages on sharded axes, a
     local periodic wrap -- the tripolar fold included -- on unsharded ones),
-    then ``pass_fn`` runs the round's steps on the extended block, one call
-    per step. The first step consumes the raw extended field (prepare and
-    masking fused), the last one reconstructs land and divides by the area
-    on the core, reading the caller's own block. ``ops`` holds the extended,
-    pre-scaled coefficient planes; ``sum(rounds)`` is the filter's n_steps.
+    then the round's steps run on the extended block: one ``fused_fn`` call
+    for the whole round where the fused plan's static predicate holds (a core
+    of at least a tile plus its halo, ``cells <= 16``), else one ``pass_fn``
+    call per step (``fused_fn=None`` forces that). The first step consumes the
+    raw extended field (prepare and masking fused), the last one reconstructs
+    land and divides by the area on the core, reading the caller's own block.
+    ``ops`` holds the extended, pre-scaled coefficient planes;
+    ``sum(rounds)`` is the filter's n_steps.
     """
     n_steps = sum(rounds)
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    ly, lx = field.shape[-2:]
+    plan = plan_fused_passes(cells, ly, lx, field.dtype, fused_planes(ops), one_pass=True)
+    if fused_fn is not None and plan.fused:
+        return _fused_rounds(fused_fn, ops, field, p, cells, rounds, y_axis, x_axis, fold,
+                             plan.tile)
     acc = torch.empty_like(field)
     t = t_prev = None
     step = 0
@@ -237,6 +248,39 @@ def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
                 pass_fn(ops, MIDDLE, p[step], cells=cells, shrink=j,
                         t=t, t_prev=t_prev, t_next=t_prev, acc=acc)
                 t, t_prev = t_prev, t
+    return acc
+
+
+def _fused_rounds(fused_fn, ops: PassOperands, field: Tensor, p, cells: int, rounds,
+                  y_axis: halo.Axis, x_axis: halo.Axis, fold: bool, tile) -> Tensor:
+    """The rounds of :func:`local_rounds_scalar`, one fused launch each. A
+    round writes its carries into the core of two fresh extended buffers,
+    which the next round's exchange reads (a tile reads its neighbours'
+    cells, so a round cannot update the carries it reads)."""
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    acc = torch.empty_like(field)
+    t = t_prev = None
+    start = 0
+    for i, n_ops in enumerate(rounds):
+        last = i == len(rounds) - 1
+        ext_raw = None
+        if i == 0:
+            ext_raw = halo.exchange_2d(field, cells, y_axis, x_axis, fold)
+        else:
+            # one message per phase carries both carries and the whole batch
+            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]),
+                                   cells, y_axis, x_axis, fold)
+            t, t_prev = ext[0], ext[1]
+        shape = (ext_raw if ext_raw is not None else t).shape
+        t_out = t_prev_out = None
+        if not last:
+            t_out = torch.empty(shape, dtype=field.dtype, device=field.device)
+            t_prev_out = torch.empty_like(t_out)
+        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field=ext_raw,
+                 field_own=field if last else None, t=t, t_prev=t_prev, t_out=t_out,
+                 t_prev_out=t_prev_out, acc=acc)
+        t, t_prev = t_out, t_prev_out
+        start += n_ops
     return acc
 
 
@@ -321,6 +365,7 @@ def make_sharded_scalar_apply(
     halo_steps: Optional[int] = None,
     exact_nan: bool = False,
     pass_fn=local_pass,
+    fused_fn=local_fused_pass,
 ):
     """``field -> filtered`` with the domain sharded over ``mesh``.
 
@@ -333,9 +378,11 @@ def make_sharded_scalar_apply(
     ``spatial_axes`` (and dim 0 over ``batch_axis``); ``.full_tensor()``
     gathers it. Every rank of the mesh must call the function together.
 
-    ``pass_fn`` runs one local step; it is :func:`local_pass` (kernel for
-    CUDA tensors, plain version for CPU tensors) unless a caller passes the
-    plain version to compare the two on one device.
+    ``fused_fn`` runs one fused round and ``pass_fn`` one local step; they
+    are :func:`local_fused_pass` and :func:`local_pass` (kernels for CUDA
+    tensors, plain versions for CPU tensors) unless a caller passes the plain
+    versions to compare them on one device; ``fused_fn=None`` runs the step
+    chain on purpose (:func:`local_rounds_scalar`).
     """
     if spec.n_steps < 2:
         raise ValueError(f"the step kernels need n_steps >= 2, got {spec.n_steps}")
@@ -391,7 +438,7 @@ def make_sharded_scalar_apply(
             ly, lx = x.shape[-2:]
             ops, cells, rounds, p = operands(ly, lx, dtype)
             out = local_rounds_scalar(ops, x, p, cells, rounds, y_axis, x_axis,
-                                      stencil.fold_north, pass_fn)
+                                      stencil.fold_north, pass_fn, fused_fn)
         return DTensor.from_local(restore(out), mesh, placements, run_check=False)
 
     apply_fn.operands = operands  # (ly, lx, dtype) -> (PassOperands, cells, rounds, p)

@@ -53,6 +53,21 @@ def test_apply_arrays_batches_tensors(scalar_grid_data):
                                rtol=1e-11, atol=1e-13)
 
 
+def test_apply_list_keeps_float64():
+    """A bare Python list computes in numpy's float64, as the JAX package's
+    Filter does under x64, not in torch's default float32."""
+    wet = np.ones((32, 48))
+    wet[0] = 0
+    wet[10:14, 20:30] = 0
+    data = np.random.default_rng(2).random((32, 48))
+    jf, tf = _pair(gj.GridType.REGULAR_WITH_LAND, {"wet_mask": wet}, filter_scale=4.0, dx_min=1.0)
+    want = np.asarray(jf.apply(data.tolist()))
+    got = tf.apply(data.tolist())
+    assert want.dtype == np.float64 and got.dtype == torch.float64
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-11, atol=1e-13)
+    np.testing.assert_array_equal(got.numpy(), tf.apply(data).numpy())
+
+
 def test_dtype_option():
     data = np.random.default_rng(1).random((32, 64))
     jf = gj.Filter(filter_scale=4.0, dx_min=1.0, dtype=jnp.float32, use_pallas=False)
