@@ -45,7 +45,7 @@
 // cheb_tile.cuh); the step entry stays for fields smaller than a tile and its
 // halo, and as what the fused pass is checked against.
 //
-// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
+// Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
 
 #include "cheb_tile.cuh"

@@ -13,20 +13,26 @@ namespace {
 
 // -- values in, values out ---------------------------------------------------
 
+// nan_to_num, or with FAST its shorter form (common.cuh): the same value.
+template <bool FAST, typename T>
+__device__ __forceinline__ T scrub(T x) {
+  return FAST ? nan_to_num_fast(x) : nan_to_num(x);
+}
+
 // T_0 at a cell from its raw field value: fbar = field [* area]; under the
 // h-space mask elimination (drop_pre) h = post * nan_to_num(fbar).
-template <typename T>
+template <bool FAST = false, typename T>
 __device__ __forceinline__ T t0_value(T field, bool has_area, T area, bool drop_pre, T post) {
   T x = field;
   if (has_area) x = mul(x, area);
-  if (drop_pre) x = mul(post, nan_to_num(x));
+  if (drop_pre) x = mul(post, scrub<FAST>(x));
   return x;
 }
 
 // The value the stencil contracts over: [pre *] (zap ? nan_to_num(x) : x).
-template <typename T>
+template <bool FAST = false, typename T>
 __device__ __forceinline__ T gather_value(T x, bool zap, bool has_pre, T pre) {
-  if (zap) x = nan_to_num(x);
+  if (zap) x = scrub<FAST>(x);
   if (has_pre) x = mul(pre, x);
   return x;
 }

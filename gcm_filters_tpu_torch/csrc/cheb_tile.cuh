@@ -41,7 +41,7 @@
 // most. Device memory moves each input once per pass plus the halos, which
 // neighbouring tiles share through L2.
 //
-// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
+// Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
 #pragma once
 
@@ -163,7 +163,7 @@ struct Tile {
   }
   __device__ T coef(int m, int k) const { return coef_array(m) ? sm[o_coef[m] + k] : a.cval[m]; }
   __device__ T gat(T x, int k) const {
-    return gather_value(x, zap(), has_pre(), has_pre() ? sm[o_pre + k] : T(0));
+    return gather_value<true>(x, zap(), has_pre(), has_pre() ? sm[o_pre + k] : T(0));
   }
 };
 
@@ -296,7 +296,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
       for (int m = 0; m < 5; ++m)
         if (a.coef[m]) sm[tl.o_coef[m] + k] = a.coef[m][kk];
       if (a.first) {
-        sm[k] = t0_value(a.field[b_in + kk], has_area, at(a.area, kk), drop_pre, post);
+        sm[k] = t0_value<true>(a.field[b_in + kk], has_area, at(a.area, kk), drop_pre, post);
       } else {
         sm[k] = a.t_prev[b_in + kk];
         sm[wa + k] = a.t[b_in + kk];

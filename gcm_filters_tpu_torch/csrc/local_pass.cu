@@ -55,7 +55,7 @@
 // exchange reads them as it reads the step chain's. Their result equals the
 // chain of this file's step launches bit for bit.
 //
-// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
+// Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
 
 #include "cheb_tile.cuh"

@@ -46,8 +46,26 @@
 // 3.35 TB/s), 28 for the C-grid taps (~0.29 ms). ~2 flops per coefficient
 // and cell plus 8 for the recurrence are ~2-3 us at 67 TFLOP/s. The whole
 // filter needs only one read of u, v and the coefficients and one write of
-// the result; closing that gap is the job of temporal blocking (several steps
-// per launch on shared-memory tiles with a halo), which is later work.
+// the result (14 planes, ~0.14 ms, B-grid; 22 planes, ~0.23 ms, C-grid);
+// closing that gap is the job of temporal blocking, the fused entries below.
+//
+// Fused entries vec_fused_pass_f32/f64: S <= 16 of these steps per launch on
+// shared-memory tiles (vec_tile.cuh: a (by+2H) x (bx+2H) window of the raw
+// state of both components and of every coefficient plane, periodic in both
+// axes with its corners, step j on the window shrunk by j, acc of the own
+// tile in shared memory; the contraction and zap are compile-time modes;
+// batch in gridDim.z, one coefficient tensor for every batch entry), as the
+// TPU kernel does in VMEM. One launch computes steps start+1 .. start+n_ops of
+// the filter: the first pass reads w, a later one t, t_prev and acc; a pass
+// that does not end the filter writes t_out, t_prev_out (never t or t_prev:
+// tiles read their neighbours' cells) and acc, the last one only acc. A
+// filter of n steps is then one launch per planned pass
+// (ops/cuda/vec_pass.py::plan_vec_fused_passes), and each result equals the
+// chain of the step entry's launches bit for bit. Bound of a fused pass:
+// shared memory and issue (vec_tile.cuh); per pass device memory moves the
+// n_coef coefficient planes and 2 (first) or 6 (later) state planes in, 6
+// (or, last, 2) out, plus the halos. The step entry stays for fields smaller
+// than a tile and its halo, and as what the fused pass is checked against.
 //
 // Windowed local entries (vec_local_pass_f32/f64): the same step on a
 // halo-extended shard block, the per-shard compute of the sharded vector
@@ -77,9 +95,9 @@
 // one rank (c = 11, block 2422x3622) moves ~20 (B-grid) or ~28 (C-grid)
 // planes of 34.6-35.1 MB.
 //
-// Build without --use_fast_math: it breaks isnan/isinf in nan_to_num.
+// Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 
-#include "vec_step.cuh"
+#include "vec_tile.cuh"
 
 namespace {
 
@@ -177,7 +195,8 @@ __global__ void vec_local_pass_kernel(const LocalArgs<T> a) {
   x.se = x.c - ex + 1;
 
   T lu, lv;
-  OP::apply(a.coef, P, x, Gather<T>{(KIND == FIRST ? a.w : a.t) + bu, P, a.zap}, lu, lv);
+  OP::apply(a.coef, P, x, Gather<T, true>{(KIND == FIRST ? a.w : a.t) + bu, P, a.zap}, lu,
+            lv);
   const int64_t k = x.c;
 
   const bool in_core = i >= c && i < ex - c && j >= c && j < ey - c;  // LAST: the window is the core
@@ -245,6 +264,28 @@ VEC_PASS_ENTRY(vec_pass_f64, double)
 
 VEC_LOCAL_PASS_ENTRY(vec_local_pass_f32, float)
 VEC_LOCAL_PASS_ENTRY(vec_local_pass_f64, double)
+
+// One fused pass: steps start+1 .. start+n_ops of the filter, where the
+// caller says whether the pass begins with FIRST (`first`: reads w) and ends
+// with LAST (`last`: writes only acc_out). pa[i] is p_a of the pass's i-th
+// step, p_b that of FIRST. acc_in may be acc_out.
+#define VEC_FUSED_ENTRY(NAME, T)                                                          \
+  extern "C" int NAME(int op, int batch, int ny, int nx, int by, int bx, int n_ops,       \
+                      int first, int last, const double* pa, double p_b, const T* w,      \
+                      const T* t, const T* t_prev, const T* acc_in, T* t_out,             \
+                      T* t_prev_out, T* acc_out, const T* coef, int zap, void* stream) {  \
+    cudaGetLastError();                                                                   \
+    VecFusedArgs<T> a;                                                                    \
+    a.by = by; a.bx = bx; a.n_ops = n_ops; a.first = first; a.last = last;                \
+    for (int i = 0; i < MAX_FUSE; ++i) a.pa[i] = i < n_ops ? T(pa[i]) : T(0);            \
+    a.p_b = T(p_b);                                                                       \
+    a.w = w; a.t = t; a.t_prev = t_prev; a.acc_in = acc_in;                               \
+    a.t_out = t_out; a.t_prev_out = t_prev_out; a.acc_out = acc_out; a.coef = coef;       \
+    return launch_vec_fused<T>(op, zap, a, ny, nx, batch, static_cast<cudaStream_t>(stream)); \
+  }
+
+VEC_FUSED_ENTRY(vec_fused_pass_f32, float)
+VEC_FUSED_ENTRY(vec_fused_pass_f64, double)
 
 extern "C" const char* vec_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

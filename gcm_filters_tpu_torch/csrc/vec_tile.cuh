@@ -1,0 +1,334 @@
+// The fused coupled vector Chebyshev pass on shared-memory tiles: S coupled
+// (u, v) steps per launch, for the B-grid pair (BGridLap) and the C-grid taps
+// (CTapLap) of vec_step.cuh. Entries vec_fused_pass_f32/f64 in vec_pass.cu.
+//
+// A block owns a by x bx tile of the output, for both components, and runs
+// the trapezoid (overlapped-halo) decomposition of the TPU kernel
+// (gcm_filters_tpu/ops/pallas/vec_pass.py::_build_coupled_pass, head
+// comment), with a halo in both y and x:
+//   1. load a window of (by+2H) x (bx+2H) cells, H = S, periodic in both axes
+//      and with its corners (the C-grid's diagonal taps read them from the
+//      first step on, and a 5-point step reaches them within H steps), into
+//      shared memory: the raw state of both components (w on the first pass,
+//      else t and t_prev) and every coefficient plane; acc of the own cells;
+//   2. run the S steps in shared memory; step j updates the window shrunk by
+//      j cells on each side, so the last one ends exactly on the own tile.
+//      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
+//      it), acc of the own cells is updated in place;
+//   3. write the own cells of t, t_prev and acc, or, when the pass ends the
+//      filter, only acc (vector grids have no finalize).
+// The window holds raw values: nan_to_num (zap) applies where a value enters
+// the contraction, as in the step kernels, because the raw t and t_prev
+// enter -2t - t_prev. Every value goes through OP::lap and the recurrence
+// functions in the same order as in the step kernels, so a cell that two
+// tiles compute gets the same bits as in the chain of one-step launches.
+//
+// Bound: shared memory and issue, no longer HBM. A cell-step reads about 23
+// (B-grid: 10 coefficients, the centre, north, south, east and west values of
+// both components, t_prev and acc of both) or 31 (C-grid: 18 coefficients and
+// the two diagonal values) shared words and writes two to four; the strips of
+// rows per thread (below) share the centre column between rows. The
+// redundant cells of the trapezoid add (1 + 2H/by)(1 + 2H/bx) - 1 at most.
+// Device memory moves each input once per pass plus the halos, which
+// neighbouring tiles share through L2. With 4 + 10 or 4 + 18 window planes a
+// block holds less halo than the scalar pass: the planner
+// (ops/cuda/vec_pass.py::plan_vec_fused_passes) picks the tile and the split.
+//
+// Build without --use_fast_math: it breaks the NaN test in nan_to_num.
+#pragma once
+
+#include "cheb_tile.cuh"  // WrapGeo, MAX_FUSE, FUSED_THREADS, MAX_SHARED
+#include "vec_step.cuh"
+
+namespace {
+
+template <typename T>
+struct VecFusedArgs {
+  int by, bx;         // the own tile
+  int n_ops;          // steps in this pass, = H
+  int first, last;    // the pass starts with FIRST / ends with LAST
+  T pa[MAX_FUSE];     // p_a of each step of the pass
+  T p_b;              // p_b of FIRST
+  const T* w;         // the stacked input (first pass), (batch, 2, ny, nx)
+  const T* t;         // T_k in (not first)
+  const T* t_prev;    // T_{k-1} in (not first)
+  const T* acc_in;    // acc in (not first); may alias acc_out
+  T* t_out;           // T_k out (not last)
+  T* t_prev_out;      // T_{k-1} out (not last)
+  T* acc_out;         // acc out, the result on a last pass
+  const T* coef;      // (n_coef, ny, nx), pre-scaled
+};
+
+// Shared planes of one window: the state pairs A (u, v) and B (u, v) (each
+// (by+2H) x (bx+2H)), the n_coef coefficients of every window cell, then acc
+// of the own tile for u and for v.
+template <typename T>
+__host__ __device__ inline size_t vec_fused_shared_bytes(int by, int bx, int H, int n_coef) {
+  const size_t wy = by + 2 * H, wx = bx + 2 * H;
+  return ((4 + n_coef) * wy * wx + 2 * (size_t)by * bx) * sizeof(T);
+}
+
+// Rows a thread steps per work item: it loads the strip's values first,
+// then does the arithmetic (one latency per strip instead of one per row; a
+// store of the step would keep the compiler from hoisting later rows'
+// loads). Fewer for the C-grid's 18 coefficients and for float64, which
+// would otherwise spill registers at 512 threads.
+template <typename OP, typename T>
+__host__ __device__ constexpr int vec_strip() {
+  return (OP::N_COEF <= 10 ? 4 : 2) / (sizeof(T) == 4 ? 1 : 2);
+}
+
+// Two values in one shared-memory load.
+template <typename T> struct Pair;
+template <> struct Pair<float> { using type = float2; };
+template <> struct Pair<double> { using type = double2; };
+
+// Offsets of the window's planes in shared memory (offsets, not pointers,
+// keep every access in the shared address space). The coefficients are
+// stored cell-major: a cell's n_coef values (an even count) follow each
+// other, so a cell-step loads them as n_coef / 2 pairs, without bank
+// conflicts at a stride of 10 or 18 words.
+struct VecPlanes {
+  int wx, wa;   // window width (pitch) and cells
+  int coef;     // the coefficients, n_coef per window cell
+  int acc;      // acc of the own tile: u, then v
+};
+
+// One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
+// [j, wx-j): the pair at `cur` holds T_k, the pair at `prev` T_{k-1}, and
+// T_{k+1} goes over prev. A pair's u plane is at its offset, its v plane one
+// window later.
+template <typename T, typename OP, int ZAP, int KIND>
+__device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
+                                                const VecPlanes& pl, const WrapGeo& geo,
+                                                int j, int wy, int H, int y0, int x0, int cur,
+                                                int prev, T p_a, int64_t b_own) {
+  constexpr int S = vec_strip<OP, T>();
+  constexpr int NC = OP::N_COEF;
+  const int wx = pl.wx, wa = pl.wa;
+  const int own_plane = a.by * a.bx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int rows = wy - 2 * j, cols = wx - 2 * j;
+  const int chunks = (cols + 31) / 32, strips = (rows + S - 1) / S;
+  const int64_t P = (int64_t)geo.ny * geo.nx;
+  for (int item = warp; item < chunks * strips; item += nwarps) {
+    const int s_i = item / chunks;
+    const int q = j + (item - s_i * chunks) * 32 + lane;
+    if (q >= wx - j) continue;
+    const int r0 = j + s_i * S;
+    const int r1 = min(r0 + S, wy - j);  // rows past r1 load clamped rows and are not stored
+    // loads, for each component: the centre column on rows r0-1 .. r0+S, the
+    // east column on rows r0-1 .. r0+S-1 (v's south-east tap reads the row
+    // below), the west column on rows r0 .. r0+S (u's north-west tap reads
+    // the row above); the rest on the strip
+    T tc[2][S + 2], te[2][S + 1], tw[2][S + 1], cf[S][NC], tp[2][S], ac[2][S];
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      const int base = cur + c * wa;
+#pragma unroll
+      for (int s = 0; s < S + 2; ++s) tc[c][s] = sm[base + min(r0 - 1 + s, r1) * wx + q];
+#pragma unroll
+      for (int s = 0; s < S + 1; ++s) {
+        te[c][s] = sm[base + min(r0 - 1 + s, r1 - 1) * wx + q + 1];
+        tw[c][s] = sm[base + min(r0 + s, r1) * wx + q - 1];
+      }
+    }
+    const unsigned ox = q - H;
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = min(r0 + s, r1 - 1);
+      const int k = r * wx + q;
+      const auto* cp = reinterpret_cast<const typename Pair<T>::type*>(sm + pl.coef + k * NC);
+#pragma unroll
+      for (int m = 0; m < NC / 2; ++m) {
+        const auto c2 = cp[m];
+        cf[s][2 * m] = c2.x;
+        cf[s][2 * m + 1] = c2.y;
+      }
+      const unsigned oy = r - H;
+      const bool own = KIND != FIRST && oy < (unsigned)a.by && ox < (unsigned)a.bx;
+      const int o = pl.acc + (int)oy * a.bx + (int)ox;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        tp[c][s] = KIND == FIRST ? T(0) : sm[prev + c * wa + k];
+        ac[c][s] = own ? sm[o + c * own_plane] : T(0);
+      }
+    }
+    T gc[2][S + 2];
+#pragma unroll
+    for (int c = 0; c < 2; ++c)
+#pragma unroll
+      for (int s = 0; s < S + 2; ++s) gc[c][s] = gather_value<true>(tc[c][s], ZAP != 0, false, T(0));
+#pragma unroll
+    for (int s = 0; s < S; ++s) {
+      const int r = r0 + s;
+      if (r >= r1) break;
+      const int k = r * wx + q;
+      Nb<T> g[2];
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        g[c].c = gc[c][s + 1];
+        g[c].n = gc[c][s + 2];
+        g[c].s = gc[c][s];
+        g[c].e = gather_value<true>(te[c][s + 1], ZAP != 0, false, T(0));
+        g[c].w = gather_value<true>(tw[c][s], ZAP != 0, false, T(0));
+        g[c].se = gather_value<true>(te[c][s], ZAP != 0, false, T(0));
+        g[c].nw = gather_value<true>(tw[c][s + 1], ZAP != 0, false, T(0));
+      }
+      T l[2];
+      OP::lap([&](int m) { return cf[s][m]; }, g[0], g[1], l[0], l[1]);
+      const unsigned oy = r - H;
+      if (KIND == LAST) {
+        // the window is the own tile
+        const int gy = y0 + (int)oy, gx = x0 + (int)ox;
+        if (gy < geo.ny && gx < geo.nx) {
+          const int64_t ko = b_own + geo.own_index(gy, gx);
+#pragma unroll
+          for (int c = 0; c < 2; ++c)
+            a.acc_out[ko + c * P] = acc_add(p_a, next_value(tc[c][s + 1], l[c], tp[c][s]),
+                                            ac[c][s]);
+        }
+        continue;
+      }
+      const bool own = oy < (unsigned)a.by && ox < (unsigned)a.bx;
+      const int o = pl.acc + (int)oy * a.bx + (int)ox;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        if (KIND == FIRST) {
+          const T t1 = t1_value(l[c], tc[c][s + 1]);
+          sm[prev + c * wa + k] = t1;
+          if (own) sm[o + c * own_plane] = acc_first(p_a, a.p_b, tc[c][s + 1], t1);
+        } else {
+          const T nxt = next_value(tc[c][s + 1], l[c], tp[c][s]);
+          sm[prev + c * wa + k] = nxt;
+          if (own) sm[o + c * own_plane] = acc_add(p_a, nxt, ac[c][s]);
+        }
+      }
+    }
+  }
+}
+
+template <typename T, typename OP, int ZAP>
+__global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFusedArgs<T> a,
+                                                                   const WrapGeo geo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  constexpr int NC = OP::N_COEF;
+  const int H = a.n_ops;
+  const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+  const VecPlanes pl{wx, wa, 4 * wa, (4 + NC) * wa};
+  const int own_plane = a.by * a.bx;
+  const int y0 = blockIdx.y * a.by, x0 = blockIdx.x * a.bx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  const int64_t P = (int64_t)geo.ny * geo.nx;
+  const int64_t b_uv = (int64_t)blockIdx.z * 2 * P;  // this entry's u plane; v follows
+  const int ny = geo.ny, nx = geo.nx;
+
+  // 1. the window, one warp per row. Pair A (offset 0) takes T_k (w on a
+  // first pass), pair B (offset 2*wa) T_{k-1}. A cell's loads are all issued
+  // before its stores: a global pointer might alias shared memory, so a
+  // store between two loads would make each load wait for the one before.
+  for (int r = warp; r < wy; r += nwarps) {
+    const int64_t row = geo.in_index(geo.row(y0 - H + r), 0);
+    for (int q = lane; q < wx; q += 32) {
+      const int64_t kk = row + geo.col(x0 - H + q, false);
+      const int k = r * wx + q;
+      T cv[NC], sv[4];
+#pragma unroll
+      for (int m = 0; m < NC; ++m) cv[m] = __ldg(a.coef + m * P + kk);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        sv[c] = __ldg((a.first ? a.w : a.t) + b_uv + c * P + kk);
+        sv[2 + c] = a.first ? T(0) : __ldg(a.t_prev + b_uv + c * P + kk);
+      }
+      auto* cp = reinterpret_cast<typename Pair<T>::type*>(sm + pl.coef + k * NC);
+#pragma unroll
+      for (int m = 0; m < NC / 2; ++m) cp[m] = {cv[2 * m], cv[2 * m + 1]};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) sm[c * wa + k] = sv[c];
+    }
+  }
+  if (!a.first) {
+    for (int i = threadIdx.x; i < own_plane; i += blockDim.x) {
+      const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
+      const bool in = gy < ny && gx < nx;
+#pragma unroll
+      for (int c = 0; c < 2; ++c)
+        sm[pl.acc + c * own_plane + i] =
+            in ? a.acc_in[b_uv + c * P + geo.own_index(gy, gx)] : T(0);
+    }
+  }
+  __syncthreads();
+
+  // 2. the steps
+  int cur = 0, prev = 2 * wa;
+  for (int i = 0; i < H; ++i) {
+    const int j = i + 1;  // this step's window: shrunk by j
+    if (a.first && i == 0)
+      vec_step_window<T, OP, ZAP, FIRST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+    else if (a.last && i == H - 1)
+      vec_step_window<T, OP, ZAP, LAST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+    else
+      vec_step_window<T, OP, ZAP, MIDDLE>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+    __syncthreads();
+    const int tmp = cur;
+    cur = prev;
+    prev = tmp;
+  }
+  if (a.last) return;
+
+  // 3. the own cells of the carries and of acc
+  for (int r = H + warp; r < H + a.by; r += nwarps) {
+    const int gy = y0 - H + r;
+    if (gy >= ny) break;
+    for (int q = H + lane; q < H + a.bx; q += 32) {
+      const int gx = x0 - H + q;
+      if (gx >= nx) break;
+      const int k = r * wx + q;
+      const int64_t ko = b_uv + geo.own_index(gy, gx);
+      const int o = (r - H) * a.bx + (q - H);
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        a.t_out[ko + c * P] = sm[cur + c * wa + k];
+        a.t_prev_out[ko + c * P] = sm[prev + c * wa + k];
+        a.acc_out[ko + c * P] = sm[pl.acc + c * own_plane + o];
+      }
+    }
+  }
+}
+
+template <typename T, typename OP, int ZAP>
+int launch_vec_mode(const VecFusedArgs<T>& a, const WrapGeo& g, dim3 grid, size_t bytes,
+                    cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vec_fused_kernel<T, OP, ZAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  vec_fused_kernel<T, OP, ZAP><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+// Launch one fused vector pass over the whole (periodic) field, tiles of
+// by x bx, with the kernel compiled for the contraction and for zap.
+template <typename T>
+int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, int ny, int nx, int batch,
+                     cudaStream_t st) {
+  if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
+  if (ny < 1 || nx < 1 || a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 ||
+      batch < 1 || batch > 65535)
+    return (int)cudaErrorInvalidValue;
+  const int n_coef = op == BGRID ? BGridLap::N_COEF : CTapLap::N_COEF;
+  const size_t bytes = vec_fused_shared_bytes<T>(a.by, a.bx, a.n_ops, n_coef);
+  if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  const dim3 grid((nx + a.bx - 1) / a.bx, (ny + a.by - 1) / a.by, batch);
+  if (grid.y > 65535) return (int)cudaErrorInvalidValue;
+  const WrapGeo g{ny, nx, 0};
+  if (op == BGRID)
+    return zap ? launch_vec_mode<T, BGridLap, 1>(a, g, grid, bytes, st)
+               : launch_vec_mode<T, BGridLap, 0>(a, g, grid, bytes, st);
+  return zap ? launch_vec_mode<T, CTapLap, 1>(a, g, grid, bytes, st)
+             : launch_vec_mode<T, CTapLap, 0>(a, g, grid, bytes, st);
+}
+
+}  // namespace

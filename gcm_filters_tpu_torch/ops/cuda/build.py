@@ -27,7 +27,7 @@ from typing import Dict, Iterable, Optional
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
-# No --use_fast_math: it breaks isnan/isinf in nan_to_num and the 0*x NaN
+# No --use_fast_math: it breaks the NaN test in nan_to_num and the 0*x NaN
 # poison the kernels rely on.
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -296,27 +296,39 @@ def _pass_cost(tile, steps, n_planes: int, itemsize: int) -> float:
     return cost / (by * bx) * TILES.get(tuple(tile), 1.0)
 
 
-@functools.lru_cache(maxsize=None)
-def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse: int,
-          tile: Optional[Tuple[int, int]], one_pass: bool) -> FusedPlan:
+def search_plan(n_steps: int, ny: int, nx: int, max_fuse: int, tiles, fits, cost,
+                one_pass: bool = False) -> FusedPlan:
+    """The cheapest plan: every balanced split of the steps into
+    ``ceil(n_steps / cap)`` passes (``cap <= max_fuse``) on every tile of
+    ``tiles`` for which ``fits(tile, halo)``, scored by ``cost(tile, steps)``;
+    with ``one_pass`` only the split into one pass. Where nothing fits (one
+    pass of more than :data:`MAX_FUSE` steps) the plan is not fused."""
     best = None
     for cap in range(1, min(max_fuse, MAX_FUSE, n_steps) + 1):
         steps = _balanced(n_steps, cap)
         halo = max(steps)
         if halo != cap or (one_pass and len(steps) > 1):
             continue  # the same split as a smaller cap, or more than one pass
-        for tl in (tile,) if tile else TILES:
-            if fused_shared_bytes(tl, halo, n_planes, itemsize) > SHARED_BYTES:
+        for tl in tiles:
+            if not fits(tl, halo):
                 continue
-            cost = _pass_cost(tl, steps, n_planes, itemsize)
-            if best is None or cost < best[0]:
-                best = (cost, tl, halo, steps)
+            c = cost(tl, steps)
+            if best is None or c < best[0]:
+                best = (c, tl, halo, steps)
     if best is None:
-        # one pass of more than MAX_FUSE steps: the step chain runs
-        return FusedPlan(tuple(tile or next(iter(TILES))), n_steps, (n_steps,), False)
+        return FusedPlan(tuple(next(iter(tiles))), n_steps, (n_steps,), False)
     _, tl, halo, steps = best
     fused = ny >= tl[0] + 2 * halo and nx >= tl[1] + 2 * halo
     return FusedPlan(tuple(tl), halo, steps, fused)
+
+
+@functools.lru_cache(maxsize=None)
+def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse: int,
+          tile: Optional[Tuple[int, int]], one_pass: bool) -> FusedPlan:
+    return search_plan(
+        n_steps, ny, nx, max_fuse, (tile,) if tile else TILES,
+        lambda tl, halo: fused_shared_bytes(tl, halo, n_planes, itemsize) <= SHARED_BYTES,
+        lambda tl, steps: _pass_cost(tl, steps, n_planes, itemsize), one_pass)
 
 
 def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_planes: int,

@@ -34,7 +34,12 @@ the same bits.
 
 Vector grids run their own recurrence on the stacked pair (batch, 2, ny, nx):
 B-grid with its ten diffusion and mixing planes, C-grid with the 18 tap planes
-of its composed form (ops/ctaps.py), both without masks or area.
+of its composed form (ops/ctaps.py), both without masks or area. They run as
+the fused passes that ``plan_vec_fused_passes`` plans (ops/cuda/vec_pass.py):
+the first pass takes the stacked input, a middle pass carries t, t_prev and
+acc, the last one leaves the result in acc. Below the plan's predicate they
+run as ``n_steps`` launches of the one-step kernel, t_next over t_prev. Both
+routes give the same bits.
 
 CUDA tensors go through the kernel and CPU tensors through its plain version;
 there is no other route and no fallback.
@@ -62,7 +67,9 @@ from .cheb_pass import (
     FIRST, LAST, MIDDLE, PassOperands, cheb_fused_pass, cheb_pass, fused_planes,
     plan_fused_passes,
 )
-from .vec_pass import BGRID, CTAP, VecPassOperands, vec_pass
+from .vec_pass import (
+    BGRID, CTAP, VecPassOperands, plan_vec_fused_passes, vec_fused_pass, vec_pass,
+)
 
 _NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
 
@@ -177,23 +184,26 @@ def _step_chain(pass_fn, ops: PassOperands, p, n: int, x):
     return acc
 
 
-def _fused_chain(fused_fn, ops: PassOperands, p, pl, x):
-    """One fused launch per pass of the plan ``pl`` on ``(batch, ny, nx)``
-    ``x``: the result. A pass reads its carries from one pair of buffers and
-    writes the next pass's into the other (a tile reads its neighbours'
-    cells, so a pass cannot update its carries in place); acc is updated in
-    place."""
+def _fused_chain(fused_fn, ops, p, pl, x, name="field"):
+    """One fused launch per pass of the plan ``pl`` on the state ``x``
+    (``(batch, ny, nx)``, or the stacked ``(batch, 2, ny, nx)`` of a vector
+    filter): the result. ``x`` goes to the first and the last pass as the
+    argument ``name`` (the scalar field, which the last pass reads again; the
+    vector ``w``, which only a first pass reads). A pass reads its carries
+    from one pair of buffers and writes the next pass's into the other (a
+    tile reads its neighbours' cells, so a pass cannot update its carries in
+    place); acc is updated in place."""
     acc = torch.empty_like(x)
     pairs = [(torch.empty_like(x), torch.empty_like(x)) for _ in range(min(2, len(pl.steps) - 1))]
     t = t_prev = None
     start = 0
     for i, n_ops in enumerate(pl.steps):
         if i == len(pl.steps) - 1:
-            fused_fn(ops, p, start, n_ops, tile=pl.tile, field=x, t=t, t_prev=t_prev, acc=acc)
+            fused_fn(ops, p, start, n_ops, tile=pl.tile, t=t, t_prev=t_prev, acc=acc, **{name: x})
         else:
             t_out, t_prev_out = pairs[i % 2]
-            fused_fn(ops, p, start, n_ops, tile=pl.tile, field=x if i == 0 else None,
-                     t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
+            fused_fn(ops, p, start, n_ops, tile=pl.tile, t=t, t_prev=t_prev, t_out=t_out,
+                     t_prev_out=t_prev_out, acc=acc, **{name: x if i == 0 else None})
             t, t_prev = t_out, t_prev_out
         start += n_ops
     return acc
@@ -239,18 +249,26 @@ def vector_operands(op: int, planes, neg2s: float, zap: bool, dtype, device) -> 
     return VecPassOperands(op, coef, zap)
 
 
-def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass):
-    """``(u, v) -> (fu, fv)`` on the fields' device, ``n_steps`` launches per call.
+def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass,
+                           fused_fn=vec_fused_pass):
+    """``(u, v) -> (fu, fv)`` on the fields' device: one launch per planned
+    fused pass, or ``n_steps`` step launches below the plan's predicate.
 
     ``u`` and ``v`` have equal shapes with the spatial dims last; leading
     dims are batched. Both are promoted to ``_compute_dtype(u.dtype,
     v.dtype)`` (mixed float32/float64 computes in float64), which is the
-    results' dtype. ``pass_fn`` runs one step; it is :func:`vec_pass` (kernel
-    for CUDA tensors, plain version for CPU tensors) unless a caller passes
-    the plain version to compare the two on one device.
+    results' dtype. ``fused_fn`` runs one fused pass and ``pass_fn`` one
+    step; they are :func:`vec_fused_pass` and :func:`vec_pass` (kernels for
+    CUDA tensors, plain versions for CPU tensors) unless a caller passes the
+    plain versions to compare them on one device. ``fused_fn=None`` runs the
+    step chain on purpose.
     """
     op, grid_shape, neg2s, p_host, host_planes = vector_setup(operator, spec)
     cache = {}
+
+    def plan(ny: int, nx: int, dtype):
+        """The fused plan of this filter for one field shape and dtype."""
+        return plan_vec_fused_passes(spec.n_steps, ny, nx, dtype, op)
 
     def operands(dtype, device):
         """Coefficients and p for one (dtype, device), see :func:`vector_operands`."""
@@ -280,19 +298,30 @@ def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass):
         if u.numel() == 0:
             return (torch.empty(u.shape, dtype=dtype, device=u.device),
                     torch.empty(u.shape, dtype=dtype, device=u.device))
-        # a fresh stacked state, owned here: MIDDLE overwrites it as t_prev
+        # a fresh stacked state, owned here: the step chain overwrites it as t_prev
         w = torch.stack([u.to(dtype), v.to(dtype)], dim=-3).reshape(-1, 2, ny, nx)
         ops, p = operands(dtype, w.device)
-        n = spec.n_steps
-        t, acc = torch.empty_like(w), torch.empty_like(w)
-        pass_fn(ops, FIRST, p[0], p[1], w=w, t_next=t, acc=acc)
-        t_prev = w
-        for k in range(2, n):
-            # t_next overwrites t_prev in place; acc is updated in place
-            pass_fn(ops, MIDDLE, p[k], t=t, t_prev=t_prev, t_next=t_prev, acc=acc)
-            t, t_prev = t_prev, t
-        pass_fn(ops, LAST, p[n], t=t, t_prev=t_prev, acc=acc)
+        pl = plan(ny, nx, dtype)
+        if fused_fn is not None and pl.fused:
+            acc = _fused_chain(fused_fn, ops, p, pl, w, name="w")
+        else:
+            acc = _vec_step_chain(pass_fn, ops, p, spec.n_steps, w)
         return acc[:, 0].reshape(lead + (ny, nx)), acc[:, 1].reshape(lead + (ny, nx))
 
     apply_fn.operands = operands  # (dtype, device) -> (VecPassOperands, p), for checks
+    apply_fn.plan = plan  # (ny, nx, dtype) -> FusedPlan
     return apply_fn
+
+
+def _vec_step_chain(pass_fn, ops: VecPassOperands, p, n: int, w):
+    """``n`` one-step launches on the stacked ``(batch, 2, ny, nx)`` ``w``,
+    which the chain overwrites: the result."""
+    t, acc = torch.empty_like(w), torch.empty_like(w)
+    pass_fn(ops, FIRST, p[0], p[1], w=w, t_next=t, acc=acc)
+    t_prev = w
+    for k in range(2, n):
+        # t_next overwrites t_prev in place; acc is updated in place
+        pass_fn(ops, MIDDLE, p[k], t=t, t_prev=t_prev, t_next=t_prev, acc=acc)
+        t, t_prev = t_prev, t
+    pass_fn(ops, LAST, p[n], t=t, t_prev=t_prev, acc=acc)
+    return acc

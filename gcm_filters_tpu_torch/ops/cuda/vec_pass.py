@@ -16,18 +16,34 @@ at index 1 of the second axis. Coefficients are one contiguous
 
 :func:`vec_pass` launches the kernel for CUDA tensors and runs the plain
 version for CPU tensors; for a CUDA tensor it launches or raises.
+
+The fused pass runs S <= 16 coupled steps per launch on shared-memory tiles,
+as the TPU kernel does in VMEM (``csrc/vec_tile.cuh``; entries
+``vec_fused_pass_f32/f64`` in ``csrc/vec_pass.cu``): :func:`vec_fused_pass`
+is its wrapper, :func:`vec_fused_pass_reference` its plain version (the same
+steps as a chain of :func:`vec_pass_reference`, so its result equals the
+plain step chain exactly), :func:`vec_fused_pass_tiled_reference` the
+kernel's tile decomposition in torch (periodic windows with their corners,
+shrinking steps), and :func:`plan_vec_fused_passes` the counterpart of the
+JAX ``plan_vec_passes`` / ``plan_ctap_passes``: tile, halo, the balanced
+split of the steps into passes, and the static predicate that says whether
+the fused route applies.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from ..ctaps import CTAP_NAMES, apply_taps
 from ..stencil import BGRID_FIELDS, BGridVectorStencil
-from .cheb_pass import FIRST, LAST, MIDDLE
+from .cheb_pass import (
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan, _check, _kinds,
+    _pass_args, search_plan,
+)
 
 Tensor = torch.Tensor
 
@@ -111,6 +127,13 @@ _ARGTYPES = (
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
 )
+_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 9            # op, batch, ny, nx, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 8       # w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef
+    + [ctypes.c_int]              # zap
+    + [ctypes.c_void_p]           # stream
+)
 _lib = None
 
 
@@ -122,6 +145,9 @@ def _library():
         lib = load("vec_pass")
         for fn in (lib.vec_pass_f32, lib.vec_pass_f64):
             fn.argtypes = _ARGTYPES
+            fn.restype = ctypes.c_int
+        for fn in (lib.vec_fused_pass_f32, lib.vec_fused_pass_f64):
+            fn.argtypes = _FUSED_ARGTYPES
             fn.restype = ctypes.c_int
         lib.vec_pass_error_string.argtypes = [ctypes.c_int]
         lib.vec_pass_error_string.restype = ctypes.c_char_p
@@ -206,3 +232,260 @@ def vec_pass(
 
 
 vec_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
+
+
+# -- the fused pass: S coupled steps per launch on shared-memory tiles -------
+
+# Tile shapes (by, bx) the planner chooses from, bx a multiple of the warp
+# width, per contraction, each with the ratio of its measured time to the
+# cost model's, relative to the best tile: the tile sweep that chip_smoke.py
+# phase 7b runs and prints on one H100 (each tile at its fastest split of the
+# 11-step float32 headline, 2400x3600). It covers what the model does not see
+# (lane and strip quantization, how a tile's rows fall on the warps).
+VEC_TILES = {
+    BGRID: {(32, 64): 1.0, (16, 96): 0.873, (48, 32): 1.194, (40, 32): 1.164,
+            (24, 64): 1.018, (16, 64): 1.047, (16, 128): 0.847, (32, 32): 1.208,
+            (24, 32): 1.192, (16, 32): 1.192},
+    CTAP: {(16, 64): 1.0, (32, 32): 1.205, (40, 32): 1.282, (24, 32): 1.225,
+           (24, 64): 1.097, (16, 96): 1.047, (16, 32): 1.188, (8, 64): 1.045},
+}
+# The cost model, in window-cell loads of one plane: a cell-step costs
+# _VEC_STEP[(op, itemsize)] of them, times _VEC_ONE_BLOCK where a block takes
+# more than half an SM's shared memory. Fitted (least squares) to the same
+# sweep, in each dtype; float64 steps weigh more (two shared wavefronts a
+# value, half the FMA rate).
+_VEC_STEP = {(BGRID, 4): 0.57, (CTAP, 4): 1.19, (BGRID, 8): 1.32, (CTAP, 8): 2.97}
+_VEC_ONE_BLOCK = 1.25
+
+
+def vec_fused_shared_bytes(tile, halo: int, n_coef: int, itemsize: int) -> int:
+    """Dynamic shared memory of one block (``vec_fused_shared_bytes`` of
+    vec_tile.cuh): two state pairs and ``n_coef`` coefficient planes of the
+    window, and acc of the own tile for u and v."""
+    by, bx = tile
+    return ((4 + n_coef) * (by + 2 * halo) * (bx + 2 * halo) + 2 * by * bx) * itemsize
+
+
+def _vec_pass_cost(op: int, tile, steps, itemsize: int) -> float:
+    """Modelled cost per own cell of a plan: per pass the window's load (every
+    plane) and every step's shrinking window, scaled by the tile's measured
+    factor (:data:`VEC_TILES`). Comparable within one dtype only."""
+    by, bx = tile
+    n_coef = N_COEF[op]
+    cost = 0.0
+    for s in steps:
+        wy, wx = by + 2 * s, bx + 2 * s
+        cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, s + 1))
+        two = 2 * (vec_fused_shared_bytes(tile, s, n_coef, itemsize) + 1024) <= SM_SHARED_BYTES
+        step = _VEC_STEP[(op, itemsize)] * (1.0 if two else _VEC_ONE_BLOCK)
+        cost += (4 + n_coef) * wy * wx + step * cells
+    return cost / (by * bx) * VEC_TILES[op].get(tuple(tile), 1.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _vec_plan(n_steps: int, ny: int, nx: int, itemsize: int, op: int, max_fuse: int,
+              tile: Optional[Tuple[int, int]]) -> FusedPlan:
+    return search_plan(
+        n_steps, ny, nx, max_fuse, (tile,) if tile else VEC_TILES[op],
+        lambda tl, halo: vec_fused_shared_bytes(tl, halo, N_COEF[op], itemsize) <= SHARED_BYTES,
+        lambda tl, steps: _vec_pass_cost(op, tl, steps, itemsize))
+
+
+def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op: int,
+                          max_fuse: int = MAX_FUSE,
+                          tile: Optional[Tuple[int, int]] = None) -> FusedPlan:
+    """The fused plan of an ``n_steps`` vector filter with contraction ``op``
+    on ``(ny, nx)`` fields: the counterpart of the JAX ``plan_vec_passes`` /
+    ``plan_ctap_passes``.
+
+    Every balanced split of the steps into ``ceil(n_steps / cap)`` passes
+    (``cap <= max_fuse``) and every tile of ``VEC_TILES[op]`` (or only
+    ``tile``) whose window fits in a block's shared memory is scored by a
+    cost model fitted to measured times (:func:`_vec_pass_cost`); the
+    cheapest wins. ``fused`` is False where the field is smaller than a tile
+    plus its halo in either dimension: the step chain runs there. The result
+    depends on the shape, the dtype and ``op`` only.
+    """
+    if op not in N_COEF:
+        raise ValueError(f"unknown vector contraction {op}")
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    return _vec_plan(int(n_steps), int(ny), int(nx), itemsize, int(op), int(max_fuse),
+                     tuple(tile) if tile else None)
+
+
+def vec_fused_pass_reference(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile=None,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """The plain PyTorch version of one fused launch, on any device: steps
+    ``start+1 .. start+n_ops`` of the filter as a chain of
+    :func:`vec_pass_reference`, so the result equals the plain step chain
+    exactly (``tile`` is not used).
+
+    A first pass (``start == 0``) reads the stacked input ``w``; any other
+    reads ``t``, ``t_prev`` and ``acc``. A pass that ends the filter leaves
+    the result in ``acc``; any other writes ``t_out``, ``t_prev_out`` and
+    ``acc``. The inputs are not written.
+    """
+    first, last = _kinds(p, start, n_ops)
+    if first:
+        cur, prev = torch.empty_like(acc), w.clone()
+        vec_pass_reference(ops, FIRST, p[0], p[1], w=w, t_next=cur, acc=acc)
+        done = 1
+    else:
+        cur, prev = t.clone(), t_prev.clone()
+        done = start
+    for k in range(done + 1, start + n_ops + 1):
+        if k == len(p) - 1:
+            vec_pass_reference(ops, LAST, p[k], t=cur, t_prev=prev, acc=acc)
+        else:
+            vec_pass_reference(ops, MIDDLE, p[k], t=cur, t_prev=prev, t_next=prev, acc=acc)
+            cur, prev = prev, cur
+    if not last:
+        t_out.copy_(cur)
+        t_prev_out.copy_(prev)
+
+
+def vec_fused_pass_tiled_reference(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """One fused launch computed as the kernel decomposes it, in torch.
+
+    For each ``tile = (by, bx)`` of output cells: gather a window of
+    ``(by+2H) x (bx+2H)`` cells (``H = n_ops``), periodic in both axes and
+    with its corners, of the state of both components and of every
+    coefficient plane; run the steps on the window shrunk by j at step j; keep
+    the own cells. The contraction is the plain step's own (:func:`_lap` on
+    the window, whose wrap at the window's edge reaches only cells outside
+    the shrunk window), so the two are equal bit for bit wherever the
+    decomposition is right. Same arguments and outputs as
+    :func:`vec_fused_pass_reference`.
+    """
+    first, last = _kinds(p, start, n_ops)
+    by, bx = tile
+    H = n_ops
+    batch, _, ny, nx = acc.shape
+    dev = acc.device
+    outs = {"acc": torch.empty_like(acc)}
+    if not last:
+        outs["t"], outs["t_prev"] = torch.empty_like(acc), torch.empty_like(acc)
+    flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
+
+    for y0 in range(0, ny, by):
+        rows = torch.arange(y0 - H, y0 + by + H, device=dev) % ny
+        for x0 in range(0, nx, bx):
+            cols = torch.arange(x0 - H, x0 + bx + H, device=dev) % nx
+            idx = rows[:, None] * nx + cols[None, :]
+            wops = VecPassOperands(ops.op, flat(ops.coef)[:, idx], ops.zap)
+            if first:
+                cur = flat(w)[..., idx]
+                prev = torch.empty_like(cur)
+            else:
+                cur, prev = flat(t)[..., idx], flat(t_prev)[..., idx]
+            wy, wx = idx.shape
+            oy, ox = min(by, ny - y0), min(bx, nx - x0)  # own cells inside the field
+            own = (Ellipsis, slice(H, H + oy), slice(H, H + ox))
+            a = None if first else acc[..., y0:y0 + oy, x0:x0 + ox]
+            for i in range(H):
+                j = i + 1
+                kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
+                sl = (Ellipsis, slice(j, wy - j), slice(j, wx - j))
+                lap = _lap(wops, cur)[sl]
+                # own cells inside this step's window
+                o = (Ellipsis, slice(H - j, H - j + oy), slice(H - j, H - j + ox))
+                if kind == FIRST:
+                    h0 = cur[sl]
+                    t1 = -h0 + 0.5 * lap
+                    prev[sl] = t1
+                    a = p[0] * h0[o] + p[1] * t1[o]
+                    cur, prev = prev, cur
+                    continue
+                nxt = -2.0 * cur[sl] + lap - prev[sl]
+                a = a + p[start + i + 1] * nxt[o]
+                if kind == MIDDLE:
+                    prev[sl] = nxt
+                    cur, prev = prev, cur
+            outs["acc"][..., y0:y0 + oy, x0:x0 + ox] = a
+            if not last:
+                outs["t"][..., y0:y0 + oy, x0:x0 + ox] = cur[own]
+                outs["t_prev"][..., y0:y0 + oy, x0:x0 + ox] = prev[own]
+    acc.copy_(outs["acc"])
+    if not last:
+        t_out.copy_(outs["t"])
+        t_prev_out.copy_(outs["t_prev"])
+
+
+def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
+    first, last = _kinds(p, start, n_ops)
+    if n_ops > MAX_FUSE:
+        raise ValueError(f"a fused pass runs at most {MAX_FUSE} steps, got {n_ops}")
+    if ops.op not in N_COEF:
+        raise ValueError(f"unknown vector contraction {ops.op}")
+    acc = bufs["acc"]
+    dtype, device = acc.dtype, acc.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"vec_fused_pass kernel takes float32 or float64, got {dtype}")
+    if acc.dim() != 4 or acc.shape[1] != 2:
+        raise ValueError(
+            f"vec_fused_pass takes (batch, 2, ny, nx) carries, got {tuple(acc.shape)}")
+    batch, _, ny, nx = acc.shape
+    by, bx = tile
+    if batch > 65535 or -(-ny // by) > 65535:
+        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
+    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    required = ("acc",) + (("w",) if first else ("t", "t_prev")) + (
+        () if last else ("t_out", "t_prev_out"))
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
+    if not last and any(bufs[o].data_ptr() == bufs[i].data_ptr()
+                        for o in ("t_out", "t_prev_out") for i in ("w", "t", "t_prev")
+                        if i in required):
+        raise ValueError("t_out and t_prev_out must not alias w, t or t_prev")
+    check = functools.partial(_check, device, dtype)
+    ptr = {k: check(k, bufs[k], (batch, 2, ny, nx)) if k in required else None
+           for k in ("w", "t", "t_prev", "t_out", "t_prev_out", "acc")}
+    coef = check("coef", ops.coef, (N_COEF[ops.op], ny, nx))
+
+    lib = _library()
+    fn = lib.vec_fused_pass_f32 if dtype == torch.float32 else lib.vec_fused_pass_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(ops.op, batch, ny, nx, by, bx, n_ops, int(first), int(last), pa, p_b,
+                 ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                 ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
+    if err != 0:
+        msg = lib.vec_pass_error_string(err).decode()
+        raise RuntimeError(f"vec_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    vec_fused_pass.launches[ops.op] += 1
+
+
+def vec_fused_pass(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """Steps ``start+1 .. start+n_ops`` of the vector filter in one launch,
+    on tiles of ``tile = (by, bx)`` cells, as :func:`vec_fused_pass_reference`
+    documents them.
+
+    CUDA tensors launch the kernel (counted per contraction in
+    ``vec_fused_pass.launches[BGRID]`` and ``vec_fused_pass.launches[CTAP]``)
+    on the current stream, without synchronizing; CPU tensors run the plain
+    version. Anything else raises.
+    """
+    bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
+    if acc.is_cuda:
+        _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+    elif acc.device.type == "cpu":
+        vec_fused_pass_reference(ops, p, start, n_ops, **bufs)
+    else:
+        raise RuntimeError(f"vec_fused_pass has no kernel for device {acc.device}")
+
+
+vec_fused_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
