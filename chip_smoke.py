@@ -78,21 +78,32 @@ and runs these phases; any failed check raises and the script exits non-zero:
     headline's extended shape;
 12. sharded small vector grids, on the same 1x1 mesh: both vector grids at
     128x256 in float32 and float64 (C-grid at kappa_aniso 1 and 0), the
-    spherical metrics in float64, 97x300, a batch, NaN fields, a C-grid
-    operator with ``zap_nans=False`` and ``halo_steps`` 1, 3 and None, each
-    through ``Filter(mesh=..., spatial_axes=("y", "x")).apply_to_vector``
-    against the same sharded apply driven by the plain local step
-    ``vec_local_pass_reference`` on the card, and against the unsharded
-    ``apply_to_vector``; each apply must launch the windowed local kernel of
-    its grid exactly n_steps times and no other kernel;
+    spherical metrics in float64, 97x300, a batch, NaN fields with a NaN at
+    core corners, spikes at the four core corners (which the C-grid's
+    diagonal taps reach through the halo corners), a C-grid operator with
+    ``zap_nans=False``, ``halo_steps`` 1, 3 and None, the Taper filter and a
+    block below the fused predicate, each through ``Filter(mesh=...,
+    spatial_axes=("y", "x")).apply_to_vector`` against the same sharded apply
+    driven by the plain versions (``vec_local_fused_pass_reference``,
+    ``vec_local_pass_reference``) on the card, against the chain of local
+    step-kernel launches bit for bit (NaNs in the same cells), against the
+    tiled plain version of the fused round, and against the unsharded
+    ``apply_to_vector``; each apply must launch the fused local kernel of its
+    grid once per planned launch of its rounds (below the predicate: the
+    windowed local step kernel n_steps times) and no other kernel;
 13. sharded vector headlines (the sharded vector path): the phase-7 B-grid
     and C-grid workloads through the mesh path, checked against the float64
-    eager engine and bit for bit against the fused unsharded result, and
-    timed beside the unsharded time of the same run, with launches = 11 x
-    applies, every other counter 0 and no fallback; the halo exchange and
-    the chain of 11 local steps are also timed alone;
-14. each step kind of both windowed local vector kernels against its plain
-    version at the headlines' extended shape;
+    eager engine, bit for bit against the fused unsharded result and against
+    the local step-kernel chain, and timed beside both, with launches = the
+    round's planned launches x applies, every other counter (the windowed
+    local step's too) 0 and no fallback; the halo exchange, the fused round
+    and the chain of 11 local steps are also timed alone; then the round
+    sweep: every tile at one launch per round (split (a)) and at balanced
+    splits into several launches (split (b)), in float32 and float64, each
+    bitwise equal to the planned round and timed;
+14. each step kind of both windowed local vector kernels, and the fused round
+    in float32 and float64, against its plain version at the headlines'
+    extended shape;
 15. ring small grids: the cases of tests/test_ring.py in float32 (REGULAR,
     also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
@@ -112,8 +123,8 @@ and runs these phases; any failed check raises and the script exits non-zero:
     applies, each bitwise equal to the first;
 17. each step kind of the three ring kernels against its plain version at the
     headline shape, in float32 and float64;
-18. a ``{"kernels": [...]}`` line (thirteen entries: the step kernels, timed
-    as step chains, and the four fused passes), then ``{"ok": true,
+18. a ``{"kernels": [...]}`` line (fifteen entries: the step kernels, timed
+    as step chains, and the six fused passes), then ``{"ok": true,
     "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
@@ -359,6 +370,32 @@ def vec_plan_cost(n_coef, plan, batch, ny, nx, itemsize, key):
     return nbytes, VEC_FLOPS_PER_CELL_STEP[key] * batch * cells
 
 
+def vec_round_cost(n_coef, plan, batch, ly, lx, cells, itemsize, key):
+    """``(bytes, flops)`` of a filter that is one round of the sharded vector
+    engine, as the round's fused launches run it on the extended block: a
+    launch that ends on the block shrunk by s (s = cells less the round's
+    steps after it) reads the coefficient planes and its state (the first w,
+    a later one t and t_prev, 2 planes each, and acc on the core) where its
+    windows reach, on the block shrunk by s - n_ops, and writes its state once
+    (t and t_prev on the block shrunk by s and acc; the last launch acc
+    only), and computes every cell of its tiles' shrinking windows, the
+    redundant cells included."""
+    win = lambda s: (ly + 2 * (cells - s)) * (lx + 2 * (cells - s))  # noqa: E731
+    by, bx = plan.tile
+    nbytes = ncells = 0
+    left = sum(plan.steps)
+    for i, n in enumerate(plan.steps):
+        left -= n
+        s = cells - left
+        first, last = i == 0, left == 0
+        state_in = 2 * win(s - n) if first else 4 * win(s - n) + 2 * ly * lx
+        state_out = 2 * ly * lx if last else 4 * win(s) + 2 * ly * lx
+        nbytes += (n_coef * win(s - n) + batch * (state_in + state_out)) * itemsize
+        tiles = math.ceil((ly + 2 * (cells - s)) / by) * math.ceil((lx + 2 * (cells - s)) / bx)
+        ncells += tiles * sum((by + 2 * n - 2 * j) * (bx + 2 * n - 2 * j) for j in range(1, n + 1))
+    return nbytes, VEC_FLOPS_PER_CELL_STEP[key] * batch * ncells
+
+
 def event_ms(fn, n, host=False):
     """Device ms per call over ``n`` calls, from CUDA events. With ``host``
     also the host's ms per call to enqueue them (no synchronize inside): where
@@ -398,7 +435,7 @@ def main():
     )
     from gcm_filters_tpu_torch.ops.cuda.local_pass import local_fused_pass, local_pass
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import ring_pass, vec_ring_pass
-    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_pass
+    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_fused_pass, vec_local_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
         vec_fused_pass_reference, vec_fused_pass_tiled_reference, vec_fused_shared_bytes,
@@ -441,6 +478,8 @@ def main():
                 "vec_fused_pass_ctap": vec_fused_pass.launches[CTAP],
                 "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
                 "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
+                "vec_local_fused_pass_bgrid": vec_local_fused_pass.launches[BGRID],
+                "vec_local_fused_pass_ctap": vec_local_fused_pass.launches[CTAP],
                 "ring_pass": ring_pass.launches,
                 "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
                 "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
@@ -453,6 +492,7 @@ def main():
         vec_pass.launches = {BGRID: 0, CTAP: 0}
         vec_fused_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+        vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
         ring_pass.launches = 0
         vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 
@@ -998,7 +1038,7 @@ def main():
         # 7b. the tile sweep the planner's cost model is fitted to: every tile
         # of its table at every split into 1 to 4 passes that fits, in float32
         # and float64, each bitwise equal to the planned passes of its dtype
-        sweep = {}
+        vsweep = {}
         for dt_, tag, reps in ((torch.float32, "float32", 10), (torch.float64, "float64", 5)):
             ops_, p_ = fn.operands(dt_, dev)
             x_ = w3.to(dt_)
@@ -1013,8 +1053,8 @@ def main():
                     k_ = f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
                     run = lambda: _fused_chain(vec_fused_pass, ops_, p_, pl, x_, name="w")  # noqa: E731
                     bitwise(f"{gname} tile sweep {k_}", run(), ref_, "the planned passes")
-                    sweep[k_] = event_ms(run, reps)
-                    log(f"  tile {k_}: {sweep[k_]:.4f} ms/apply; model cost "
+                    vsweep[k_] = event_ms(run, reps)
+                    log(f"  tile {k_}: {vsweep[k_]:.4f} ms/apply; model cost "
                         f"{_vec_pass_cost(op, tl, st_, isz):.2f} per cell")
             del ops_, x_, ref_
 
@@ -1192,7 +1232,7 @@ def main():
             "filter_bound_ms": vfb_ms,
             "step_chain_ms": ms_vsteps,
             "host_enqueue_ms": host_v,
-            "tile_sweep_ms": sweep,
+            "tile_sweep_ms": vsweep,
             "route_ms": route,
         }
         if taper:
@@ -1450,39 +1490,60 @@ def main():
                           "float32")
     log(f"local step kinds vs plain at block {tuple(xe.shape[-2:])}: max abs {ls_err:.3e}; "
         f"middle step {ms_lmid:.4f} ms vs bound {lmid_ms:.4f} ms")
-    # 12. sharded small vector grids on the same 1x1 mesh
-    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_pass_reference
+    # 12. sharded small vector grids on the same 1x1 mesh: the fused rounds vs
+    # the plain versions, the local step-kernel chain (bit for bit), the tiled
+    # plain version of the fused round and the unsharded filter
+    from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import (
+        vec_local_fused_pass_reference, vec_local_fused_pass_tiled_reference,
+        vec_local_pass_reference,
+    )
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
         RingState, ring_pass_reference, vec_ring_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
 
     svworst = {op: {"float32": [0.0, 0.0], "float64": [0.0, 0.0]} for op in (BGRID, CTAP)}
+    svfworst = {op: {"vs_tiled": 0.0, "cases": 0} for op in (BGRID, CTAP)}
+    vlocal_step_path = {BGRID: 0, CTAP: 0}  # vec_local_pass launched below the predicate
 
-    def check_sharded_vector(label, op, u, v, dtype_name, **kw):
+    def check_sharded_vector(label, op, u, v, dtype_name, want_fused=True, **kw):
         filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
-        plain = make_sharded_vector_apply(
-            filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps,
-            pass_fn=vec_local_pass_reference)
-        mine = "vec_local_pass_" + ("bgrid" if op == BGRID else "ctap")
+        mk = lambda **k: make_sharded_vector_apply(  # noqa: E731
+            filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps, **k)
+        key = vkey[op]
+        uc, vc = filt._coerce(u), filt._coerce(v)
         before = counters()
         got = filt.apply_to_vector(u, v)
         torch.cuda.synchronize()
-        launched = {k: n - before[k] for k, n in counters().items()}
-        want_launched = {k: filt.n_steps if k == mine else 0 for k in before}
-        if launched != want_launched:
-            raise AssertionError(f"{label}: kernel launches {launched}, expected {want_launched}")
+        plans = filt._vector_fn().plan(*uc.shape[-2:], got[0].dtype)
+        fused = all(pl.fused for pl in plans)
+        if fused != want_fused:
+            raise AssertionError(f"{label}: fused rounds {fused}, expected {want_fused}")
+        launched = launched_since(
+            before, label, {f"vec_local_fused_pass_{key}": sum(len(pl.steps) for pl in plans)}
+            if fused else {f"vec_local_pass_{key}": filt.n_steps})
+        vlocal_step_path[op] += launched[f"vec_local_pass_{key}"]
         if not all(isinstance(g, DTensor) for g in got):
             raise AssertionError(f"{label}: the mesh path returned {[type(g).__name__ for g in got]}")
         got = [g.full_tensor() for g in got]
-        want = [w.full_tensor() for w in plain(filt._coerce(u), filt._coerce(v))]
+        want = [w.full_tensor() for w in mk(pass_fn=vec_local_pass_reference,
+                                            fused_fn=vec_local_fused_pass_reference)(uc, vc)]
+        chain = [w.full_tensor() for w in mk(fused_fn=None)(uc, vc)]
+        tiled = None
+        if fused:
+            tiled = [w.full_tensor()
+                     for w in mk(fused_fn=vec_local_fused_pass_tiled_reference)(uc, vc)]
         kw.pop("halo_steps", None)
         unsharded = Filter(device=dev, **kw).apply_to_vector(u, v)
-        errs, uerr = [], 0.0
-        for comp, g, w, un in zip("uv", got, want, unsharded):
+        errs, uerr, t_err = [], 0.0, 0.0
+        for m, (comp, g, w, un) in enumerate(zip("uv", got, want, unsharded)):
             if g.shape != w.shape or g.device.type != "cuda":
                 raise AssertionError(f"{label} {comp}: result {tuple(g.shape)} on {g.device}")
             errs.append(compare(f"{label} {comp}", g, w, dtype_name))
+            bitwise(f"{label} {comp}", g, chain[m], "the local step-kernel chain")
+            if tiled is not None:
+                t_err = max(t_err, compare(f"{label} {comp} vs tiled", g, tiled[m],
+                                           dtype_name)[0])
             if not torch.equal(torch.isnan(g), torch.isnan(un)):
                 raise AssertionError(f"{label} {comp}: NaN positions differ from the unsharded filter")
             torch.testing.assert_close(g, un, equal_nan=True, **tol_unsharded[dtype_name],
@@ -1492,8 +1553,15 @@ def main():
         a, r = max(e[0] for e in errs), max(e[1] for e in errs)
         w8 = svworst[op][dtype_name]
         svworst[op][dtype_name] = [max(w8[0], a), max(w8[1], r)]
-        log(f"  {label}: vs plain max abs {a:.3e} max rel {r:.3e}; vs unsharded max abs "
-            f"{uerr:.3e} ({launched[mine]} launches)")
+        if tiled is not None:
+            svfworst[op]["vs_tiled"] = max(svfworst[op]["vs_tiled"], t_err)
+            svfworst[op]["cases"] += 1
+        route = (f"fused rounds {[(pl.tile, pl.steps) for pl in plans]}" if fused
+                 else "step chain")
+        log(f"  {label}: {route}: vs plain max abs {a:.3e} max rel {r:.3e}"
+            f"{f', vs tiled plain {t_err:.3e}' if tiled is not None else ''}; vs the local "
+            f"step chain 0 (bit for bit); vs unsharded max abs {uerr:.3e} "
+            f"({sum(launched.values())} launches)")
         return got
 
     log(f"sharded small vector grids on a 1x1 mesh at {vshape}:")
@@ -1505,6 +1573,11 @@ def main():
             check_sharded_vector(f"sharded {gname} unit metrics{tag} {name}", op, u_s, v_s, name,
                                  filter_scale=6.0, dx_min=1.0, grid_type=GridType[gname],
                                  grid_vars=gv, dtype=dt)
+    u_c, v_c = u_n.copy(), v_n.copy()
+    u_c[0, 0] = np.nan              # core corners: their halo copies sit on the
+    v_c[vshape[0] - 1, 0] = np.nan  # opposite corners of the extended block
+    u_k, v_k = u_s.copy(), v_s.copy()
+    u_k[0, 0], v_k[0, -1], u_k[-1, 0], v_k[-1, -1] = 50.0, -40.0, 30.0, -20.0
     for gname, op in vec_ops.items():
         g = GridType[gname]
         gv = spherical_vector_grid_vars(required_grid_vars(g), vshape)
@@ -1520,39 +1593,63 @@ def main():
                              np.stack([u_s, v_s]), np.stack([v_s[::-1].copy(), u_s]), "float64",
                              filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=gv)
         for dt, name in both:
-            fu, fv = check_sharded_vector(f"sharded {gname} NaN in u and v {name}", op, u_n, v_n,
-                                          name, filter_scale=6.0, dx_min=1.0, grid_type=g,
-                                          grid_vars=gv, dtype=dt)
-            if not (bool(torch.isnan(fu[10, 20])) and bool(torch.isnan(fv[50, 7]))):
+            fu, fv = check_sharded_vector(f"sharded {gname} NaN in u and v, at core corners "
+                                          f"{name}", op, u_c, v_c, name, filter_scale=6.0,
+                                          dx_min=1.0, grid_type=g, grid_vars=gv, dtype=dt)
+            if not (bool(torch.isnan(fu[10, 20])) and bool(torch.isnan(fv[50, 7]))
+                    and bool(torch.isnan(fu[0, 0])) and bool(torch.isnan(fv[-1, 0]))):
                 raise AssertionError("NaN cells must stay NaN")
+            check_sharded_vector(f"sharded {gname} spikes at the core corners {name}", op, u_k,
+                                 v_k, name, filter_scale=6.0, dx_min=1.0, grid_type=g,
+                                 grid_vars=gv, dtype=dt)
             for hs in (1, 3, None):
                 check_sharded_vector(f"sharded {gname} halo_steps={hs} {name}", op, u_s, v_s,
                                      name, filter_scale=6.0, dx_min=1.0, grid_type=g,
                                      grid_vars=gv, dtype=dt, halo_steps=hs)
+        # the Taper (dx_min = 0.9, see phase 6): several rounds of up to 16 steps
+        check_sharded_vector(f"sharded {gname} TAPER float64", op, u_s, v_s, "float64",
+                             filter_scale=6.0, dx_min=0.9, filter_shape=FilterShape.TAPER,
+                             grid_type=g, grid_vars=gv)
+        # below the predicate the local step chain runs, by a static test
+        small = (12, 30)
+        check_sharded_vector(f"sharded {gname} {small} below the fused predicate float64", op,
+                             vrng.random(small), vrng.random(small), "float64",
+                             want_fused=False, filter_scale=6.0, dx_min=1.0, grid_type=g,
+                             grid_vars=unit_vector_grid_vars(gname, small,
+                                                             np.random.default_rng(42), 0.0))
     # a C-grid operator that does not scrub NaNs: the NaN spreads through the
     # sharded rounds exactly as through the unsharded kernel path
     c_gv = unit_vector_grid_vars("VECTOR_C_GRID", vshape, np.random.default_rng(42), 0.0)
     c_op = Filter(filter_scale=6.0, dx_min=1.0, grid_type=GridType.VECTOR_C_GRID,
                   grid_vars=c_gv, device=dev).operator
-    fu, fv = check_sharded_vector("sharded VECTOR_C_GRID zap_nans=False float64", CTAP, u_n, v_n,
-                                  "float64", filter_scale=6.0, dx_min=1.0, halo_steps=3,
-                                  custom_operator=dataclasses.replace(c_op, zap_nans=False))
-    spread = int(torch.isnan(fu).sum()), int(torch.isnan(fv).sum())
-    log(f"  zap_nans=False: NaN cells in (u, v) after the filter {spread}")
-    if min(spread) <= 1:
-        raise AssertionError(f"an unscrubbed NaN must spread, saw {spread} NaN cells")
+    for hs in (3, None):
+        fu, fv = check_sharded_vector(f"sharded VECTOR_C_GRID zap_nans=False halo_steps={hs} "
+                                      "float64", CTAP, u_n, v_n, "float64", filter_scale=6.0,
+                                      dx_min=1.0, halo_steps=hs,
+                                      custom_operator=dataclasses.replace(c_op, zap_nans=False))
+        spread = int(torch.isnan(fu).sum()), int(torch.isnan(fv).sum())
+        log(f"  zap_nans=False: NaN cells in (u, v) after the filter {spread}")
+        if min(spread) <= 1:
+            raise AssertionError(f"an unscrubbed NaN must spread, saw {spread} NaN cells")
+    for op, k in vkey.items():
+        log(f"fused local {k} rounds on {svfworst[op]['cases']} small cases: vs the local "
+            f"step-kernel chain max abs 0 (bit for bit, NaNs in the same cells); vs plain max "
+            f"abs {max(svworst[op]['float32'][0], svworst[op]['float64'][0]):.3e}; vs the tiled "
+            f"plain version max abs {svfworst[op]['vs_tiled']:.3e}")
 
     # 13. sharded vector headlines: the phase-7 workloads through the mesh path
     w_dev = torch.stack([u_dev, v_dev]).unsqueeze(0)  # (1, 2, ny, nx), as the rounds stack it
-    svec_results = {}
+    svec_results, svfused_results = {}, {}
     for gname, op in vec_ops.items():
         key = "bgrid" if op == BGRID else "ctap"
-        mine = f"vec_local_pass_{key}"
+        mine, step_mine = f"vec_local_fused_pass_{key}", f"vec_local_pass_{key}"
         kept = vec_kept[op]
         svhead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname],
                         grid_vars=kept["gv"], dtype=torch.float32, device=dev,
                         mesh=mesh, spatial_axes=axes)
         vn = svhead.n_steps
+        svfn = svhead._vector_fn()
+        (splan,) = svfn.plan(ny, nx, torch.float32)
         torch.cuda.synchronize()
         reset_fallback_counts()
         reset_counters()
@@ -1567,20 +1664,22 @@ def main():
         counts = counters()
         sv_launches = counts.pop(mine)
         sv_fallbacks = fallback_counts()
-        log(f"sharded headline {ny}x{nx} float32 {gname} on a 1x1 mesh, n_steps {vn}: "
-            f"{sv_launches} {mine} launches over {applies} applies (first apply with operand "
-            f"set-up {first_s:.2f} s), other kernels {counts}, fallbacks {sv_fallbacks}")
-        if sv_launches != vn * applies:
-            raise AssertionError(f"expected {vn * applies} kernel launches, saw {sv_launches}")
+        log(f"sharded headline {ny}x{nx} float32 {gname} on a 1x1 mesh, n_steps {vn}, round "
+            f"plan tile {splan.tile} launches {splan.steps}: {sv_launches} {mine} launches over "
+            f"{applies} applies (first apply with operand set-up {first_s:.2f} s), other kernels "
+            f"{counts}, fallbacks {sv_fallbacks}")
+        if not splan.fused or sv_launches != len(splan.steps) * applies:
+            raise AssertionError(
+                f"expected {len(splan.steps) * applies} launches, saw {sv_launches}")
         if any(counts.values()):
             raise AssertionError(f"the sharded vector path launched another kernel: {counts}")
         if sv_fallbacks:
             raise AssertionError(f"fallbacks recorded on the kernel path: {sv_fallbacks}")
         if not (isinstance(su, DTensor) and isinstance(sv, DTensor)):
             raise AssertionError(f"the mesh path returned {type(su).__name__}")
+        su, sv = su.full_tensor(), sv.full_tensor()
         sv_err = sv_vs_k = 0.0
         for comp, g, w, un in zip("uv", (su, sv), kept["want"], kept["out"]):
-            g = g.full_tensor()
             if g.shape != (ny, nx) or g.dtype != torch.float32 or not bool(torch.isfinite(g).all()):
                 raise AssertionError(
                     f"sharded {gname} headline {comp} is not a finite float32 (ny, nx) tensor")
@@ -1591,19 +1690,54 @@ def main():
         log(f"sharded {gname} headline vs eager engine in float64: max abs {sv_err:.3e}; "
             f"vs the unsharded (fused) kernel path: max abs {sv_vs_k:.3e} (bit for bit)")
 
-        svfn = svhead._vector_fn()
-        lvops, cells, rounds, lvp = svfn.operands(ny, nx, torch.float32)
-        if rounds != (vn,):
-            raise AssertionError(f"expected one round of {vn} steps, planned {rounds}")
+        lvops, cells, vrounds, lvp = svfn.operands(ny, nx, torch.float32)
+        if vrounds != (vn,):
+            raise AssertionError(f"expected one round of {vn} steps, planned {vrounds}")
         n_coef = lvops.coef.shape[0]
+        # the chain of local step-kernel launches: the same bits, timed in the same run
+        steps_sv = make_sharded_vector_apply(svhead.operator, svhead.filter_spec, mesh, axes,
+                                             fused_fn=None)
+        sv_vs_steps = max(bitwise(f"sharded {gname} headline {comp}", g, w.full_tensor(),
+                                  "the local step-kernel chain")
+                          for comp, g, w in zip("uv", (su, sv), steps_sv(u_dev, v_dev)))
+        before = vec_local_pass.launches[op]
+        ms_sv_steps, host_sv_steps = event_ms(lambda: steps_sv(u_dev, v_dev), chain, host=True)
+        svstep_launches = (vec_local_pass.launches[op] - before) // chain
         plain_sv = make_sharded_vector_apply(svhead.operator, svhead.filter_spec, mesh, axes,
-                                             pass_fn=vec_local_pass_reference)
+                                             pass_fn=vec_local_pass_reference,
+                                             fused_fn=vec_local_fused_pass_reference)
         plain_sv(u_dev, v_dev)
         ms_sv_plain = event_ms(lambda: plain_sv(u_dev, v_dev), 5)
 
-        # the exchange alone, and the chain of local steps alone on an extended block
+        # the exchange alone, the fused round alone and the chain of local
+        # steps alone, on the exchanged block
         ms_vex = event_ms(lambda: halo.exchange_2d(w_dev, cells, local_axis, local_axis), chain)
         we = halo.exchange_2d(w_dev, cells, local_axis, local_axis)
+
+        def run_round(pl, ops_, p_, we_, acc_, fn=vec_local_fused_pass):
+            """The round's launches of ``fn`` as the plan ``pl`` splits it, on
+            the exchanged input ``we_``, as the rounds run them: the result in
+            ``acc_``."""
+            t_ = tp_ = None
+            start, left = 0, vn
+            for n_ops in pl.steps:
+                left -= n_ops
+                outs = (None, None) if left == 0 else (torch.empty_like(we_),
+                                                       torch.empty_like(we_))
+                fn(ops_, p_, start, n_ops, cells=cells, shrink=cells - left, tile=pl.tile,
+                   w=we_ if start == 0 else None, t=t_, t_prev=tp_, t_out=outs[0],
+                   t_prev_out=outs[1], acc=acc_)
+                t_, tp_ = outs
+                start += n_ops
+            return acc_
+
+        racc = torch.empty_like(w_dev)
+        round_alone = lambda: run_round(splan, lvops, lvp, we, racc)  # noqa: E731
+        round_alone()
+        ms_vround = event_ms(round_alone, chain)
+        for m, (comp, g) in enumerate((("u", su), ("v", sv))):
+            bitwise(f"{gname} the fused round alone {comp}", racc[0, m], g, "the sharded apply")
+
         vc = [torch.zeros_like(we), torch.zeros_like(we), torch.zeros_like(w_dev)]
 
         def vec_local_chain():
@@ -1622,9 +1756,8 @@ def main():
 
         vec_local_chain()
         ms_vchain = event_ms(vec_local_chain, chain)
-        vchain_err = max(compare(f"{gname} local step chain vs sharded apply {comp}",
-                                 vc[2][0, m], g.full_tensor(), "float32")[0]
-                         for m, (comp, g) in enumerate((("u", su), ("v", sv))))
+        for m, (comp, g) in enumerate((("u", su), ("v", sv))):
+            bitwise(f"{gname} the local steps alone {comp}", vc[2][0, m], g, "the sharded apply")
         del vc
 
         svkinds = [(FIRST, 1)] + [(MIDDLE, k) for k in range(2, vn)] + [(LAST, cells)]
@@ -1633,15 +1766,47 @@ def main():
         sv_cells = sum((ny + 2 * (cells - sh)) * (nx + 2 * (cells - sh)) for _, sh in svkinds)
         sv_flops = VEC_FLOPS_PER_CELL_STEP[key] * sv_cells
         svb_ms, svb_by = bound_ms(sv_bytes, sv_flops, "float32")
-        svfb_ms, _ = bound_ms((n_coef + 4) * ny * nx * item, sv_flops, "float32")
-        log(f"sharded {gname} headline: {ms_sv:.4f} ms/apply (host enqueue {host_sv:.4f} "
-            f"ms/apply) = {ny * nx * vn / (ms_sv * 1e-3):.4e} grid-point-steps/s on {smi}")
+        svfb_ms, svfb_by = bound_ms((n_coef + 4) * ny * nx * item,
+                                    VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * vn, "float32")
+        sr_bytes, sr_flops = vec_round_cost(n_coef, splan, 1, ny, nx, cells, item, key)
+        srb_ms, srb_by = bound_ms(sr_bytes, sr_flops, "float32")
+        log(f"sharded {gname} headline: {ms_sv:.4f} ms/apply fused (host enqueue {host_sv:.4f} "
+            f"ms/apply) = {ny * nx * vn / (ms_sv * 1e-3):.4e} grid-point-steps/s on {smi}; bit "
+            f"for bit equal to the local step chain, {ms_sv_steps:.4f} ms/apply in "
+            f"{svstep_launches} launches (host enqueue {host_sv_steps:.4f})")
         log(f"  halo exchange alone ({cells} cells, block {tuple(we.shape[-2:])}) {ms_vex:.4f} ms; "
-            f"the {vn} local steps alone {ms_vchain:.4f} ms (result vs the apply: "
-            f"max abs {vchain_err:.3e}); unsharded kernel path "
-            f"{vec_fused_results[op]['ms']:.4f} ms/apply")
-        log(f"  per-launch bound {svb_ms:.4f} ms ({sv_bytes / 1e9:.3f} GB, {svb_by}); "
-            f"whole-filter bound {svfb_ms:.4f} ms; plain PyTorch steps {ms_sv_plain:.4f} ms/apply")
+            f"the fused round alone ({splan.tile} {splan.steps}) {ms_vround:.4f} ms; the {vn} "
+            f"local steps alone {ms_vchain:.4f} ms (both bit for bit equal to the apply); "
+            f"unsharded fused path {vec_fused_results[op]['ms']:.4f} ms/apply")
+        log(f"  plan bound {srb_ms:.4f} ms ({sr_bytes / 1e9:.3f} GB, {sr_flops / 1e9:.2f} GFLOP "
+            f"with the trapezoid's redundant cells, {srb_by}); whole-filter bound {svfb_ms:.4f} "
+            f"ms; step chain's per-launch bound {svb_ms:.4f} ms ({sv_bytes / 1e9:.3f} GB, "
+            f"{svb_by}); plain PyTorch {ms_sv_plain:.4f} ms/apply")
+
+        # 13b. the round sweep: every tile at one launch per round (a) and at
+        # balanced splits into several launches (b), in float32 and float64,
+        # each bitwise equal to the planned round of its dtype
+        rsweep = {}
+        for dt_, tag, reps in ((torch.float32, "float32", 10), (torch.float64, "float64", 5)):
+            ops_, _, _, p_ = svfn.operands(ny, nx, dt_)
+            we_ = we.to(dt_)
+            acc_ = torch.empty_like(w_dev, dtype=dt_)
+            (pl_ref,) = svfn.plan(ny, nx, dt_)
+            ref_ = run_round(pl_ref, ops_, p_, we_, acc_).clone()
+            isz = we_.element_size()
+            for tl in VEC_TILES[op]:
+                for cap in (11, 6, 4):
+                    st_ = _balanced(vn, cap)
+                    if vec_fused_shared_bytes(tl, max(st_), n_coef, isz) > SHARED_BYTES:
+                        continue
+                    pl = FusedPlan(tl, max(st_), st_, True)
+                    k_ = f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
+                    run = lambda: run_round(pl, ops_, p_, we_, acc_)  # noqa: E731
+                    bitwise(f"{gname} round sweep {k_}", run(), ref_, "the planned round")
+                    rsweep[k_] = event_ms(run, reps)
+                    log(f"  round {k_}: {rsweep[k_]:.4f} ms; model cost "
+                        f"{_vec_pass_cost(op, tl, st_, isz):.2f} per cell")
+            del ops_, we_, acc_, ref_
 
         # 14. each step kind of the windowed local kernel against its plain
         # version, at the headline's extended shape (buffers start at zero: a
@@ -1680,37 +1845,91 @@ def main():
             "float32")
         log(f"{gname} local step kinds vs plain at block {tuple(we.shape[-2:])}: max abs "
             f"{lv_err:.3e}; middle step {ms_lvmid:.4f} ms vs bound {lvmid_ms:.4f} ms")
+        del vk, vr
+        # the fused round against its plain version: the planned round and one
+        # launch of all 11 steps (split (a), where a tile holds it) in float32,
+        # the float64 plan in float64
+        lf_err = {"float32": 0.0, "float64": 0.0}
+        one = next(tl for tl in VEC_TILES[op]
+                   if vec_fused_shared_bytes(tl, vn, n_coef, item) <= SHARED_BYTES)
+        for tag, dt_, pl in (("float32", torch.float32, splan),
+                             ("float32", torch.float32, FusedPlan(one, vn, (vn,), True)),
+                             ("float64", torch.float64, svfn.plan(ny, nx, torch.float64)[0])):
+            ops_, _, _, p_ = svfn.operands(ny, nx, dt_)
+            we_ = we.to(dt_)
+            got_k, got_r = (run_round(pl, ops_, p_, we_, torch.empty_like(w_dev, dtype=dt_), fn)
+                            for fn in (vec_local_fused_pass, vec_local_fused_pass_reference))
+            lf_err[tag] = max(lf_err[tag], compare(f"{gname} fused round {pl.tile} {pl.steps} "
+                                                   f"{tag}", got_k, got_r, tag)[0])
+            del ops_, we_, got_k, got_r
+        log(f"{gname} fused round vs plain at block {tuple(we.shape[-2:])}: max abs "
+            f"{lf_err['float32']:.3e} (float32), {lf_err['float64']:.3e} (float64)")
+
         worst_sv = svworst[op]
+        replaces = ("gcm_filters_tpu/parallel/sharded.py:908 (gcm_filters_tpu/ops/pallas/"
+                    "vec_pass.py:" + ("567" if op == BGRID else "575") + ")")
+        block = tuple(we.shape[-2:])
         svec_results[op] = {
-            "name": mine,
+            "name": step_mine,
             "route": "cuda",
             "source": "gcm_filters_tpu_torch/csrc/vec_pass.cu",
-            "replaces": "gcm_filters_tpu/parallel/sharded.py:908 (gcm_filters_tpu/ops/pallas/"
-                        "vec_pass.py:" + ("567" if op == BGRID else "575") + ")",
-            "launches": sv_launches,
+            "replaces": replaces,
+            "launches": vlocal_step_path[op],
+            "launches_from": "Filter(mesh=...).apply_to_vector of a block below the fused "
+                             "predicate (phase 12)",
             "max_abs_err": max(lv_err, worst_sv["float32"][0], worst_sv["float64"][0]),
-            "headline_vs_f64_engine_max_abs": sv_err,
-            "vs_unsharded_kernel_max_abs": sv_vs_k,
             "max_rel_err_f64": worst_sv["float64"][1],
-            "ms": ms_sv,
+            "ms": ms_sv_steps,
             "plain_ms": ms_sv_plain,
             "bound_ms": svb_ms,
             "bound_by": svb_by,
             "library_ms": None,
-            "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + {vn} "
-                    f"launches, {ny}x{nx} float32 {gname}, block {tuple(we.shape[-2:])}",
+            "unit": f"one sharded headline apply on a 1x1 mesh as the step chain = one halo "
+                    f"exchange + {svstep_launches} launches, {ny}x{nx} float32 {gname}, block "
+                    f"{block}",
             "filter_bound_ms": svfb_ms,
-            "launches_per_apply": vn,
+            "launches_per_apply": svstep_launches,
             "bytes_moved": sv_bytes,
             "plan_bound_ms": svb_ms,
             "middle_step_ms": ms_lvmid,
             "middle_step_bound_ms": lvmid_ms,
             "exchange_ms": ms_vex,
             "steps_alone_ms": ms_vchain,
+            "host_enqueue_ms": host_sv_steps,
+        }
+        svfused_results[op] = {
+            "name": mine,
+            "route": "cuda",
+            "source": "gcm_filters_tpu_torch/csrc/vec_pass.cu",
+            "replaces": replaces,
+            "launches": sv_launches,
+            "launches_per_apply": len(splan.steps),
+            "max_abs_err": max(lf_err["float32"], lf_err["float64"], worst_sv["float32"][0],
+                               worst_sv["float64"][0], svfworst[op]["vs_tiled"]),
+            "vs_step_chain_max_abs": sv_vs_steps,
+            "vs_unsharded_kernel_max_abs": sv_vs_k,
+            "headline_vs_f64_engine_max_abs": sv_err,
+            "ms": ms_sv,
+            "plain_ms": ms_sv_plain,
+            "bound_ms": svfb_ms,
+            "bound_by": svfb_by,
+            "library_ms": None,
+            "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + "
+                    f"{len(splan.steps)} launch(es) of {splan.steps} steps on "
+                    f"{splan.tile[0]}x{splan.tile[1]} tiles, {ny}x{nx} float32 {gname}, block "
+                    f"{block}",
+            "bytes_moved": sr_bytes,
+            "plan_bound_ms": srb_ms,
+            "filter_bound_ms": svfb_ms,
+            "step_chain_ms": ms_sv_steps,
+            "exchange_ms": ms_vex,
+            "round_alone_ms": ms_vround,
+            "steps_alone_ms": ms_vchain,
             "unsharded_ms": vec_fused_results[op]["ms"],
             "host_enqueue_ms": host_sv,
+            "round_sweep_ms": rsweep,
         }
-        del vk, vr, we, plain_sv, svhead, svfn, lvops, su, sv
+        del we, racc, plain_sv, steps_sv, svhead, svfn, lvops, su, sv
     dist.destroy_process_group()
     store_dir.cleanup()
 
@@ -2149,7 +2368,8 @@ def main():
         "exchange_ms": ms_exchange,
         "round_alone_ms": ms_round,
         "host_enqueue_ms": host_sharded,
-    }, svec_results[BGRID], svec_results[CTAP]] + ring_results
+    }, svec_results[BGRID], svec_results[CTAP], svfused_results[BGRID],
+        svfused_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

@@ -1,6 +1,8 @@
 // One step of the coupled vector Chebyshev filter recurrence, for Hopper (sm_90a):
 // periodic entries on a whole field (vec_pass_f32/f64) and windowed local
-// entries on a halo-extended shard block (vec_local_pass_f32/f64, below).
+// entries on a halo-extended shard block (vec_local_pass_f32/f64, below); and
+// the fused passes of several steps per launch on either (vec_fused_pass_*,
+// vec_local_fused_pass_*, on the tiles of vec_tile.cuh).
 //
 // The periodic entries replace the two TPU kernels built by
 // gcm_filters_tpu/ops/pallas/vec_pass.py::_build_coupled_pass (kernel body
@@ -94,6 +96,26 @@
 // (1 + 2c/ly)(1 + 2c/lx) cells per core cell: a MIDDLE step of the headline on
 // one rank (c = 11, block 2422x3622) moves ~20 (B-grid) or ~28 (C-grid)
 // planes of 34.6-35.1 MB.
+//
+// Fused local entries (vec_local_fused_pass_f32/f64): a whole round, or a
+// part of it, per launch on the shared-memory tiles of vec_tile.cuh, with the
+// geometry RoundGeo in place of the periodic wrap; they replace the local use
+// of the TPU kernels as one call per round (gcm_filters_tpu/parallel/
+// sharded.py::_local_pallas_2d builds build_vec_pass / build_ctap_pass over
+// the extended block with plan.steps = rounds). One launch runs steps
+// start+1 .. start+n_ops of the filter, round steps s-n_ops+1 .. s where s is
+// its `shrink`: tiles cover the block shrunk by s, a tile's window reaches
+// n_ops cells further, onto the block shrunk by s - n_ops, on which the
+// carries it reads are exact; the window's corners come from the exchange's
+// second phase. A round of n steps is then one launch (s = c) or several
+// with no exchange between them (s = c - the round's steps still to run
+// after this launch), as ops/cuda/vec_local_pass.py::plan_vec_local_rounds
+// plans it. Cells outside the core step the carries and touch no acc. Each
+// result equals the chain of the windowed local step launches bit for bit.
+// Bound, as for the periodic fused pass: shared memory and issue; per launch
+// device memory moves the n_coef coefficient planes and 2 (first) or 6
+// (later) state planes of the window in, 6 (or, last, 2) out, on a block
+// (1 + 2(c-s)/ly)(1 + 2(c-s)/lx) times the core.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 
@@ -275,17 +297,44 @@ VEC_LOCAL_PASS_ENTRY(vec_local_pass_f64, double)
                       const T* t, const T* t_prev, const T* acc_in, T* t_out,             \
                       T* t_prev_out, T* acc_out, const T* coef, int zap, void* stream) {  \
     cudaGetLastError();                                                                   \
-    VecFusedArgs<T> a;                                                                    \
-    a.by = by; a.bx = bx; a.n_ops = n_ops; a.first = first; a.last = last;                \
-    for (int i = 0; i < MAX_FUSE; ++i) a.pa[i] = i < n_ops ? T(pa[i]) : T(0);            \
-    a.p_b = T(p_b);                                                                       \
-    a.w = w; a.t = t; a.t_prev = t_prev; a.acc_in = acc_in;                               \
-    a.t_out = t_out; a.t_prev_out = t_prev_out; a.acc_out = acc_out; a.coef = coef;       \
-    return launch_vec_fused<T>(op, zap, a, ny, nx, batch, static_cast<cudaStream_t>(stream)); \
+    const VecFusedArgs<T> a = vec_fused_args<T>(by, bx, n_ops, first, last, pa, p_b, w,   \
+                                                t, t_prev, acc_in, t_out, t_prev_out,     \
+                                                acc_out, coef);                           \
+    const WrapGeo g{ny, nx, 0};                                                           \
+    return launch_vec_fused<T>(op, zap, a, g, ny, nx, batch,                              \
+                               static_cast<cudaStream_t>(stream));                        \
   }
 
 VEC_FUSED_ENTRY(vec_fused_pass_f32, float)
 VEC_FUSED_ENTRY(vec_fused_pass_f64, double)
+
+// One fused launch of the sharded engine's local round: steps start+1 ..
+// start+n_ops of the filter on the extended block (ly+2*cells, lx+2*cells),
+// on tiles of by x bx cells of the block shrunk by `shrink` (n_ops <= shrink
+// <= cells; cells the core). It reads w (first) or t and t_prev, extended and
+// exact on the block shrunk by shrink - n_ops, and acc_in (core-shaped);
+// unless `last`, it writes the carries on the block shrunk by `shrink` into
+// the extended t_out and t_prev_out, which must not alias t or t_prev, and
+// acc_out (core-shaped; acc_in may be acc_out).
+#define VEC_LOCAL_FUSED_ENTRY(NAME, T)                                                   \
+  extern "C" int NAME(int op, int batch, int ly, int lx, int cells, int shrink, int by, \
+                      int bx, int n_ops, int first, int last, const double* pa,          \
+                      double p_b, const T* w, const T* t, const T* t_prev,               \
+                      const T* acc_in, T* t_out, T* t_prev_out, T* acc_out,              \
+                      const T* coef, int zap, void* stream) {                            \
+    cudaGetLastError();                                                                  \
+    if (ly < 1 || lx < 1 || n_ops < 1 || shrink < n_ops || shrink > cells)               \
+      return (int)cudaErrorInvalidValue;                                                 \
+    const VecFusedArgs<T> a = vec_fused_args<T>(by, bx, n_ops, first, last, pa, p_b, w,  \
+                                                t, t_prev, acc_in, t_out, t_prev_out,    \
+                                                acc_out, coef);                          \
+    const RoundGeo g{ly, lx, cells, shrink};                                             \
+    return launch_vec_fused<T>(op, zap, a, g, g.rows(), g.cols(), batch,                 \
+                               static_cast<cudaStream_t>(stream));                       \
+  }
+
+VEC_LOCAL_FUSED_ENTRY(vec_local_fused_pass_f32, float)
+VEC_LOCAL_FUSED_ENTRY(vec_local_fused_pass_f64, double)
 
 extern "C" const char* vec_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

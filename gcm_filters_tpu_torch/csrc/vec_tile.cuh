@@ -6,9 +6,10 @@
 // the trapezoid (overlapped-halo) decomposition of the TPU kernel
 // (gcm_filters_tpu/ops/pallas/vec_pass.py::_build_coupled_pass, head
 // comment), with a halo in both y and x:
-//   1. load a window of (by+2H) x (bx+2H) cells, H = S, periodic in both axes
-//      and with its corners (the C-grid's diagonal taps read them from the
-//      first step on, and a 5-point step reaches them within H steps), into
+//   1. load a window of (by+2H) x (bx+2H) cells, H = S, with its corners
+//      (the C-grid's diagonal taps read them from the first step on, and a
+//      5-point step reaches them within H steps): periodic in both axes on
+//      the whole field, cut from the halo-extended block on a shard; into
 //      shared memory: the raw state of both components (w on the first pass,
 //      else t and t_prev) and every coefficient plane; acc of the own cells;
 //   2. run the S steps in shared memory; step j updates the window shrunk by
@@ -22,6 +23,17 @@
 // enter -2t - t_prev. Every value goes through OP::lap and the recurrence
 // functions in the same order as in the step kernels, so a cell that two
 // tiles compute gets the same bits as in the chain of one-step launches.
+//
+// The tile geometry is a template parameter (GEO): WrapGeo (cheb_tile.cuh,
+// no fold) for the whole periodic field, RoundGeo (below) for the fused
+// local round of the sharded engine (entries vec_local_fused_pass_f32/f64),
+// whose window comes from the halo-extended shard block instead of a wrap.
+// Every buffer is indexed through its own plane: the inputs (the state and
+// the coefficients) through in_plane/in_index, the carries out through
+// out_plane/out_index, acc through own_plane/own_index, and acc exists only
+// where has_acc() says so (the core of the shard block). A tile cell outside
+// the core steps the carries; its acc slot in shared memory is scratch that
+// is never loaded from or stored to device memory.
 //
 // Bound: shared memory and issue, no longer HBM. A cell-step reads about 23
 // (B-grid: 10 coefficients, the centre, north, south, east and west values of
@@ -41,6 +53,38 @@
 #include "vec_step.cuh"
 
 namespace {
+
+// A halo-extended shard block (ly+2c, lx+2c) of the sharded vector engine, of
+// which one launch owns the region shrunk by `shrink` cells: the core and a
+// margin of c - shrink cells around it. Own-region coordinates (gy, gx) run
+// over [0, ly+2(c-shrink)) x [0, lx+2(c-shrink)). No wrap (the exchange
+// placed it); reads past the block are clamped, and such cells lie more than
+// n_ops cells from every own cell. The state, the coefficients and the
+// carries out are extended planes; acc is core-shaped.
+struct RoundGeo {
+  int ly, lx, c, shrink;
+  __host__ __device__ int margin() const { return c - shrink; }
+  __host__ __device__ int rows() const { return ly + 2 * margin(); }
+  __host__ __device__ int cols() const { return lx + 2 * margin(); }
+  __device__ int row(int gy) const { return min(max(gy + shrink, 0), ly + 2 * c - 1); }
+  __device__ int col(int gx, bool) const { return min(max(gx + shrink, 0), lx + 2 * c - 1); }
+  __device__ int64_t in_plane() const { return (int64_t)(ly + 2 * c) * (lx + 2 * c); }
+  __device__ int64_t in_index(int r, int cc) const { return (int64_t)r * (lx + 2 * c) + cc; }
+  __device__ int64_t out_plane() const { return in_plane(); }
+  __device__ int64_t out_index(int gy, int gx) const { return in_index(gy + shrink, gx + shrink); }
+  __device__ int64_t own_plane() const { return (int64_t)ly * lx; }
+  __device__ int64_t own_index(int gy, int gx) const {
+    return (int64_t)(gy - margin()) * lx + (gx - margin());
+  }
+};
+
+// Whether own cell (gy, gx) has an acc: every cell of the periodic field,
+// the core cells of a shard block.
+__device__ __forceinline__ bool has_acc(const WrapGeo&, int, int) { return true; }
+__device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
+  return (unsigned)(gy - g.margin()) < (unsigned)g.ly &&
+         (unsigned)(gx - g.margin()) < (unsigned)g.lx;
+}
 
 template <typename T>
 struct VecFusedArgs {
@@ -97,12 +141,12 @@ struct VecPlanes {
 // One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
 // [j, wx-j): the pair at `cur` holds T_k, the pair at `prev` T_{k-1}, and
 // T_{k+1} goes over prev. A pair's u plane is at its offset, its v plane one
-// window later.
-template <typename T, typename OP, int ZAP, int KIND>
+// window later. `b_acc` is this batch entry's u plane of acc.
+template <typename T, typename OP, int ZAP, int KIND, class GEO>
 __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
-                                                const VecPlanes& pl, const WrapGeo& geo,
+                                                const VecPlanes& pl, const GEO& geo,
                                                 int j, int wy, int H, int y0, int x0, int cur,
-                                                int prev, T p_a, int64_t b_own) {
+                                                int prev, T p_a, int64_t b_acc) {
   constexpr int S = vec_strip<OP, T>();
   constexpr int NC = OP::N_COEF;
   const int wx = pl.wx, wa = pl.wa;
@@ -110,7 +154,7 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int rows = wy - 2 * j, cols = wx - 2 * j;
   const int chunks = (cols + 31) / 32, strips = (rows + S - 1) / S;
-  const int64_t P = (int64_t)geo.ny * geo.nx;
+  const int64_t P = geo.own_plane();
   for (int item = warp; item < chunks * strips; item += nwarps) {
     const int s_i = item / chunks;
     const int q = j + (item - s_i * chunks) * 32 + lane;
@@ -181,8 +225,8 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
       if (KIND == LAST) {
         // the window is the own tile
         const int gy = y0 + (int)oy, gx = x0 + (int)ox;
-        if (gy < geo.ny && gx < geo.nx) {
-          const int64_t ko = b_own + geo.own_index(gy, gx);
+        if (gy < geo.rows() && gx < geo.cols() && has_acc(geo, gy, gx)) {
+          const int64_t ko = b_acc + geo.own_index(gy, gx);
 #pragma unroll
           for (int c = 0; c < 2; ++c)
             a.acc_out[ko + c * P] = acc_add(p_a, next_value(tc[c][s + 1], l[c], tp[c][s]),
@@ -208,9 +252,9 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
   }
 }
 
-template <typename T, typename OP, int ZAP>
+template <typename T, typename OP, int ZAP, class GEO>
 __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFusedArgs<T> a,
-                                                                   const WrapGeo geo) {
+                                                                   const GEO geo) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   constexpr int NC = OP::N_COEF;
@@ -220,9 +264,13 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   const int own_plane = a.by * a.bx;
   const int y0 = blockIdx.y * a.by, x0 = blockIdx.x * a.bx;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int64_t P = (int64_t)geo.ny * geo.nx;
-  const int64_t b_uv = (int64_t)blockIdx.z * 2 * P;  // this entry's u plane; v follows
-  const int ny = geo.ny, nx = geo.nx;
+  // this entry's u planes (v follows one plane later) of the inputs, the
+  // carries out and acc
+  const int64_t P = geo.in_plane(), PO = geo.out_plane(), PA = geo.own_plane();
+  const int64_t b_in = (int64_t)blockIdx.z * 2 * P;
+  const int64_t b_out = (int64_t)blockIdx.z * 2 * PO;
+  const int64_t b_acc = (int64_t)blockIdx.z * 2 * PA;
+  const int ny = geo.rows(), nx = geo.cols();
 
   // 1. the window, one warp per row. Pair A (offset 0) takes T_k (w on a
   // first pass), pair B (offset 2*wa) T_{k-1}. A cell's loads are all issued
@@ -238,8 +286,8 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
       for (int m = 0; m < NC; ++m) cv[m] = __ldg(a.coef + m * P + kk);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        sv[c] = __ldg((a.first ? a.w : a.t) + b_uv + c * P + kk);
-        sv[2 + c] = a.first ? T(0) : __ldg(a.t_prev + b_uv + c * P + kk);
+        sv[c] = __ldg((a.first ? a.w : a.t) + b_in + c * P + kk);
+        sv[2 + c] = a.first ? T(0) : __ldg(a.t_prev + b_in + c * P + kk);
       }
       auto* cp = reinterpret_cast<typename Pair<T>::type*>(sm + pl.coef + k * NC);
 #pragma unroll
@@ -251,11 +299,11 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   if (!a.first) {
     for (int i = threadIdx.x; i < own_plane; i += blockDim.x) {
       const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
-      const bool in = gy < ny && gx < nx;
+      const bool in = gy < ny && gx < nx && has_acc(geo, gy, gx);
 #pragma unroll
       for (int c = 0; c < 2; ++c)
         sm[pl.acc + c * own_plane + i] =
-            in ? a.acc_in[b_uv + c * P + geo.own_index(gy, gx)] : T(0);
+            in ? a.acc_in[b_acc + c * PA + geo.own_index(gy, gx)] : T(0);
     }
   }
   __syncthreads();
@@ -265,11 +313,14 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   for (int i = 0; i < H; ++i) {
     const int j = i + 1;  // this step's window: shrunk by j
     if (a.first && i == 0)
-      vec_step_window<T, OP, ZAP, FIRST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+      vec_step_window<T, OP, ZAP, FIRST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
+                                         b_acc);
     else if (a.last && i == H - 1)
-      vec_step_window<T, OP, ZAP, LAST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+      vec_step_window<T, OP, ZAP, LAST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
+                                        b_acc);
     else
-      vec_step_window<T, OP, ZAP, MIDDLE>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_uv);
+      vec_step_window<T, OP, ZAP, MIDDLE>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
+                                          b_acc);
     __syncthreads();
     const int tmp = cur;
     cur = prev;
@@ -277,7 +328,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   }
   if (a.last) return;
 
-  // 3. the own cells of the carries and of acc
+  // 3. the own cells of the carries and, where it exists, of acc
   for (int r = H + warp; r < H + a.by; r += nwarps) {
     const int gy = y0 - H + r;
     if (gy >= ny) break;
@@ -285,50 +336,68 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
       const int gx = x0 - H + q;
       if (gx >= nx) break;
       const int k = r * wx + q;
-      const int64_t ko = b_uv + geo.own_index(gy, gx);
+      const int64_t ko = b_out + geo.out_index(gy, gx);
       const int o = (r - H) * a.bx + (q - H);
+      const bool sums = has_acc(geo, gy, gx);
+      const int64_t ka = b_acc + geo.own_index(gy, gx);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        a.t_out[ko + c * P] = sm[cur + c * wa + k];
-        a.t_prev_out[ko + c * P] = sm[prev + c * wa + k];
-        a.acc_out[ko + c * P] = sm[pl.acc + c * own_plane + o];
+        a.t_out[ko + c * PO] = sm[cur + c * wa + k];
+        a.t_prev_out[ko + c * PO] = sm[prev + c * wa + k];
+        if (sums) a.acc_out[ka + c * PA] = sm[pl.acc + c * own_plane + o];
       }
     }
   }
 }
 
-template <typename T, typename OP, int ZAP>
-int launch_vec_mode(const VecFusedArgs<T>& a, const WrapGeo& g, dim3 grid, size_t bytes,
+template <typename T, typename OP, int ZAP, class GEO>
+int launch_vec_mode(const VecFusedArgs<T>& a, const GEO& g, dim3 grid, size_t bytes,
                     cudaStream_t st) {
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        vec_fused_kernel<T, OP, ZAP>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+        vec_fused_kernel<T, OP, ZAP, GEO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  vec_fused_kernel<T, OP, ZAP><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+  vec_fused_kernel<T, OP, ZAP, GEO><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   return (int)cudaGetLastError();
 }
 
-// Launch one fused vector pass over the whole (periodic) field, tiles of
-// by x bx, with the kernel compiled for the contraction and for zap.
-template <typename T>
-int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, int ny, int nx, int batch,
-                     cudaStream_t st) {
+// Launch one fused vector pass over the own domain of `g` (rows x cols
+// cells), tiles of by x bx, with the kernel compiled for the contraction and
+// for zap.
+template <typename T, class GEO>
+int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const GEO& g, int rows,
+                     int cols, int batch, cudaStream_t st) {
   if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
-  if (ny < 1 || nx < 1 || a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 ||
+  if (rows < 1 || cols < 1 || a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 ||
       batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const int n_coef = op == BGRID ? BGridLap::N_COEF : CTapLap::N_COEF;
   const size_t bytes = vec_fused_shared_bytes<T>(a.by, a.bx, a.n_ops, n_coef);
   if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
-  const dim3 grid((nx + a.bx - 1) / a.bx, (ny + a.by - 1) / a.by, batch);
+  const dim3 grid((cols + a.bx - 1) / a.bx, (rows + a.by - 1) / a.by, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const WrapGeo g{ny, nx, 0};
   if (op == BGRID)
     return zap ? launch_vec_mode<T, BGridLap, 1>(a, g, grid, bytes, st)
                : launch_vec_mode<T, BGridLap, 0>(a, g, grid, bytes, st);
   return zap ? launch_vec_mode<T, CTapLap, 1>(a, g, grid, bytes, st)
              : launch_vec_mode<T, CTapLap, 0>(a, g, grid, bytes, st);
+}
+
+// Fill the fields both fused entries pass the same way.
+template <typename T>
+VecFusedArgs<T> vec_fused_args(int by, int bx, int n_ops, int first, int last, const double* pa,
+                               double p_b, const T* w, const T* t, const T* t_prev,
+                               const T* acc_in, T* t_out, T* t_prev_out, T* acc_out,
+                               const T* coef) {
+  VecFusedArgs<T> a;
+  a.by = by; a.bx = bx; a.n_ops = n_ops; a.first = first; a.last = last;
+  for (int i = 0; i < MAX_FUSE; ++i) a.pa[i] = i < n_ops ? T(pa[i]) : T(0);
+  a.p_b = T(p_b);
+  a.w = w; a.t = t; a.t_prev = t_prev; a.acc_in = acc_in;
+  a.t_out = t_out; a.t_prev_out = t_prev_out; a.acc_out = acc_out; a.coef = coef;
+  return a;
 }
 
 }  // namespace

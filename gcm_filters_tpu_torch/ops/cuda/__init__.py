@@ -6,7 +6,9 @@
     taps), with its plain version ``vec_pass_reference`` beside it;
   - local_pass.py, vec_local_pass.py: the same steps on a halo-extended
     shard block (the sharded engine's local compute), with their plain
-    versions ``local_pass_reference`` and ``vec_local_pass_reference``;
+    versions ``local_pass_reference`` and ``vec_local_pass_reference``, and
+    the fused round of each (``local_fused_pass``, ``vec_local_fused_pass``:
+    several steps per launch on shared-memory tiles);
   - ring_pass.py: the same steps on all y-shards of a ring in one launch,
     the halo rows exchanged by the kernel itself, with their plain versions
     ``ring_pass_reference`` and ``vec_ring_pass_reference``;

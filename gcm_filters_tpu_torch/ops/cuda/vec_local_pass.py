@@ -26,19 +26,36 @@ tensor it launches or raises.
 The operands are a :class:`~.vec_pass.VecPassOperands` whose ``coef`` holds
 the *extended* ``(n_coef, ly+2*cells, lx+2*cells)`` coefficient planes,
 pre-scaled by ``-2*lap_scale``.
+
+:func:`vec_local_fused_pass` runs a whole round, or a part of one, in one
+launch on the shared-memory tiles of ``csrc/vec_tile.cuh`` (entries
+``vec_local_fused_pass_f32/f64`` of ``csrc/vec_pass.cu``): the counterpart of
+the JAX sharded engine's one coupled Pallas call per round.
+:func:`vec_local_fused_pass_reference` is its plain version (the same steps
+as a chain of :func:`vec_local_pass_reference`, so the two routes give the
+same bits), :func:`vec_local_fused_pass_tiled_reference` the kernel's tile
+decomposition in torch, and :func:`plan_vec_local_rounds` the planner: the
+tile and the split of each round into launches, and the static predicate.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import Optional
+import functools
+from typing import Optional, Tuple
 
 import torch
 
 from ..ctaps import CTAPS
 from ..stencil import BGRID_DIFF
-from .cheb_pass import FIRST, LAST, MIDDLE
+from .cheb_pass import (
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, FusedPlan, _check, _kinds, _pass_args,
+    search_plan,
+)
 from .local_pass import _window
-from .vec_pass import BGRID, CTAP, N_COEF, VecPassOperands, _library as _vec_library
+from .vec_pass import (
+    BGRID, CTAP, N_COEF, VEC_TILES, VecPassOperands, _library as _vec_library,
+    _vec_pass_cost, vec_fused_shared_bytes,
+)
 
 Tensor = torch.Tensor
 
@@ -222,3 +239,274 @@ def vec_local_pass(
 
 # kernel launches per contraction; the plain version does not count
 vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+
+
+# -- the fused round: a whole round, or part of one, per launch ---------------
+
+@functools.lru_cache(maxsize=None)
+def _round_plan(n_steps: int, ly: int, lx: int, itemsize: int, op: int) -> FusedPlan:
+    def fits(tile, halo):
+        by, bx = tile
+        return (ly >= by + 2 * halo and lx >= bx + 2 * halo
+                and vec_fused_shared_bytes(tile, halo, N_COEF[op], itemsize) <= SHARED_BYTES)
+
+    return search_plan(n_steps, ly, lx, MAX_FUSE, VEC_TILES[op], fits,
+                       lambda tile, steps: _vec_pass_cost(op, tile, steps, itemsize))
+
+
+def plan_vec_local_rounds(rounds, ly: int, lx: int, dtype: torch.dtype,
+                          op: int) -> Tuple[FusedPlan, ...]:
+    """One fused plan per round of the sharded vector engine on an ``(ly,
+    lx)`` core: the counterpart of the JAX ``_plan_local_coupled``.
+
+    A round of ``n`` steps is planned as the unsharded planner plans a vector
+    filter of ``n`` steps (``search_plan`` over ``VEC_TILES`` with the cost
+    model ``_vec_pass_cost``, fitted to the tile sweeps of ``chip_smoke.py``):
+    one launch of ``n`` steps (split (a)) or a balanced split into several
+    launches with no exchange between them (split (b)), on the tile the
+    model scores cheapest among those whose window, a tile plus its halo in
+    each dimension, fits in the core, since the shards of a real mesh are
+    small. On the 2400x3600 headline the plans are the unsharded ones.
+    ``plan.fused`` is the static predicate: False where no tile plus its halo
+    fits in the core, and the step chain then runs.
+    """
+    itemsize = torch.empty((), dtype=dtype).element_size()
+    if op not in N_COEF:
+        raise ValueError(f"unknown vector contraction {op}")
+    return tuple(_round_plan(int(n), int(ly), int(lx), itemsize, int(op)) for n in rounds)
+
+
+def vec_local_fused_pass_reference(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int,
+    shrink: Optional[int] = None, tile=None,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """The plain PyTorch version of one fused launch, on any device: steps
+    ``start+1 .. start+n_ops`` of the filter as a chain of
+    :func:`vec_local_pass_reference`, ending on the block shrunk by
+    ``shrink`` (default ``cells``: the core), so that step i of the launch
+    runs on the block shrunk by ``shrink - n_ops + i`` (``tile`` is not
+    used).
+
+    ``w``, ``t``, ``t_prev``, ``t_out`` and ``t_prev_out`` are extended
+    ``(batch, 2, ly+2*cells, lx+2*cells)`` buffers and ``acc`` is core-shaped
+    ``(batch, 2, ly, lx)``. A first launch (``start == 0``) reads the
+    extended input ``w``; any other reads ``t`` and ``t_prev``, exact on the
+    block shrunk by ``shrink - n_ops``, and ``acc``. A launch that ends the
+    filter leaves the result in ``acc``; any other writes ``acc`` and the
+    carries on the block shrunk by ``shrink`` into ``t_out`` and
+    ``t_prev_out`` (nothing outside it). The inputs are not written.
+    """
+    first, last = _kinds(p, start, n_ops)
+    shrink = cells if shrink is None else shrink
+    if not 1 <= n_ops <= shrink <= cells:
+        raise ValueError(f"need 1 <= n_ops <= shrink <= cells, got n_ops {n_ops}, "
+                         f"shrink {shrink}, cells {cells}")
+    s0 = shrink - n_ops  # the carries read are exact on the block shrunk by s0
+    if first:
+        cur, prev = torch.empty_like(w), w.clone()
+        vec_local_pass_reference(ops, FIRST, p[0], p[1], cells=cells, shrink=1, w=w,
+                                 t_next=cur, acc=acc)
+        done = 1
+    else:
+        cur, prev = t.clone(), t_prev.clone()
+        done = 0
+    for i in range(done, n_ops):
+        k = start + i + 1
+        if k == len(p) - 1:
+            vec_local_pass_reference(ops, LAST, p[k], cells=cells, t=cur, t_prev=prev, acc=acc)
+        else:
+            vec_local_pass_reference(ops, MIDDLE, p[k], cells=cells, shrink=s0 + i + 1, t=cur,
+                                     t_prev=prev, t_next=prev, acc=acc)
+            cur, prev = prev, cur
+    if not last:
+        _window(t_out, shrink).copy_(_window(cur, shrink))
+        _window(t_prev_out, shrink).copy_(_window(prev, shrink))
+
+
+def vec_local_fused_pass_tiled_reference(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    shrink: Optional[int] = None,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """One fused launch computed as the kernel decomposes it, in torch.
+
+    The own region is the extended block shrunk by ``shrink``. For each
+    ``tile = (by, bx)`` of it: cut a window of ``(by+2H) x (bx+2H)`` cells
+    (``H = n_ops``) from the extended block, with its corners (rows and
+    columns past the block clamped, as the kernel's loads are), of the state
+    of both components and of every coefficient plane; run the steps on the
+    window shrunk by j at step j, with the contraction of the local step's
+    plain version (each cell in its order of summation); keep the own cells
+    of the carries, and acc of the own cells that lie in the core only. Same
+    arguments and outputs as :func:`vec_local_fused_pass_reference`, so the
+    two are equal bit for bit wherever the decomposition is right.
+    """
+    first, last = _kinds(p, start, n_ops)
+    shrink = cells if shrink is None else shrink
+    by, bx = tile
+    H = n_ops
+    margin = cells - shrink
+    batch, _, ly, lx = acc.shape
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+    rows, cols = ly + 2 * margin, lx + 2 * margin  # the own region
+    dev = acc.device
+    outs = {"acc": acc.clone()}
+    if not last:
+        outs["t"], outs["t_prev"] = t_out.clone(), t_prev_out.clone()
+
+    for y0 in range(0, rows, by):
+        ridx = (torch.arange(y0 - H, y0 + by + H, device=dev) + shrink).clamp(0, ey - 1)
+        oy = min(by, rows - y0)  # own rows inside the region
+        cy = (max(y0, margin), min(y0 + oy, margin + ly))  # own rows in the core
+        for x0 in range(0, cols, bx):
+            cidx = (torch.arange(x0 - H, x0 + bx + H, device=dev) + shrink).clamp(0, ex - 1)
+            cut = lambda x: x[..., ridx[:, None], cidx[None, :]]  # noqa: E731
+            wops = VecPassOperands(ops.op, cut(ops.coef), ops.zap)
+            if first:
+                cur = cut(w)
+                prev = torch.empty_like(cur)
+            else:
+                cur, prev = cut(t), cut(t_prev)
+            wy, wx = cur.shape[-2:]
+            ox = min(bx, cols - x0)
+            cx = (max(x0, margin), min(x0 + ox, margin + lx))
+            sums = cy[0] < cy[1] and cx[0] < cx[1]  # the tile holds core cells
+            core = (Ellipsis, slice(cy[0] - margin, cy[1] - margin),
+                    slice(cx[0] - margin, cx[1] - margin))
+            a = None if first or not sums else acc[core]
+            for i in range(H):
+                j = i + 1
+                kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
+                sl = (Ellipsis, slice(j, wy - j), slice(j, wx - j))
+                lap = _lap(wops, cur, j)
+                # the tile's core cells inside this step's window
+                o = (Ellipsis, slice(cy[0] - y0 + H - j, cy[1] - y0 + H - j),
+                     slice(cx[0] - x0 + H - j, cx[1] - x0 + H - j))
+                if kind == FIRST:
+                    h0 = cur[sl]
+                    t1 = -h0 + 0.5 * lap
+                    prev[sl] = t1
+                    if sums:
+                        a = p[0] * h0[o] + p[1] * t1[o]
+                    cur, prev = prev, cur
+                    continue
+                nxt = -2.0 * cur[sl] + lap - prev[sl]
+                if sums:
+                    a = a + p[start + i + 1] * nxt[o]
+                if kind == MIDDLE:
+                    prev[sl] = nxt
+                    cur, prev = prev, cur
+            if sums:
+                outs["acc"][core] = a
+            if not last:
+                own = (Ellipsis, slice(H, H + oy), slice(H, H + ox))
+                dst = (Ellipsis, slice(y0 + shrink, y0 + shrink + oy),
+                       slice(x0 + shrink, x0 + shrink + ox))
+                outs["t"][dst] = cur[own]
+                outs["t_prev"][dst] = prev[own]
+    acc.copy_(outs["acc"])
+    if not last:
+        t_out.copy_(outs["t"])
+        t_prev_out.copy_(outs["t_prev"])
+
+
+_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 11           # op, batch, ly, lx, cells, shrink, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 8       # w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef
+    + [ctypes.c_int]              # zap
+    + [ctypes.c_void_p]           # stream
+)
+
+
+def _fused_library():
+    lib = _library()
+    if not getattr(lib, "_local_fused_bound", False):
+        for fn in (lib.vec_local_fused_pass_f32, lib.vec_local_fused_pass_f64):
+            fn.argtypes = _FUSED_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib._local_fused_bound = True
+    return lib
+
+
+def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs) -> None:
+    first, last = _kinds(p, start, n_ops)
+    if not 1 <= n_ops <= min(shrink, MAX_FUSE) or shrink > cells:
+        raise ValueError(f"a fused launch runs 1..min(shrink, {MAX_FUSE}) steps with "
+                         f"shrink <= cells, got n_ops {n_ops}, shrink {shrink}, cells {cells}")
+    if ops.op not in N_COEF:
+        raise ValueError(f"unknown vector contraction {ops.op}")
+    acc = bufs["acc"]
+    dtype, device = acc.dtype, acc.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"vec_local_fused_pass kernel takes float32 or float64, got {dtype}")
+    if acc.dim() != 4 or acc.shape[1] != 2:
+        raise ValueError(
+            f"vec_local_fused_pass takes a (batch, 2, ly, lx) acc, got {tuple(acc.shape)}")
+    batch, _, ly, lx = acc.shape
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+    by, bx = tile
+    if batch > 65535 or -(-(ly + 2 * (cells - shrink)) // by) > 65535:
+        raise ValueError(f"block {(batch, 2, ey, ex)} exceeds the kernel's launch grid")
+    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    required = ("acc",) + (("w",) if first else ("t", "t_prev")) + (
+        () if last else ("t_out", "t_prev_out"))
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
+    if not last and any(bufs[o].data_ptr() == bufs[i].data_ptr()
+                        for o in ("t_out", "t_prev_out") for i in ("w", "t", "t_prev")
+                        if i in required):
+        raise ValueError("t_out and t_prev_out must not alias w, t or t_prev")
+    check = functools.partial(_check, device, dtype)
+    ptr = {k: check(k, bufs[k], (batch, 2, ly, lx) if k == "acc" else (batch, 2, ey, ex))
+           if k in required else None
+           for k in ("w", "t", "t_prev", "t_out", "t_prev_out", "acc")}
+    coef = check("coef", ops.coef, (N_COEF[ops.op], ey, ex))
+
+    lib = _fused_library()
+    fn = lib.vec_local_fused_pass_f32 if dtype == torch.float32 else lib.vec_local_fused_pass_f64
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(ops.op, batch, ly, lx, cells, shrink, by, bx, n_ops, int(first), int(last),
+                 pa, p_b, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                 ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
+    if err != 0:
+        msg = lib.vec_pass_error_string(err).decode()
+        raise RuntimeError(f"vec_local_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    vec_local_fused_pass.launches[ops.op] += 1
+
+
+def vec_local_fused_pass(
+    ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    shrink: Optional[int] = None,
+    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """Steps ``start+1 .. start+n_ops`` of the vector filter on the extended
+    block in one launch, on tiles of ``tile = (by, bx)`` cells of the block
+    shrunk by ``shrink`` (default ``cells``: the core), as
+    :func:`vec_local_fused_pass_reference` documents them.
+
+    CUDA tensors launch the kernel (counted per contraction in
+    ``vec_local_fused_pass.launches[BGRID]`` and
+    ``vec_local_fused_pass.launches[CTAP]``) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
+    """
+    bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
+    shrink = cells if shrink is None else shrink
+    if acc.is_cuda:
+        _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs)
+    elif acc.device.type == "cpu":
+        vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink, **bufs)
+    else:
+        raise RuntimeError(f"vec_local_fused_pass has no kernel for device {acc.device}")
+
+
+# kernel launches per contraction; the plain version does not count
+vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}

@@ -9,9 +9,10 @@ Communication is *round-based* (wide halos): each round exchanges a
 ``cells``-wide halo once (two message phases, corners riding the second,
 halo.py) and then advances the recurrence up to ``cells`` steps purely
 locally on the halo-extended block (ops/cuda/local_pass.py for scalars: one
-launch of the fused round where its static predicate holds, else one step
-launch per step; ops/cuda/vec_local_pass.py for (u, v) pairs, one step launch
-per step; kernels on CUDA tensors, their plain versions on CPU tensors). The
+launch of the fused round where its static predicate holds;
+ops/cuda/vec_local_pass.py for (u, v) pairs: the planned fused launches of
+each round, one or a few; else one step launch per step; kernels on CUDA
+tensors, their plain versions on CPU tensors). The
 tripolar fold is a reversed pairing among the ranks of the top mesh row, and the stencil
 coefficients are halo-extended once per (local shape, dtype) with the seam's
 n<->s / e<->w coefficient swap in their fold chunks. Vector grids have no
@@ -57,7 +58,9 @@ from ..ops.cuda.cheb_pass import (
 )
 from ..ops.ctaps import CTAP_NAMES, cgrid_tap_arrays
 from ..ops.cuda.local_pass import local_fused_pass, local_pass
-from ..ops.cuda.vec_local_pass import vec_local_pass
+from ..ops.cuda.vec_local_pass import (
+    plan_vec_local_rounds, vec_local_fused_pass, vec_local_pass,
+)
 from ..ops.cuda.vec_pass import BGRID, CTAP, VecPassOperands
 from ..ops.stencil import (
     ARRAY_FIELDS,
@@ -483,22 +486,31 @@ def local_vector_operands(op: int, planes: Dict[str, Tensor], zap: bool, cells: 
 
 def local_rounds_vector(ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
                         y_axis: halo.Axis, x_axis: halo.Axis,
-                        pass_fn=vec_local_pass) -> Tensor:
+                        pass_fn=vec_local_pass, fused_fn=vec_local_fused_pass) -> Tensor:
     """Wide-halo rounds of the coupled recurrence on one rank:
     ``(batch, 2, ly, lx) -> (batch, 2, ly, lx)`` on the stacked (u, v) pair.
 
     Counterpart of the JAX ``_local_pallas_2d``. Round 0 exchanges the stacked
     input by ``cells`` (the extension is T_0 itself: vector grids have no
-    mask, area or prepare) and runs the first step on the window shrunk by 1;
-    every later round exchanges one stack of both carries' cores, so one
-    message per phase carries both carries, both components and the whole
-    batch. Step ``j`` of a round runs on the window shrunk by ``j``, one
-    ``pass_fn`` call per step; ``acc`` is core-shaped. The diagonal C-grid
-    taps read the halo's corner cells, which ride the exchange's second
-    phase. ``ops`` holds the extended, pre-scaled coefficient planes;
-    ``sum(rounds)`` is the filter's n_steps. The caller's ``w`` is only read:
-    the carries that the steps overwrite are the exchanges' fresh tensors.
+    mask, area or prepare); every later round exchanges one stack of both
+    carries' cores, so one message per phase carries both carries, both
+    components and the whole batch. The diagonal C-grid taps read the halo's
+    corner cells, which ride the exchange's second phase. Where every round's
+    fused plan (:func:`plan_vec_local_rounds`) holds its static predicate,
+    each round runs as its plan's ``fused_fn`` launches
+    (:func:`_fused_vector_rounds`); otherwise, or with
+    ``fused_fn=None``, step ``j`` of a round runs on the window shrunk by
+    ``j``, one ``pass_fn`` call per step, the first on the window shrunk by 1.
+    ``acc`` is core-shaped. ``ops`` holds the extended, pre-scaled
+    coefficient planes; ``sum(rounds)`` is the filter's n_steps. The caller's
+    ``w`` is only read: the carries that the steps overwrite are the
+    exchanges' fresh tensors.
     """
+    if fused_fn is not None:
+        plans = plan_vec_local_rounds(rounds, *w.shape[-2:], w.dtype, ops.op)
+        if all(pl.fused for pl in plans):
+            return _fused_vector_rounds(fused_fn, ops, w, p, cells, rounds, y_axis, x_axis,
+                                        plans)
     n_steps = sum(rounds)
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
     acc = torch.empty_like(w)
@@ -529,6 +541,43 @@ def local_rounds_vector(ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
     return acc
 
 
+def _fused_vector_rounds(fused_fn, ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
+                         y_axis: halo.Axis, x_axis: halo.Axis, plans) -> Tensor:
+    """The rounds of :func:`local_rounds_vector` as fused launches, ``plans``
+    one per round: each round one launch per entry of its plan's ``steps``
+    on its plan's tile, with no exchange between them. A launch ends on the
+    block shrunk by ``cells`` less the round's steps still to run after it
+    (the round's last launch ends on the core), and writes its carries there
+    into two fresh extended buffers, which the next launch, or the next
+    round's exchange, reads (a tile reads its neighbours' cells, so a launch
+    cannot update the carries it reads)."""
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    n_steps = sum(rounds)
+    acc = torch.empty_like(w)
+    w_ext = t = t_prev = None
+    start = 0
+    for i, (n_round, plan) in enumerate(zip(rounds, plans)):
+        if i == 0:
+            w_ext = halo.exchange_2d(w, cells, y_axis, x_axis)
+        else:
+            # one message per phase carries both carries and the whole batch
+            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]),
+                                   cells, y_axis, x_axis)
+            t, t_prev = ext[0], ext[1]
+        left = n_round
+        for n_ops in plan.steps:
+            left -= n_ops
+            t_out = t_prev_out = None
+            if start + n_ops < n_steps:
+                t_out, t_prev_out = torch.empty_like(w_ext), torch.empty_like(w_ext)
+            fused_fn(ops, p, start, n_ops, cells=cells, shrink=cells - left, tile=plan.tile,
+                     w=w_ext if start == 0 else None, t=t, t_prev=t_prev, t_out=t_out,
+                     t_prev_out=t_prev_out, acc=acc)
+            t, t_prev = t_out, t_prev_out
+            start += n_ops
+    return acc
+
+
 def make_sharded_vector_apply(
     operator,
     spec: FilterSpec,
@@ -537,6 +586,7 @@ def make_sharded_vector_apply(
     batch_axis: Optional[str] = None,
     halo_steps: Optional[int] = None,
     pass_fn=vec_local_pass,
+    fused_fn=vec_local_fused_pass,
 ):
     """``(u, v) -> (filtered_u, filtered_v)`` with the domain sharded over
     ``mesh``.
@@ -553,9 +603,12 @@ def make_sharded_vector_apply(
     ``DTensor``s on ``mesh``, as :func:`make_sharded_scalar_apply` does.
     Every rank of the mesh must call the function together.
 
-    ``pass_fn`` runs one local step; it is :func:`vec_local_pass` (kernel for
-    CUDA tensors, plain version for CPU tensors) unless a caller passes the
-    plain version to compare the two on one device.
+    ``fused_fn`` runs one fused launch of a round and ``pass_fn`` one local
+    step; they are :func:`vec_local_fused_pass` and :func:`vec_local_pass`
+    (kernels for CUDA tensors, plain versions for CPU tensors) unless a
+    caller passes the plain versions to compare them on one device;
+    ``fused_fn=None`` runs the step chain on purpose
+    (:func:`local_rounds_vector`).
     """
     if isinstance(operator, CGridVectorOperator):
         op, names = CTAP, CTAP_NAMES
@@ -624,10 +677,19 @@ def make_sharded_vector_apply(
         else:
             ly, lx = w.shape[-2:]
             ops, cells, rounds, p = operands(ly, lx, dtype)
-            out = local_rounds_vector(ops, w, p, cells, rounds, y_axis, x_axis, pass_fn)
+            out = local_rounds_vector(ops, w, p, cells, rounds, y_axis, x_axis, pass_fn,
+                                      fused_fn)
         return tuple(DTensor.from_local(restore(out[:, m]), mesh, placements, run_check=False)
                      for m in (0, 1))
 
+    def plan(ly: int, lx: int, dtype):
+        """The fused plans of the rounds for one (local shape, dtype), one per
+        round (:func:`plan_vec_local_rounds`); the rounds run fused where
+        every plan's ``fused`` holds and ``fused_fn`` is given."""
+        return plan_vec_local_rounds(plan_rounds(spec.n_steps, ly, lx, halo_steps)[1], ly, lx,
+                                     dtype, op)
+
     apply_fn.operands = operands  # (ly, lx, dtype) -> (VecPassOperands, cells, rounds, p)
+    apply_fn.plan = plan  # (ly, lx, dtype) -> one FusedPlan per round
     apply_fn.ring = ring  # the ring apply, or None where the ring declines this mesh
     return apply_fn
