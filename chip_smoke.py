@@ -109,22 +109,27 @@ and runs these phases; any failed check raises and the script exits non-zero:
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
     kappa_aniso 0 and 1 and with 37 steps) through
     ``Filter(mesh=ResidentMesh(p_y, "cuda"), spatial_axes=("y", None))`` at
-    ``p_y`` 2, 4 and 8: several y-shards resident on the one card, whose step
-    kernel exchanges the halo rows itself. Each result must equal the
-    unsharded kernel path bit for bit and agree with the same ring apply
-    driven by the plain versions on the card; each apply must launch the ring
-    kernel exactly n_steps times (one launch per step, whatever ``p_y``) and
-    no other kernel;
+    ``p_y`` 2, 4 and 8: several y-shards resident on the one card, whose
+    kernels exchange the halo rows themselves. Each result must equal the
+    unsharded kernel path bit for bit, a scalar one also the step ring
+    (``fused_fn=None``), and agree with the same ring apply driven by the
+    plain versions on the card; each scalar apply must launch the fused ring
+    kernel once per planned pass (the step ring kernel n_steps times where the
+    plan is not fused: one-row shards), each vector apply its ring step kernel
+    n_steps times, and no other kernel;
 16. ring headlines (the ring path): the phase-4 workload at ``p_y`` 4, 2 and
-    8 and the phase-7 workloads at ``p_y`` 4, each bitwise equal to the
-    unsharded result of this run, checked against the float64 eager engine
-    and timed beside the unsharded time of this run, with launches = 11 x
-    applies, every other counter 0 and no fallback; then 200 more scalar
-    applies, each bitwise equal to the first;
-17. each step kind of the three ring kernels against its plain version at the
-    headline shape, in float32 and float64;
-18. a ``{"kernels": [...]}`` line (fifteen entries: the step kernels, timed
-    as step chains, and the six fused passes), then ``{"ok": true,
+    8, the Taper filter and ``IRREGULAR_WITH_LAND`` at ``p_y`` 4, each through
+    the fused ring, bitwise equal to the fused K1 and to the step ring of this
+    run and timed beside both, and the phase-7 workloads at ``p_y`` 4 (one
+    step per launch), each bitwise equal to the unsharded result of this run;
+    all checked against the float64 eager engine, with launches = the plan's
+    passes (vector: 11) x applies, every other counter 0 and no fallback;
+    then 200 more fused scalar applies, each bitwise equal to the first;
+17. each step kind of the three ring step kernels, and each pass kind of the
+    fused ring (first only, middle, last, first and last) against its plain
+    and tiled plain versions, at the headline shape, in float32 and float64;
+18. a ``{"kernels": [...]}`` line (sixteen entries: the step kernels, timed
+    as step chains, and the seven fused passes), then ``{"ok": true,
     "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
@@ -274,6 +279,17 @@ def plan_cost(ops, plan, batch, ny, nx, itemsize):
         nbytes += (static + area * (first or last) + batch * carries) * plane
         cells += tiles * sum((by + 2 * s - 2 * j) * (bx + 2 * s - 2 * j) for j in range(1, s + 1))
     return nbytes, FLOPS_PER_CELL_STEP * batch * cells
+
+
+def ring_plan_cost(ops, plan, p_y, ny, nx, itemsize):
+    """``(bytes, flops)`` of one fused ring apply: each shard's passes as
+    :func:`plan_cost` counts them on its ``ny/p_y`` rows, plus every pass's
+    2 p_y sends, each of H rows of the live fields (the field on the first
+    pass, t and t_prev after) read once and written once."""
+    nbytes, flops = plan_cost(ops, plan, 1, ny // p_y, nx, itemsize)
+    sends = sum(2 * p_y * (1 if i == 0 else 2) * s * nx * itemsize * 2
+                for i, s in enumerate(plan.steps))
+    return p_y * nbytes + sends, p_y * flops
 
 
 def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso):
@@ -434,7 +450,7 @@ def main():
         _fused_chain, _vec_step_chain, make_cuda_scalar_apply, make_cuda_vector_apply,
     )
     from gcm_filters_tpu_torch.ops.cuda.local_pass import local_fused_pass, local_pass
-    from gcm_filters_tpu_torch.ops.cuda.ring_pass import ring_pass, vec_ring_pass
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import ring_fused_pass, ring_pass, vec_ring_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_fused_pass, vec_local_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
@@ -481,6 +497,7 @@ def main():
                 "vec_local_fused_pass_bgrid": vec_local_fused_pass.launches[BGRID],
                 "vec_local_fused_pass_ctap": vec_local_fused_pass.launches[CTAP],
                 "ring_pass": ring_pass.launches,
+                "ring_fused_pass": ring_fused_pass.launches,
                 "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
                 "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
 
@@ -494,6 +511,7 @@ def main():
         vec_local_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
         ring_pass.launches = 0
+        ring_fused_pass.launches = 0
         vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 
     def launched_since(before, label, want):
@@ -1498,7 +1516,7 @@ def main():
         vec_local_pass_reference,
     )
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        RingState, ring_pass_reference, vec_ring_pass_reference,
+        RingState, ring_fused_pass_reference, ring_pass_reference, vec_ring_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
 
@@ -1940,45 +1958,74 @@ def main():
     )
 
     ring_axes = ("y", None)
-    rworst = {"ring_pass": 0.0, "vec_ring_pass_bgrid": 0.0, "vec_ring_pass_ctap": 0.0}
+    rworst = {"ring_pass": 0.0, "ring_fused_pass": 0.0, "vec_ring_pass_bgrid": 0.0,
+              "vec_ring_pass_ctap": 0.0}
+    ring_step_path = {"launches": 0}  # ring_pass launched by the ring where the plan is not fused
+
+    def ring_entry(fn):
+        """The one shape_cache entry of a ring apply that has run one shape."""
+        (entry,) = fn.shape_cache.values()
+        return entry
+
+    def ring_launch_plan(filt):
+        """(kernel, launches per apply) of a ring Filter that has run once."""
+        if filt.grid_type.name in vec_ops:
+            op = vec_ops[filt.grid_type.name]
+            return "vec_ring_pass_" + ("bgrid" if op == BGRID else "ctap"), filt.n_steps
+        entry = ring_entry(filt._scalar_fn())
+        if entry.chain is None:
+            return "ring_pass", filt.n_steps
+        return "ring_fused_pass", len(entry.plan.steps)
 
     def check_ring(label, p_y, fields, **kw):
-        """One ring apply against the unsharded kernel path (bitwise) and the
-        same ring apply on the plain steps (float32 tolerance)."""
+        """One ring apply against the unsharded kernel path (bitwise), the
+        scalar one also against the step ring (bitwise), and the same ring
+        apply on the plain versions (float32 tolerance)."""
         rmesh = ResidentMesh(p_y, dev)
         filt = Filter(device=dev, dtype=torch.float32, mesh=rmesh, spatial_axes=ring_axes, **kw)
         base = Filter(device=dev, dtype=torch.float32, **kw)
         vector = len(fields) == 2
         if vector:
-            mine = "vec_ring_pass_" + ("bgrid" if vec_ops[filt.grid_type.name] == BGRID else "ctap")
             plain = make_ring_vector_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
                                            pass_fn=vec_ring_pass_reference)
         else:
-            mine = "ring_pass"
             plain = make_ring_scalar_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
-                                           exact_nan=filt.exact_nan, pass_fn=ring_pass_reference)
+                                           exact_nan=filt.exact_nan, pass_fn=ring_pass_reference,
+                                           fused_fn=ring_fused_pass_reference)
         reset_fallback_counts()
         before = counters()
         got = filt.apply_to_vector(*fields) if vector else (filt.apply(fields[0]),)
         torch.cuda.synchronize()
         launched = {k: n - before[k] for k, n in counters().items()}
-        want_launched = {k: filt.n_steps if k == mine else 0 for k in before}
+        mine, per_apply = ring_launch_plan(filt)
+        want_launched = {k: per_apply if k == mine else 0 for k in before}
         if launched != want_launched:
             raise AssertionError(f"{label}: kernel launches {launched}, expected {want_launched}")
+        if mine == "ring_pass":
+            ring_step_path["launches"] += per_apply
         if fallback_counts():
             raise AssertionError(f"{label}: fallbacks recorded: {fallback_counts()}")
         want = base.apply_to_vector(*fields) if vector else (base.apply(fields[0]),)
         ref = plain(*(filt._coerce(f) for f in fields))
         ref = ref if vector else (ref,)
-        a = vs_un = 0.0
+        a = vs_un = vs_steps = 0.0
         for comp, g, w, r in zip("uv", got, want, ref):
             if type(g) is not torch.Tensor:
                 raise AssertionError(f"{label}: the ring returned {type(g).__name__}")
             vs_un = max(vs_un, bitwise(f"{label} {comp}", g, w))
             a = max(a, compare(f"{label} {comp} vs plain ring", g, r, "float32")[0])
+        steps_note = ""
+        if not vector:
+            steps_ring = make_ring_scalar_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
+                                                exact_nan=filt.exact_nan, fused_fn=None)
+            vs_steps = bitwise(f"{label} vs step ring", got[0],
+                               steps_ring(filt._coerce(fields[0])), "the step ring")
+            entry = ring_entry(filt._scalar_fn())
+            steps_note = (f"; vs the step ring max abs {vs_steps:.3e}; plan {entry.plan.tile} "
+                          f"{entry.plan.steps}{'' if entry.chain else ' not fused'}")
         rworst[mine] = max(rworst[mine], a)
-        log(f"  {label}: vs the unsharded kernel path max abs {vs_un:.3e}; vs the plain ring "
-            f"max abs {a:.3e} ({launched[mine]} launches for {p_y} shards)")
+        log(f"  {label}: vs the unsharded kernel path max abs {vs_un:.3e}{steps_note}; vs the "
+            f"plain ring max abs {a:.3e} ({launched[mine]} {mine} launches for {p_y} shards)")
         return got
 
     rshape = (768, 256)
@@ -2010,7 +2057,7 @@ def main():
         ("REGULAR nx=250", rrng.random((768, 250)), dict(std)),
     ]
     log(f"ring small grids at {rshape}, float32, y-shards resident on the card "
-        f"(one launch per step for all shards):")
+        f"(one launch per fused pass, or per step below the plan, for all shards):")
     for p_y in (2, 4, 8):
         for name, x, kw in ring_scalar_cases:
             got = check_ring(f"ring p_y={p_y} {name}", p_y, (x,), **kw)[0]
@@ -2033,11 +2080,12 @@ def main():
 
     # 16. ring headlines: the phase-4 and phase-7 workloads on resident shards
     def ring_state(fn):
-        """The one (RingState, p) of a ring apply that has run one shape."""
-        (state, p_), = fn.shape_cache.values()
-        return state, p_
+        """The state and p of a ring apply that has run one shape."""
+        entry = ring_entry(fn)
+        return entry[0], entry[1]
 
-    def ring_headline(label, mine, p_y, fields_np, fields_dev, unsharded, want64, **kw):
+    def ring_headline(label, mine, p_y, fields_np, fields_dev, unsharded, want64, n_chain=chain,
+                      **kw):
         filt = Filter(device=dev, dtype=torch.float32, mesh=ResidentMesh(p_y, dev),
                       spatial_axes=ring_axes, **kw)
         vector = len(fields_np) == 2
@@ -2051,15 +2099,19 @@ def main():
         first_s = time.perf_counter() - t0
         for _ in range(warm):
             run(*fields_dev)
-        ms, host = event_ms(lambda: run(*fields_dev), chain, host=True)
+        ms, host = event_ms(lambda: run(*fields_dev), n_chain, host=True)
+        n_applies = 1 + warm + n_chain
         counts = counters()
+        kernel, per_apply = ring_launch_plan(filt)
+        if kernel != mine:
+            raise AssertionError(f"ring headline {label} p_y={p_y} ran {kernel}, expected {mine}")
         n_launched = counts.pop(mine)
         fb = fallback_counts()
         log(f"ring headline {label}, p_y={p_y}, n_steps {filt.n_steps}: {n_launched} {mine} "
-            f"launches over {applies} applies (first apply with operand set-up {first_s:.2f} s), "
+            f"launches over {n_applies} applies (first apply with operand set-up {first_s:.2f} s), "
             f"other kernels {counts}, fallbacks {fb}")
-        if n_launched != filt.n_steps * applies:
-            raise AssertionError(f"expected {filt.n_steps * applies} launches, saw {n_launched}")
+        if n_launched != per_apply * n_applies:
+            raise AssertionError(f"expected {per_apply * n_applies} launches, saw {n_launched}")
         if any(counts.values()):
             raise AssertionError(f"the ring path launched another kernel: {counts}")
         if fb:
@@ -2076,37 +2128,101 @@ def main():
             f"float64 max abs {err:.3e}; {ms:.4f} ms/apply (host enqueue {host:.4f} ms/apply) on {smi}")
         return filt, first, ms, host, n_launched, err, vs_un
 
+    def scalar_ring_headline(label, p_y, x, k1_out, k1_ms, want64, n_chain=chain, **kw):
+        """The fused scalar ring on one headline: bitwise equal to the fused
+        K1 and to the step ring of this run, timed beside both."""
+        filt, (o,), ms_f, host_f, n_l, err, vs_k1 = ring_headline(
+            f"{label}", "ring_fused_pass", p_y, (x.cpu().numpy(),), (x,), (k1_out,), (want64,),
+            n_chain=n_chain, **kw)
+        entry = ring_entry(filt._scalar_fn())
+        steps_fn = make_ring_scalar_apply(filt.operator, filt.filter_spec, filt.mesh, ring_axes,
+                                          exact_nan=filt.exact_nan, fused_fn=None)
+        vs_steps = bitwise(f"ring headline {label} p_y={p_y} vs step ring", o, steps_fn(x),
+                           "the step ring")
+        ms_s, host_s = event_ms(lambda: steps_fn(x), 10, host=True)
+        fops = entry.state.ops
+        n_op = sum(1 for k in ("c", "n", "s", "e", "w", "pre", "post", "area")
+                   if isinstance(getattr(fops.shards[0], k), torch.Tensor))
+        flops = FLOPS_PER_CELL_STEP * ny * nx * filt.n_steps
+        fbm, fbb = bound_ms((2 + n_op) * ny * nx * item, flops, "float32")
+        wops, _ = make_cuda_scalar_apply(filt.operator, filt.filter_spec,
+                                         exact_nan=filt.exact_nan).operands(torch.float32, dev)
+        rbytes, rflops = ring_plan_cost(wops, entry.plan, p_y, ny, nx, item)
+        pbm, pbb = bound_ms(rbytes, rflops, "float32")
+        log(f"  fused ring {label} p_y={p_y}: plan {entry.plan.tile} {entry.plan.steps}, "
+            f"{len(entry.plan.steps)} launch(es)/apply, {ms_f:.4f} ms/apply; step ring "
+            f"{ms_s:.4f} ms/apply (host enqueue {host_s:.4f}), bit for bit equal; fused K1 "
+            f"{k1_ms:.4f} ms/apply, bit for bit equal; plan bound {pbm:.4f} ms "
+            f"({rbytes / 1e9:.3f} GB, {pbb}), whole-filter bound {fbm:.4f} ms on {smi}")
+        return filt, o, {
+            "ms": ms_f, "host_enqueue_ms": host_f, "step_ring_ms": ms_s,
+            "step_ring_host_enqueue_ms": host_s, "k1_ms": k1_ms, "launches": n_l,
+            "launches_per_apply": len(entry.plan.steps), "n_steps": filt.n_steps,
+            "passes": list(entry.plan.steps), "tile": list(entry.plan.tile),
+            "plan_bound_ms": pbm, "filter_bound_ms": fbm, "filter_bound_by": fbb,
+            "bytes_moved": rbytes, "vs_k1_max_abs": vs_k1, "vs_step_ring_max_abs": vs_steps,
+            "vs_f64_engine_max_abs": err}
+
     head_kw = dict(filter_scale=10.0, dx_min=1.0, grid_type=tri,
                    grid_vars={"area": area, "wet_mask": wet})
     want64 = scalar_filter_apply(head.operator, head.filter_spec, x_dev.double())
+    ms_unsharded_again = event_ms(lambda: head.apply(x_dev), chain)
     ring_by_p = {}
     for p_y in (4, 2, 8):
-        rhead, (r_out,), ms_r, host_r, r_launches, r_err, r_vs_un = ring_headline(
-            f"{ny}x{nx} float32 {tri.name}", "ring_pass", p_y, (field,), (x_dev,), (out,),
-            (want64,), **head_kw)
-        ring_by_p[p_y] = dict(ms=ms_r, host_enqueue_ms=host_r)
+        rhead, r_out, r_info = scalar_ring_headline(
+            f"{ny}x{nx} float32 {tri.name}", p_y, x_dev, out, ms_unsharded_again, want64, **head_kw)
+        ring_by_p[p_y] = r_info
         if p_y == 4:
-            kept4 = (rhead, r_out, ms_r, host_r, r_launches, r_err, r_vs_un)
+            kept4 = (rhead, r_out)
         else:
             del rhead, r_out
     del want64
-    rhead, r_out, ms_ring, host_ring, ring_launches, ring_err, ring_vs_un = kept4
+    rhead, r_out = kept4
+    r4 = ring_by_p[4]
+    ms_ring, host_ring, ring_launches = r4["ms"], r4["host_enqueue_ms"], r4["launches"]
     if host_ring > ms_ring:
         log(f"  the host holds the card back: {host_ring:.4f} ms to enqueue a {ms_ring:.4f} ms apply")
     # a race in the exchange would show as a flicker between repeats
     for k in range(200):
         if not torch.equal(rhead.apply(x_dev), r_out):
             raise AssertionError(f"ring apply {k + 2} differs from the first")
-    log("  200 more scalar ring applies, each bitwise equal to the first")
-    ms_unsharded_again = event_ms(lambda: head.apply(x_dev), chain)
+    log("  200 more fused scalar ring applies, each bitwise equal to the first")
 
-    rfn = rhead._scalar_fn()
-    rstate, rp_ = ring_state(rfn)
+    # the Taper filter (several passes) and the five-plane grid, on the same footing
+    ring_more = {}
+    m5 = 0.9 + 0.2 * np.random.default_rng(43).random((ny, nx))
+    ones5 = np.ones((ny, nx))
+    for key, kw5 in (("taper", dict(head_kw, filter_shape=FilterShape.TAPER)),
+                     ("irregular_with_land", dict(
+                         filter_scale=10.0, dx_min=1.0, grid_type=GridType.IRREGULAR_WITH_LAND,
+                         grid_vars=dict(wet_mask=wet, dxw=m5, dyw=m5, dxs=m5, dys=m5,
+                                        area=m5 * m5, kappa_w=ones5, kappa_s=ones5)))):
+        k1 = Filter(device=dev, dtype=torch.float32, **kw5)
+        k1_out = k1.apply(x_dev)
+        k1_ms = event_ms(lambda: k1.apply(x_dev), 20)
+        w64 = scalar_filter_apply(k1.operator, k1.filter_spec, x_dev.double())
+        f5, _, ring_more[key] = scalar_ring_headline(
+            f"{key} {ny}x{nx} float32", 4, x_dev, k1_out, k1_ms, w64, n_chain=20, **kw5)
+        del k1, k1_out, w64, f5
+    del m5, ones5
+
+    # the step ring and the plain versions at p_y = 4
+    steps4 = make_ring_scalar_apply(rhead.operator, rhead.filter_spec, rhead.mesh, ring_axes,
+                                    fused_fn=None)
+    steps4(x_dev)
+    rstate, rp_ = ring_state(steps4)
+    host_steps_ring = r4["step_ring_host_enqueue_ms"]
+    ms_step_ring = r4["step_ring_ms"]
     plain_ring = make_ring_scalar_apply(rhead.operator, rhead.filter_spec, rhead.mesh, ring_axes,
-                                        pass_fn=ring_pass_reference)
+                                        pass_fn=ring_pass_reference,
+                                        fused_fn=ring_fused_pass_reference)
     plain_ring(x_dev)
-    ms_ring_plain = event_ms(lambda: plain_ring(x_dev), 5)
-    del plain_ring
+    ms_ring_plain = event_ms(lambda: plain_ring(x_dev), 3)
+    plain_steps = make_ring_scalar_apply(rhead.operator, rhead.filter_spec, rhead.mesh, ring_axes,
+                                         pass_fn=ring_pass_reference, fused_fn=None)
+    plain_steps(x_dev)
+    ms_step_plain = event_ms(lambda: plain_steps(x_dev), 3)
+    del plain_ring, plain_steps
     # the unsharded steps' bytes plus, per step, 2*p_y halo rows written and read
     halo_bytes = lambda p_y, comps: 2 * (2 * p_y) * comps * nx * item  # noqa: E731
     ring_bytes = apply_bytes + n_steps * halo_bytes(4, 1)
@@ -2114,11 +2230,14 @@ def main():
     ms_rmid = event_ms(lambda: ring_pass(rstate, MIDDLE, rp_[2], swap=0), 100)
     rmid_ms, _ = bound_ms(step_bytes(MIDDLE, ops, 1, ny, nx, item) + halo_bytes(4, 1),
                           FLOPS_PER_CELL_STEP * ny * nx, "float32")
-    log(f"ring scalar headline: {ms_ring:.4f} ms/apply at p_y=4 ({ring_by_p[2]['ms']:.4f} at 2, "
-        f"{ring_by_p[8]['ms']:.4f} at 8) beside the unsharded {ms_apply:.4f} (again just now "
-        f"{ms_unsharded_again:.4f}); per-launch bound {rb_ms:.4f} ms ({ring_bytes / 1e9:.3f} GB, "
-        f"{rb_by}); plain ring steps {ms_ring_plain:.4f} ms/apply; middle step {ms_rmid:.4f} ms "
-        f"vs bound {rmid_ms:.4f} ms")
+    log(f"ring scalar headline: fused {ms_ring:.4f} ms/apply at p_y=4 "
+        f"({ring_by_p[2]['ms']:.4f} at 2, {ring_by_p[8]['ms']:.4f} at 8) in "
+        f"{r4['launches_per_apply']} launch(es); step ring {ms_step_ring:.4f} "
+        f"({ring_by_p[2]['step_ring_ms']:.4f} at 2, {ring_by_p[8]['step_ring_ms']:.4f} at 8) in "
+        f"{n_steps}; fused K1 {ms_apply:.4f} (again just now {ms_unsharded_again:.4f}); plain "
+        f"fused ring {ms_ring_plain:.4f}, plain step ring {ms_step_plain:.4f}; step ring "
+        f"per-launch bound {rb_ms:.4f} ms ({ring_bytes / 1e9:.3f} GB, {rb_by}); middle step "
+        f"{ms_rmid:.4f} ms vs bound {rmid_ms:.4f} ms")
 
     # 17 (scalar). each step kind against its plain version, headline shape
     def ring_step_kinds(label, ops_r, ly, p_, load, pass_fn, ref_fn, dtype, dtype_name):
@@ -2147,11 +2266,55 @@ def main():
 
     def load_scalar(dtype):
         def load(state):
-            for r, f in enumerate(state.field):
+            for r, f in enumerate(state.input):
                 f.copy_(x_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
         return load
 
-    from gcm_filters_tpu_torch.ops.cuda.ring_pass import RingOperands, VecRingOperands
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
+        RingFusedOperands, RingFusedState, RingOperands, VecRingOperands,
+        ring_fused_pass_tiled_reference,
+    )
+
+    def ring_fused_kinds(label, ops_w, p_, tile, dtype, dtype_name):
+        """Each pass kind of the fused ring kernel (first only, middle, last:
+        passes of 3, 3 and 5 steps; first and last: one pass of all 11)
+        against its plain and tiled plain versions on triplet states, the
+        plain ones fed the kernel's buffers before each pass; returns the
+        largest abs difference."""
+        worst_ = 0.0
+        for steps in ((3, 3, 5), (n_steps,)):
+            rops = RingFusedOperands.cut(ops_w, 4, max(steps))
+            states = [RingFusedState(rops, ny // 4, nx, dtype, dev) for _ in range(3)]
+            for st_ in states:
+                load_scalar(dtype)(st_)
+            start = 0
+            for m, n in enumerate(steps):
+                k_st = states[0]
+                for st_ in states[1:]:
+                    for dst, src in zip(st_.t + st_.t_prev + [st_.field, st_.acc],
+                                        k_st.t + k_st.t_prev + [k_st.field, k_st.acc]):
+                        for d_, s_ in zip(dst, src):
+                            d_.copy_(s_)
+                for st_, fn_ in zip(states, (ring_fused_pass, ring_fused_pass_reference,
+                                             ring_fused_pass_tiled_reference)):
+                    fn_(st_, p_, start, n, tile=tile, out=m % 2)
+                torch.cuda.synchronize()
+                last = start + n == n_steps
+                own = slice(rops.halo, rops.halo + ny // 4)
+                for ref_st, what in zip(states[1:], ("plain", "tiled plain")):
+                    for r in range(4):
+                        pairs = [("acc", k_st.acc[r], ref_st.acc[r])]
+                        if not last:
+                            pairs += [("t", k_st.t[m % 2][r][own], ref_st.t[m % 2][r][own]),
+                                      ("t_prev", k_st.t_prev[m % 2][r][own],
+                                       ref_st.t_prev[m % 2][r][own])]
+                        for nm, kb, rb in pairs:
+                            worst_ = max(worst_, compare(
+                                f"{label} pass {steps}[{m}] {nm} of shard {r} vs {what}",
+                                kb, rb, dtype_name)[0])
+                start += n
+            del states
+        return worst_
 
     rstep_err = ring_step_kinds("ring step float32", rstate.ops, ny // 4, rp_,
                                 load_scalar(torch.float32), ring_pass, ring_pass_reference,
@@ -2160,25 +2323,34 @@ def main():
     rstep_err64 = ring_step_kinds("ring step float64", RingOperands.cut(ops64, 4), ny // 4, p64,
                                   load_scalar(torch.float64), ring_pass, ring_pass_reference,
                                   torch.float64, "float64")
+    ring_tile = ring_entry(rhead._scalar_fn()).plan.tile
+    t0 = time.perf_counter()
+    rfused_err = ring_fused_kinds("fused ring float32", ops, p, ring_tile, torch.float32,
+                                  "float32")
+    rfused_err64 = ring_fused_kinds("fused ring float64", ops64, p64, ring_tile, torch.float64,
+                                    "float64")
     del ops64
     log(f"ring step kinds vs plain at {ny}x{nx}, 4 shards: max abs {rstep_err:.3e} (float32), "
-        f"{rstep_err64:.3e} (float64)")
+        f"{rstep_err64:.3e} (float64); fused ring pass kinds vs plain and tiled plain: max abs "
+        f"{rfused_err:.3e} (float32), {rfused_err64:.3e} (float64) "
+        f"({time.perf_counter() - t0:.1f} s)")
     ring_results = [{
         "name": "ring_pass",
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
         "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1377",
-        "launches": ring_launches,
+        "launches": ring_step_path["launches"],
+        "launches_from": "Filter(mesh=ResidentMesh(...)).apply of one-row shards, below the "
+                         "fused ring's plan (phase 15)",
         "max_abs_err": max(rstep_err, rstep_err64, rworst["ring_pass"]),
-        "vs_unsharded_kernel_max_abs": ring_vs_un,
-        "headline_vs_f64_engine_max_abs": ring_err,
-        "ms": ms_ring,
-        "plain_ms": ms_ring_plain,
+        "vs_fused_ring_max_abs": r4["vs_step_ring_max_abs"],
+        "ms": ms_step_ring,
+        "plain_ms": ms_step_plain,
         "bound_ms": rb_ms,
         "bound_by": rb_by,
         "library_ms": None,
-        "unit": f"one ring headline apply = {n_steps} launches for 4 resident y-shards, "
-                f"{ny}x{nx} float32",
+        "unit": f"one ring headline apply as the step ring = {n_steps} launches for 4 resident "
+                f"y-shards, {ny}x{nx} float32",
         "filter_bound_ms": fb_ms,
         "launches_per_apply": n_steps,
         "bytes_moved": ring_bytes,
@@ -2186,11 +2358,43 @@ def main():
         "middle_step_ms": ms_rmid,
         "middle_step_bound_ms": rmid_ms,
         "unsharded_ms": ms_apply,
+        "host_enqueue_ms": host_steps_ring,
+        "p_y": 4,
+        "ms_by_p_y": {str(k): v["step_ring_ms"] for k, v in sorted(ring_by_p.items())},
+    }, {
+        "name": "ring_fused_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1377",
+        "launches": ring_launches,
+        "launches_per_apply": r4["launches_per_apply"],
+        "max_abs_err": max(rfused_err, rfused_err64, rworst["ring_fused_pass"]),
+        "vs_k1_max_abs": max(v["vs_k1_max_abs"] for v in ring_by_p.values()),
+        "vs_step_ring_max_abs": max(v["vs_step_ring_max_abs"] for v in ring_by_p.values()),
+        "headline_vs_f64_engine_max_abs": r4["vs_f64_engine_max_abs"],
+        "ms": ms_ring,
+        "plain_ms": ms_ring_plain,
+        "bound_ms": r4["filter_bound_ms"],
+        "bound_by": r4["filter_bound_by"],
+        "library_ms": None,
+        "unit": f"one ring headline apply = {r4['launches_per_apply']} launch(es) of "
+                f"{tuple(r4['passes'])} steps on {r4['tile'][0]}x{r4['tile'][1]} tiles for 4 "
+                f"resident y-shards, {ny}x{nx} float32",
+        "bytes_moved": r4["bytes_moved"],
+        "plan_bound_ms": r4["plan_bound_ms"],
+        "filter_bound_ms": r4["filter_bound_ms"],
+        "step_ring_ms": ms_step_ring,
+        "k1_ms": ms_apply,
+        "k1_again_ms": ms_unsharded_again,
         "host_enqueue_ms": host_ring,
         "p_y": 4,
         "ms_by_p_y": {str(k): v["ms"] for k, v in sorted(ring_by_p.items())},
+        "step_ring_ms_by_p_y": {str(k): v["step_ring_ms"] for k, v in sorted(ring_by_p.items())},
+        "by_p_y": {str(k): v for k, v in sorted(ring_by_p.items())},
+        "taper": ring_more["taper"],
+        "irregular_with_land": ring_more["irregular_with_land"],
     }]
-    del rhead, rstate, rfn, r_out, kept4
+    del rhead, rstate, r_out, kept4, steps4
 
     # 16 and 17 (vector). the B-grid and C-grid ring headlines and their step kinds
     def load_vector(dtype):

@@ -1,6 +1,9 @@
 // The fused scalar Chebyshev pass on shared-memory tiles: S steps per
-// launch, shared by the unsharded fused entry (cheb_pass.cu, WrapGeo) and the
-// fused local round of the sharded engine (local_pass.cu, BlockGeo).
+// launch, shared by the unsharded fused entry (cheb_pass.cu, WrapGeo), the
+// fused local round of the sharded engine (local_pass.cu, BlockGeo) and the
+// fused ring pass (ring_pass.cu, RingGeo). `fused_tile` is one tile's whole
+// pass; `fused_pass_kernel` runs it for the tile of its blockIdx, the ring
+// kernel for the tile its ticket names.
 //
 // A block owns a by x bx tile of the output and runs the trapezoid
 // (overlapped-halo) decomposition of the TPU kernel
@@ -108,6 +111,43 @@ struct WrapGeo {
   __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
   __device__ int64_t out_plane() const { return (int64_t)ny * nx; }
   __device__ int64_t out_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
+  template <typename T>
+  __device__ T ld(const T* p, int64_t k) const { return p[k]; }
+};
+
+// A y-shard of the ring (ly rows of nx cells): every "in" plane is the
+// shard's block extended by `pad` rows below and above, whose halo rows the
+// neighbours' sends fill (the bottom shard's south halo holds the top shard's
+// top rows: y wraps); x is periodic. On the top shard of a fold grid
+// (`fold`) window rows above ly-1 are mirror cells of the shard's own top
+// rows, as WrapGeo's are of the field's (needs ly >= the pass's halo). Rows
+// further than the pass's halo from every own row are clamped into the
+// block: their values reach no own cell. The carries go to the own rows of
+// extended planes; acc and the last pass's field are own-shaped. Carries and
+// the field are loaded past L1: the sends of the same launch wrote the halo
+// rows.
+struct RingGeo {
+  int ly, nx, pad, fold;
+  __device__ int rows() const { return ly; }
+  __device__ int cols() const { return nx; }
+  __device__ bool mirror(int gy) const { return fold && gy >= ly; }
+  __device__ int row(int gy) const {
+    if (mirror(gy)) gy = max(2 * ly - 1 - gy, 0);  // ext row ly-1+m -> real row ly-m
+    return min(max(gy, -pad), ly + pad - 1) + pad;
+  }
+  __device__ int col(int gx, bool mir) const {
+    while (gx < 0) gx += nx;
+    while (gx >= nx) gx -= nx;
+    return mir ? nx - 1 - gx : gx;
+  }
+  __device__ int64_t in_plane() const { return (int64_t)(ly + 2 * pad) * nx; }
+  __device__ int64_t in_index(int r, int c) const { return (int64_t)r * nx + c; }
+  __device__ int64_t own_plane() const { return (int64_t)ly * nx; }
+  __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
+  __device__ int64_t out_plane() const { return in_plane(); }
+  __device__ int64_t out_index(int gy, int gx) const { return (int64_t)(gy + pad) * nx + gx; }
+  template <typename T>
+  __device__ T ld(const T* p, int64_t k) const { return __ldcg(p + k); }
 };
 
 // A halo-extended block (ly+2c, lx+2c) of the sharded engine: the own domain
@@ -126,6 +166,8 @@ struct BlockGeo {
   __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * lx + gx; }
   __device__ int64_t out_plane() const { return in_plane(); }
   __device__ int64_t out_index(int gy, int gx) const { return in_index(gy + c, gx + c); }
+  template <typename T>
+  __device__ T ld(const T* p, int64_t k) const { return p[k]; }
 };
 
 // Shared planes of one window: 2 carries, the array coefficients, post, pre
@@ -174,10 +216,11 @@ struct Tile {
 constexpr int STRIP = 4;
 
 // One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
-// [j, wx-j): cur holds T_k, prev T_{k-1}, T_{k+1} goes over prev.
-template <typename T, int MODE, int KIND, class Geo>
-__device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const Geo& geo, int j,
-                                            int wy, int H, int y0, int x0, int cur,
+// [j, wx-j): cur holds T_k, prev T_{k-1}, T_{k+1} goes over prev. `pl` holds
+// the planes (see fused_tile).
+template <typename T, int MODE, int KIND, class Geo, class P>
+__device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const P& pl, const Geo& geo,
+                                            int j, int wy, int H, int y0, int x0, int cur,
                                             int prev, T p_a, int64_t b_own) {
   const FusedArgs<T>& a = tl.a;
   T* const sm = tl.sm;
@@ -242,17 +285,39 @@ __device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const Geo& 
           const T acc = acc_add(p_a, next_value(tc[s + 1], lap, tp[s]), ac[s]);
           const int64_t kk = geo.in_index(geo.row(gy), geo.col(gx, false));
           const int64_t ko = b_own + geo.own_index(gy, gx);
-          a.acc_out[ko] = finish_value(acc, at(a.field_own, ko), a.area != nullptr,
-                                       at(a.area, kk), a.drop_pre != 0, po[s], a.land_gain);
+          pl.acc_out[ko] = finish_value(acc, at(pl.field_own, ko), pl.area != nullptr,
+                                        at(pl.area, kk), a.drop_pre != 0, po[s], a.land_gain);
         }
       }
     }
   }
 }
 
-template <typename T, class Geo, int MODE>
-__global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedArgs<T> a,
-                                                                    const Geo geo) {
+// Where a block's tile lies: the tile of its blockIdx, batch entry
+// blockIdx.z (the grid of fused_pass_kernel) ... z() is unsigned, as
+// blockIdx.z is: an int there changed the fused K1's registers and spills.
+struct GridOrigin {
+  __device__ int y0(int by) const { return blockIdx.y * by; }
+  __device__ int x0(int bx) const { return blockIdx.x * bx; }
+  __device__ unsigned z() const { return blockIdx.z; }
+};
+
+// ... or a tile that the block was handed, in an unbatched field.
+struct TileOrigin {
+  int ty, tx;
+  __device__ int y0(int by) const { return ty * by; }
+  __device__ int x0(int bx) const { return tx * bx; }
+  __device__ unsigned z() const { return 0; }
+};
+
+// One tile's pass, all of the block's threads, the dynamic shared memory its
+// window: the own cells of the tile at `org`. `a` holds the pass (steps, p_a,
+// tile, constants), `pl` the planes (field, field_own, t, t_prev, acc_in,
+// t_out, t_prev_out, acc_out, coef, pre, post, area): the FusedArgs itself
+// for fused_pass_kernel, a shard's row of a table for the ring.
+template <typename T, class Geo, int MODE, class P, class Org>
+__device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, const Geo& geo,
+                                           const Org& org) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.n_ops;
   const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
@@ -262,22 +327,22 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
   int off = 2 * wa;
 #pragma unroll
   for (int m = 0; m < 5; ++m) {
-    tl.o_coef[m] = a.coef[m] ? off : -1;
-    if (a.coef[m]) off += wa;
+    tl.o_coef[m] = pl.coef[m] ? off : -1;
+    if (pl.coef[m]) off += wa;
   }
-  tl.o_post = a.post ? off : -1;
-  if (a.post) off += wa;
-  tl.o_pre = a.pre ? off : -1;
-  if (a.pre) off += wa;
+  tl.o_post = pl.post ? off : -1;
+  if (pl.post) off += wa;
+  tl.o_pre = pl.pre ? off : -1;
+  if (pl.pre) off += wa;
   tl.o_acc = off;
   T* const sm = tl.sm;
 
-  const bool has_area = a.area != nullptr, drop_pre = a.drop_pre != 0;
-  const int y0 = blockIdx.y * a.by, x0 = blockIdx.x * a.bx;
+  const bool has_area = pl.area != nullptr, drop_pre = a.drop_pre != 0;
+  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  const int64_t b_in = (int64_t)blockIdx.z * geo.in_plane();
-  const int64_t b_own = (int64_t)blockIdx.z * geo.own_plane();
-  const int64_t b_out = (int64_t)blockIdx.z * geo.out_plane();
+  const int64_t b_in = (int64_t)org.z() * geo.in_plane();
+  const int64_t b_own = (int64_t)org.z() * geo.own_plane();
+  const int64_t b_out = (int64_t)org.z() * geo.out_plane();
   const int ny = geo.rows(), nx = geo.cols();
 
   // 1. the window, one warp per row
@@ -289,24 +354,25 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
     for (int q = lane; q < wx; q += 32) {
       const int64_t kk = row + geo.col(x0 - H + q, mir);
       const int k = r * wx + q;
-      const T post = at(a.post, kk);
-      if (a.post) sm[tl.o_post + k] = post;
-      if (a.pre) sm[tl.o_pre + k] = a.pre[kk];
+      const T post = at(pl.post, kk);
+      if (pl.post) sm[tl.o_post + k] = post;
+      if (pl.pre) sm[tl.o_pre + k] = pl.pre[kk];
 #pragma unroll
       for (int m = 0; m < 5; ++m)
-        if (a.coef[m]) sm[tl.o_coef[m] + k] = a.coef[m][kk];
+        if (pl.coef[m]) sm[tl.o_coef[m] + k] = pl.coef[m][kk];
       if (a.first) {
-        sm[k] = t0_value<true>(a.field[b_in + kk], has_area, at(a.area, kk), drop_pre, post);
+        sm[k] = t0_value<true>(geo.ld(pl.field, b_in + kk), has_area, at(pl.area, kk), drop_pre,
+                               post);
       } else {
-        sm[k] = a.t_prev[b_in + kk];
-        sm[wa + k] = a.t[b_in + kk];
+        sm[k] = geo.ld(pl.t_prev, b_in + kk);
+        sm[wa + k] = geo.ld(pl.t, b_in + kk);
       }
     }
   }
   if (!a.first) {
     for (int i = threadIdx.x; i < a.by * a.bx; i += blockDim.x) {
       const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
-      sm[tl.o_acc + i] = gy < ny && gx < nx ? a.acc_in[b_own + geo.own_index(gy, gx)] : T(0);
+      sm[tl.o_acc + i] = gy < ny && gx < nx ? pl.acc_in[b_own + geo.own_index(gy, gx)] : T(0);
     }
   }
   __syncthreads();
@@ -318,11 +384,11 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
   for (int i = 0; i < H; ++i) {
     const int j = i + 1;  // this step's window: shrunk by j
     if (a.first && i == 0)
-      step_window<T, MODE, FIRST>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+      step_window<T, MODE, FIRST>(tl, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
     else if (a.last && i == H - 1)
-      step_window<T, MODE, LAST>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+      step_window<T, MODE, LAST>(tl, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
     else
-      step_window<T, MODE, MIDDLE>(tl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
+      step_window<T, MODE, MIDDLE>(tl, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i], b_own);
     __syncthreads();
     const int tmp = cur;
     cur = prev;
@@ -338,11 +404,17 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
       const int gx = x0 - H + q;
       if (gx >= nx) break;
       const int k = r * wx + q;
-      a.t_out[b_out + geo.out_index(gy, gx)] = sm[cur + k];
-      a.t_prev_out[b_out + geo.out_index(gy, gx)] = sm[prev + k];
-      a.acc_out[b_own + geo.own_index(gy, gx)] = sm[tl.o_acc + (r - H) * a.bx + (q - H)];
+      pl.t_out[b_out + geo.out_index(gy, gx)] = sm[cur + k];
+      pl.t_prev_out[b_out + geo.out_index(gy, gx)] = sm[prev + k];
+      pl.acc_out[b_own + geo.own_index(gy, gx)] = sm[tl.o_acc + (r - H) * a.bx + (q - H)];
     }
   }
+}
+
+template <typename T, class Geo, int MODE>
+__global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedArgs<T> a,
+                                                                    const Geo geo) {
+  fused_tile<T, Geo, MODE>(a, a, geo, GridOrigin{});
 }
 
 template <typename T, class Geo, int MODE>
@@ -356,6 +428,16 @@ int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cu
   return (int)cudaGetLastError();
 }
 
+// The compiled mode that fits the stencil's shape.
+template <typename T>
+int fused_mode(const FusedArgs<T>& a) {
+  const bool c_only = a.coef[0] && !a.coef[1] && !a.coef[2] && !a.coef[3] && !a.coef[4];
+  const bool all = a.coef[0] && a.coef[1] && a.coef[2] && a.coef[3] && a.coef[4];
+  if (!a.zap && !a.pre && a.post && c_only) return HSPACE;
+  if (a.zap && !a.pre && !a.post && all) return FLUX;
+  return GENERIC;
+}
+
 // Launch one fused pass over the own domain of `geo`, tiles of by x bx, with
 // the kernel compiled for the stencil's shape.
 template <typename T, class Geo>
@@ -367,11 +449,11 @@ int launch_fused(const FusedArgs<T>& a, const Geo& g, int ny, int nx, int batch,
   if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
   const dim3 grid((nx + a.bx - 1) / a.bx, (ny + a.by - 1) / a.by, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
-  const bool c_only = a.coef[0] && !a.coef[1] && !a.coef[2] && !a.coef[3] && !a.coef[4];
-  const bool all = a.coef[0] && a.coef[1] && a.coef[2] && a.coef[3] && a.coef[4];
-  if (!a.zap && !a.pre && a.post && c_only) return launch_mode<T, Geo, HSPACE>(a, g, grid, bytes, st);
-  if (a.zap && !a.pre && !a.post && all) return launch_mode<T, Geo, FLUX>(a, g, grid, bytes, st);
-  return launch_mode<T, Geo, GENERIC>(a, g, grid, bytes, st);
+  switch (fused_mode(a)) {
+    case HSPACE: return launch_mode<T, Geo, HSPACE>(a, g, grid, bytes, st);
+    case FLUX: return launch_mode<T, Geo, FLUX>(a, g, grid, bytes, st);
+    default: return launch_mode<T, Geo, GENERIC>(a, g, grid, bytes, st);
+  }
 }
 
 // Fill the fields every fused entry passes the same way.

@@ -1,7 +1,9 @@
-// One Chebyshev step on the y-shards of a ring, with the halo exchange done
-// by the kernel itself, for Hopper (sm_90a). Three entries:
-//   ring_pass_f32/f64      scalar step   (the arithmetic of cheb_pass.cu)
-//   vec_ring_pass_f32/f64  coupled step, op = BGRID or CTAP (vec_pass.cu)
+// Chebyshev steps on the y-shards of a ring, with the halo exchange done by
+// the kernel itself, for Hopper (sm_90a). Three entries:
+//   ring_pass_f32/f64        scalar step   (the arithmetic of cheb_pass.cu)
+//   vec_ring_pass_f32/f64    coupled step, op = BGRID or CTAP (vec_pass.cu)
+//   ring_fused_pass_f32/f64  fused scalar pass: S <= 16 steps per launch on
+//                            the shared-memory tiles of cheb_tile.cuh
 //
 // Replaces the ring mode of the TPU pass kernels:
 // gcm_filters_tpu/ops/pallas/cheb_pass.py::build_ring_pass with its
@@ -64,12 +66,54 @@
 // Bound: memory, as the unsharded steps: the same planes plus 2p halo rows
 // written and read. The whole-filter bound is the unsharded one.
 //
+// The fused pass (ring_fused_pass_*) is what build_ring_pass computes per
+// call: one exchange per PASS of S steps, not per step. Every shard's planes
+// are extended by `pad` >= S rows below and above (RingGeo of
+// cheb_tile.cuh): the coefficient planes once, by the host; the carries by
+// the pass's sends, which store the S rows nearest each edge of every live
+// field (the raw field on a first pass, else t and t_prev: the windows step
+// their halo cells, so they need raw values, not gathered ones) into the
+// neighbours' halo rows. A tile is the unsharded fused kernel's (fused_tile,
+// the same code), its window cut from the extended planes, so a cell gets
+// the bits of the fused K1 and of the step chain. Work order, one block of
+// FUSED_THREADS per item and one ticket per block:
+//   1. the two sends of every shard, each ending in a release store of the
+//      launch's epoch into the receiver's flag;
+//   2. interior tiles of every shard: window rows [y0-S, y0+by+S) inside
+//      [0, ly), no wait;
+//   3. edge tiles: they wait, with acquire order, for the flag of every halo
+//      their window reaches (the top shard of a fold grid reads mirror cells
+//      of its own rows instead of a north halo), then load their window.
+// The deadlock argument is the one above, whatever the occupancy: a block
+// may take most of an SM's shared memory, so as few as one block an SM may
+// run, but a block that waits holds a ticket above every send's, and every
+// send was drawn by a block that runs and never waits. The ticket is not
+// reset: the launch gets the count drawn before it (`base`) and a block's
+// item is its ticket less that. The ticket sits in the first word of the
+// dynamic shared memory (a static one would take from the window's room).
+// The shards' plane pointers are a table in the kernel's parameters
+// (__grid_constant__, at most MAX_RING_SHARDS rows): a block reads them where
+// they are, as the unsharded kernel reads its arguments, so the tile keeps
+// K1's registers and blocks per SM (a copy of the shard's arguments in the
+// block took registers past 64 and halved the occupancy; PERF.md §6).
+// Buffer reuse across passes: a pass reads one extended pair of carries and
+// writes the own rows of the other, so its sends (into the pair it reads)
+// and its tiles (out of it) touch no buffer another block of the launch
+// writes, except the halo rows that the flags cover; pass m+1's sends write
+// the halo rows of the pair that pass m wrote, which stream order puts after
+// every block of pass m. acc is own-shaped and updated in place by its tile.
+//
+// Bound (fused pass): shared memory and issue, as the fused K1, plus the
+// 2p sends of S rows of one or two fields.
+//
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
 
+#include <algorithm>
 #include <cstdio>
+#include <cstring>
 
-#include "cheb_step.cuh"
+#include "cheb_tile.cuh"
 #include "vec_step.cuh"
 
 namespace {
@@ -361,6 +405,177 @@ vec_ring_pass_kernel(const Ring q, const VecStep<T> s, const VecShard<T>* __rest
   vec_step_cell<T, KIND>(a, x.c, P + x.c, x.c, P + x.c, true, lu, lv);
 }
 
+// ---- fused scalar pass ------------------------------------------------------
+
+constexpr int MAX_RING_SHARDS = 16;  // shards of a fused launch at most (the table's rows)
+
+// A shard's planes for one pass, named as in FusedArgs, every "in" plane
+// extended by `pad` rows below and above (RingGeo): t and t_prev are the
+// carry pair the pass reads (its sends write their halo rows, as they write
+// the field's on a first pass), t_out and t_prev_out the pair it writes.
+template <typename T>
+struct ShardPlanes {
+  T* field;
+  const T* field_own;  // the own rows of field
+  T* t;
+  T* t_prev;
+  const T* acc_in;
+  T* t_out;
+  T* t_prev_out;
+  T* acc_out;          // own rows; = acc_in
+  const T* coef[5];    // c, n, s, e, w; null -> the launch's constant
+  const T* pre;
+  const T* post;
+  const T* area;
+};
+
+// The launch's table, a kernel parameter read in place (__grid_constant__):
+// a block reads its shard's pointers as fused_pass_kernel reads its
+// FusedArgs, from the constant bank, with no copy into registers or local
+// memory, so the tile keeps K1's registers and blocks per SM.
+template <typename T>
+struct RingTable {
+  ShardPlanes<T> shard[MAX_RING_SHARDS];
+};
+
+// What all shards of one fused launch share.
+struct FusedRing {
+  int p, ly, nx, pad;        // shards, own rows, cells of a row, halo rows of the planes
+  int tiles_x, tiles_y;      // tiles of a shard
+  int int_lo, n_int;         // the interior tile rows: [int_lo, int_lo + n_int)
+  int fold;                  // the top shard folds onto itself
+  unsigned epoch;
+  unsigned long long base;   // tickets drawn before this launch
+  unsigned long long* ticket;
+  unsigned* flags;           // per shard: the epoch of its south, then of its north halo rows
+};
+
+__host__ __device__ inline long long fused_items(const FusedRing& q) {
+  return (long long)q.p * (2 + (long long)q.tiles_x * q.tiles_y);
+}
+
+// The block's item: sends of every shard, then interior tiles, then edge tiles.
+__device__ __forceinline__ Item draw_fused_item(const FusedRing& q, int tid) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* drawn = reinterpret_cast<unsigned long long*>(smem_raw);
+  if (tid == 0) *drawn = atomicAdd(q.ticket, 1ULL) - q.base;
+  __syncthreads();
+  // broadcast from lane 0: the compiler then knows the shard index is warp-uniform
+  // and reads the shard's row of the table with uniform loads (1-4% faster)
+  long long idx = __shfl_sync(0xffffffffu, (long long)*drawn, 0);
+  __syncthreads();  // the window will overwrite the slot
+  Item it;
+  if (idx < 2LL * q.p) {
+    it.what = SEND; it.shard = (int)(idx / 2); it.side = (int)(idx % 2); it.tx = it.ty = 0;
+    return it;
+  }
+  idx -= 2LL * q.p;
+  it.what = TILE; it.side = 0;
+  const long long n_int = (long long)q.n_int * q.tiles_x;
+  long long rem;
+  if (idx < q.p * n_int) {
+    it.shard = (int)(idx / n_int);
+    rem = idx % n_int;
+    it.ty = q.int_lo + (int)(rem / q.tiles_x);
+  } else {
+    idx -= q.p * n_int;
+    const long long n_edge = (long long)(q.tiles_y - q.n_int) * q.tiles_x;
+    it.shard = (int)(idx / n_edge);
+    rem = idx % n_edge;
+    const int e = (int)(rem / q.tiles_x);  // the e-th edge row: below, then above the interior
+    it.ty = e < q.int_lo ? e : e + q.n_int;
+  }
+  it.tx = (int)(rem % q.tiles_x);
+  return it;
+}
+
+// A send: the n rows of every live field nearest one edge of shard `from`
+// into the halo rows of its neighbour (side 0: the bottom rows into the
+// down-neighbour's north halo; 1: the top rows into the up-neighbour's
+// south halo), then the receiver's flag.
+template <typename T>
+__device__ __forceinline__ void fused_send(const FusedRing& q, const RingTable<T>& tab, int from,
+                                           int side, int n, bool first, int tid) {
+  const int to = side ? (from + 1) % q.p : (from + q.p - 1) % q.p;
+  const ShardPlanes<T>& src = tab.shard[from];
+  const ShardPlanes<T>& dst = tab.shard[to];
+  const int64_t nx = q.nx;
+  const int64_t r_src = side ? q.pad + q.ly - n : q.pad;   // first row sent, extended
+  const int64_t r_dst = side ? q.pad - n : q.pad + q.ly;   // first halo row written
+  for (int f = 0; f < (first ? 1 : 2); ++f) {
+    const T* a = first ? src.field : f ? src.t_prev : src.t;
+    T* b = first ? dst.field : f ? dst.t_prev : dst.t;
+    for (int64_t i = tid; i < n * nx; i += FUSED_THREADS) b[r_dst * nx + i] = a[r_src * nx + i];
+  }
+  publish(q.flags + 2 * to + (side ? 0 : 1), q.epoch, tid);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(FUSED_THREADS)
+ring_fused_kernel(const FusedArgs<T> a, const FusedRing q, const __grid_constant__ RingTable<T> tab) {
+  const int tid = threadIdx.x;
+  const Item it = draw_fused_item(q, tid);
+  if (it.what == SEND) {
+    fused_send(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
+    return;
+  }
+  const int H = a.n_ops, y0 = it.ty * a.by;
+  // the seam folds the top shard onto its own rows: it reads no north halo
+  const bool folds = q.fold && it.shard == q.p - 1;
+  if (y0 - H < 0) wait_flag(q.flags + 2 * it.shard, q.epoch, tid);
+  if (y0 + a.by + H > q.ly && !folds) wait_flag(q.flags + 2 * it.shard + 1, q.epoch, tid);
+  fused_tile<T, RingGeo, MODE>(a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, folds},
+                               TileOrigin{it.ty, it.tx});
+}
+
+template <typename T, int MODE>
+int launch_ring_mode(const FusedArgs<T>& a, const FusedRing& q, const RingTable<T>& tab,
+                     size_t bytes, cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ring_fused_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  ring_fused_kernel<T, MODE><<<(unsigned)fused_items(q), FUSED_THREADS, bytes, st>>>(a, q, tab);
+  return (int)cudaGetLastError();
+}
+
+// One fused pass of every shard: `a` holds the pass (steps, tile, p_a) and
+// shard 0's planes, which give the compiled mode; `planes` holds 16
+// pointers per shard, in the order of ShardPlanes.
+template <typename T>
+int launch_ring_fused(const FusedArgs<T>& a, int p, int ly, int nx, int pad, int fold,
+                      const void* const* planes, void* ticket, void* flags,
+                      unsigned long long base, unsigned epoch, cudaStream_t st) {
+  if (!planes || !ticket || !flags || p < 2 || p > MAX_RING_SHARDS || ly < 1 || nx < 1)
+    return (int)cudaErrorInvalidValue;
+  if (a.n_ops < 1 || a.n_ops > MAX_FUSE || a.n_ops > pad || a.n_ops > ly || a.by < 1 ||
+      a.bx < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t bytes = fused_shared_bytes(a);
+  if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  FusedRing q;
+  q.p = p; q.ly = ly; q.nx = nx; q.pad = pad; q.fold = fold ? 1 : 0;
+  q.tiles_x = (nx + a.bx - 1) / a.bx;
+  q.tiles_y = (ly + a.by - 1) / a.by;
+  // interior rows ty: ty*by >= H and (ty+1)*by + H <= ly
+  q.int_lo = std::min((a.n_ops + a.by - 1) / a.by, q.tiles_y);
+  q.n_int = std::max(0, std::min((ly - a.n_ops) / a.by, q.tiles_y) - q.int_lo);
+  q.epoch = epoch;
+  q.base = base;
+  q.ticket = static_cast<unsigned long long*>(ticket);
+  q.flags = static_cast<unsigned*>(flags);
+  if (fused_items(q) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  static_assert(sizeof(ShardPlanes<T>) == 16 * sizeof(void*), "16 pointers a shard");
+  RingTable<T> tab;
+  std::memcpy(tab.shard, planes, (size_t)p * sizeof(ShardPlanes<T>));
+  switch (fused_mode(a)) {
+    case HSPACE: return launch_ring_mode<T, HSPACE>(a, q, tab, bytes, st);
+    case FLUX: return launch_ring_mode<T, FLUX>(a, q, tab, bytes, st);
+    default: return launch_ring_mode<T, GENERIC>(a, q, tab, bytes, st);
+  }
+}
+
 // ---- launches ---------------------------------------------------------------
 
 bool ring_geometry(int p, int ly, int nx, int kind, int swap, unsigned epoch, void* ticket,
@@ -454,6 +669,34 @@ RING_PASS_ENTRY(ring_pass_f64, double)
 
 VEC_RING_PASS_ENTRY(vec_ring_pass_f32, float)
 VEC_RING_PASS_ENTRY(vec_ring_pass_f64, double)
+
+// One fused pass of every shard: steps start+1 .. start+n_ops of the filter
+// (`first`: the pass begins with FIRST and reads the raw field; `last`: it
+// ends with LAST and leaves the result in acc), on tiles of by x bx own
+// cells. `planes` holds 16 pointers per shard (ShardPlanes); the plane
+// pointers among the arguments are shard 0's, which give the compiled mode.
+// `flags` holds two words per shard, `base` the tickets drawn before this
+// launch.
+#define RING_FUSED_ENTRY(NAME, T)                                                        \
+  extern "C" int NAME(int p, int ly, int nx, int pad, int by, int bx, int n_ops,         \
+                      int first, int last, const double* pa, double p_b,                 \
+                      const void* const* planes, void* ticket, void* flags,              \
+                      unsigned long long base, unsigned epoch, const T* c, const T* n,   \
+                      const T* s, const T* e, const T* w, double cv, double nv,          \
+                      double sv, double ev, double wv, const T* pre, const T* post,      \
+                      const T* area, double land_gain, int zap, int fold, int drop_pre,  \
+                      void* stream) {                                                    \
+    cudaGetLastError();                                                                  \
+    const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, nullptr,   \
+                                         nullptr, nullptr, nullptr, nullptr, nullptr,    \
+                                         nullptr, nullptr, c, n, s, e, w, cv, nv, sv, ev, \
+                                         wv, pre, post, area, land_gain, zap, drop_pre); \
+    return launch_ring_fused<T>(a, p, ly, nx, pad, fold, planes, ticket, flags, base,    \
+                                epoch, static_cast<cudaStream_t>(stream));               \
+  }
+
+RING_FUSED_ENTRY(ring_fused_pass_f32, float)
+RING_FUSED_ENTRY(ring_fused_pass_f64, double)
 
 // Pointers in one row of the scalar and of the vector table, for the wrapper.
 extern "C" int ring_pass_table_row(int vector) {

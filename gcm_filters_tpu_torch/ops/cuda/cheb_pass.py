@@ -297,12 +297,14 @@ def _pass_cost(tile, steps, n_planes: int, itemsize: int) -> float:
 
 
 def search_plan(n_steps: int, ny: int, nx: int, max_fuse: int, tiles, fits, cost,
-                one_pass: bool = False) -> FusedPlan:
+                one_pass: bool = False, predicate=None) -> FusedPlan:
     """The cheapest plan: every balanced split of the steps into
     ``ceil(n_steps / cap)`` passes (``cap <= max_fuse``) on every tile of
     ``tiles`` for which ``fits(tile, halo)``, scored by ``cost(tile, steps)``;
     with ``one_pass`` only the split into one pass. Where nothing fits (one
-    pass of more than :data:`MAX_FUSE` steps) the plan is not fused."""
+    pass of more than :data:`MAX_FUSE` steps) the plan is not fused. The
+    plan found is fused where ``predicate(tile, halo)`` holds, by default
+    where an ``(ny, nx)`` field holds a tile plus its halo."""
     best = None
     for cap in range(1, min(max_fuse, MAX_FUSE, n_steps) + 1):
         steps = _balanced(n_steps, cap)
@@ -318,22 +320,30 @@ def search_plan(n_steps: int, ny: int, nx: int, max_fuse: int, tiles, fits, cost
     if best is None:
         return FusedPlan(tuple(next(iter(tiles))), n_steps, (n_steps,), False)
     _, tl, halo, steps = best
-    fused = ny >= tl[0] + 2 * halo and nx >= tl[1] + 2 * halo
+    if predicate is None:
+        fused = ny >= tl[0] + 2 * halo and nx >= tl[1] + 2 * halo
+    else:
+        fused = predicate(tl, halo)
     return FusedPlan(tuple(tl), halo, steps, fused)
 
 
 @functools.lru_cache(maxsize=None)
 def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse: int,
-          tile: Optional[Tuple[int, int]], one_pass: bool) -> FusedPlan:
+          tile: Optional[Tuple[int, int]], one_pass: bool, ring: bool) -> FusedPlan:
+    def fits(tl, halo):
+        if ring and nx < tl[1] + 2 * halo:
+            return False
+        return fused_shared_bytes(tl, halo, n_planes, itemsize) <= SHARED_BYTES
+
     return search_plan(
-        n_steps, ny, nx, max_fuse, (tile,) if tile else TILES,
-        lambda tl, halo: fused_shared_bytes(tl, halo, n_planes, itemsize) <= SHARED_BYTES,
-        lambda tl, steps: _pass_cost(tl, steps, n_planes, itemsize), one_pass)
+        n_steps, ny, nx, max_fuse, (tile,) if tile else TILES, fits,
+        lambda tl, steps: _pass_cost(tl, steps, n_planes, itemsize), one_pass,
+        (lambda tl, halo: ny >= halo) if ring else None)
 
 
 def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_planes: int,
                       max_fuse: int = MAX_FUSE, tile: Optional[Tuple[int, int]] = None,
-                      one_pass: bool = False) -> FusedPlan:
+                      one_pass: bool = False, ring: bool = False) -> FusedPlan:
     """The fused plan of an ``n_steps`` filter on ``(ny, nx)`` fields: the
     counterpart of the JAX ``plan_passes``.
 
@@ -343,12 +353,15 @@ def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_plan
     fitted to measured times (:func:`_pass_cost`); the cheapest wins. With
     ``one_pass`` (a round of the sharded engine) only the split into one pass
     is considered, and more than :data:`MAX_FUSE` steps plan no fused route.
-    The result depends on the shape, the dtype and ``n_planes``
-    (:func:`fused_planes`) only.
+    With ``ring`` the ``(ny, nx)`` field is a y-shard of the ring
+    (parallel/ring.py), whose window rows past its edges come from the
+    neighbours: only tiles whose window fits in ``nx`` are weighed, and the
+    plan is fused where ``ny >= halo``. The result depends on the shape, the
+    dtype and ``n_planes`` (:func:`fused_planes`) only.
     """
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _plan(int(n_steps), int(ny), int(nx), itemsize, int(n_planes), int(max_fuse),
-                 tuple(tile) if tile else None, bool(one_pass))
+                 tuple(tile) if tile else None, bool(one_pass), bool(ring))
 
 
 def _kinds(p, start: int, n_ops: int):
@@ -414,6 +427,32 @@ def cheb_fused_pass_tiled_reference(
     :func:`cheb_fused_pass_reference`, and the same torch arithmetic per cell,
     so the two are equal bit for bit wherever the decomposition is right.
     """
+    _, last = _kinds(p, start, n_ops)
+    ny = acc.shape[-2]
+
+    def rows(r):
+        mirror = (r >= ny) if ops.stencil.fold_north else torch.zeros_like(r, dtype=torch.bool)
+        return torch.where(mirror, 2 * ny - 1 - r, r) % ny, mirror
+
+    outs = tiled_pass(ops, p, start, n_ops, tile, rows, field=field, field_own=field, t=t,
+                      t_prev=t_prev, acc=acc)
+    acc.copy_(outs["acc"])
+    if not last:
+        t_out.copy_(outs["t"])
+        t_prev_out.copy_(outs["t_prev"])
+
+
+def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
+               field: Optional[Tensor], field_own: Optional[Tensor], t: Optional[Tensor],
+               t_prev: Optional[Tensor], acc: Tensor) -> dict:
+    """The kernel's tile decomposition of one fused pass, in torch, for any
+    geometry: the own domain is ``acc``'s ``(batch, ny, nx)``; ``rows(r)``
+    maps the window rows ``r`` (own coordinates, may lie outside) to the rows
+    of the "in" planes (the stencil's planes, ``field``, ``t``, ``t_prev``)
+    that hold them and says which are mirror cells; x is periodic.
+    ``field_own`` is the own-shaped raw field of a last pass. Returns the
+    own-shaped ``acc`` and, unless the pass ends the filter, ``t`` and
+    ``t_prev``."""
     first, last = _kinds(p, start, n_ops)
     st = ops.stencil
     by, bx = tile
@@ -426,9 +465,7 @@ def cheb_fused_pass_tiled_reference(
     flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
 
     for y0 in range(0, ny, by):
-        rows = torch.arange(y0 - H, y0 + by + H, device=dev)
-        mirror = (rows >= ny) if st.fold_north else torch.zeros_like(rows, dtype=torch.bool)
-        src_r = torch.where(mirror, 2 * ny - 1 - rows, rows) % ny
+        src_r, mirror = rows(torch.arange(y0 - H, y0 + by + H, device=dev))
         for x0 in range(0, nx, bx):
             cols = torch.arange(x0 - H, x0 + bx + H, device=dev) % nx
             src_c = torch.where(mirror[:, None], nx - 1 - cols[None, :], cols[None, :])
@@ -478,7 +515,7 @@ def cheb_fused_pass_tiled_reference(
                     prev[sl] = nxt
                     cur, prev = prev, cur
                     continue
-                fb = field[:, y0:y0 + oy, x0:x0 + ox]
+                fb = field_own[:, y0:y0 + oy, x0:x0 + ox]
                 if area is not None:
                     fb = fb * area[own[1:]]
                 if ops.drop_pre:
@@ -489,10 +526,7 @@ def cheb_fused_pass_tiled_reference(
             if not last:
                 outs["t"][:, y0:y0 + oy, x0:x0 + ox] = cur[own]
                 outs["t_prev"][:, y0:y0 + oy, x0:x0 + ox] = prev[own]
-    acc.copy_(outs["acc"])
-    if not last:
-        t_out.copy_(outs["t"])
-        t_prev_out.copy_(outs["t_prev"])
+    return outs
 
 
 _FUSED_ARGTYPES = (

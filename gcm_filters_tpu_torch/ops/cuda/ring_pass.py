@@ -35,6 +35,20 @@ CUDA device and run the plain versions :func:`ring_pass_reference` and
 launch or raise. The plain versions move the rows with tensor copies and run
 the unsharded plain step's arithmetic on ``cat(halo_s, own, halo_n)``, so on
 one device they equal the unsharded plain step bit for bit.
+
+The fused pass runs S <= 16 steps of all shards per launch, the counterpart
+of what ``build_ring_pass`` computes per call: :class:`RingFusedOperands`
+holds every shard's coefficient planes extended by ``halo`` rows below and
+above (filled once from the neighbours through the y wrap),
+:class:`RingFusedState` the extended input, two extended carry pairs and
+acc. A pass sends the S rows nearest each edge of every live field (the raw
+field on a first pass, else ``t`` and ``t_prev``) into the neighbours' halo
+rows, then runs the fused K1 tile on windows cut from the extended planes.
+:func:`ring_fused_pass` is its wrapper, :func:`ring_fused_pass_reference`
+its plain version (the sends as tensor copies, then the unsharded plain
+fused pass on each extended block) and
+:func:`ring_fused_pass_tiled_reference` the kernel's tile decomposition in
+torch.
 """
 from __future__ import annotations
 
@@ -49,12 +63,16 @@ from ..stencil import (
 )
 from . import cheb_pass as _scalar
 from . import vec_pass as _vector
-from .cheb_pass import FIRST, LAST, MIDDLE, PassOperands
+from .cheb_pass import (
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, fused_planes,
+    fused_shared_bytes,
+)
 from .vec_pass import BGRID, CTAP, N_COEF, VecPassOperands
 
 Tensor = torch.Tensor
 
 MIN_ROWS = 1  # the smallest shard the kernels take: one row, both edges at once
+MAX_RING_SHARDS = 16  # shards of a fused ring launch at most (csrc/ring_pass.cu)
 
 
 def _own(x: Tensor) -> Tensor:
@@ -123,6 +141,38 @@ class VecRingOperands:
                    ops.zap)
 
 
+def _checker(device, dtype):
+    """``check(name, tensor, shape)``: raises unless the tensor is a
+    contiguous ``shape`` of ``dtype`` on ``device``."""
+    def check(name, x, shape):
+        if x.device != device or x.dtype != dtype:
+            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    return check
+
+
+def _check_shards(ops, check, shape) -> None:
+    """Every shard's stencil of the same kind as shard 0's, its planes of
+    ``shape``, and the fold on the top shard only."""
+    first = ops.shards[0]
+    for r, st in enumerate(ops.shards):
+        for k in ARRAY_FIELDS:
+            v, v0 = getattr(st, k), getattr(first, k)
+            if isinstance(v, Tensor) != isinstance(v0, Tensor) or (
+                    not isinstance(v, Tensor) and v != v0):
+                raise ValueError(f"{k} differs in kind or value between shards 0 and {r}")
+            if isinstance(v, Tensor):
+                check(f"{k} of shard {r}", v, shape)
+        if st.zap_nans != first.zap_nans or st.fold_north != (
+                ops.shards[-1].fold_north and r == ops.p_y - 1):
+            raise ValueError(f"zap_nans or fold_north of shard {r} is inconsistent")
+    if ops.drop_pre and first.post is None:
+        raise ValueError("drop_pre needs the wet mask as post")
+
+
 class RingState:
     """The buffers of one ring on one device, for one (shape, dtype).
 
@@ -180,15 +230,7 @@ class RingState:
         return (self.a, self.b) if swap else (self.b, self.a)
 
     def _check_operands(self) -> None:
-        def check(name, x, shape):
-            if x.device != self.device or x.dtype != self.dtype:
-                raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {self.dtype} "
-                                 f"on {self.device}")
-            if tuple(x.shape) != shape:
-                raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-            if not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-
+        check = _checker(self.device, self.dtype)
         ops = self.ops
         if self.vector:
             if ops.op not in N_COEF:
@@ -196,20 +238,7 @@ class RingState:
             for r, c in enumerate(ops.coefs):
                 check(f"coef of shard {r}", c, (N_COEF[ops.op], self.ly, self.nx))
             return
-        first = ops.shards[0]
-        for r, st in enumerate(ops.shards):
-            for k in ARRAY_FIELDS:
-                v, v0 = getattr(st, k), getattr(first, k)
-                if isinstance(v, Tensor) != isinstance(v0, Tensor) or (
-                        not isinstance(v, Tensor) and v != v0):
-                    raise ValueError(f"{k} differs in kind or value between shards 0 and {r}")
-                if isinstance(v, Tensor):
-                    check(f"{k} of shard {r}", v, (self.ly, self.nx))
-            if st.zap_nans != first.zap_nans or st.fold_north != (
-                    ops.shards[-1].fold_north and r == ops.p_y - 1):
-                raise ValueError(f"zap_nans or fold_north of shard {r} is inconsistent")
-        if ops.drop_pre and first.post is None:
-            raise ValueError("drop_pre needs the wet mask as post")
+        _check_shards(ops, check, (self.ly, self.nx))
 
     def table(self) -> Tensor:
         """The kernel's pointer table, one row per shard (csrc/ring_pass.cu:
@@ -305,6 +334,223 @@ def vec_ring_pass_reference(state: RingState, kind: int, p_a: float, p_b: float 
             t_next=state.b[r] if kind == FIRST else t_prev[r], acc=state.acc[r])
 
 
+# -- the fused pass: S steps per launch, S halo rows sent once per pass -------
+
+@dataclasses.dataclass(frozen=True)
+class RingFusedOperands:
+    """What every fused ring pass reads besides the carries.
+
+    ``shards[r]`` is shard ``r``'s block of the hot stencil extended by
+    ``halo`` rows below and above (global rows ``r*ly - halo`` to
+    ``(r+1)*ly + halo``, y wrapping), every plane an allocation of its own,
+    coefficients pre-scaled as in :class:`~.cheb_pass.PassOperands`: the
+    counterpart of the JAX ring's ``host_ext_inputs``, a one-time cost per
+    (shape, dtype, halo); only carries travel per pass. ``fold_north`` is
+    kept on the top shard only. ``drop_pre`` and ``land_gain`` are the
+    unsharded pass's.
+    """
+
+    shards: Tuple[ScalarStencil5, ...]
+    halo: int
+    drop_pre: bool
+    land_gain: float
+
+    @property
+    def p_y(self) -> int:
+        return len(self.shards)
+
+    @classmethod
+    def cut(cls, ops: PassOperands, p_y: int, halo: int) -> "RingFusedOperands":
+        """Cut the unsharded pass's operands into ``p_y`` extended shards."""
+        if halo < 1:
+            raise ValueError(f"the fused ring needs a halo of at least 1 row, got {halo}")
+        st = ops.stencil
+        shards = []
+        for r in range(p_y):
+            planes, seen = {}, {}
+            for k in ARRAY_FIELDS:
+                v = getattr(st, k)
+                if not isinstance(v, Tensor):
+                    continue
+                if id(v) not in seen:  # pre and post may share one tensor
+                    ny = v.shape[-2]
+                    ly = ny // p_y
+                    rows = torch.arange(r * ly - halo, (r + 1) * ly + halo, device=v.device) % ny
+                    seen[id(v)] = _own(v.index_select(-2, rows))
+                planes[k] = seen[id(v)]
+            shards.append(dataclasses.replace(
+                st, **planes, fold_north=st.fold_north and r == p_y - 1))
+        return cls(tuple(shards), int(halo), ops.drop_pre, ops.land_gain)
+
+
+class RingFusedState:
+    """The buffers of one fused ring on one device, for one (shape, dtype).
+
+    Per shard, each an allocation of its own, every "in" plane extended by
+    ``pad = ops.halo`` rows below and above: ``field`` (the raw input), two
+    carry pairs ``t[i]`` and ``t_prev[i]`` (a pass reads one pair and writes
+    the own rows of the other: its tiles read their neighbours' cells, so it
+    cannot update its carries in place), and the own-shaped ``acc``. Every
+    extended buffer starts as NaN: a halo row that no send has filled must
+    never reach a result. ``flags``, ``ticket``, ``epoch`` and ``drawn`` (the
+    tickets drawn so far) are the kernel's protocol. A state serves one
+    stream at a time, and its launches cannot be replayed from a CUDA graph.
+    """
+
+    def __init__(self, ops: RingFusedOperands, ly: int, nx: int, dtype: torch.dtype,
+                 device) -> None:
+        self.ops, self.ly, self.nx = ops, int(ly), int(nx)
+        self.dtype, self.device = dtype, torch.device(device)
+        if self.device.type == "cuda" and self.device.index is None:
+            self.device = torch.device("cuda", torch.cuda.current_device())
+        if not isinstance(ops, RingFusedOperands):
+            raise TypeError(f"RingFusedState takes RingFusedOperands, got {type(ops).__name__}")
+        if dtype not in (torch.float32, torch.float64):
+            raise TypeError(f"the fused ring pass takes float32 or float64, got {dtype}")
+        p = ops.p_y
+        if p < 2:
+            raise ValueError(f"a ring needs at least 2 shards, got {p}")
+        if ly < MIN_ROWS or nx < 1:
+            raise ValueError(f"a shard needs at least {MIN_ROWS} row and 1 column, got {(ly, nx)}")
+        self.pad = ops.halo
+        _check_shards(ops, _checker(self.device, dtype), (self.ly + 2 * self.pad, self.nx))
+
+        def new():
+            return [torch.full((self.ly + 2 * self.pad, self.nx), float("nan"), dtype=dtype,
+                               device=self.device) for _ in range(p)]
+
+        self.field = new()
+        self.t, self.t_prev = [new(), new()], [new(), new()]
+        self.acc = [torch.empty((self.ly, self.nx), dtype=dtype, device=self.device)
+                    for _ in range(p)]
+        self.flags = torch.zeros((p, 2), dtype=torch.int32, device=self.device)
+        self.ticket = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.epoch = 0
+        self.drawn = 0
+        self._planes = {}  # out -> the kernel's table, made at first launch
+
+    @property
+    def input(self) -> List[Tensor]:
+        """Where a caller puts each shard's rows before the first pass: the
+        own rows of ``field``."""
+        return [f[self.pad:self.pad + self.ly] for f in self.field]
+
+    def planes(self, out: int):
+        """The kernel's table of a pass that writes carry pair ``out``: 16
+        pointers per shard (csrc/ring_pass.cu: ``ShardPlanes``), a host array
+        that the launch copies into the kernel's parameters."""
+        if out not in self._planes:
+            src = 1 - out
+            ptrs = []
+            for r, st in enumerate(self.ops.shards):
+                ptrs += [x.data_ptr() for x in (
+                    self.field[r], self.input[r], self.t[src][r], self.t_prev[src][r],
+                    self.acc[r], self.t[out][r], self.t_prev[out][r], self.acc[r])]
+                ptrs += [v.data_ptr() if isinstance(v, Tensor) else None
+                         for v in (getattr(st, k) for k in ARRAY_FIELDS)]
+            self._planes[out] = (ctypes.c_void_p * len(ptrs))(*ptrs)
+        return self._planes[out]
+
+
+def _fused_kinds(state: RingFusedState, p, start: int, n_ops: int, out: int):
+    """``(first, last)`` of a pass, after checking that the state takes it."""
+    first, last = _scalar._kinds(p, start, n_ops)
+    if not isinstance(state, RingFusedState):
+        raise TypeError(f"the fused ring pass takes a RingFusedState, got {type(state).__name__}")
+    if n_ops > min(MAX_FUSE, state.pad, state.ly):
+        raise ValueError(f"a fused ring pass of {n_ops} steps needs at most {MAX_FUSE} steps, "
+                         f"a halo of {state.pad} rows and shards of {state.ly} rows")
+    if out not in (0, 1):
+        raise ValueError(f"out names carry pair 0 or 1, got {out}")
+    return first, last
+
+
+def _send_rows(state: RingFusedState, n: int, first: bool, out: int) -> None:
+    """The sends of one pass: the ``n`` rows nearest each edge of every live
+    field (``field`` on a first pass, else the pair ``1 - out``) into the
+    neighbours' halo rows: the bottom rows into the down-neighbour's north
+    halo, the top rows into the up-neighbour's south halo."""
+    p, pad, ly = state.ops.p_y, state.pad, state.ly
+    live = [state.field] if first else [state.t[1 - out], state.t_prev[1 - out]]
+    for bufs in live:
+        for r in range(p):
+            bufs[(r - 1) % p][pad + ly:pad + ly + n].copy_(bufs[r][pad:pad + n])
+            bufs[(r + 1) % p][pad - n:pad].copy_(bufs[r][pad + ly - n:pad + ly])
+
+
+def _store(state: RingFusedState, r: int, last: bool, out: int, outs) -> None:
+    """A shard's own-shaped results of a pass into its buffers."""
+    state.acc[r].copy_(outs["acc"])
+    if not last:
+        own = slice(state.pad, state.pad + state.ly)
+        state.t[out][r][own].copy_(outs["t"])
+        state.t_prev[out][r][own].copy_(outs["t_prev"])
+
+
+def ring_fused_pass_reference(state: RingFusedState, p, start: int, n_ops: int, *,
+                              tile=None, out: int) -> None:
+    """The plain PyTorch version of one fused ring launch, on any device:
+    steps ``start+1 .. start+n_ops`` of the filter on every shard.
+
+    The sends move the rows with tensor copies; then each shard's extended
+    block runs :func:`~.cheb_pass.cheb_fused_pass_reference`, the unsharded
+    plain steps (``tile`` is not used). The block's own y wrap touches only
+    rows within ``n_ops`` of its ends, which lie in the halo. The top shard of
+    a fold grid folds at its own top row: its block ends there. A first pass
+    reads ``field``, any other the carry pair ``1 - out``; a pass that does
+    not end the filter writes the own rows of pair ``out``; acc is updated in
+    place and holds the result after the last pass.
+    """
+    first, last = _fused_kinds(state, p, start, n_ops, out)
+    _send_rows(state, n_ops, first, out)
+    ops, pad, ly, src = state.ops, state.pad, state.ly, 1 - out
+    own = slice(pad, pad + ly)
+    for r, st in enumerate(ops.shards):
+        rows = slice(0, pad + ly) if st.fold_north else slice(None)
+        block = dataclasses.replace(st, **{
+            k: getattr(st, k)[rows] for k in ARRAY_FIELDS if isinstance(getattr(st, k), Tensor)})
+        one = lambda x: x[rows][None]  # noqa: E731
+        acc = torch.zeros_like(one(state.field[r]))
+        if not first:
+            acc[0, own] = state.acc[r]
+        t_out, t_prev_out = (None, None) if last else (torch.empty_like(acc), torch.empty_like(acc))
+        _scalar.cheb_fused_pass_reference(
+            PassOperands(block, ops.drop_pre, ops.land_gain), p, start, n_ops,
+            field=one(state.field[r]), t=None if first else one(state.t[src][r]),
+            t_prev=None if first else one(state.t_prev[src][r]), t_out=t_out,
+            t_prev_out=t_prev_out, acc=acc)
+        _store(state, r, last, out, {"acc": acc[0, own]} if last else {
+            "acc": acc[0, own], "t": t_out[0, own], "t_prev": t_prev_out[0, own]})
+
+
+def ring_fused_pass_tiled_reference(state: RingFusedState, p, start: int, n_ops: int, *,
+                                    tile, out: int) -> None:
+    """One fused ring launch computed as the kernel decomposes it, in torch:
+    the sends as tensor copies, then every shard's tiles of ``tile = (by,
+    bx)`` own cells with their windows cut from the extended planes as
+    ``RingGeo`` of csrc/cheb_tile.cuh cuts them (halo rows below and above,
+    mirror cells of the shard's own top rows on the top shard of a fold grid,
+    rows further than ``n_ops`` from every own row clamped into the block).
+    Same arguments and outputs as :func:`ring_fused_pass_reference`, and the
+    same torch arithmetic per cell, so the two are equal bit for bit wherever
+    the decomposition is right."""
+    first, last = _fused_kinds(state, p, start, n_ops, out)
+    _send_rows(state, n_ops, first, out)
+    ops, pad, ly, src = state.ops, state.pad, state.ly, 1 - out
+    for r, st in enumerate(ops.shards):
+        def rows(g, fold=st.fold_north):
+            mirror = (g >= ly) if fold else torch.zeros_like(g, dtype=torch.bool)
+            g = torch.where(mirror, (2 * ly - 1 - g).clamp(min=0), g)
+            return g.clamp(-pad, ly + pad - 1) + pad, mirror
+
+        outs = _scalar.tiled_pass(
+            PassOperands(st, ops.drop_pre, ops.land_gain), p, start, n_ops, tile, rows,
+            field=state.field[r][None], field_own=state.input[r][None],
+            t=None if first else state.t[src][r][None],
+            t_prev=None if first else state.t_prev[src][r][None], acc=state.acc[r][None])
+        _store(state, r, last, out, {k: v[0] for k, v in outs.items()})
+
+
 # -- kernels -------------------------------------------------------------------
 
 _SCALAR_ARGTYPES = (
@@ -324,6 +570,18 @@ _VECTOR_ARGTYPES = (
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
 )
+_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 9            # p, ly, nx, pad, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 3       # planes (host pointers), ticket, flags
+    + [ctypes.c_ulonglong, ctypes.c_uint]  # base, epoch
+    + [ctypes.c_void_p] * 5       # shard 0's c, n, s, e, w
+    + [ctypes.c_double] * 5       # immediate c, n, s, e, w
+    + [ctypes.c_void_p] * 3       # shard 0's pre, post, area
+    + [ctypes.c_double]           # land_gain
+    + [ctypes.c_int] * 3          # zap, fold, drop_pre
+    + [ctypes.c_void_p]           # stream
+)
 _lib = None
 
 
@@ -336,7 +594,9 @@ def _library():
         for fn, argtypes in ((lib.ring_pass_f32, _SCALAR_ARGTYPES),
                              (lib.ring_pass_f64, _SCALAR_ARGTYPES),
                              (lib.vec_ring_pass_f32, _VECTOR_ARGTYPES),
-                             (lib.vec_ring_pass_f64, _VECTOR_ARGTYPES)):
+                             (lib.vec_ring_pass_f64, _VECTOR_ARGTYPES),
+                             (lib.ring_fused_pass_f32, _FUSED_ARGTYPES),
+                             (lib.ring_fused_pass_f64, _FUSED_ARGTYPES)):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.ring_pass_table_row.argtypes = [ctypes.c_int]
@@ -416,7 +676,63 @@ def vec_ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0,
         raise RuntimeError(f"vec_ring_pass has no kernel for device {state.device}")
 
 
-# kernel launches (one per step, whatever the number of shards); the plain
-# versions do not count
+def _fused_launch(state: RingFusedState, p, start: int, n_ops: int, tile, out: int) -> None:
+    first, last = _fused_kinds(state, p, start, n_ops, out)
+    by, bx = tile
+    ops, itemsize = state.ops, state.field[0].element_size()
+    if fused_shared_bytes(tile, n_ops, fused_planes(PassOperands(
+            ops.shards[0], ops.drop_pre, ops.land_gain)), itemsize) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    pa, p_b = _scalar._pass_args(p, start, n_ops, first, {}, ())
+    st = ops.shards[0]
+    coef_ptr = [v.data_ptr() if isinstance(v, Tensor) else None
+                for v in (getattr(st, k) for k in COEF_FIELDS)]
+    coef_val = [0.0 if isinstance(v, Tensor) else float(v)
+                for v in (getattr(st, k) for k in COEF_FIELDS)]
+    masks = [v.data_ptr() if v is not None else None for v in (st.pre, st.post, st.area)]
+    if ops.p_y > MAX_RING_SHARDS:
+        raise ValueError(f"the fused ring kernel takes at most {MAX_RING_SHARDS} shards, "
+                         f"got {ops.p_y}")
+    lib = _library()
+    fn = lib.ring_fused_pass_f32 if state.dtype == torch.float32 else lib.ring_fused_pass_f64
+    # the flag value of this launch: grows with every pass and apply, so no
+    # flag is ever reset (compared for equality; wraps after 2**32 launches)
+    state.epoch = (state.epoch + 1) & 0xFFFFFFFF
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    with torch.cuda.device(state.device):
+        err = fn(ops.p_y, state.ly, state.nx, state.pad, by, bx, n_ops, int(first), int(last),
+                 pa, p_b, state.planes(out), state.ticket.data_ptr(), state.flags.data_ptr(),
+                 state.drawn, state.epoch, *coef_ptr, *coef_val, *masks, float(ops.land_gain),
+                 int(st.zap_nans), int(ops.shards[-1].fold_north), int(ops.drop_pre), stream)
+    if err != 0:
+        msg = lib.ring_pass_error_string(err).decode()
+        raise RuntimeError(f"ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    # every launch draws one ticket per item: two sends and every tile of each shard
+    state.drawn += ops.p_y * (2 + -(-state.ly // by) * -(-state.nx // bx))
+
+
+def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
+                    out: int) -> None:
+    """Steps ``start+1 .. start+n_ops`` of the filter on every shard of
+    ``state`` in one launch, halo exchange included, on tiles of ``tile =
+    (by, bx)`` own cells, as :func:`ring_fused_pass_reference` documents it.
+
+    A state on a CUDA device launches the kernel once (counted in
+    ``ring_fused_pass.launches``) on the current stream, without
+    synchronizing; a state on the CPU runs the plain version. Anything else
+    raises.
+    """
+    if state.device.type == "cuda":
+        _fused_launch(state, p, start, n_ops, tuple(tile), out)
+        ring_fused_pass.launches += 1
+    elif state.device.type == "cpu":
+        ring_fused_pass_reference(state, p, start, n_ops, out=out)
+    else:
+        raise RuntimeError(f"ring_fused_pass has no kernel for device {state.device}")
+
+
+# kernel launches (one per step or fused pass, whatever the number of shards);
+# the plain versions do not count
 ring_pass.launches = 0
 vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
+ring_fused_pass.launches = 0

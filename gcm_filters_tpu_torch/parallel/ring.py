@@ -4,17 +4,25 @@ PyTorch-port counterpart of ``gcm_filters_tpu/parallel/ring.py``. The
 round-based sharded engine (sharded.py) alternates halo exchanges made of
 messages with local compute. This engine instead cuts the field into ``p_y``
 shards along y (x is not cut, so the x wrap and the tripolar seam stay local)
-and runs every Chebyshev step as ONE launch of a ring step kernel
-(ops/cuda/ring_pass.py, ``csrc/ring_pass.cu``) over all shards: the kernel
-stores each shard's edge rows into its neighbours' halo rows through plain
-pointers, raises a flag with release order, computes the interior tiles
-meanwhile and the shard-edge tiles last, waiting for the flag only there. No
-copy, message or collective outside the kernel carries a halo row.
+and runs the scalar filter as the fused passes that the shard's plan gives
+(:func:`_shard_plan`, :func:`_pass_chain`), each ONE launch of the fused ring
+kernel (ops/cuda/ring_pass.py ``ring_fused_pass``, ``csrc/ring_pass.cu``)
+over all shards: S <= 16 steps per launch, the kernel storing the S rows
+nearest each shard edge into its neighbours' halo rows through plain
+pointers once per pass, raising a flag with release order, computing the
+interior tiles meanwhile and the shard-edge tiles last, waiting for the flag
+only there. Where the plan is not fused (a window wider than the field, a
+one-step pass such as one-row shards give, more than ``MAX_RING_SHARDS``
+shards) the scalar filter runs one step
+per launch of the ring step kernel (``ring_pass``), by a static test; the
+vector filters always do (``vec_ring_pass``). No copy, message or
+collective outside the kernels carries a halo row.
 
-Exactness: every cell sees exactly the values the unsharded step kernel's
+Exactness: every cell sees exactly the values the unsharded kernels'
 periodic or folded neighbourhood holds, and the per-cell arithmetic is the
-unsharded kernels' own (shared device functions), so the result equals the
-unsharded kernel path bit for bit.
+unsharded kernels' own (shared device functions; the fused ring pass runs
+the fused unsharded kernel's tile), so the result equals the unsharded
+kernel path bit for bit, fused or not.
 
 Where the shards live: between the cards of a multi-rank
 ``torch.distributed`` mesh the halo pointers would have to come from peer
@@ -35,28 +43,32 @@ multiple of 128, 8-row halos, block heights that divide ``ly``) are TPU
 layout and have no counterpart. Behind a :class:`ResidentMesh` there is no
 round-based engine to give way to, so an ineligible input raises a
 ``ValueError`` that names the gate; nothing falls back to the unsharded
-kernel. ``halo_steps`` is accepted and bounds the steps fused per ring pass
-(:func:`_max_fuse`) as in the JAX module, but with one step per launch it
-changes no result and no launch count.
+kernel. ``halo_steps`` bounds the steps fused per scalar ring pass
+(:func:`_max_fuse`) as in the JAX module: it changes the launches, not the
+result.
 
 One apply runs on the current stream; applies of one ``Filter`` on two
 streams at once are not supported (the shards' buffers are reused).
 """
 from __future__ import annotations
 
+import functools
 import os
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
 from ..engine import _compute_dtype
 from ..filter_spec import FilterSpec
-from ..ops.cuda.cheb_pass import FIRST, LAST, MIDDLE
+from ..ops.cuda.cheb_pass import (
+    FIRST, LAST, MIDDLE, FusedPlan, PassOperands, fused_planes, plan_fused_passes,
+)
 from ..ops.cuda.dispatch import (
     _NP_DTYPES, scalar_operands, scalar_setup, vector_operands, vector_setup,
 )
 from ..ops.cuda.ring_pass import (
-    MIN_ROWS, RingOperands, RingState, VecRingOperands, ring_pass, vec_ring_pass,
+    MAX_RING_SHARDS, MIN_ROWS, RingFusedOperands, RingFusedState, RingOperands, RingState,
+    VecRingOperands, ring_fused_pass, ring_pass, vec_ring_pass,
 )
 from ..ops.stencil import ARRAY_FIELDS, BGridVectorStencil, CGridVectorOperator, ScalarStencil5
 
@@ -112,11 +124,59 @@ def _ring_mesh_for(mesh, spatial_axes):
 
 
 def _max_fuse(halo_steps: Optional[int]) -> int:
-    """Steps fused per ring pass, honoring the user's ``halo_steps`` knob as
-    the JAX module does. The port's ring kernel runs one step per launch, so
-    the value changes no result; it is kept for the later kernels that fuse
-    several steps."""
+    """Steps fused per scalar ring pass at most, honoring the user's
+    ``halo_steps`` knob as the JAX module does (the planner's cap, with the
+    shard's rows: :func:`make_ring_scalar_apply`)."""
     return min(16, halo_steps) if halo_steps else 16
+
+
+def _shard_plan(plan: FusedPlan, p_y: int, ny: int, dtype) -> Optional[int]:
+    """Validate a shard's fused plan against the shard grid: 4-byte
+    elements, ``ny % p_y == 0``, at most ``MAX_RING_SHARDS`` shards (the
+    kernel's parameter table), shards of ``ly = ny/p_y >= halo`` rows (a
+    halo comes from one neighbour, never from two shards away), windows that
+    fit in x (``plan.fused``) and passes of at least two steps (a pass of one
+    step is the step ring's work, which sends a gathered row instead of the
+    raw ones). Returns ly, or None where the step ring runs. The JAX gates on
+    block heights and 8-row halos are TPU layout and have no counterpart."""
+    if torch.empty((), dtype=dtype).element_size() != 4 or ny % p_y or p_y > MAX_RING_SHARDS:
+        return None
+    ly = ny // p_y
+    if plan is None or not plan.fused or plan.halo < 2 or ly < plan.halo:
+        return None
+    return ly
+
+
+def _pass_chain(plan: FusedPlan, build_one):
+    """``[(fn, p_offset, n_p, first, last)]`` over the plan's passes, or None
+    the moment ``build_one(n_ops, first, last)`` declines: the JAX module's
+    chain. A pass gets ``p[p_offset : p_offset + n_p]`` (the first pass's
+    first step takes ``p[0]`` and ``p[1]``), so it runs steps ``start+1 ..
+    start+n_ops`` with ``start = 0`` on a first pass and ``p_offset - 1``
+    otherwise."""
+    pass_fns = []
+    off = 0
+    for m, n_ops in enumerate(plan.steps):
+        first = m == 0
+        last = m == len(plan.steps) - 1
+        fn = build_one(n_ops, first, last)
+        if fn is None:
+            return None
+        n_p = n_ops + 1 if first else n_ops
+        pass_fns.append((fn, off, n_p, first, last))
+        off += n_p
+    return pass_fns
+
+
+class RingEntry(NamedTuple):
+    """What a ring apply keeps per (ny, nx, dtype): the state, ``p`` in the
+    compute dtype, the shard's fused plan, and the pass chain (None where the
+    step ring runs)."""
+
+    state: object
+    p: list
+    plan: Optional[FusedPlan]
+    chain: Optional[list]
 
 
 def _gate(p_y: int, shape, dtype, grid_shape) -> Optional[str]:
@@ -137,7 +197,7 @@ def _gate(p_y: int, shape, dtype, grid_shape) -> Optional[str]:
 
 
 def _steps(pass_fn, state: RingState, p, n_steps: int) -> None:
-    """The ``n_steps`` launches of one apply on a state whose input is set."""
+    """The ``n_steps`` step launches of one apply on a state whose input is set."""
     pass_fn(state, FIRST, p[0], p[1])
     swap = 0
     for k in range(2, n_steps):
@@ -154,17 +214,24 @@ def make_ring_scalar_apply(
     exact_nan: bool = False,
     halo_steps: Optional[int] = None,
     pass_fn=ring_pass,
+    fused_fn=ring_fused_pass,
 ):
-    """``field -> filtered`` through the ring step kernel, or None.
+    """``field -> filtered`` through the fused ring kernel, or None.
 
     None means the mesh is not one the ring runs on (see
     :func:`_ring_mesh_for`). The returned ``apply_fn`` takes a global 2-D
     field (array or tensor, any device), cuts it into the shards' own buffers
     on the mesh's device and returns one global tensor there; it raises
-    ``ValueError`` for an input the ring cannot take. ``pass_fn`` runs one
-    step; it is :func:`ring_pass` (kernel on a CUDA device, plain version on
-    the CPU) unless a caller passes the plain version to compare the two on
-    one device.
+    ``ValueError`` for an input the ring cannot take. A shard of ``ly`` rows
+    is planned by ``plan_fused_passes`` with the cap ``min(_max_fuse(
+    halo_steps), ly)``; where :func:`_shard_plan` takes the plan, one apply
+    is one launch of ``fused_fn`` per pass, else ``n_steps`` launches of
+    ``pass_fn``. They are :func:`ring_fused_pass` and :func:`ring_pass`
+    (kernels on a CUDA device, plain versions on the CPU) unless a caller
+    passes the plain versions to compare them on one device;
+    ``fused_fn=None`` runs the step ring on purpose.
+    ``apply_fn.shape_cache`` maps ``(ny, nx, dtype)`` to its
+    :class:`RingEntry`.
     """
     meshed = _ring_mesh_for(mesh, spatial_axes)
     if meshed is None:
@@ -173,16 +240,28 @@ def make_ring_scalar_apply(
     hot_host, drop_pre, land_gain, neg2s, p_host = scalar_setup(stencil, spec, exact_nan)
     grid_shape = next((tuple(v.shape) for v in (getattr(hot_host, k) for k in ARRAY_FIELDS)
                        if isinstance(v, torch.Tensor)), None)
+    n_planes = fused_planes(PassOperands(hot_host, drop_pre, land_gain))
     device = mesh.device
     cache = {}
 
     def build(ny, nx, dtype):
+        ly = ny // p_y
+        plan = plan_fused_passes(spec.n_steps, ly, nx, dtype, n_planes,
+                                 max_fuse=min(_max_fuse(halo_steps), ly), ring=True)
+        chain = None
+        if fused_fn is not None and _shard_plan(plan, p_y, ny, dtype) is not None:
+            chain = _pass_chain(plan, lambda n_ops, first, last: functools.partial(
+                fused_fn, n_ops=n_ops, tile=plan.tile))
         # the unsharded step's operands (same cast, same rounding), cut into
         # shards that own their planes; the global planes are dropped
-        ops = RingOperands.cut(
-            scalar_operands(hot_host, neg2s, drop_pre, land_gain, dtype, device), p_y)
-        state = RingState(ops, ny // p_y, nx, dtype, device)
-        return state, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])]
+        ops = scalar_operands(hot_host, neg2s, drop_pre, land_gain, dtype, device)
+        if chain is None:
+            state = RingState(RingOperands.cut(ops, p_y), ly, nx, dtype, device)
+        else:
+            state = RingFusedState(RingFusedOperands.cut(ops, p_y, plan.halo), ly, nx, dtype,
+                                   device)
+        return RingEntry(state, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])], plan,
+                         chain)
 
     def apply_fn(field):
         field = torch.as_tensor(field)
@@ -194,14 +273,19 @@ def make_ring_scalar_apply(
         key = (ny, nx, str(dtype))
         if key not in cache:
             cache[key] = build(ny, nx, dtype)
-        state, p = cache[key]
+        state, p, _, chain = cache[key]
         ly = ny // p_y
         for r, x in enumerate(state.input):
             x.copy_(field[r * ly:(r + 1) * ly])
-        _steps(pass_fn, state, p, spec.n_steps)
+        if chain is None:
+            _steps(pass_fn, state, p, spec.n_steps)
+        else:
+            # pass m writes carry pair m % 2 and reads the other one
+            for m, (fn, off, _, first, _) in enumerate(chain):
+                fn(state, p, 0 if first else off - 1, out=m % 2)
         return torch.cat(state.acc)  # a fresh tensor: the shards' buffers are reused
 
-    apply_fn.shape_cache = cache  # (ny, nx, dtype) -> (RingState, p), for checks
+    apply_fn.shape_cache = cache  # (ny, nx, dtype) -> RingEntry, for checks
     return apply_fn
 
 

@@ -307,8 +307,12 @@ def test_filter_on_a_resident_mesh_runs_the_ring_end_to_end(p_y):
     assert isinstance(got, torch.Tensor) and type(got) is torch.Tensor  # one global tensor
     assert got.shape == (NY, NX) and got.dtype == torch.float32 and got.device.type == "cpu"
     np.testing.assert_array_equal(got.numpy(), _tripolar_filter(0).apply(x).numpy())
-    state, p = filt._scalar_fn().shape_cache[NY, NX, "torch.float32"]
-    assert isinstance(state, rp.RingState) and state.ops.p_y == p_y and state.ly == NY // p_y
+    entry = filt._scalar_fn().shape_cache[NY, NX, "torch.float32"]
+    state, p = entry.state, entry.p
+    # the fused ring: one pass per entry of the shard's plan
+    assert isinstance(state, rp.RingFusedState) and entry.chain is not None
+    assert len(entry.chain) == len(entry.plan.steps) and sum(entry.plan.steps) == filt.n_steps
+    assert state.ops.p_y == p_y and state.ly == NY // p_y and state.pad == entry.plan.halo
     assert len(p) == filt.n_steps + 1
     # the result is no buffer of the engine: a second apply leaves it alone
     kept = got.clone()
@@ -402,6 +406,19 @@ def test_halo_steps_is_accepted_and_changes_no_result():
     want = _tripolar_filter(4).apply(x).numpy()
     for hs in (1, 3):
         np.testing.assert_array_equal(_tripolar_filter(4, halo_steps=hs).apply(x).numpy(), want)
+    # halo_steps caps the steps of a pass: the plan's passes follow it (on a
+    # field wide enough for a 5-step window); one-step passes run the step ring
+    wide = (NY, 120)
+    xw = np.random.default_rng(4).random(wide).astype(np.float32)
+    want = _tripolar_filter(4, shape=wide).apply(xw).numpy()
+    passes = {}
+    for hs in (None, 1, 2, 3):
+        filt = _tripolar_filter(4, shape=wide, halo_steps=hs)
+        np.testing.assert_array_equal(filt.apply(xw).numpy(), want)
+        entry = filt._scalar_fn().shape_cache[wide + ("torch.float32",)]
+        passes[hs] = (entry.plan.steps, entry.chain is not None)
+    assert passes == {None: ((5,), True), 1: ((1,) * 5, False), 2: ((2, 2, 1), True),
+                      3: ((3, 2), True)}
 
 
 def test_ring_enabled_and_its_override(monkeypatch):
