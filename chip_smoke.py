@@ -107,29 +107,34 @@ and runs these phases; any failed check raises and the script exits non-zero:
 15. ring small grids: the cases of tests/test_ring.py in float32 (REGULAR,
     also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
-    kappa_aniso 0 and 1 and with 37 steps) through
+    kappa_aniso 0 and 1 and with 37 steps, the vector fields with a NaN and
+    spikes at shard-edge tile corners; one-row vector shards) through
     ``Filter(mesh=ResidentMesh(p_y, "cuda"), spatial_axes=("y", None))`` at
     ``p_y`` 2, 4 and 8: several y-shards resident on the one card, whose
     kernels exchange the halo rows themselves. Each result must equal the
-    unsharded kernel path bit for bit, a scalar one also the step ring
-    (``fused_fn=None``), and agree with the same ring apply driven by the
-    plain versions on the card; each scalar apply must launch the fused ring
-    kernel once per planned pass (the step ring kernel n_steps times where the
-    plan is not fused: one-row shards), each vector apply its ring step kernel
-    n_steps times, and no other kernel;
+    unsharded kernel path and the step ring (``fused_fn=None``) bit for bit,
+    and agree with the same ring apply driven by the plain versions on the
+    card; each apply must launch its fused ring kernel (``ring_fused_pass``,
+    ``vec_ring_fused_pass``) once per planned pass (the step ring kernel
+    n_steps times where the plan is not fused: one-row shards), and no other
+    kernel;
 16. ring headlines (the ring path): the phase-4 workload at ``p_y`` 4, 2 and
     8, the Taper filter and ``IRREGULAR_WITH_LAND`` at ``p_y`` 4, each through
     the fused ring, bitwise equal to the fused K1 and to the step ring of this
-    run and timed beside both, and the phase-7 workloads at ``p_y`` 4 (one
-    step per launch), each bitwise equal to the unsharded result of this run;
-    all checked against the float64 eager engine, with launches = the plan's
-    passes (vector: 11) x applies, every other counter 0 and no fallback;
-    then 200 more fused scalar applies, each bitwise equal to the first;
+    run and timed beside both; then 200 more fused scalar applies, each
+    bitwise equal to the first; the phase-7 workloads through the fused
+    vector ring (B-grid at ``p_y`` 4, 2 and 8, C-grid and its Taper at 4),
+    each bitwise equal to the fused K3 / K4 and to the vector step ring of
+    this run and timed beside both, then 50 more B-grid applies, each bitwise
+    equal to the first; all checked against the float64 eager engine, with
+    launches = the plan's passes x applies, every other counter 0 and no
+    fallback;
 17. each step kind of the three ring step kernels, and each pass kind of the
-    fused ring (first only, middle, last, first and last) against its plain
-    and tiled plain versions, at the headline shape, in float32 and float64;
-18. a ``{"kernels": [...]}`` line (sixteen entries: the step kernels, timed
-    as step chains, and the seven fused passes), then ``{"ok": true,
+    fused scalar and vector rings (first only, middle, last, first and last)
+    against its plain and tiled plain versions, at the headline shape, in
+    float32 and float64;
+18. a ``{"kernels": [...]}`` line (eighteen entries: the step kernels, timed
+    as step chains, and the nine fused passes), then ``{"ok": true,
     "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2.
@@ -292,6 +297,17 @@ def ring_plan_cost(ops, plan, p_y, ny, nx, itemsize):
     return p_y * nbytes + sends, p_y * flops
 
 
+def vec_ring_plan_cost(n_coef, plan, p_y, ny, nx, itemsize, key):
+    """``(bytes, flops)`` of one fused vector ring apply: each shard's passes
+    as :func:`vec_plan_cost` counts them on its ``ny/p_y`` rows, plus every
+    pass's 2 p_y sends, each of H rows of both components of the live fields
+    (w on the first pass, t and t_prev after) read once and written once."""
+    nbytes, flops = vec_plan_cost(n_coef, plan, 1, ny // p_y, nx, itemsize, key)
+    sends = sum(2 * p_y * 2 * (1 if i == 0 else 2) * s * nx * itemsize * 2
+                for i, s in enumerate(plan.steps))
+    return p_y * nbytes + sends, p_y * flops
+
+
 def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso):
     """Unit-scale metrics, m = 0.9 + 0.2 * uniform, as
     benchmarks/bench_suite.py builds the vector grids."""
@@ -450,10 +466,12 @@ def main():
         _fused_chain, _vec_step_chain, make_cuda_scalar_apply, make_cuda_vector_apply,
     )
     from gcm_filters_tpu_torch.ops.cuda.local_pass import local_fused_pass, local_pass
-    from gcm_filters_tpu_torch.ops.cuda.ring_pass import ring_fused_pass, ring_pass, vec_ring_pass
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
+        ring_fused_pass, ring_pass, vec_ring_fused_pass, vec_ring_pass,
+    )
     from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_fused_pass, vec_local_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
-        BGRID, CTAP, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
+        BGRID, CTAP, N_COEF, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
         vec_fused_pass_reference, vec_fused_pass_tiled_reference, vec_fused_shared_bytes,
         vec_pass, vec_pass_reference,
     )
@@ -499,7 +517,9 @@ def main():
                 "ring_pass": ring_pass.launches,
                 "ring_fused_pass": ring_fused_pass.launches,
                 "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
-                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP]}
+                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP],
+                "vec_ring_fused_pass_bgrid": vec_ring_fused_pass.launches[BGRID],
+                "vec_ring_fused_pass_ctap": vec_ring_fused_pass.launches[CTAP]}
 
     def reset_counters():
         cheb_pass.launches = 0
@@ -513,6 +533,7 @@ def main():
         ring_pass.launches = 0
         ring_fused_pass.launches = 0
         vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
+        vec_ring_fused_pass.launches = {BGRID: 0, CTAP: 0}
 
     def launched_since(before, label, want):
         """The launches since ``before``; raises unless they are ``want``
@@ -1516,7 +1537,8 @@ def main():
         vec_local_pass_reference,
     )
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        RingState, ring_fused_pass_reference, ring_pass_reference, vec_ring_pass_reference,
+        RingState, ring_fused_pass_reference, ring_pass_reference, vec_ring_fused_pass_reference,
+        vec_ring_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_vector_apply
 
@@ -1958,9 +1980,11 @@ def main():
     )
 
     ring_axes = ("y", None)
-    rworst = {"ring_pass": 0.0, "ring_fused_pass": 0.0, "vec_ring_pass_bgrid": 0.0,
-              "vec_ring_pass_ctap": 0.0}
-    ring_step_path = {"launches": 0}  # ring_pass launched by the ring where the plan is not fused
+    rworst = {k: 0.0 for k in ("ring_pass", "ring_fused_pass", "vec_ring_pass_bgrid",
+                               "vec_ring_pass_ctap", "vec_ring_fused_pass_bgrid",
+                               "vec_ring_fused_pass_ctap")}
+    # the step kernels launched by the ring where the plan is not fused (one-row shards)
+    ring_step_path = {"ring_pass": 0, "vec_ring_pass_bgrid": 0, "vec_ring_pass_ctap": 0}
 
     def ring_entry(fn):
         """The one shape_cache entry of a ring apply that has run one shape."""
@@ -1970,24 +1994,28 @@ def main():
     def ring_launch_plan(filt):
         """(kernel, launches per apply) of a ring Filter that has run once."""
         if filt.grid_type.name in vec_ops:
-            op = vec_ops[filt.grid_type.name]
-            return "vec_ring_pass_" + ("bgrid" if op == BGRID else "ctap"), filt.n_steps
+            key = vkey[vec_ops[filt.grid_type.name]]
+            entry = ring_entry(filt._vector_fn())
+            if entry.chain is None:
+                return f"vec_ring_pass_{key}", filt.n_steps
+            return f"vec_ring_fused_pass_{key}", len(entry.plan.steps)
         entry = ring_entry(filt._scalar_fn())
         if entry.chain is None:
             return "ring_pass", filt.n_steps
         return "ring_fused_pass", len(entry.plan.steps)
 
     def check_ring(label, p_y, fields, **kw):
-        """One ring apply against the unsharded kernel path (bitwise), the
-        scalar one also against the step ring (bitwise), and the same ring
-        apply on the plain versions (float32 tolerance)."""
+        """One ring apply against the unsharded kernel path and the step ring
+        (bitwise), and the same ring apply on the plain versions (float32
+        tolerance)."""
         rmesh = ResidentMesh(p_y, dev)
         filt = Filter(device=dev, dtype=torch.float32, mesh=rmesh, spatial_axes=ring_axes, **kw)
         base = Filter(device=dev, dtype=torch.float32, **kw)
         vector = len(fields) == 2
         if vector:
             plain = make_ring_vector_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
-                                           pass_fn=vec_ring_pass_reference)
+                                           pass_fn=vec_ring_pass_reference,
+                                           fused_fn=vec_ring_fused_pass_reference)
         else:
             plain = make_ring_scalar_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
                                            exact_nan=filt.exact_nan, pass_fn=ring_pass_reference,
@@ -2001,8 +2029,8 @@ def main():
         want_launched = {k: per_apply if k == mine else 0 for k in before}
         if launched != want_launched:
             raise AssertionError(f"{label}: kernel launches {launched}, expected {want_launched}")
-        if mine == "ring_pass":
-            ring_step_path["launches"] += per_apply
+        if mine in ring_step_path:
+            ring_step_path[mine] += per_apply
         if fallback_counts():
             raise AssertionError(f"{label}: fallbacks recorded: {fallback_counts()}")
         want = base.apply_to_vector(*fields) if vector else (base.apply(fields[0]),)
@@ -2014,15 +2042,19 @@ def main():
                 raise AssertionError(f"{label}: the ring returned {type(g).__name__}")
             vs_un = max(vs_un, bitwise(f"{label} {comp}", g, w))
             a = max(a, compare(f"{label} {comp} vs plain ring", g, r, "float32")[0])
-        steps_note = ""
-        if not vector:
+        if vector:
+            steps_ring = make_ring_vector_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
+                                                fused_fn=None)
+        else:
             steps_ring = make_ring_scalar_apply(filt.operator, filt.filter_spec, rmesh, ring_axes,
                                                 exact_nan=filt.exact_nan, fused_fn=None)
-            vs_steps = bitwise(f"{label} vs step ring", got[0],
-                               steps_ring(filt._coerce(fields[0])), "the step ring")
-            entry = ring_entry(filt._scalar_fn())
-            steps_note = (f"; vs the step ring max abs {vs_steps:.3e}; plan {entry.plan.tile} "
-                          f"{entry.plan.steps}{'' if entry.chain else ' not fused'}")
+        steps_out = steps_ring(*(filt._coerce(f) for f in fields))
+        for comp, g, s_ in zip("uv", got, steps_out if vector else (steps_out,)):
+            vs_steps = max(vs_steps, bitwise(f"{label} {comp} vs step ring", g, s_,
+                                             "the step ring"))
+        entry = ring_entry(filt._vector_fn() if vector else filt._scalar_fn())
+        steps_note = (f"; vs the step ring max abs {vs_steps:.3e}; plan {entry.plan.tile} "
+                      f"{entry.plan.steps}{'' if entry.chain else ' not fused'}")
         rworst[mine] = max(rworst[mine], a)
         log(f"  {label}: vs the unsharded kernel path max abs {vs_un:.3e}{steps_note}; vs the "
             f"plain ring max abs {a:.3e} ({launched[mine]} {mine} launches for {p_y} shards)")
@@ -2069,14 +2101,27 @@ def main():
                    (d[:p_y],), **dict(std, filter_scale=4.0, grid_type=tri,
                                       grid_vars={k: a[:p_y] for k, a in v.items()}))
         u_r, v_r = rrng.random(rshape), rrng.random(rshape)
+        # a NaN on the first row of a shard at a tile corner, spikes at the
+        # shard-edge tile corners around it and at another shard edge (row 384
+        # is an edge at p_y 2, 4 and 8, row 192 at 4 and 8; tiles are 64 wide):
+        # the C-grid's diagonal taps reach across both seams
+        u_r[384, 64] = np.nan
+        v_r[383, 63], u_r[383, 64], v_r[192, 128], u_r[191, 127] = 50.0, -30.0, 40.0, -20.0
         for gname, ka, extra in (("VECTOR_B_GRID", 0.0, {}), ("VECTOR_C_GRID", 0.0, {}),
                                  ("VECTOR_C_GRID", 1.0, {}),
                                  ("VECTOR_C_GRID", 0.0, {"n_steps": 37})):
             gv = unit_vector_grid_vars(gname, rshape, np.random.default_rng(9), ka)
             tag = f" kappa_aniso={ka:g}" if gname == "VECTOR_C_GRID" else ""
             tag += "".join(f" {k}={val}" for k, val in extra.items())
-            check_ring(f"ring p_y={p_y} {gname}{tag}", p_y, (u_r, v_r),
-                       **dict(std, grid_type=GridType[gname], grid_vars=gv, **extra))
+            fu, _ = check_ring(f"ring p_y={p_y} {gname}{tag}", p_y, (u_r, v_r),
+                               **dict(std, grid_type=GridType[gname], grid_vars=gv, **extra))
+            if not bool(torch.isnan(fu[384, 64])):
+                raise AssertionError("a NaN cell must stay NaN")
+        for gname in vec_ops:  # one-row shards: the vector step ring
+            gv = unit_vector_grid_vars(gname, one_row, np.random.default_rng(9), 0.0)
+            check_ring(f"ring p_y={p_y} {gname} one-row shards {one_row}", p_y,
+                       (u_r[:p_y, :70], v_r[:p_y, :70]),
+                       **dict(std, filter_scale=4.0, grid_type=GridType[gname], grid_vars=gv))
 
     # 16. ring headlines: the phase-4 and phase-7 workloads on resident shards
     def ring_state(fn):
@@ -2339,7 +2384,7 @@ def main():
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
         "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1377",
-        "launches": ring_step_path["launches"],
+        "launches": ring_step_path["ring_pass"],
         "launches_from": "Filter(mesh=ResidentMesh(...)).apply of one-row shards, below the "
                          "fused ring's plan (phase 15)",
         "max_abs_err": max(rstep_err, rstep_err64, rworst["ring_pass"]),
@@ -2396,7 +2441,12 @@ def main():
     }]
     del rhead, rstate, r_out, kept4, steps4
 
-    # 16 and 17 (vector). the B-grid and C-grid ring headlines and their step kinds
+    # 16 and 17 (vector). the B-grid and C-grid ring headlines, fused, beside
+    # the fused K3 / K4 and the step ring; each step and pass kind vs plain
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
+        VecRingFusedOperands, VecRingFusedState, vec_ring_fused_pass_tiled_reference,
+    )
+
     def load_vector(dtype):
         def load(state):
             for r, w_ in enumerate(state.input):
@@ -2404,74 +2454,257 @@ def main():
                 w_[1].copy_(v_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
         return load
 
+    def ptxas_of(kernel, op_name):
+        """This build's ``ptxas -v`` lines of one kernel template, per
+        instantiation (dtype and zap): registers, stack and spills."""
+        out, fn = {}, None
+        for line in build.build_logs.get("ring_pass", "").splitlines():
+            if "Function properties for" in line:
+                name = line.split("Function properties for")[-1].strip()
+                fn = name if kernel in name and op_name in name else None
+                if fn:
+                    dt = "f64" if f"{kernel}Id" in name else "f32"
+                    zap = "zap" if f"{op_name}ELi1" in name else "no zap"
+                    fn = f"{dt} {zap}"
+                    out[fn] = ""
+            elif fn and ("spill" in line or "registers" in line):
+                out[fn] = (out[fn] + "; " if out[fn] else "") + line.split("info    :")[-1].strip()
+        return out or None
+
+    def vector_ring_headline(label, gname, op, p_y, k_out, k_ms, want64, n_chain=chain, **kw):
+        """The fused vector ring on one headline: bitwise equal to the fused
+        K3 / K4 and to the step ring of this run, timed beside both."""
+        key = vkey[op]
+        filt, outs, ms_f, host_f, n_l, err, vs_k = ring_headline(
+            label, f"vec_ring_fused_pass_{key}", p_y, (u_h, v_h), (u_dev, v_dev), k_out, want64,
+            n_chain=n_chain, **kw)
+        entry = ring_entry(filt._vector_fn())
+        steps_fn = make_ring_vector_apply(filt.operator, filt.filter_spec, filt.mesh, ring_axes,
+                                          fused_fn=None)
+        s_out = steps_fn(u_dev, v_dev)
+        vs_steps = max(bitwise(f"ring headline {label} p_y={p_y} {c} vs step ring", g, s_,
+                               "the step ring") for c, g, s_ in zip("uv", outs, s_out))
+        ms_s, host_s = event_ms(lambda: steps_fn(u_dev, v_dev), 10, host=True)
+        n_coef = entry.state.ops.coefs[0].shape[0]
+        rbytes, rflops = vec_ring_plan_cost(n_coef, entry.plan, p_y, ny, nx, item, key)
+        pbm, pbb = bound_ms(rbytes, rflops, "float32")
+        # the whole filter: u, v and the coefficients in, u and v out, every step's flops
+        fbm, fbb = bound_ms((n_coef + 4) * ny * nx * item,
+                            VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * filt.n_steps, "float32")
+        log(f"  fused vector ring {label} p_y={p_y}: plan {entry.plan.tile} {entry.plan.steps}, "
+            f"{len(entry.plan.steps)} launch(es)/apply, {ms_f:.4f} ms/apply; step ring "
+            f"{ms_s:.4f} ms/apply (host enqueue {host_s:.4f}), bit for bit equal; fused "
+            f"{'K3' if op == BGRID else 'K4'} {k_ms:.4f} ms/apply, bit for bit equal; plan bound "
+            f"{pbm:.4f} ms ({rbytes / 1e9:.4f} GB, {pbb}), whole-filter bound {fbm:.4f} ms on {smi}")
+        return filt, outs, steps_fn, {
+            "ms": ms_f, "host_enqueue_ms": host_f, "step_ring_ms": ms_s,
+            "step_ring_host_enqueue_ms": host_s, "unsharded_ms": k_ms, "launches": n_l,
+            "launches_per_apply": len(entry.plan.steps), "n_steps": filt.n_steps,
+            "passes": list(entry.plan.steps), "tile": list(entry.plan.tile),
+            "plan_bound_ms": pbm, "plan_bound_by": pbb, "filter_bound_ms": fbm,
+            "filter_bound_by": fbb, "bytes_moved": rbytes, "vs_unsharded_max_abs": vs_k,
+            "vs_step_ring_max_abs": vs_steps, "vs_f64_engine_max_abs": err}
+
+    def vec_ring_fused_kinds(label, ops_w, p_, op, dtype, dtype_name):
+        """Each pass kind of the fused vector ring kernel (first only, middle,
+        last: passes of 3, 3 and 5 steps; first and last: one pass of a
+        5-step filter) against its plain and tiled plain versions on triplet
+        states, the plain ones fed the kernel's buffers before each pass, on
+        the first tile of the planner's list whose window fits in this dtype;
+        returns the largest abs difference."""
+        worst_ = 0.0
+        itemsize = torch.empty((), dtype=dtype).element_size()
+        for steps, pp in (((3, 3, 5), p_), ((5,), p_[:6])):
+            tile = next(tl for tl in VEC_TILES[op] if vec_fused_shared_bytes(
+                tl, max(steps), N_COEF[op], itemsize) <= SHARED_BYTES)
+            rops = VecRingFusedOperands.cut(ops_w, 4, max(steps))
+            states = [VecRingFusedState(rops, ny // 4, nx, dtype, dev) for _ in range(3)]
+            for st_ in states:
+                load_vector(dtype)(st_)
+            start = 0
+            for m, n in enumerate(steps):
+                k_st = states[0]
+                for st_ in states[1:]:
+                    for dst, src in zip(st_.t + st_.t_prev + [st_.w, st_.acc],
+                                        k_st.t + k_st.t_prev + [k_st.w, k_st.acc]):
+                        for d_, s_ in zip(dst, src):
+                            d_.copy_(s_)
+                for st_, fn_ in zip(states, (vec_ring_fused_pass, vec_ring_fused_pass_reference,
+                                             vec_ring_fused_pass_tiled_reference)):
+                    fn_(st_, pp, start, n, tile=tile, out=m % 2)
+                torch.cuda.synchronize()
+                last = start + n == len(pp) - 1
+                own = slice(rops.halo, rops.halo + ny // 4)
+                for ref_st, what in zip(states[1:], ("plain", "tiled plain")):
+                    for r in range(4):
+                        pairs = [("acc", k_st.acc[r], ref_st.acc[r])]
+                        if not last:
+                            pairs += [("t", k_st.t[m % 2][r][:, own], ref_st.t[m % 2][r][:, own]),
+                                      ("t_prev", k_st.t_prev[m % 2][r][:, own],
+                                       ref_st.t_prev[m % 2][r][:, own])]
+                        for nm, kb, rb in pairs:
+                            worst_ = max(worst_, compare(
+                                f"{label} pass {steps}[{m}] {tile} {nm} of shard {r} vs {what}",
+                                kb, rb, dtype_name)[0])
+                start += n
+            del states, rops
+        return worst_
+
+    vring = {}
     for gname, op in vec_ops.items():
-        key = "bgrid" if op == BGRID else "ctap"
-        mine = f"vec_ring_pass_{key}"
+        key = vkey[op]
         kept = vec_kept[op]
         vkw = dict(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname], grid_vars=kept["gv"])
-        rv, _, ms_rv, host_rv, rv_launches, rv_err, rv_vs_un = ring_headline(
-            f"{ny}x{nx} float32 {gname}", mine, 4, (u_h, v_h), (u_dev, v_dev), kept["out"],
-            kept["want"], **vkw)
-        vn = rv.n_steps
-        vstate, vp4 = ring_state(rv._vector_fn())
-        n_coef = vstate.ops.coefs[0].shape[0]
-        plain_rv = make_ring_vector_apply(rv.operator, rv.filter_spec, rv.mesh, ring_axes,
-                                          pass_fn=vec_ring_pass_reference)
+        k34 = Filter(device=dev, dtype=torch.float32, **vkw)
+        for comp, g, w in zip("uv", k34.apply_to_vector(u_dev, v_dev), kept["out"]):
+            bitwise(f"{gname} {comp} again", g, w, "the phase-7 result")  # and the set-up done
+        for _ in range(warm):
+            k34.apply_to_vector(u_dev, v_dev)
+        k_ms = event_ms(lambda: k34.apply_to_vector(u_dev, v_dev), chain)
+        by_p = {}
+        for p_y in ((4, 2, 8) if op == BGRID else (4,)):
+            rv, outs, steps_rv, by_p[p_y] = vector_ring_headline(
+                f"{ny}x{nx} float32 {gname}", gname, op, p_y, kept["out"], k_ms, kept["want"],
+                **vkw)
+            if p_y == 4:
+                rv4, outs4, steps4v = rv, outs, steps_rv
+            else:
+                del rv, outs, steps_rv
+        r4v = by_p[4]
+        if op == BGRID:
+            # a race in the exchange would show as a flicker between repeats
+            for k in range(50):
+                if not all(torch.equal(g, o) for g, o in zip(rv4.apply_to_vector(u_dev, v_dev),
+                                                             outs4)):
+                    raise AssertionError(f"vector ring apply {k + 2} differs from the first")
+            log("  50 more fused vector ring applies, each bitwise equal to the first")
+        taper = None
+        if op == CTAP:  # the Taper (44 steps, several passes), on the same footing
+            # dx_min = 0.9 as in phase 7c: with 1 the Taper amplifies rounding
+            tkw = dict(vkw, dx_min=0.9, filter_shape=FilterShape.TAPER)
+            kt = Filter(device=dev, dtype=torch.float32, **tkw)
+            kt_out = kt.apply_to_vector(u_dev, v_dev)
+            for _ in range(warm):
+                kt.apply_to_vector(u_dev, v_dev)
+            kt_ms = event_ms(lambda: kt.apply_to_vector(u_dev, v_dev), 20)
+            kt64 = vector_filter_apply(kt.operator, kt.filter_spec, u_dev.double(), v_dev.double())
+            ft, _, _, taper = vector_ring_headline(
+                f"taper {ny}x{nx} float32 {gname}", gname, op, 4, kt_out, kt_ms, kt64, n_chain=20,
+                **tkw)
+            del kt, kt_out, kt64, ft
+        vn = rv4.n_steps
+        sstate, vp4 = ring_state(steps4v)  # the step ring's state
+        n_coef = sstate.ops.coefs[0].shape[0]
+        plain_fused = make_ring_vector_apply(rv4.operator, rv4.filter_spec, rv4.mesh, ring_axes,
+                                             pass_fn=vec_ring_pass_reference,
+                                             fused_fn=vec_ring_fused_pass_reference)
+        plain_fused(u_dev, v_dev)
+        ms_rvf_plain = event_ms(lambda: plain_fused(u_dev, v_dev), 3)
+        plain_rv = make_ring_vector_apply(rv4.operator, rv4.filter_spec, rv4.mesh, ring_axes,
+                                          pass_fn=vec_ring_pass_reference, fused_fn=None)
         plain_rv(u_dev, v_dev)
         ms_rv_plain = event_ms(lambda: plain_rv(u_dev, v_dev), 3)
-        del plain_rv
+        del plain_rv, plain_fused
         vkinds = [FIRST] + [MIDDLE] * (vn - 2) + [LAST]
         rv_bytes = (sum(vec_step_bytes(k, n_coef, 1, ny, nx, item) for k in vkinds)
                     + vn * halo_bytes(4, 2))
         rv_flops = VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * vn
         rvb_ms, rvb_by = bound_ms(rv_bytes, rv_flops, "float32")
-        ms_rvmid = event_ms(lambda: vec_ring_pass(vstate, MIDDLE, vp4[2], swap=0), 100)
+        ms_rvmid = event_ms(lambda: vec_ring_pass(sstate, MIDDLE, vp4[2], swap=0), 100)
         rvmid_ms, _ = bound_ms(vec_step_bytes(MIDDLE, n_coef, 1, ny, nx, item) + halo_bytes(4, 2),
                                VEC_FLOPS_PER_CELL_STEP[key] * ny * nx, "float32")
-        log(f"ring {gname} headline: {ms_rv:.4f} ms/apply at p_y=4 beside the unsharded "
-            f"{vec_fused_results[op]['ms']:.4f}; per-launch bound {rvb_ms:.4f} ms "
-            f"({rv_bytes / 1e9:.3f} GB, {rvb_by}); plain ring steps {ms_rv_plain:.4f} ms/apply; "
-            f"middle step {ms_rvmid:.4f} ms vs bound {rvmid_ms:.4f} ms")
-        rvstep = ring_step_kinds(f"ring {gname} step float32", vstate.ops, ny // 4, vp4,
+        log(f"ring {gname} headline: fused {r4v['ms']:.4f} ms/apply at p_y=4 in "
+            f"{r4v['launches_per_apply']} launches beside the fused "
+            f"{'K3' if op == BGRID else 'K4'} {k_ms:.4f} (phase 7: "
+            f"{vec_fused_results[op]['ms']:.4f}); step ring {r4v['step_ring_ms']:.4f} ms/apply in "
+            f"{vn}, per-launch bound {rvb_ms:.4f} ms ({rv_bytes / 1e9:.3f} GB, {rvb_by}); plain "
+            f"fused ring {ms_rvf_plain:.4f}, plain step ring {ms_rv_plain:.4f} ms/apply; middle "
+            f"step {ms_rvmid:.4f} ms vs bound {rvmid_ms:.4f} ms")
+        rvstep = ring_step_kinds(f"ring {gname} step float32", sstate.ops, ny // 4, vp4,
                                  load_vector(torch.float32), vec_ring_pass,
                                  vec_ring_pass_reference, torch.float32, "float32")
-        vops64, vp64 = make_cuda_vector_apply(rv.operator, rv.filter_spec).operands(
+        vops32, _ = make_cuda_vector_apply(rv4.operator, rv4.filter_spec).operands(
+            torch.float32, dev)
+        vops64, vp64 = make_cuda_vector_apply(rv4.operator, rv4.filter_spec).operands(
             torch.float64, dev)
-        vops64 = VecRingOperands.cut(vops64, 4)
-        rvstep64 = ring_step_kinds(f"ring {gname} step float64", vops64, ny // 4, vp64,
-                                   load_vector(torch.float64), vec_ring_pass,
+        rvstep64 = ring_step_kinds(f"ring {gname} step float64", VecRingOperands.cut(vops64, 4),
+                                   ny // 4, vp64, load_vector(torch.float64), vec_ring_pass,
                                    vec_ring_pass_reference, torch.float64, "float64")
-        del vops64
+        t0 = time.perf_counter()
+        rvf_err = vec_ring_fused_kinds(f"fused vector ring {gname} float32", vops32, vp4, op,
+                                       torch.float32, "float32")
+        rvf_err64 = vec_ring_fused_kinds(f"fused vector ring {gname} float64", vops64, vp64, op,
+                                         torch.float64, "float64")
+        del vops32, vops64
         log(f"ring {gname} step kinds vs plain at {ny}x{nx}, 4 shards: max abs {rvstep:.3e} "
-            f"(float32), {rvstep64:.3e} (float64)")
+            f"(float32), {rvstep64:.3e} (float64); fused vector ring pass kinds vs plain and "
+            f"tiled plain: max abs {rvf_err:.3e} (float32), {rvf_err64:.3e} (float64) "
+            f"({time.perf_counter() - t0:.1f} s)")
+        replaces = ("gcm_filters_tpu/ops/pallas/vec_pass.py:" + ("567" if op == BGRID else "575")
+                    + " (ring mode, :280-343, :366-392, :505-546)")
         ring_results.append({
-            "name": mine,
+            "name": f"vec_ring_pass_{key}",
             "route": "cuda",
             "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
-            "replaces": "gcm_filters_tpu/ops/pallas/vec_pass.py:"
-                        + ("567" if op == BGRID else "575") + " (ring mode, :280-343)",
-            "launches": rv_launches,
-            "max_abs_err": max(rvstep, rvstep64, rworst[mine]),
-            "vs_unsharded_kernel_max_abs": rv_vs_un,
-            "headline_vs_f64_engine_max_abs": rv_err,
-            "ms": ms_rv,
+            "replaces": replaces,
+            "launches": ring_step_path[f"vec_ring_pass_{key}"],
+            "launches_from": "Filter(mesh=ResidentMesh(...)).apply_to_vector of one-row shards, "
+                             "below the fused ring's plan (phase 15)",
+            "max_abs_err": max(rvstep, rvstep64, rworst[f"vec_ring_pass_{key}"]),
+            "vs_fused_ring_max_abs": r4v["vs_step_ring_max_abs"],
+            "ms": r4v["step_ring_ms"],
             "plain_ms": ms_rv_plain,
             "bound_ms": rvb_ms,
             "bound_by": rvb_by,
             "library_ms": None,
-            "unit": f"one ring headline apply = {vn} launches for 4 resident y-shards, "
-                    f"{ny}x{nx} float32 {gname}",
-            "filter_bound_ms": vec_results[op]["filter_bound_ms"],
+            "unit": f"one ring headline apply as the step ring = {vn} launches for 4 resident "
+                    f"y-shards, {ny}x{nx} float32 {gname}",
+            "filter_bound_ms": r4v["filter_bound_ms"],
             "launches_per_apply": vn,
             "bytes_moved": rv_bytes,
             "plan_bound_ms": rvb_ms,
             "middle_step_ms": ms_rvmid,
             "middle_step_bound_ms": rvmid_ms,
-            "unsharded_ms": vec_fused_results[op]["ms"],
-            "host_enqueue_ms": host_rv,
+            "unsharded_ms": k_ms,
+            "host_enqueue_ms": r4v["step_ring_host_enqueue_ms"],
             "p_y": 4,
         })
-        del rv, vstate
+        op_name = "BGridLap" if op == BGRID else "CTapLap"
+        vring[op] = {
+            "name": f"vec_ring_fused_pass_{key}",
+            "route": "cuda",
+            "source": "gcm_filters_tpu_torch/csrc/ring_pass.cu",
+            "replaces": replaces,
+            "launches": r4v["launches"],
+            "launches_per_apply": r4v["launches_per_apply"],
+            "max_abs_err": max(rvf_err, rvf_err64, rworst[f"vec_ring_fused_pass_{key}"]),
+            "vs_unsharded_max_abs": max(v["vs_unsharded_max_abs"] for v in by_p.values()),
+            "vs_step_ring_max_abs": max(v["vs_step_ring_max_abs"] for v in by_p.values()),
+            "headline_vs_f64_engine_max_abs": r4v["vs_f64_engine_max_abs"],
+            "ms": r4v["ms"],
+            "plain_ms": ms_rvf_plain,
+            "bound_ms": r4v["filter_bound_ms"],
+            "bound_by": r4v["filter_bound_by"],
+            "library_ms": None,
+            "unit": f"one ring headline apply = {r4v['launches_per_apply']} launch(es) of "
+                    f"{tuple(r4v['passes'])} steps on {r4v['tile'][0]}x{r4v['tile'][1]} tiles "
+                    f"for 4 resident y-shards, {ny}x{nx} float32 {gname}",
+            "bytes_moved": r4v["bytes_moved"],
+            "plan_bound_ms": r4v["plan_bound_ms"],
+            "filter_bound_ms": r4v["filter_bound_ms"],
+            "unsharded_ms": k_ms,
+            "unsharded_phase7_ms": vec_fused_results[op]["ms"],
+            "step_ring_ms": r4v["step_ring_ms"],
+            "host_enqueue_ms": r4v["host_enqueue_ms"],
+            "p_y": 4,
+            "ms_by_p_y": {str(k): v["ms"] for k, v in sorted(by_p.items())},
+            "step_ring_ms_by_p_y": {str(k): v["step_ring_ms"] for k, v in sorted(by_p.items())},
+            "by_p_y": {str(k): v for k, v in sorted(by_p.items())},
+            "taper": taper,
+            "ptxas": ptxas_of("vec_ring_fused_kernel", op_name),
+        }
+        del rv4, outs4, steps4v, sstate, k34
+    ring_results += [vring[BGRID], vring[CTAP]]
 
     kernels = [{
         "name": "cheb_pass",

@@ -1,9 +1,12 @@
 // Chebyshev steps on the y-shards of a ring, with the halo exchange done by
-// the kernel itself, for Hopper (sm_90a). Three entries:
-//   ring_pass_f32/f64        scalar step   (the arithmetic of cheb_pass.cu)
-//   vec_ring_pass_f32/f64    coupled step, op = BGRID or CTAP (vec_pass.cu)
-//   ring_fused_pass_f32/f64  fused scalar pass: S <= 16 steps per launch on
-//                            the shared-memory tiles of cheb_tile.cuh
+// the kernel itself, for Hopper (sm_90a). Four entries:
+//   ring_pass_f32/f64            scalar step   (the arithmetic of cheb_pass.cu)
+//   vec_ring_pass_f32/f64        coupled step, op = BGRID or CTAP (vec_pass.cu)
+//   ring_fused_pass_f32/f64      fused scalar pass: S <= 16 steps per launch on
+//                                the shared-memory tiles of cheb_tile.cuh
+//   vec_ring_fused_pass_f32/f64  fused coupled pass, op = BGRID or CTAP: S <= 16
+//                                (u, v) steps per launch on the tiles of
+//                                vec_tile.cuh
 //
 // Replaces the ring mode of the TPU pass kernels:
 // gcm_filters_tpu/ops/pallas/cheb_pass.py::build_ring_pass with its
@@ -106,15 +109,36 @@
 // Bound (fused pass): shared memory and issue, as the fused K1, plus the
 // 2p sends of S rows of one or two fields.
 //
+// The fused vector pass (vec_ring_fused_pass_*) is the same protocol for the
+// stacked (u, v) pair, what the ring mode of _build_coupled_pass computes per
+// call (build_vec_pass, build_ctap_pass with ring_axis): every shard's planes
+// are (2, ly+2*pad, nx) pairs and (n_coef, ly+2*pad, nx) coefficients,
+// extended as above; a send stores the S rows nearest one edge of both
+// components of every live field (w on a first pass, else t and t_prev: 2
+// or 4 planes) and ends in the same release store; a tile is the fused K3 /
+// K4 tile (vec_fused_tile of vec_tile.cuh, the same code, contraction and zap
+// compiled in) on RingGeo without a fold, so a cell gets the bits of the
+// fused K3 / K4 and of the vector step ring. Vector grids do not fold: an
+// edge tile waits for the flag of each halo its window reaches, the top
+// shard's north one too. The work order, the tickets, the flags, the table
+// in the kernel's parameters and the reuse of the two carry pairs are the
+// scalar pass's. The deadlock argument holds as it stands: a 32 x 64 B-grid
+// tile with a halo of 6 takes about 203 KB of shared memory in float32, so
+// one block runs on an SM, and a block that waits holds a ticket above every
+// send's, each drawn by a block that runs and never waits. acc is own-shaped
+// (2, ly, nx) and every own cell has one.
+//
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
 
 #include <algorithm>
 #include <cstdio>
 #include <cstring>
+#include <type_traits>
 
 #include "cheb_tile.cuh"
 #include "vec_step.cuh"
+#include "vec_tile.cuh"
 
 namespace {
 
@@ -415,6 +439,7 @@ constexpr int MAX_RING_SHARDS = 16;  // shards of a fused launch at most (the ta
 // the field's on a first pass), t_out and t_prev_out the pair it writes.
 template <typename T>
 struct ShardPlanes {
+  static constexpr int COMPONENTS = 1;  // planes a field stacks
   T* field;
   const T* field_own;  // the own rows of field
   T* t;
@@ -437,6 +462,34 @@ template <typename T>
 struct RingTable {
   ShardPlanes<T> shard[MAX_RING_SHARDS];
 };
+
+// A shard's planes for one fused vector pass, named as in VecFusedArgs: the
+// stacked input w and the carry pairs (2, ly+2*pad, nx), acc (2, ly, nx),
+// the coefficients (n_coef, ly+2*pad, nx); t and t_prev are the pair the
+// pass reads, t_out and t_prev_out the pair it writes.
+template <typename T>
+struct VecShardPlanes {
+  static constexpr int COMPONENTS = 2;
+  T* w;
+  T* t;
+  T* t_prev;
+  const T* acc_in;
+  T* t_out;
+  T* t_prev_out;
+  T* acc_out;          // = acc_in
+  const T* coef;
+};
+
+template <typename T>
+struct VecRingTable {
+  VecShardPlanes<T> shard[MAX_RING_SHARDS];
+};
+
+// The raw input of a shard: what a first pass sends and loads.
+template <typename T>
+__device__ __forceinline__ T* raw_input(const ShardPlanes<T>& s) { return s.field; }
+template <typename T>
+__device__ __forceinline__ T* raw_input(const VecShardPlanes<T>& s) { return s.w; }
 
 // What all shards of one fused launch share.
 struct FusedRing {
@@ -492,20 +545,25 @@ __device__ __forceinline__ Item draw_fused_item(const FusedRing& q, int tid) {
 // A send: the n rows of every live field nearest one edge of shard `from`
 // into the halo rows of its neighbour (side 0: the bottom rows into the
 // down-neighbour's north halo; 1: the top rows into the up-neighbour's
-// south halo), then the receiver's flag.
-template <typename T>
-__device__ __forceinline__ void fused_send(const FusedRing& q, const RingTable<T>& tab, int from,
-                                           int side, int n, bool first, int tid) {
+// south halo), every component of a stacked field, then the receiver's flag.
+template <typename T, class TAB>
+__device__ __forceinline__ void fused_send(const FusedRing& q, const TAB& tab, int from, int side,
+                                           int n, bool first, int tid) {
   const int to = side ? (from + 1) % q.p : (from + q.p - 1) % q.p;
-  const ShardPlanes<T>& src = tab.shard[from];
-  const ShardPlanes<T>& dst = tab.shard[to];
+  const auto& src = tab.shard[from];
+  const auto& dst = tab.shard[to];
+  constexpr int C = std::remove_reference_t<decltype(src)>::COMPONENTS;
   const int64_t nx = q.nx;
+  const int64_t plane = (int64_t)(q.ly + 2 * q.pad) * nx;  // one component, extended
   const int64_t r_src = side ? q.pad + q.ly - n : q.pad;   // first row sent, extended
   const int64_t r_dst = side ? q.pad - n : q.pad + q.ly;   // first halo row written
   for (int f = 0; f < (first ? 1 : 2); ++f) {
-    const T* a = first ? src.field : f ? src.t_prev : src.t;
-    T* b = first ? dst.field : f ? dst.t_prev : dst.t;
-    for (int64_t i = tid; i < n * nx; i += FUSED_THREADS) b[r_dst * nx + i] = a[r_src * nx + i];
+    const T* a = first ? raw_input(src) : f ? src.t_prev : src.t;
+    T* b = first ? raw_input(dst) : f ? dst.t_prev : dst.t;
+#pragma unroll
+    for (int c = 0; c < C; ++c)
+      for (int64_t i = tid; i < n * nx; i += FUSED_THREADS)
+        b[c * plane + r_dst * nx + i] = a[c * plane + r_src * nx + i];
   }
   publish(q.flags + 2 * to + (side ? 0 : 1), q.epoch, tid);
 }
@@ -516,7 +574,7 @@ ring_fused_kernel(const FusedArgs<T> a, const FusedRing q, const __grid_constant
   const int tid = threadIdx.x;
   const Item it = draw_fused_item(q, tid);
   if (it.what == SEND) {
-    fused_send(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
+    fused_send<T>(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
     return;
   }
   const int H = a.n_ops, y0 = it.ty * a.by;
@@ -540,6 +598,28 @@ int launch_ring_mode(const FusedArgs<T>& a, const FusedRing& q, const RingTable<
   return (int)cudaGetLastError();
 }
 
+// The launch geometry of a fused pass of n_ops steps on tiles of by x bx,
+// after checking what both fused entries check; false if they refuse it.
+bool fused_ring(int p, int ly, int nx, int pad, int fold, int by, int bx, int n_ops,
+                const void* const* planes, void* ticket, void* flags, unsigned long long base,
+                unsigned epoch, FusedRing* q) {
+  if (!planes || !ticket || !flags || p < 2 || p > MAX_RING_SHARDS || ly < 1 || nx < 1)
+    return false;
+  if (n_ops < 1 || n_ops > MAX_FUSE || n_ops > pad || n_ops > ly || by < 1 || bx < 1)
+    return false;
+  q->p = p; q->ly = ly; q->nx = nx; q->pad = pad; q->fold = fold ? 1 : 0;
+  q->tiles_x = (nx + bx - 1) / bx;
+  q->tiles_y = (ly + by - 1) / by;
+  // interior rows ty: ty*by >= H and (ty+1)*by + H <= ly
+  q->int_lo = std::min((n_ops + by - 1) / by, q->tiles_y);
+  q->n_int = std::max(0, std::min((ly - n_ops) / by, q->tiles_y) - q->int_lo);
+  q->epoch = epoch;
+  q->base = base;
+  q->ticket = static_cast<unsigned long long*>(ticket);
+  q->flags = static_cast<unsigned*>(flags);
+  return fused_items(*q) <= 0x7fffffffLL;
+}
+
 // One fused pass of every shard: `a` holds the pass (steps, tile, p_a) and
 // shard 0's planes, which give the compiled mode; `planes` holds 16
 // pointers per shard, in the order of ShardPlanes.
@@ -547,25 +627,12 @@ template <typename T>
 int launch_ring_fused(const FusedArgs<T>& a, int p, int ly, int nx, int pad, int fold,
                       const void* const* planes, void* ticket, void* flags,
                       unsigned long long base, unsigned epoch, cudaStream_t st) {
-  if (!planes || !ticket || !flags || p < 2 || p > MAX_RING_SHARDS || ly < 1 || nx < 1)
-    return (int)cudaErrorInvalidValue;
-  if (a.n_ops < 1 || a.n_ops > MAX_FUSE || a.n_ops > pad || a.n_ops > ly || a.by < 1 ||
-      a.bx < 1)
+  FusedRing q;
+  if (!fused_ring(p, ly, nx, pad, fold, a.by, a.bx, a.n_ops, planes, ticket, flags, base, epoch,
+                  &q))
     return (int)cudaErrorInvalidValue;
   const size_t bytes = fused_shared_bytes(a);
   if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
-  FusedRing q;
-  q.p = p; q.ly = ly; q.nx = nx; q.pad = pad; q.fold = fold ? 1 : 0;
-  q.tiles_x = (nx + a.bx - 1) / a.bx;
-  q.tiles_y = (ly + a.by - 1) / a.by;
-  // interior rows ty: ty*by >= H and (ty+1)*by + H <= ly
-  q.int_lo = std::min((a.n_ops + a.by - 1) / a.by, q.tiles_y);
-  q.n_int = std::max(0, std::min((ly - a.n_ops) / a.by, q.tiles_y) - q.int_lo);
-  q.epoch = epoch;
-  q.base = base;
-  q.ticket = static_cast<unsigned long long*>(ticket);
-  q.flags = static_cast<unsigned*>(flags);
-  if (fused_items(q) > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   static_assert(sizeof(ShardPlanes<T>) == 16 * sizeof(void*), "16 pointers a shard");
   RingTable<T> tab;
   std::memcpy(tab.shard, planes, (size_t)p * sizeof(ShardPlanes<T>));
@@ -574,6 +641,64 @@ int launch_ring_fused(const FusedArgs<T>& a, int p, int ly, int nx, int pad, int
     case FLUX: return launch_ring_mode<T, FLUX>(a, q, tab, bytes, st);
     default: return launch_ring_mode<T, GENERIC>(a, q, tab, bytes, st);
   }
+}
+
+// ---- fused vector pass ------------------------------------------------------
+
+template <typename T, typename OP, int ZAP>
+__global__ void __launch_bounds__(FUSED_THREADS)
+vec_ring_fused_kernel(const VecFusedArgs<T> a, const FusedRing q,
+                      const __grid_constant__ VecRingTable<T> tab) {
+  const int tid = threadIdx.x;
+  const Item it = draw_fused_item(q, tid);
+  if (it.what == SEND) {
+    fused_send<T>(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
+    return;
+  }
+  const int H = a.n_ops, y0 = it.ty * a.by;
+  if (y0 - H < 0) wait_flag(q.flags + 2 * it.shard, q.epoch, tid);
+  if (y0 + a.by + H > q.ly) wait_flag(q.flags + 2 * it.shard + 1, q.epoch, tid);
+  vec_fused_tile<T, OP, ZAP>(a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, 0},
+                             TileOrigin{it.ty, it.tx});
+}
+
+template <typename T, typename OP, int ZAP>
+int launch_vec_ring_mode(const VecFusedArgs<T>& a, const FusedRing& q, const VecRingTable<T>& tab,
+                         size_t bytes, cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        vec_ring_fused_kernel<T, OP, ZAP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  vec_ring_fused_kernel<T, OP, ZAP><<<(unsigned)fused_items(q), FUSED_THREADS, bytes, st>>>(
+      a, q, tab);
+  return (int)cudaGetLastError();
+}
+
+// One fused vector pass of every shard, with the kernel compiled for the
+// contraction and for zap: `a` holds the pass (steps, tile, p_a); `planes`
+// holds 8 pointers per shard, in the order of VecShardPlanes.
+template <typename T>
+int launch_vec_ring_fused(int op, int zap, const VecFusedArgs<T>& a, int p, int ly, int nx,
+                          int pad, const void* const* planes, void* ticket, void* flags,
+                          unsigned long long base, unsigned epoch, cudaStream_t st) {
+  if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
+  FusedRing q;
+  if (!fused_ring(p, ly, nx, pad, 0, a.by, a.bx, a.n_ops, planes, ticket, flags, base, epoch,
+                  &q))
+    return (int)cudaErrorInvalidValue;
+  const int n_coef = op == BGRID ? BGridLap::N_COEF : CTapLap::N_COEF;
+  const size_t bytes = vec_fused_shared_bytes<T>(a.by, a.bx, a.n_ops, n_coef);
+  if (bytes > MAX_SHARED) return (int)cudaErrorInvalidValue;
+  static_assert(sizeof(VecShardPlanes<T>) == 8 * sizeof(void*), "8 pointers a shard");
+  VecRingTable<T> tab;
+  std::memcpy(tab.shard, planes, (size_t)p * sizeof(VecShardPlanes<T>));
+  if (op == BGRID)
+    return zap ? launch_vec_ring_mode<T, BGridLap, 1>(a, q, tab, bytes, st)
+               : launch_vec_ring_mode<T, BGridLap, 0>(a, q, tab, bytes, st);
+  return zap ? launch_vec_ring_mode<T, CTapLap, 1>(a, q, tab, bytes, st)
+             : launch_vec_ring_mode<T, CTapLap, 0>(a, q, tab, bytes, st);
 }
 
 // ---- launches ---------------------------------------------------------------
@@ -697,6 +822,28 @@ VEC_RING_PASS_ENTRY(vec_ring_pass_f64, double)
 
 RING_FUSED_ENTRY(ring_fused_pass_f32, float)
 RING_FUSED_ENTRY(ring_fused_pass_f64, double)
+
+// One fused vector pass of every shard: steps start+1 .. start+n_ops of the
+// filter with contraction `op` (`first`: the pass begins with FIRST and
+// reads w; `last`: it ends with LAST and leaves the result in acc), on tiles
+// of by x bx own cells. `planes` holds 8 pointers per shard
+// (VecShardPlanes), `flags` two words per shard, `base` the tickets drawn
+// before this launch.
+#define VEC_RING_FUSED_ENTRY(NAME, T)                                                    \
+  extern "C" int NAME(int op, int p, int ly, int nx, int pad, int by, int bx, int n_ops, \
+                      int first, int last, const double* pa, double p_b,                 \
+                      const void* const* planes, void* ticket, void* flags,              \
+                      unsigned long long base, unsigned epoch, int zap, void* stream) {  \
+    cudaGetLastError();                                                                  \
+    const VecFusedArgs<T> a = vec_fused_args<T>(by, bx, n_ops, first, last, pa, p_b,     \
+                                                nullptr, nullptr, nullptr, nullptr,      \
+                                                nullptr, nullptr, nullptr, nullptr);     \
+    return launch_vec_ring_fused<T>(op, zap, a, p, ly, nx, pad, planes, ticket, flags,   \
+                                    base, epoch, static_cast<cudaStream_t>(stream));     \
+  }
+
+VEC_RING_FUSED_ENTRY(vec_ring_fused_pass_f32, float)
+VEC_RING_FUSED_ENTRY(vec_ring_fused_pass_f64, double)
 
 // Pointers in one row of the scalar and of the vector table, for the wrapper.
 extern "C" int ring_pass_table_row(int vector) {

@@ -27,7 +27,13 @@
 // The tile geometry is a template parameter (GEO): WrapGeo (cheb_tile.cuh,
 // no fold) for the whole periodic field, RoundGeo (below) for the fused
 // local round of the sharded engine (entries vec_local_fused_pass_f32/f64),
-// whose window comes from the halo-extended shard block instead of a wrap.
+// whose window comes from the halo-extended shard block instead of a wrap,
+// and RingGeo (cheb_tile.cuh, no fold) for a y-shard of the ring (entries
+// vec_ring_fused_pass_f32/f64 in ring_pass.cu), whose window rows past the
+// shard's edges are halo rows that the neighbours' sends fill. `vec_fused_tile`
+// is one tile's whole pass, with the planes (`io`) and the tile's origin as
+// arguments: `vec_fused_kernel` runs it for the tile of its blockIdx, the
+// ring kernel for the tile its ticket names, with a shard's row of its table.
 // Every buffer is indexed through its own plane: the inputs (the state and
 // the coefficients) through in_plane/in_index, the carries out through
 // out_plane/out_index, acc through own_plane/own_index, and acc exists only
@@ -78,13 +84,23 @@ struct RoundGeo {
   }
 };
 
-// Whether own cell (gy, gx) has an acc: every cell of the periodic field,
-// the core cells of a shard block.
+// Whether own cell (gy, gx) has an acc: every cell of the periodic field and
+// of a ring shard (acc is own-shaped there), the core cells of a shard block.
 __device__ __forceinline__ bool has_acc(const WrapGeo&, int, int) { return true; }
 __device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
   return (unsigned)(gy - g.margin()) < (unsigned)g.ly &&
          (unsigned)(gx - g.margin()) < (unsigned)g.lx;
 }
+__device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true; }
+
+// A load of the state into the window: through the read-only path where no
+// block of the launch writes the state, past L1 on a ring shard, whose halo
+// rows the sends of the same launch write (a 128-byte line may hold an own
+// row's end and a halo row's start).
+template <typename T, class GEO>
+__device__ __forceinline__ T state_ld(const GEO&, const T* p) { return __ldg(p); }
+template <typename T>
+__device__ __forceinline__ T state_ld(const RingGeo&, const T* p) { return __ldcg(p); }
 
 template <typename T>
 struct VecFusedArgs {
@@ -141,10 +157,11 @@ struct VecPlanes {
 // One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
 // [j, wx-j): the pair at `cur` holds T_k, the pair at `prev` T_{k-1}, and
 // T_{k+1} goes over prev. A pair's u plane is at its offset, its v plane one
-// window later. `b_acc` is this batch entry's u plane of acc.
-template <typename T, typename OP, int ZAP, int KIND, class GEO>
-__device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
-                                                const VecPlanes& pl, const GEO& geo,
+// window later. `b_acc` is this batch entry's u plane of acc, `io` the
+// planes (a LAST step writes io.acc_out).
+template <typename T, typename OP, int ZAP, int KIND, class GEO, class IO>
+__device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, const IO& io, T* sm,
+                                                const VecPlanes& pl, const GEO geo,
                                                 int j, int wy, int H, int y0, int x0, int cur,
                                                 int prev, T p_a, int64_t b_acc) {
   constexpr int S = vec_strip<OP, T>();
@@ -229,8 +246,8 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
           const int64_t ko = b_acc + geo.own_index(gy, gx);
 #pragma unroll
           for (int c = 0; c < 2; ++c)
-            a.acc_out[ko + c * P] = acc_add(p_a, next_value(tc[c][s + 1], l[c], tp[c][s]),
-                                            ac[c][s]);
+            io.acc_out[ko + c * P] = acc_add(p_a, next_value(tc[c][s + 1], l[c], tp[c][s]),
+                                             ac[c][s]);
         }
         continue;
       }
@@ -252,9 +269,17 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, T* sm,
   }
 }
 
-template <typename T, typename OP, int ZAP, class GEO>
-__global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFusedArgs<T> a,
-                                                                   const GEO geo) {
+// One tile's pass, all of the block's threads, the dynamic shared memory its
+// window: the own cells of the tile at `org` (GridOrigin or TileOrigin of
+// cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io` the planes (w,
+// t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef): the VecFusedArgs
+// itself for vec_fused_kernel, a shard's row of a table for the ring. The
+// geometry goes by value, here and into vec_step_window: by reference, five
+// of the RoundGeo kernels got other register counts than when this body was
+// the kernel's own (ptxas -v, compared on the card).
+template <typename T, typename OP, int ZAP, class GEO, class IO, class ORG>
+__device__ __forceinline__ void vec_fused_tile(const VecFusedArgs<T>& a, const IO& io,
+                                               const GEO geo, const ORG& org) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* const sm = reinterpret_cast<T*>(smem_raw);
   constexpr int NC = OP::N_COEF;
@@ -262,14 +287,14 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
   const VecPlanes pl{wx, wa, 4 * wa, (4 + NC) * wa};
   const int own_plane = a.by * a.bx;
-  const int y0 = blockIdx.y * a.by, x0 = blockIdx.x * a.bx;
+  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   // this entry's u planes (v follows one plane later) of the inputs, the
   // carries out and acc
   const int64_t P = geo.in_plane(), PO = geo.out_plane(), PA = geo.own_plane();
-  const int64_t b_in = (int64_t)blockIdx.z * 2 * P;
-  const int64_t b_out = (int64_t)blockIdx.z * 2 * PO;
-  const int64_t b_acc = (int64_t)blockIdx.z * 2 * PA;
+  const int64_t b_in = (int64_t)org.z() * 2 * P;
+  const int64_t b_out = (int64_t)org.z() * 2 * PO;
+  const int64_t b_acc = (int64_t)org.z() * 2 * PA;
   const int ny = geo.rows(), nx = geo.cols();
 
   // 1. the window, one warp per row. Pair A (offset 0) takes T_k (w on a
@@ -283,11 +308,11 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
       const int k = r * wx + q;
       T cv[NC], sv[4];
 #pragma unroll
-      for (int m = 0; m < NC; ++m) cv[m] = __ldg(a.coef + m * P + kk);
+      for (int m = 0; m < NC; ++m) cv[m] = __ldg(io.coef + m * P + kk);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        sv[c] = __ldg((a.first ? a.w : a.t) + b_in + c * P + kk);
-        sv[2 + c] = a.first ? T(0) : __ldg(a.t_prev + b_in + c * P + kk);
+        sv[c] = state_ld(geo, (a.first ? io.w : io.t) + b_in + c * P + kk);
+        sv[2 + c] = a.first ? T(0) : state_ld(geo, io.t_prev + b_in + c * P + kk);
       }
       auto* cp = reinterpret_cast<typename Pair<T>::type*>(sm + pl.coef + k * NC);
 #pragma unroll
@@ -303,7 +328,7 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
 #pragma unroll
       for (int c = 0; c < 2; ++c)
         sm[pl.acc + c * own_plane + i] =
-            in ? a.acc_in[b_acc + c * PA + geo.own_index(gy, gx)] : T(0);
+            in ? io.acc_in[b_acc + c * PA + geo.own_index(gy, gx)] : T(0);
     }
   }
   __syncthreads();
@@ -313,14 +338,14 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   for (int i = 0; i < H; ++i) {
     const int j = i + 1;  // this step's window: shrunk by j
     if (a.first && i == 0)
-      vec_step_window<T, OP, ZAP, FIRST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
-                                         b_acc);
+      vec_step_window<T, OP, ZAP, FIRST>(a, io, sm, pl, geo, j, wy, H, y0, x0, cur, prev,
+                                         a.pa[i], b_acc);
     else if (a.last && i == H - 1)
-      vec_step_window<T, OP, ZAP, LAST>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
-                                        b_acc);
+      vec_step_window<T, OP, ZAP, LAST>(a, io, sm, pl, geo, j, wy, H, y0, x0, cur, prev,
+                                        a.pa[i], b_acc);
     else
-      vec_step_window<T, OP, ZAP, MIDDLE>(a, sm, pl, geo, j, wy, H, y0, x0, cur, prev, a.pa[i],
-                                          b_acc);
+      vec_step_window<T, OP, ZAP, MIDDLE>(a, io, sm, pl, geo, j, wy, H, y0, x0, cur, prev,
+                                          a.pa[i], b_acc);
     __syncthreads();
     const int tmp = cur;
     cur = prev;
@@ -342,12 +367,18 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
       const int64_t ka = b_acc + geo.own_index(gy, gx);
 #pragma unroll
       for (int c = 0; c < 2; ++c) {
-        a.t_out[ko + c * PO] = sm[cur + c * wa + k];
-        a.t_prev_out[ko + c * PO] = sm[prev + c * wa + k];
-        if (sums) a.acc_out[ka + c * PA] = sm[pl.acc + c * own_plane + o];
+        io.t_out[ko + c * PO] = sm[cur + c * wa + k];
+        io.t_prev_out[ko + c * PO] = sm[prev + c * wa + k];
+        if (sums) io.acc_out[ka + c * PA] = sm[pl.acc + c * own_plane + o];
       }
     }
   }
+}
+
+template <typename T, typename OP, int ZAP, class GEO>
+__global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFusedArgs<T> a,
+                                                                   const GEO geo) {
+  vec_fused_tile<T, OP, ZAP>(a, a, geo, GridOrigin{});
 }
 
 template <typename T, typename OP, int ZAP, class GEO>

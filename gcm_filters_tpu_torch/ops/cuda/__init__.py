@@ -11,7 +11,9 @@
     several steps per launch on shared-memory tiles);
   - ring_pass.py: the same steps on all y-shards of a ring in one launch,
     the halo rows exchanged by the kernel itself, with their plain versions
-    ``ring_pass_reference`` and ``vec_ring_pass_reference``;
+    ``ring_pass_reference`` and ``vec_ring_pass_reference``, and the fused
+    passes of each (``ring_fused_pass``, ``vec_ring_fused_pass``: several
+    steps per launch, the halo rows sent once per pass);
   - dispatch.py: the scalar and vector filter applies built on those kernels;
   - build.py: compiles ``gcm_filters_tpu_torch/csrc/*.cu`` with nvcc at first
     use and loads the shared libraries with ctypes.

@@ -442,6 +442,40 @@ def cheb_fused_pass_tiled_reference(
         t_prev_out.copy_(outs["t_prev"])
 
 
+def tile_windows(n_ty: int, n_tx: int, rows_r: Tensor, cols: Tensor, nx: int,
+                 mirror: Optional[Tensor] = None) -> Tensor:
+    """Every tile's window at once: ``(n_ty*n_tx, wy, wx)`` flat indices into
+    an "in" plane of ``nx`` columns, from the in-plane rows of each tile row's
+    window ``rows_r`` ``(n_ty, wy)`` and the columns of each tile column's
+    window ``cols`` ``(n_tx, wx)``; a window row that is a mirror cell
+    (``mirror``, like ``rows_r``) reads its columns reversed."""
+    r = rows_r[:, None, :, None].expand(-1, n_tx, -1, 1)
+    c = cols[None, :, None, :].expand(n_ty, -1, 1, -1)
+    if mirror is not None:
+        c = torch.where(mirror[:, None, :, None], nx - 1 - c, c)
+    return (r * nx + c).reshape(n_ty * n_tx, rows_r.shape[-1], cols.shape[-1])
+
+
+def to_tiles(x: Tensor, tile) -> Tensor:
+    """``(..., ny, nx)`` -> ``(..., tiles, by, bx)``, tile rows first, zero
+    past the field."""
+    (by, bx), (ny, nx) = tile, x.shape[-2:]
+    n_ty, n_tx = -(-ny // by), -(-nx // bx)
+    xp = x.new_zeros(x.shape[:-2] + (n_ty * by, n_tx * bx))
+    xp[..., :ny, :nx] = x
+    xp = xp.reshape(x.shape[:-2] + (n_ty, by, n_tx, bx)).transpose(-3, -2)
+    return xp.reshape(x.shape[:-2] + (n_ty * n_tx, by, bx))
+
+
+def from_tiles(x: Tensor, shape) -> Tensor:
+    """The inverse of :func:`to_tiles`: ``(..., tiles, by, bx)`` -> ``(...,
+    ny, nx)``, the cells past the field dropped."""
+    (by, bx), (ny, nx) = x.shape[-2:], shape
+    n_ty, n_tx = -(-ny // by), -(-nx // bx)
+    x = x.reshape(x.shape[:-3] + (n_ty, n_tx, by, bx)).transpose(-3, -2)
+    return x.reshape(x.shape[:-4] + (n_ty * by, n_tx * bx))[..., :ny, :nx]
+
+
 def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
                field: Optional[Tensor], field_own: Optional[Tensor], t: Optional[Tensor],
                t_prev: Optional[Tensor], acc: Tensor) -> dict:
@@ -450,82 +484,80 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     maps the window rows ``r`` (own coordinates, may lie outside) to the rows
     of the "in" planes (the stencil's planes, ``field``, ``t``, ``t_prev``)
     that hold them and says which are mirror cells; x is periodic.
-    ``field_own`` is the own-shaped raw field of a last pass. Returns the
-    own-shaped ``acc`` and, unless the pass ends the filter, ``t`` and
-    ``t_prev``."""
+    ``field_own`` is the own-shaped raw field of a last pass. Every tile's
+    window is cut at once, a dimension of its own beside the batch, and the
+    steps run on all of them together (every op is elementwise or a shift
+    inside a window); the own cells of the ragged last tiles past the field
+    are computed and dropped. Returns the own-shaped ``acc`` and, unless the
+    pass ends the filter, ``t`` and ``t_prev``."""
     first, last = _kinds(p, start, n_ops)
     st = ops.stencil
     by, bx = tile
     H = n_ops
-    batch, ny, nx = acc.shape
+    ny, nx = acc.shape[-2:]
     dev = acc.device
-    outs = {"acc": torch.empty_like(acc)}
-    if not last:
-        outs["t"], outs["t_prev"] = torch.empty_like(acc), torch.empty_like(acc)
+    n_ty, n_tx = -(-ny // by), -(-nx // bx)
+    wy, wx = by + 2 * H, bx + 2 * H
+    src_r, mirror = rows(torch.arange(-H, by + H, device=dev)
+                         + by * torch.arange(n_ty, device=dev)[:, None])
+    cols = (torch.arange(-H, bx + H, device=dev) + bx * torch.arange(n_tx, device=dev)[:, None]) % nx
+    idx = tile_windows(n_ty, n_tx, src_r, cols, nx, mirror)
+    # (tiles, wy): which window rows are mirror cells
+    mirror = mirror[:, None, :].expand(-1, n_tx, -1).reshape(n_ty * n_tx, wy)
     flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
-
-    for y0 in range(0, ny, by):
-        src_r, mirror = rows(torch.arange(y0 - H, y0 + by + H, device=dev))
-        for x0 in range(0, nx, bx):
-            cols = torch.arange(x0 - H, x0 + bx + H, device=dev) % nx
-            src_c = torch.where(mirror[:, None], nx - 1 - cols[None, :], cols[None, :])
-            idx = src_r[:, None] * nx + src_c
-            take = lambda x: flat(x)[..., idx] if isinstance(x, Tensor) else x  # noqa: E731
-            coef = {k: take(getattr(st, k)) for k in COEF_FIELDS}
-            post, pre, area = take(st.post), take(st.pre), take(st.area)
-            wy, wx = idx.shape
-            if first:
-                fbar = take(field) * area if area is not None else take(field)
-                cur = post * torch.nan_to_num(fbar) if ops.drop_pre else fbar
-                prev = torch.empty_like(cur)
-            else:
-                cur, prev = take(t), take(t_prev)
-            oy, ox = min(by, ny - y0), min(bx, nx - x0)  # own cells inside the field
-            own = (slice(None), slice(H, H + oy), slice(H, H + ox))
-            a = None if first else acc[:, y0:y0 + oy, x0:x0 + ox]
-            for i in range(H):
-                j = i + 1
-                kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
-                g = torch.nan_to_num(cur) if st.zap_nans else cur
-                if pre is not None:
-                    g = pre * g
-                win = lambda x, dy=0, dx=0: (  # noqa: E731
-                    x[..., j + dy:wy - j + dy, j + dx:wx - j + dx] if isinstance(x, Tensor) else x)
-                mir = mirror[j:wy - j][:, None]
-                north, south, east, west = win(g, 1), win(g, -1), win(g, 0, 1), win(g, 0, -1)
-                lap = (win(coef["c"]) * win(g) + win(coef["n"]) * torch.where(mir, south, north)
-                       + win(coef["s"]) * torch.where(mir, north, south)
-                       + win(coef["e"]) * torch.where(mir, west, east)
-                       + win(coef["w"]) * torch.where(mir, east, west))
-                if post is not None:
-                    lap = win(post) * lap
-                sl = (slice(None), slice(j, wy - j), slice(j, wx - j))
-                # own cells inside this step's window
-                o = (slice(None), slice(H - j, H - j + oy), slice(H - j, H - j + ox))
-                if kind == FIRST:
-                    h0 = cur[sl]
-                    t1 = -h0 + 0.5 * lap
-                    prev[sl] = t1
-                    a = p[0] * h0[o] + p[1] * t1[o]
-                    cur, prev = prev, cur
-                    continue
-                nxt = -2.0 * cur[sl] + lap - prev[sl]
-                a = a + p[start + i + 1] * nxt[o]
-                if kind == MIDDLE:
-                    prev[sl] = nxt
-                    cur, prev = prev, cur
-                    continue
-                fb = field_own[:, y0:y0 + oy, x0:x0 + ox]
-                if area is not None:
-                    fb = fb * area[own[1:]]
-                if ops.drop_pre:
-                    a = torch.where(post[own[1:]] == 0, ops.land_gain * fb, a + fb * 0.0)
-                if area is not None:
-                    a = a / area[own[1:]]
-            outs["acc"][:, y0:y0 + oy, x0:x0 + ox] = a
-            if not last:
-                outs["t"][:, y0:y0 + oy, x0:x0 + ox] = cur[own]
-                outs["t_prev"][:, y0:y0 + oy, x0:x0 + ox] = prev[own]
+    take = lambda x: flat(x)[..., idx] if isinstance(x, Tensor) else x  # noqa: E731
+    coef = {k: take(getattr(st, k)) for k in COEF_FIELDS}
+    post, pre, area = take(st.post), take(st.pre), take(st.area)
+    if first:
+        fbar = take(field) * area if area is not None else take(field)
+        cur = post * torch.nan_to_num(fbar) if ops.drop_pre else fbar
+        prev = torch.empty_like(cur)
+    else:
+        cur, prev = take(t), take(t_prev)
+    own = (Ellipsis, slice(H, H + by), slice(H, H + bx))
+    a = None if first else to_tiles(acc, tile)
+    for i in range(H):
+        j = i + 1
+        kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
+        g = torch.nan_to_num(cur) if st.zap_nans else cur
+        if pre is not None:
+            g = pre * g
+        win = lambda x, dy=0, dx=0: (  # noqa: E731
+            x[..., j + dy:wy - j + dy, j + dx:wx - j + dx] if isinstance(x, Tensor) else x)
+        mir = mirror[:, j:wy - j, None]
+        north, south, east, west = win(g, 1), win(g, -1), win(g, 0, 1), win(g, 0, -1)
+        lap = (win(coef["c"]) * win(g) + win(coef["n"]) * torch.where(mir, south, north)
+               + win(coef["s"]) * torch.where(mir, north, south)
+               + win(coef["e"]) * torch.where(mir, west, east)
+               + win(coef["w"]) * torch.where(mir, east, west))
+        if post is not None:
+            lap = win(post) * lap
+        sl = (Ellipsis, slice(j, wy - j), slice(j, wx - j))
+        # own cells inside this step's window
+        o = (Ellipsis, slice(H - j, H - j + by), slice(H - j, H - j + bx))
+        if kind == FIRST:
+            h0 = cur[sl]
+            t1 = -h0 + 0.5 * lap
+            prev[sl] = t1
+            a = p[0] * h0[o] + p[1] * t1[o]
+            cur, prev = prev, cur
+            continue
+        nxt = -2.0 * cur[sl] + lap - prev[sl]
+        a = a + p[start + i + 1] * nxt[o]
+        if kind == MIDDLE:
+            prev[sl] = nxt
+            cur, prev = prev, cur
+            continue
+        fb = to_tiles(field_own, tile)
+        if area is not None:
+            fb = fb * area[own]
+        if ops.drop_pre:
+            a = torch.where(post[own] == 0, ops.land_gain * fb, a + fb * 0.0)
+        if area is not None:
+            a = a / area[own]
+    outs = {"acc": from_tiles(a, (ny, nx))}
+    if not last:
+        outs["t"], outs["t_prev"] = from_tiles(cur[own], (ny, nx)), from_tiles(prev[own], (ny, nx))
     return outs
 
 

@@ -49,6 +49,18 @@ its plain version (the sends as tensor copies, then the unsharded plain
 fused pass on each extended block) and
 :func:`ring_fused_pass_tiled_reference` the kernel's tile decomposition in
 torch.
+
+The fused vector pass is the same for the stacked (u, v) pair, the
+counterpart of what the ring mode of ``build_vec_pass`` / ``build_ctap_pass``
+computes per call: :class:`VecRingFusedOperands` holds every shard's
+``(n_coef, ly+2*halo, nx)`` coefficients, :class:`VecRingFusedState` the
+extended ``(2, ly+2*halo, nx)`` input ``w``, two extended carry pairs and
+acc; a pass sends the S rows nearest each edge of both components of every
+live field (``w`` on a first pass, else ``t`` and ``t_prev``), then runs the
+fused K3 / K4 tile on windows cut from the extended planes.
+:func:`vec_ring_fused_pass` is its wrapper, :func:`vec_ring_fused_pass_reference`
+its plain version (the unsharded plain fused pass on each extended block) and
+:func:`vec_ring_fused_pass_tiled_reference` the kernel's tile decomposition.
 """
 from __future__ import annotations
 
@@ -67,7 +79,7 @@ from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, fused_planes,
     fused_shared_bytes,
 )
-from .vec_pass import BGRID, CTAP, N_COEF, VecPassOperands
+from .vec_pass import BGRID, CTAP, N_COEF, VecPassOperands, vec_fused_shared_bytes
 
 Tensor = torch.Tensor
 
@@ -336,6 +348,14 @@ def vec_ring_pass_reference(state: RingState, kind: int, p_a: float, p_b: float 
 
 # -- the fused pass: S steps per launch, S halo rows sent once per pass -------
 
+def _extended(x: Tensor, r: int, ly: int, halo: int) -> Tensor:
+    """Shard ``r``'s rows of ``x`` extended by ``halo`` rows below and above
+    (global rows ``r*ly - halo`` to ``(r+1)*ly + halo``, y wrapping), an
+    allocation of its own."""
+    rows = torch.arange(r * ly - halo, (r + 1) * ly + halo, device=x.device) % x.shape[-2]
+    return _own(x.index_select(-2, rows))
+
+
 @dataclasses.dataclass(frozen=True)
 class RingFusedOperands:
     """What every fused ring pass reads besides the carries.
@@ -373,14 +393,39 @@ class RingFusedOperands:
                 if not isinstance(v, Tensor):
                     continue
                 if id(v) not in seen:  # pre and post may share one tensor
-                    ny = v.shape[-2]
-                    ly = ny // p_y
-                    rows = torch.arange(r * ly - halo, (r + 1) * ly + halo, device=v.device) % ny
-                    seen[id(v)] = _own(v.index_select(-2, rows))
+                    seen[id(v)] = _extended(v, r, v.shape[-2] // p_y, halo)
                 planes[k] = seen[id(v)]
             shards.append(dataclasses.replace(
                 st, **planes, fold_north=st.fold_north and r == p_y - 1))
         return cls(tuple(shards), int(halo), ops.drop_pre, ops.land_gain)
+
+
+@dataclasses.dataclass(frozen=True)
+class VecRingFusedOperands:
+    """What every fused vector ring pass reads besides the carries: per shard
+    the ``(n_coef, ly+2*halo, nx)`` block of the pre-scaled coefficients of
+    :class:`~.vec_pass.VecPassOperands`, extended as in
+    :class:`RingFusedOperands` (the counterpart of the JAX ring's
+    ``host_vec_ext_inputs`` / ``host_ctap_ext_inputs``), an allocation of its
+    own; ``op`` and ``zap`` are the unsharded pass's."""
+
+    op: int
+    coefs: Tuple[Tensor, ...]
+    halo: int
+    zap: bool
+
+    @property
+    def p_y(self) -> int:
+        return len(self.coefs)
+
+    @classmethod
+    def cut(cls, ops: VecPassOperands, p_y: int, halo: int) -> "VecRingFusedOperands":
+        """Cut the unsharded pass's operands into ``p_y`` extended shards."""
+        if halo < 1:
+            raise ValueError(f"the fused ring needs a halo of at least 1 row, got {halo}")
+        ly = ops.coef.shape[-2] // p_y
+        return cls(ops.op, tuple(_extended(ops.coef, r, ly, halo) for r in range(p_y)),
+                   int(halo), ops.zap)
 
 
 class RingFusedState:
@@ -397,14 +442,17 @@ class RingFusedState:
     stream at a time, and its launches cannot be replayed from a CUDA graph.
     """
 
-    def __init__(self, ops: RingFusedOperands, ly: int, nx: int, dtype: torch.dtype,
-                 device) -> None:
+    lead: Tuple[int, ...] = ()  # the components a field stacks: none
+    operands = RingFusedOperands
+
+    def __init__(self, ops, ly: int, nx: int, dtype: torch.dtype, device) -> None:
         self.ops, self.ly, self.nx = ops, int(ly), int(nx)
         self.dtype, self.device = dtype, torch.device(device)
         if self.device.type == "cuda" and self.device.index is None:
             self.device = torch.device("cuda", torch.cuda.current_device())
-        if not isinstance(ops, RingFusedOperands):
-            raise TypeError(f"RingFusedState takes RingFusedOperands, got {type(ops).__name__}")
+        if not isinstance(ops, self.operands):
+            raise TypeError(f"{type(self).__name__} takes {self.operands.__name__}, "
+                            f"got {type(ops).__name__}")
         if dtype not in (torch.float32, torch.float64):
             raise TypeError(f"the fused ring pass takes float32 or float64, got {dtype}")
         p = ops.p_y
@@ -413,15 +461,15 @@ class RingFusedState:
         if ly < MIN_ROWS or nx < 1:
             raise ValueError(f"a shard needs at least {MIN_ROWS} row and 1 column, got {(ly, nx)}")
         self.pad = ops.halo
-        _check_shards(ops, _checker(self.device, dtype), (self.ly + 2 * self.pad, self.nx))
+        self._check_operands(_checker(self.device, dtype))
 
         def new():
-            return [torch.full((self.ly + 2 * self.pad, self.nx), float("nan"), dtype=dtype,
-                               device=self.device) for _ in range(p)]
+            return [torch.full(self.lead + (self.ly + 2 * self.pad, self.nx), float("nan"),
+                               dtype=dtype, device=self.device) for _ in range(p)]
 
         self.field = new()
         self.t, self.t_prev = [new(), new()], [new(), new()]
-        self.acc = [torch.empty((self.ly, self.nx), dtype=dtype, device=self.device)
+        self.acc = [torch.empty(self.lead + (self.ly, self.nx), dtype=dtype, device=self.device)
                     for _ in range(p)]
         self.flags = torch.zeros((p, 2), dtype=torch.int32, device=self.device)
         self.ticket = torch.zeros(1, dtype=torch.int64, device=self.device)
@@ -429,34 +477,68 @@ class RingFusedState:
         self.drawn = 0
         self._planes = {}  # out -> the kernel's table, made at first launch
 
+    def _check_operands(self, check) -> None:
+        _check_shards(self.ops, check, (self.ly + 2 * self.pad, self.nx))
+
     @property
     def input(self) -> List[Tensor]:
         """Where a caller puts each shard's rows before the first pass: the
         own rows of ``field``."""
-        return [f[self.pad:self.pad + self.ly] for f in self.field]
+        return [f[..., self.pad:self.pad + self.ly, :] for f in self.field]
 
-    def planes(self, out: int):
-        """The kernel's table of a pass that writes carry pair ``out``: 16
-        pointers per shard (csrc/ring_pass.cu: ``ShardPlanes``), a host array
-        that the launch copies into the kernel's parameters."""
+    def _table(self, out: int, rows) -> ctypes.Array:
+        """The kernel's table of a pass that writes carry pair ``out``, from
+        ``rows(r, src)``: each shard's pointers (None for an absent plane), a
+        host array that the launch copies into the kernel's parameters."""
         if out not in self._planes:
-            src = 1 - out
-            ptrs = []
-            for r, st in enumerate(self.ops.shards):
-                ptrs += [x.data_ptr() for x in (
-                    self.field[r], self.input[r], self.t[src][r], self.t_prev[src][r],
-                    self.acc[r], self.t[out][r], self.t_prev[out][r], self.acc[r])]
-                ptrs += [v.data_ptr() if isinstance(v, Tensor) else None
-                         for v in (getattr(st, k) for k in ARRAY_FIELDS)]
+            ptrs = [x.data_ptr() if isinstance(x, Tensor) else x
+                    for r in range(self.ops.p_y) for x in rows(r, 1 - out)]
             self._planes[out] = (ctypes.c_void_p * len(ptrs))(*ptrs)
         return self._planes[out]
 
+    def planes(self, out: int):
+        """The kernel's table of a pass that writes carry pair ``out``: 16
+        pointers per shard (csrc/ring_pass.cu: ``ShardPlanes``)."""
+        return self._table(out, lambda r, src: [
+            self.field[r], self.input[r], self.t[src][r], self.t_prev[src][r], self.acc[r],
+            self.t[out][r], self.t_prev[out][r], self.acc[r]] + [
+            v if isinstance(v, Tensor) else None
+            for v in (getattr(self.ops.shards[r], k) for k in ARRAY_FIELDS)])
 
-def _fused_kinds(state: RingFusedState, p, start: int, n_ops: int, out: int):
+
+class VecRingFusedState(RingFusedState):
+    """The buffers of one fused vector ring, as :class:`RingFusedState` has
+    them for a scalar, every field a stacked ``(2, ...)`` pair of u and v:
+    per shard ``w`` (the raw input, ``field`` of the scalar state), the two
+    extended carry pairs and acc ``(2, ly, nx)``."""
+
+    lead = (2,)
+    operands = VecRingFusedOperands
+
+    @property
+    def w(self) -> List[Tensor]:
+        return self.field
+
+    def _check_operands(self, check) -> None:
+        if self.ops.op not in N_COEF:
+            raise ValueError(f"unknown vector contraction {self.ops.op}")
+        for r, c in enumerate(self.ops.coefs):
+            check(f"coef of shard {r}", c, (N_COEF[self.ops.op], self.ly + 2 * self.pad, self.nx))
+
+    def planes(self, out: int):
+        """The kernel's table of a pass that writes carry pair ``out``: 8
+        pointers per shard (csrc/ring_pass.cu: ``VecShardPlanes``)."""
+        return self._table(out, lambda r, src: [
+            self.w[r], self.t[src][r], self.t_prev[src][r], self.acc[r], self.t[out][r],
+            self.t_prev[out][r], self.acc[r], self.ops.coefs[r]])
+
+
+def _fused_kinds(state: RingFusedState, p, start: int, n_ops: int, out: int,
+                 cls=RingFusedState):
     """``(first, last)`` of a pass, after checking that the state takes it."""
     first, last = _scalar._kinds(p, start, n_ops)
-    if not isinstance(state, RingFusedState):
-        raise TypeError(f"the fused ring pass takes a RingFusedState, got {type(state).__name__}")
+    if type(state) is not cls:
+        raise TypeError(f"the fused ring pass takes a {cls.__name__}, got {type(state).__name__}")
     if n_ops > min(MAX_FUSE, state.pad, state.ly):
         raise ValueError(f"a fused ring pass of {n_ops} steps needs at most {MAX_FUSE} steps, "
                          f"a halo of {state.pad} rows and shards of {state.ly} rows")
@@ -467,22 +549,23 @@ def _fused_kinds(state: RingFusedState, p, start: int, n_ops: int, out: int):
 
 def _send_rows(state: RingFusedState, n: int, first: bool, out: int) -> None:
     """The sends of one pass: the ``n`` rows nearest each edge of every live
-    field (``field`` on a first pass, else the pair ``1 - out``) into the
-    neighbours' halo rows: the bottom rows into the down-neighbour's north
-    halo, the top rows into the up-neighbour's south halo."""
+    field (``field`` on a first pass, else the pair ``1 - out``), every
+    component of a stacked one, into the neighbours' halo rows: the bottom
+    rows into the down-neighbour's north halo, the top rows into the
+    up-neighbour's south halo."""
     p, pad, ly = state.ops.p_y, state.pad, state.ly
     live = [state.field] if first else [state.t[1 - out], state.t_prev[1 - out]]
     for bufs in live:
         for r in range(p):
-            bufs[(r - 1) % p][pad + ly:pad + ly + n].copy_(bufs[r][pad:pad + n])
-            bufs[(r + 1) % p][pad - n:pad].copy_(bufs[r][pad + ly - n:pad + ly])
+            bufs[(r - 1) % p][..., pad + ly:pad + ly + n, :].copy_(bufs[r][..., pad:pad + n, :])
+            bufs[(r + 1) % p][..., pad - n:pad, :].copy_(bufs[r][..., pad + ly - n:pad + ly, :])
 
 
 def _store(state: RingFusedState, r: int, last: bool, out: int, outs) -> None:
     """A shard's own-shaped results of a pass into its buffers."""
     state.acc[r].copy_(outs["acc"])
     if not last:
-        own = slice(state.pad, state.pad + state.ly)
+        own = (Ellipsis, slice(state.pad, state.pad + state.ly), slice(None))
         state.t[out][r][own].copy_(outs["t"])
         state.t_prev[out][r][own].copy_(outs["t_prev"])
 
@@ -551,6 +634,62 @@ def ring_fused_pass_tiled_reference(state: RingFusedState, p, start: int, n_ops:
         _store(state, r, last, out, {k: v[0] for k, v in outs.items()})
 
 
+def vec_ring_fused_pass_reference(state: VecRingFusedState, p, start: int, n_ops: int, *,
+                                  tile=None, out: int) -> None:
+    """The plain PyTorch version of one fused vector ring launch, on any
+    device: steps ``start+1 .. start+n_ops`` of the filter on every shard.
+
+    The sends move the rows of both components with tensor copies; then each
+    shard's extended block runs :func:`~.vec_pass.vec_fused_pass_reference`,
+    the unsharded plain steps (``tile`` is not used). The block's own y wrap
+    touches only rows within ``n_ops`` of its ends, which lie in the halo. A
+    first pass reads ``w``, any other the carry pair ``1 - out``; a pass that
+    does not end the filter writes the own rows of pair ``out``; acc is
+    updated in place and holds the result after the last pass.
+    """
+    first, last = _fused_kinds(state, p, start, n_ops, out, VecRingFusedState)
+    _send_rows(state, n_ops, first, out)
+    ops, pad, ly, src = state.ops, state.pad, state.ly, 1 - out
+    own = (0, slice(None), slice(pad, pad + ly))
+    for r in range(ops.p_y):
+        acc = torch.zeros_like(state.w[r][None])
+        if not first:
+            acc[own] = state.acc[r]
+        t_out, t_prev_out = (None, None) if last else (torch.empty_like(acc), torch.empty_like(acc))
+        _vector.vec_fused_pass_reference(
+            VecPassOperands(ops.op, ops.coefs[r], ops.zap), p, start, n_ops,
+            w=state.w[r][None] if first else None,
+            t=None if first else state.t[src][r][None],
+            t_prev=None if first else state.t_prev[src][r][None], t_out=t_out,
+            t_prev_out=t_prev_out, acc=acc)
+        _store(state, r, last, out, {"acc": acc[own]} if last else {
+            "acc": acc[own], "t": t_out[own], "t_prev": t_prev_out[own]})
+
+
+def vec_ring_fused_pass_tiled_reference(state: VecRingFusedState, p, start: int, n_ops: int,
+                                        *, tile, out: int) -> None:
+    """One fused vector ring launch computed as the kernel decomposes it, in
+    torch: the sends as tensor copies, then every shard's tiles of ``tile =
+    (by, bx)`` own cells with their windows cut from the extended planes as
+    ``RingGeo`` without a fold cuts them (halo rows below and above, x
+    periodic with the corners, rows further than ``n_ops`` from every own row
+    clamped into the block; :func:`~.vec_pass.vec_tiled_pass`). Same
+    arguments and outputs as :func:`vec_ring_fused_pass_reference`, and the
+    same torch arithmetic per cell, so the two are equal bit for bit
+    wherever the decomposition is right."""
+    first, last = _fused_kinds(state, p, start, n_ops, out, VecRingFusedState)
+    _send_rows(state, n_ops, first, out)
+    ops, pad, ly, src = state.ops, state.pad, state.ly, 1 - out
+    for r in range(ops.p_y):
+        outs = _vector.vec_tiled_pass(
+            VecPassOperands(ops.op, ops.coefs[r], ops.zap), p, start, n_ops, tile,
+            lambda g: g.clamp(-pad, ly + pad - 1) + pad,
+            w=state.w[r][None] if first else None,
+            t=None if first else state.t[src][r][None],
+            t_prev=None if first else state.t_prev[src][r][None], acc=state.acc[r][None])
+        _store(state, r, last, out, {k: v[0] for k, v in outs.items()})
+
+
 # -- kernels -------------------------------------------------------------------
 
 _SCALAR_ARGTYPES = (
@@ -582,6 +721,14 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_int] * 3          # zap, fold, drop_pre
     + [ctypes.c_void_p]           # stream
 )
+_VEC_FUSED_ARGTYPES = (
+    [ctypes.c_int] * 10           # op, p, ly, nx, pad, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 3       # planes (host pointers), ticket, flags
+    + [ctypes.c_ulonglong, ctypes.c_uint]  # base, epoch
+    + [ctypes.c_int]              # zap
+    + [ctypes.c_void_p]           # stream
+)
 _lib = None
 
 
@@ -596,7 +743,9 @@ def _library():
                              (lib.vec_ring_pass_f32, _VECTOR_ARGTYPES),
                              (lib.vec_ring_pass_f64, _VECTOR_ARGTYPES),
                              (lib.ring_fused_pass_f32, _FUSED_ARGTYPES),
-                             (lib.ring_fused_pass_f64, _FUSED_ARGTYPES)):
+                             (lib.ring_fused_pass_f64, _FUSED_ARGTYPES),
+                             (lib.vec_ring_fused_pass_f32, _VEC_FUSED_ARGTYPES),
+                             (lib.vec_ring_fused_pass_f64, _VEC_FUSED_ARGTYPES)):
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
         lib.ring_pass_table_row.argtypes = [ctypes.c_int]
@@ -731,8 +880,56 @@ def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
         raise RuntimeError(f"ring_fused_pass has no kernel for device {state.device}")
 
 
+def _vec_fused_launch(state: VecRingFusedState, p, start: int, n_ops: int, tile,
+                      out: int) -> None:
+    first, last = _fused_kinds(state, p, start, n_ops, out, VecRingFusedState)
+    by, bx = tile
+    ops = state.ops
+    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op],
+                              state.field[0].element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    if ops.p_y > MAX_RING_SHARDS:
+        raise ValueError(f"the fused ring kernel takes at most {MAX_RING_SHARDS} shards, "
+                         f"got {ops.p_y}")
+    pa, p_b = _scalar._pass_args(p, start, n_ops, first, {}, ())
+    lib = _library()
+    fn = lib.vec_ring_fused_pass_f32 if state.dtype == torch.float32 else lib.vec_ring_fused_pass_f64
+    state.epoch = (state.epoch + 1) & 0xFFFFFFFF  # as in _fused_launch
+    stream = torch.cuda.current_stream(state.device).cuda_stream
+    with torch.cuda.device(state.device):
+        err = fn(ops.op, ops.p_y, state.ly, state.nx, state.pad, by, bx, n_ops, int(first),
+                 int(last), pa, p_b, state.planes(out), state.ticket.data_ptr(),
+                 state.flags.data_ptr(), state.drawn, state.epoch, int(ops.zap), stream)
+    if err != 0:
+        msg = lib.ring_pass_error_string(err).decode()
+        raise RuntimeError(f"vec_ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    state.drawn += ops.p_y * (2 + -(-state.ly // by) * -(-state.nx // bx))
+
+
+def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, tile,
+                        out: int) -> None:
+    """Steps ``start+1 .. start+n_ops`` of the vector filter on every shard
+    of ``state`` in one launch, halo exchange included, on tiles of ``tile =
+    (by, bx)`` own cells, as :func:`vec_ring_fused_pass_reference` documents
+    it.
+
+    A state on a CUDA device launches the kernel once (counted per
+    contraction in ``vec_ring_fused_pass.launches[BGRID]`` and ``[CTAP]``)
+    on the current stream, without synchronizing; a state on the CPU runs the
+    plain version. Anything else raises.
+    """
+    if state.device.type == "cuda":
+        _vec_fused_launch(state, p, start, n_ops, tuple(tile), out)
+        vec_ring_fused_pass.launches[state.ops.op] += 1
+    elif state.device.type == "cpu":
+        vec_ring_fused_pass_reference(state, p, start, n_ops, out=out)
+    else:
+        raise RuntimeError(f"vec_ring_fused_pass has no kernel for device {state.device}")
+
+
 # kernel launches (one per step or fused pass, whatever the number of shards);
 # the plain versions do not count
 ring_pass.launches = 0
 vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 ring_fused_pass.launches = 0
+vec_ring_fused_pass.launches = {BGRID: 0, CTAP: 0}

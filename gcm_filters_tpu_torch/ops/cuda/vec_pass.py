@@ -42,7 +42,7 @@ from ..ctaps import CTAP_NAMES, apply_taps
 from ..stencil import BGRID_FIELDS, BGridVectorStencil
 from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan, _check, _kinds,
-    _pass_args, search_plan,
+    _pass_args, from_tiles, search_plan, tile_windows, to_tiles,
 )
 
 Tensor = torch.Tensor
@@ -284,16 +284,22 @@ def _vec_pass_cost(op: int, tile, steps, itemsize: int) -> float:
 
 @functools.lru_cache(maxsize=None)
 def _vec_plan(n_steps: int, ny: int, nx: int, itemsize: int, op: int, max_fuse: int,
-              tile: Optional[Tuple[int, int]]) -> FusedPlan:
+              tile: Optional[Tuple[int, int]], ring: bool) -> FusedPlan:
+    def fits(tl, halo):
+        if ring and nx < tl[1] + 2 * halo:
+            return False
+        return vec_fused_shared_bytes(tl, halo, N_COEF[op], itemsize) <= SHARED_BYTES
+
     return search_plan(
-        n_steps, ny, nx, max_fuse, (tile,) if tile else VEC_TILES[op],
-        lambda tl, halo: vec_fused_shared_bytes(tl, halo, N_COEF[op], itemsize) <= SHARED_BYTES,
-        lambda tl, steps: _vec_pass_cost(op, tl, steps, itemsize))
+        n_steps, ny, nx, max_fuse, (tile,) if tile else VEC_TILES[op], fits,
+        lambda tl, steps: _vec_pass_cost(op, tl, steps, itemsize),
+        predicate=(lambda tl, halo: ny >= halo) if ring else None)
 
 
 def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op: int,
                           max_fuse: int = MAX_FUSE,
-                          tile: Optional[Tuple[int, int]] = None) -> FusedPlan:
+                          tile: Optional[Tuple[int, int]] = None,
+                          ring: bool = False) -> FusedPlan:
     """The fused plan of an ``n_steps`` vector filter with contraction ``op``
     on ``(ny, nx)`` fields: the counterpart of the JAX ``plan_vec_passes`` /
     ``plan_ctap_passes``.
@@ -303,14 +309,18 @@ def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op
     ``tile``) whose window fits in a block's shared memory is scored by a
     cost model fitted to measured times (:func:`_vec_pass_cost`); the
     cheapest wins. ``fused`` is False where the field is smaller than a tile
-    plus its halo in either dimension: the step chain runs there. The result
-    depends on the shape, the dtype and ``op`` only.
+    plus its halo in either dimension: the step chain runs there. With
+    ``ring`` the ``(ny, nx)`` field is a y-shard of the ring
+    (parallel/ring.py), whose window rows past its edges come from the
+    neighbours: only tiles whose window fits in ``nx`` are weighed, and the
+    plan is fused where ``ny >= halo``. The result depends on the shape, the
+    dtype and ``op`` only.
     """
     if op not in N_COEF:
         raise ValueError(f"unknown vector contraction {op}")
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _vec_plan(int(n_steps), int(ny), int(nx), itemsize, int(op), int(max_fuse),
-                     tuple(tile) if tile else None)
+                     tuple(tile) if tile else None, bool(ring))
 
 
 def vec_fused_pass_reference(
@@ -360,64 +370,79 @@ def vec_fused_pass_tiled_reference(
     ``(by+2H) x (bx+2H)`` cells (``H = n_ops``), periodic in both axes and
     with its corners, of the state of both components and of every
     coefficient plane; run the steps on the window shrunk by j at step j; keep
-    the own cells. The contraction is the plain step's own (:func:`_lap` on
-    the window, whose wrap at the window's edge reaches only cells outside
-    the shrunk window), so the two are equal bit for bit wherever the
-    decomposition is right. Same arguments and outputs as
-    :func:`vec_fused_pass_reference`.
+    the own cells (:func:`vec_tiled_pass`). Same arguments and outputs as
+    :func:`vec_fused_pass_reference`, and the same torch arithmetic per cell,
+    so the two are equal bit for bit wherever the decomposition is right.
     """
-    first, last = _kinds(p, start, n_ops)
-    by, bx = tile
-    H = n_ops
-    batch, _, ny, nx = acc.shape
-    dev = acc.device
-    outs = {"acc": torch.empty_like(acc)}
-    if not last:
-        outs["t"], outs["t_prev"] = torch.empty_like(acc), torch.empty_like(acc)
-    flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
-
-    for y0 in range(0, ny, by):
-        rows = torch.arange(y0 - H, y0 + by + H, device=dev) % ny
-        for x0 in range(0, nx, bx):
-            cols = torch.arange(x0 - H, x0 + bx + H, device=dev) % nx
-            idx = rows[:, None] * nx + cols[None, :]
-            wops = VecPassOperands(ops.op, flat(ops.coef)[:, idx], ops.zap)
-            if first:
-                cur = flat(w)[..., idx]
-                prev = torch.empty_like(cur)
-            else:
-                cur, prev = flat(t)[..., idx], flat(t_prev)[..., idx]
-            wy, wx = idx.shape
-            oy, ox = min(by, ny - y0), min(bx, nx - x0)  # own cells inside the field
-            own = (Ellipsis, slice(H, H + oy), slice(H, H + ox))
-            a = None if first else acc[..., y0:y0 + oy, x0:x0 + ox]
-            for i in range(H):
-                j = i + 1
-                kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
-                sl = (Ellipsis, slice(j, wy - j), slice(j, wx - j))
-                lap = _lap(wops, cur)[sl]
-                # own cells inside this step's window
-                o = (Ellipsis, slice(H - j, H - j + oy), slice(H - j, H - j + ox))
-                if kind == FIRST:
-                    h0 = cur[sl]
-                    t1 = -h0 + 0.5 * lap
-                    prev[sl] = t1
-                    a = p[0] * h0[o] + p[1] * t1[o]
-                    cur, prev = prev, cur
-                    continue
-                nxt = -2.0 * cur[sl] + lap - prev[sl]
-                a = a + p[start + i + 1] * nxt[o]
-                if kind == MIDDLE:
-                    prev[sl] = nxt
-                    cur, prev = prev, cur
-            outs["acc"][..., y0:y0 + oy, x0:x0 + ox] = a
-            if not last:
-                outs["t"][..., y0:y0 + oy, x0:x0 + ox] = cur[own]
-                outs["t_prev"][..., y0:y0 + oy, x0:x0 + ox] = prev[own]
+    _, last = _kinds(p, start, n_ops)
+    ny = acc.shape[-2]
+    outs = vec_tiled_pass(ops, p, start, n_ops, tile, lambda r: r % ny, w=w, t=t,
+                          t_prev=t_prev, acc=acc)
     acc.copy_(outs["acc"])
     if not last:
         t_out.copy_(outs["t"])
         t_prev_out.copy_(outs["t_prev"])
+
+
+def vec_tiled_pass(ops: VecPassOperands, p, start: int, n_ops: int, tile, rows, *,
+                   w: Optional[Tensor], t: Optional[Tensor], t_prev: Optional[Tensor],
+                   acc: Tensor) -> dict:
+    """The kernel's tile decomposition of one fused vector pass, in torch, for
+    any geometry without a fold: the own domain is ``acc``'s ``(batch, 2, ny,
+    nx)``; ``rows(r)`` maps the window rows ``r`` (own coordinates, may lie
+    outside) to the rows of the "in" planes (``ops.coef``, ``w``, ``t``,
+    ``t_prev``) that hold them; x is periodic. Every tile's window is cut at
+    once, a dimension of its own beside the batch, and the steps run on all
+    of them together. The contraction is the plain step's own (:func:`_lap`
+    on the windows, whose wrap at a window's edge reaches only cells outside
+    the shrunk window; every op is elementwise or a shift inside a window).
+    The own cells of the ragged last tiles past the field are computed and
+    dropped. Returns the own-shaped ``acc`` and, unless the pass ends the
+    filter, ``t`` and ``t_prev``."""
+    first, last = _kinds(p, start, n_ops)
+    by, bx = tile
+    H = n_ops
+    ny, nx = acc.shape[-2:]
+    dev = acc.device
+    n_ty, n_tx = -(-ny // by), -(-nx // bx)
+    wy, wx = by + 2 * H, bx + 2 * H
+    src_r = rows(torch.arange(-H, by + H, device=dev) + by * torch.arange(n_ty, device=dev)[:, None])
+    cols = (torch.arange(-H, bx + H, device=dev) + bx * torch.arange(n_tx, device=dev)[:, None]) % nx
+    idx = tile_windows(n_ty, n_tx, src_r, cols, nx)
+    flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
+
+    # the windows: (n_coef, tiles, wy, wx) and (batch, 2, tiles, wy, wx)
+    wops = VecPassOperands(ops.op, flat(ops.coef)[:, idx], ops.zap)
+    if first:
+        cur = flat(w)[..., idx]
+        prev = torch.empty_like(cur)
+    else:
+        cur, prev = flat(t)[..., idx], flat(t_prev)[..., idx]
+    a = None if first else to_tiles(acc, tile)
+    for i in range(H):
+        j = i + 1
+        kind = FIRST if first and i == 0 else LAST if last and i == H - 1 else MIDDLE
+        sl = (Ellipsis, slice(j, wy - j), slice(j, wx - j))
+        lap = _lap(wops, cur)[sl]
+        # own cells inside this step's window
+        o = (Ellipsis, slice(H - j, H - j + by), slice(H - j, H - j + bx))
+        if kind == FIRST:
+            h0 = cur[sl]
+            t1 = -h0 + 0.5 * lap
+            prev[sl] = t1
+            a = p[0] * h0[o] + p[1] * t1[o]
+            cur, prev = prev, cur
+            continue
+        nxt = -2.0 * cur[sl] + lap - prev[sl]
+        a = a + p[start + i + 1] * nxt[o]
+        if kind == MIDDLE:
+            prev[sl] = nxt
+            cur, prev = prev, cur
+    outs = {"acc": from_tiles(a, (ny, nx))}
+    if not last:
+        own = (Ellipsis, slice(H, H + by), slice(H, H + bx))
+        outs["t"], outs["t_prev"] = from_tiles(cur[own], (ny, nx)), from_tiles(prev[own], (ny, nx))
+    return outs
 
 
 def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:

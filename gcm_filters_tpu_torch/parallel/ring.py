@@ -4,24 +4,24 @@ PyTorch-port counterpart of ``gcm_filters_tpu/parallel/ring.py``. The
 round-based sharded engine (sharded.py) alternates halo exchanges made of
 messages with local compute. This engine instead cuts the field into ``p_y``
 shards along y (x is not cut, so the x wrap and the tripolar seam stay local)
-and runs the scalar filter as the fused passes that the shard's plan gives
-(:func:`_shard_plan`, :func:`_pass_chain`), each ONE launch of the fused ring
-kernel (ops/cuda/ring_pass.py ``ring_fused_pass``, ``csrc/ring_pass.cu``)
+and runs the filter as the fused passes that the shard's plan gives
+(:func:`_shard_plan`, :func:`_pass_chain`), each ONE launch of a fused ring
+kernel (ops/cuda/ring_pass.py ``ring_fused_pass`` for a scalar,
+``vec_ring_fused_pass`` for the stacked (u, v) pair; ``csrc/ring_pass.cu``)
 over all shards: S <= 16 steps per launch, the kernel storing the S rows
 nearest each shard edge into its neighbours' halo rows through plain
 pointers once per pass, raising a flag with release order, computing the
 interior tiles meanwhile and the shard-edge tiles last, waiting for the flag
 only there. Where the plan is not fused (a window wider than the field, a
 one-step pass such as one-row shards give, more than ``MAX_RING_SHARDS``
-shards) the scalar filter runs one step
-per launch of the ring step kernel (``ring_pass``), by a static test; the
-vector filters always do (``vec_ring_pass``). No copy, message or
+shards) the filter runs one step per launch of the ring step kernel
+(``ring_pass``, ``vec_ring_pass``), by a static test. No copy, message or
 collective outside the kernels carries a halo row.
 
 Exactness: every cell sees exactly the values the unsharded kernels'
 periodic or folded neighbourhood holds, and the per-cell arithmetic is the
-unsharded kernels' own (shared device functions; the fused ring pass runs
-the fused unsharded kernel's tile), so the result equals the unsharded
+unsharded kernels' own (shared device functions; the fused ring passes run
+the fused unsharded kernels' tiles), so the result equals the unsharded
 kernel path bit for bit, fused or not.
 
 Where the shards live: between the cards of a multi-rank
@@ -43,7 +43,7 @@ multiple of 128, 8-row halos, block heights that divide ``ly``) are TPU
 layout and have no counterpart. Behind a :class:`ResidentMesh` there is no
 round-based engine to give way to, so an ineligible input raises a
 ``ValueError`` that names the gate; nothing falls back to the unsharded
-kernel. ``halo_steps`` bounds the steps fused per scalar ring pass
+kernel. ``halo_steps`` bounds the steps fused per ring pass
 (:func:`_max_fuse`) as in the JAX module: it changes the launches, not the
 result.
 
@@ -68,8 +68,10 @@ from ..ops.cuda.dispatch import (
 )
 from ..ops.cuda.ring_pass import (
     MAX_RING_SHARDS, MIN_ROWS, RingFusedOperands, RingFusedState, RingOperands, RingState,
-    VecRingOperands, ring_fused_pass, ring_pass, vec_ring_pass,
+    VecRingFusedOperands, VecRingFusedState, VecRingOperands, ring_fused_pass, ring_pass,
+    vec_ring_fused_pass, vec_ring_pass,
 )
+from ..ops.cuda.vec_pass import plan_vec_fused_passes
 from ..ops.stencil import ARRAY_FIELDS, BGridVectorStencil, CGridVectorOperator, ScalarStencil5
 
 # Tri-state switch: None = auto (on; a multi-rank mesh is declined by
@@ -124,9 +126,9 @@ def _ring_mesh_for(mesh, spatial_axes):
 
 
 def _max_fuse(halo_steps: Optional[int]) -> int:
-    """Steps fused per scalar ring pass at most, honoring the user's
-    ``halo_steps`` knob as the JAX module does (the planner's cap, with the
-    shard's rows: :func:`make_ring_scalar_apply`)."""
+    """Steps fused per ring pass at most, honoring the user's ``halo_steps``
+    knob as the JAX module does (the planner's cap, with the shard's rows:
+    :func:`make_ring_scalar_apply`, :func:`make_ring_vector_apply`)."""
     return min(16, halo_steps) if halo_steps else 16
 
 
@@ -194,6 +196,13 @@ def _gate(p_y: int, shape, dtype, grid_shape) -> Optional[str]:
         return (f"the field's {ny} rows do not divide into {p_y} y-shards of at least "
                 f"{MIN_ROWS} row")
     return None
+
+
+def _passes(chain, state, p) -> None:
+    """The fused launches of one apply on a state whose input is set: pass
+    m writes carry pair m % 2 and reads the other one."""
+    for m, (fn, off, _, first, _) in enumerate(chain):
+        fn(state, p, 0 if first else off - 1, out=m % 2)
 
 
 def _steps(pass_fn, state: RingState, p, n_steps: int) -> None:
@@ -280,9 +289,7 @@ def make_ring_scalar_apply(
         if chain is None:
             _steps(pass_fn, state, p, spec.n_steps)
         else:
-            # pass m writes carry pair m % 2 and reads the other one
-            for m, (fn, off, _, first, _) in enumerate(chain):
-                fn(state, p, 0 if first else off - 1, out=m % 2)
+            _passes(chain, state, p)
         return torch.cat(state.acc)  # a fresh tensor: the shards' buffers are reused
 
     apply_fn.shape_cache = cache  # (ny, nx, dtype) -> RingEntry, for checks
@@ -296,12 +303,20 @@ def make_ring_vector_apply(
     spatial_axes: Tuple[Optional[str], Optional[str]],
     halo_steps: Optional[int] = None,
     pass_fn=vec_ring_pass,
+    fused_fn=vec_ring_fused_pass,
 ):
-    """``(u, v) -> (fu, fv)`` through the vector ring step kernels, or None.
+    """``(u, v) -> (fu, fv)`` through the fused vector ring kernel, or None.
 
     Vector analogue of :func:`make_ring_scalar_apply`: the B-grid and the
-    tap-expanded C-grid steps on the stacked pair, whose halo rows carry both
-    components. The C-grid taps are computed at first apply. Same gates.
+    tap-expanded C-grid passes on the stacked pair, whose halo rows carry both
+    components. A shard is planned by ``plan_vec_fused_passes(..., ring=True)``
+    with the cap ``min(_max_fuse(halo_steps), ly)``; where :func:`_shard_plan`
+    takes the plan, one apply is one launch of ``fused_fn``
+    (:func:`vec_ring_fused_pass`) per pass, else ``n_steps`` launches of
+    ``pass_fn`` (:func:`vec_ring_pass`); ``fused_fn=None`` runs the step ring
+    on purpose. The C-grid taps are computed at first apply. Same gates;
+    ``apply_fn.shape_cache`` maps ``(ny, nx, dtype)`` to its
+    :class:`RingEntry`.
     """
     meshed = _ring_mesh_for(mesh, spatial_axes)
     if meshed is None:
@@ -314,11 +329,21 @@ def make_ring_vector_apply(
     cache = {}
 
     def build(ny, nx, dtype):
-        ops = VecRingOperands.cut(
-            vector_operands(op, host_planes(), neg2s, bool(operator.zap_nans), dtype, device),
-            p_y)
-        state = RingState(ops, ny // p_y, nx, dtype, device)
-        return state, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])]
+        ly = ny // p_y
+        plan = plan_vec_fused_passes(spec.n_steps, ly, nx, dtype, op,
+                                     max_fuse=min(_max_fuse(halo_steps), ly), ring=True)
+        chain = None
+        if fused_fn is not None and _shard_plan(plan, p_y, ny, dtype) is not None:
+            chain = _pass_chain(plan, lambda n_ops, first, last: functools.partial(
+                fused_fn, n_ops=n_ops, tile=plan.tile))
+        ops = vector_operands(op, host_planes(), neg2s, bool(operator.zap_nans), dtype, device)
+        if chain is None:
+            state = RingState(VecRingOperands.cut(ops, p_y), ly, nx, dtype, device)
+        else:
+            state = VecRingFusedState(VecRingFusedOperands.cut(ops, p_y, plan.halo), ly, nx,
+                                      dtype, device)
+        return RingEntry(state, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])], plan,
+                         chain)
 
     def apply_fn(u, v):
         u, v = torch.as_tensor(u), torch.as_tensor(v)
@@ -333,14 +358,17 @@ def make_ring_vector_apply(
         key = (ny, nx, str(dtype))
         if key not in cache:
             cache[key] = build(ny, nx, dtype)
-        state, p = cache[key]
+        state, p, _, chain = cache[key]
         ly = ny // p_y
         for r, w in enumerate(state.input):
             w[0].copy_(u[r * ly:(r + 1) * ly])
             w[1].copy_(v[r * ly:(r + 1) * ly])
-        _steps(pass_fn, state, p, spec.n_steps)
+        if chain is None:
+            _steps(pass_fn, state, p, spec.n_steps)
+        else:
+            _passes(chain, state, p)
         acc = torch.cat(state.acc, dim=1)  # fresh: the shards' buffers are reused
         return acc[0], acc[1]
 
-    apply_fn.shape_cache = cache  # (ny, nx, dtype) -> (RingState, p), for checks
+    apply_fn.shape_cache = cache  # (ny, nx, dtype) -> RingEntry, for checks
     return apply_fn

@@ -252,11 +252,13 @@ def _jax_case(name):
     data = [jnp.asarray(f) for f in fields]
     if vector:
         got = pf.apply_to_vector(*fields)
+        fused = pf._vector_fn().shape_cache[shape + ("torch.float32",)].chain is not None
         jr = jring.make_ring_vector_apply(jf.operator, jf.filter_spec, _ymesh(p_y), ("y", "x"))
         ring_out = jr(*data)
         whole = make_pallas_vector_apply(jf.operator, jf.filter_spec)(*data)
     else:
         got = (pf.apply(fields[0]),)
+        fused = None
         jr = jring.make_ring_scalar_apply(jf.operator, jf.filter_spec, _ymesh(p_y),
                                           ("y", "x"), exact_nan=exact_nan)
         ring_out = jr(*data)
@@ -265,7 +267,7 @@ def _jax_case(name):
         ring_out = None if ring_out is None else (ring_out,)
         whole = (whole,)
     assert ring_out is not None, f"the JAX ring declined {name}"
-    _JAX[name] = dict(got=[g.numpy() for g in got], atol=atol,
+    _JAX[name] = dict(got=[g.numpy() for g in got], atol=atol, fused=fused,
                       jax_ring=[np.asarray(a) for a in ring_out],
                       jax_whole=[np.asarray(a) for a in whole])
     return _JAX[name]
@@ -282,6 +284,8 @@ def test_ring_matches_the_jax_package(name, ref):
                                    err_msg=f"{name} vs {ref}")
     if name == "exact_nan":
         assert np.isnan(case["got"][0][10, 20]) and np.isnan(case["got"][0]).sum() == 1
+    if case["fused"] is not None:  # a vector case: the fused vector ring ran
+        assert case["fused"], f"{name}: the vector ring ran the step ring"
 
 
 # ---- Filter, gates, switch ---------------------------------------------------
