@@ -9,7 +9,10 @@ and runs these phases; any failed check raises and the script exits non-zero:
 
 1. environment: torch and CUDA versions, the card's name and power limit;
 2. build: compiles ``gcm_filters_tpu_torch/csrc/*.cu`` (one nvcc per source,
-   all at once);
+   all at once), prints every kernel's ``ptxas -v`` lines and holds them to
+   the record of this tree, ``gcm_filters_tpu_torch/csrc/ptxas_lines.json``
+   (where the same nvcc release built it): the vector tile's kernels apart,
+   every other kernel with the lines it had before the tile was redesigned;
 3. small grids: all 9 scalar grids at 128x256 in float32 and float64, with
    the Gaussian and the Taper filter (several fused passes), plus
    ``exact_nan``, a 97x300 shape, a batch, NaN fields, a spike on the fold
@@ -46,14 +49,17 @@ and runs these phases; any failed check raises and the script exits non-zero:
    launches bit for bit (NaNs in the same cells), and against the tiled
    plain version of the fused pass;
    each apply must launch the fused kernel once per planned pass (or, below
-   the predicate, the step kernel n_steps times) and no other kernel;
+   the predicate, the step kernel n_steps times) and no other kernel; then a
+   first pass into NaN-filled outputs on a batch of two 397x601 fields, on
+   the planned tile, bitwise equal to the step-kernel chain;
 7. vector headlines (the vector path): both grids at 2400x3600 float32,
    Gaussian factor 10 (11 steps), unit-scale metrics (C-grid at
    kappa_aniso 0), each checked against the float64 eager engine and against
    the step-kernel chain bit for bit, and timed beside the step chain, with
    launches = passes x applies, every other counter 0 and no fallback; then
-   each grid's tile sweep (each tile with its best split, timed, bitwise
-   equal), on the C-grid the Taper filter (several passes), and the
+   each grid's tile sweep (every tile at every split, timed, bitwise equal;
+   the same for the 44-step Taper in float32), on the C-grid the Taper
+   filter (several passes), and the
    route: the fused plan beside the step chain, bitwise equal, timed on the
    float64 headline and at 128x256 in float32 and float64;
 8. each step kind of both vector step kernels, and the fused passes in
@@ -102,8 +108,9 @@ and runs these phases; any failed check raises and the script exits non-zero:
     splits into several launches (split (b)), in float32 and float64, each
     bitwise equal to the planned round and timed;
 14. each step kind of both windowed local vector kernels, and the fused round
-    in float32 and float64, against its plain version at the headlines'
-    extended shape;
+    in float32 and float64 (the planned round and one launch of 11 steps,
+    every launch's outputs first filled with NaN),
+    against its plain version at the headlines' extended shape;
 15. ring small grids: the cases of tests/test_ring.py in float32 (REGULAR,
     also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
@@ -130,22 +137,27 @@ and runs these phases; any failed check raises and the script exits non-zero:
     launches = the plan's passes x applies, every other counter 0 and no
     fallback;
 17. each step kind of the three ring step kernels, and each pass kind of the
-    fused scalar and vector rings (first only, middle, last, first and last)
-    against its plain and tiled plain versions, at the headline shape, in
-    float32 and float64;
+    fused scalar and vector rings (first only, middle, last, first and last;
+    the vector ring's first pass into NaN-filled outputs) against its plain
+    and tiled plain versions, at the headline shape, in float32 and float64;
 18. a ``{"kernels": [...]}`` line (eighteen entries: the step kernels, timed
     as step chains, and the nine fused passes), then ``{"ok": true,
     "device": ...}`` last.
 
-Without a CUDA device it prints no result and exits 2.
+Without a CUDA device it prints no result and exits 2. With
+``--write-ptxas-record PATH`` it stops after phase 2 and writes the build's
+``ptxas -v`` lines there as the record that phase 2 holds later builds to.
 """
+import argparse
 import dataclasses
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
@@ -428,6 +440,87 @@ def vec_round_cost(n_coef, plan, batch, ly, lx, cells, itemsize, key):
     return nbytes, VEC_FLOPS_PER_CELL_STEP[key] * batch * ncells
 
 
+# Each kernel's ``ptxas -v`` lines as this tree builds them, with the nvcc
+# release that printed them (write_ptxas_record); the kernels of the vector
+# tile (csrc/vec_tile.cuh) are named apart, every other kernel keeps its lines
+# from the tree before the tile was redesigned.
+PTXAS_RECORD = Path(__file__).resolve().parent / "gcm_filters_tpu_torch/csrc/ptxas_lines.json"
+VECTOR_TILE_KERNELS = ("vec_fused_kernel", "vec_ring_fused_kernel")
+
+
+def ptxas_lines(logs):
+    """``{"source:kernel": [lines]}`` from nvcc's build logs: each kernel's
+    stack and spill line and its register line, the kernel named without the
+    per-build hash of its anonymous namespace."""
+    out, fn = {}, None
+    for src, text in logs.items():
+        for line in text.splitlines():
+            m = re.search(r"Function properties for (\S+)", line)
+            if m:
+                fn = src + ":" + re.sub(r"_GLOBAL__N__[0-9a-f]+_\d+_(\w+?)_cu_[0-9a-f]+",
+                                        r"_ANON_\1", m.group(1))
+                out[fn] = []
+            elif fn and ("spill" in line or "registers" in line):
+                out[fn].append(re.sub(r"^.*?(\d+ bytes stack|Used)", r"\1", line.strip()))
+    return out
+
+
+def nvcc_release(build):
+    """The release of the nvcc that builds the kernels, as ``nvcc --version``
+    names it (e.g. ``12.8.93``)."""
+    version = subprocess.run([build._nvcc(), "--version"], capture_output=True, text=True,
+                             timeout=60).stdout
+    release = re.search(r"release [\d.]+, V([\d.]+)", version)
+    return release.group(1) if release else version.strip()[-60:]
+
+
+def write_ptxas_record(build, path=PTXAS_RECORD):
+    """Write this build's ``ptxas -v`` lines and its nvcc release as the
+    record that :func:`check_ptxas_lines` holds later builds to. A change that
+    means to move a kernel's registers rewrites it from a build on the card,
+    ``python3 chip_smoke.py --write-ptxas-record PATH``, and says so."""
+    record = {"kernels": ptxas_lines(build.build_logs), "nvcc": nvcc_release(build)}
+    Path(path).parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as fh:
+        json.dump(record, fh, indent=1, sort_keys=True)
+        fh.write("\n")
+    log(f"ptxas -v lines of {len(record['kernels'])} kernels (nvcc {record['nvcc']}) written "
+        f"to {path}")
+
+
+def check_ptxas_lines(build):
+    """Every kernel's ``ptxas -v`` lines against the record of this tree
+    (:data:`PTXAS_RECORD`), where nvcc is the release that wrote it and this
+    run built the source; raises on a kernel whose lines differ. Returns the
+    counts compared, apart for the vector tile's kernels."""
+    release = nvcc_release(build)
+    with open(PTXAS_RECORD) as fh:
+        record = json.load(fh)
+    if record["nvcc"] != release:
+        log(f"ptxas -v lines not compared: nvcc {release}, the record's {record['nvcc']}")
+        return {"compared": False, "nvcc": release}
+    got = ptxas_lines(build.build_logs)
+    built = set(build.build_logs)
+    names = sorted(k for k in set(record["kernels"]) | set(got) if k.split(":")[0] in built)
+    tile = {k for k in names if any(t in k for t in VECTOR_TILE_KERNELS)}
+    differ = [k for k in names if record["kernels"].get(k) != got.get(k)]
+    other = [k for k in names if k not in tile]
+    counts = {"compared": True, "nvcc": release,
+              "other_kernels": len(other),
+              "other_as_recorded": sum(k not in differ for k in other),
+              "vector_tile_kernels": len(tile),
+              "vector_tile_as_recorded": sum(k not in differ for k in tile)}
+    log(f"ptxas -v (nvcc {release}): {counts['other_as_recorded']} of {counts['other_kernels']} "
+        f"kernels outside the vector tile and {counts['vector_tile_as_recorded']} of "
+        f"{counts['vector_tile_kernels']} vector tile kernels as recorded in {PTXAS_RECORD}")
+    for k in differ:
+        log(f"  differs: {k}: {record['kernels'].get(k)} -> {got.get(k)}")
+    if differ:
+        raise AssertionError(f"{len(differ)} kernel(s) have other ptxas -v lines than "
+                             f"{PTXAS_RECORD} records")
+    return counts
+
+
 def event_ms(fn, n, host=False):
     """Device ms per call over ``n`` calls, from CUDA events. With ``host``
     also the host's ms per call to enqueue them (no synchronize inside): where
@@ -447,6 +540,10 @@ def event_ms(fn, n, host=False):
 
 
 def main():
+    parser = argparse.ArgumentParser(description="Build, check and time the port on one card.")
+    parser.add_argument("--write-ptxas-record", metavar="PATH", dest="record_to",
+                        help="write the build's ptxas -v lines to PATH and stop")
+    record_to = parser.parse_args().record_to
     import torch
 
     if not torch.cuda.is_available():
@@ -458,7 +555,7 @@ def main():
     from gcm_filters_tpu_torch.models.grids import is_vector_grid
     from gcm_filters_tpu_torch.ops.cuda import build
     from gcm_filters_tpu_torch.ops.cuda.cheb_pass import (
-        FIRST, LAST, MIDDLE, SHARED_BYTES, TILES, FusedPlan, _balanced, _pass_cost,
+        FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, TILES, FusedPlan, _balanced, _pass_cost,
         cheb_fused_pass, cheb_fused_pass_reference, cheb_fused_pass_tiled_reference, cheb_pass,
         cheb_pass_reference, fused_planes, plan_fused_passes,
     )
@@ -473,7 +570,7 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, N_COEF, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
         vec_fused_pass_reference, vec_fused_pass_tiled_reference, vec_fused_shared_bytes,
-        vec_pass, vec_pass_reference,
+        vec_pass, vec_pass_reference, vec_tiles,
     )
     from gcm_filters_tpu_torch.utils.profiling import bound_ms
     from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
@@ -499,6 +596,23 @@ def main():
         for line in text.splitlines():
             if "registers" in line or "spill" in line or "Function properties" in line:
                 log(f"  {name}: {line.strip()}")
+    if record_to:
+        write_ptxas_record(build, record_to)
+        return 0
+    ptxas_check = check_ptxas_lines(build)
+
+    def vec_tile_ptxas(source, kernel, op, geo=""):
+        """This build's ``ptxas -v`` lines of a vector tile kernel for one
+        contraction, by dtype and zap."""
+        lap = "BGridLap" if op == BGRID else "CTapLap"
+        out = {}
+        for name, lines in ptxas_lines(build.build_logs).items():
+            m = re.search(kernel + r"I([fd])NS_\d+" + lap + r"ELi(\d)E(?:NS_\d+(\w+?Geo)E)?",
+                          name)
+            if name.startswith(source + ":") and m and (m.group(3) or "") == geo:
+                label = f"{'f64' if m.group(1) == 'd' else 'f32'} {'zap' if m.group(2) == '1' else 'no zap'}"
+                out[label] = "; ".join(lines)
+        return out or None
     dev = torch.device("cuda")
 
     def counters():
@@ -976,6 +1090,35 @@ def main():
         spread = int(torch.isnan(fu).sum()), int(torch.isnan(fv).sum())
         if min(spread) <= 1:
             raise AssertionError(f"an unscrubbed NaN must spread, saw {spread} NaN cells")
+    # the sentinel: a first pass of 5 steps whose t_out, t_prev_out and acc
+    # start as NaN, on a batch of two ragged fields, on the planned tile:
+    # every own cell of every tile is written, bitwise equal to 5 step-kernel
+    # launches (a tile that the launch skipped would keep the sentinel)
+    sshape, n1 = (397, 601), 5
+    for gname, op in vec_ops.items():
+        gv = unit_vector_grid_vars(gname, sshape, np.random.default_rng(42), 0.0)
+        sfilt = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname], grid_vars=gv,
+                       device=dev)
+        sfn = make_cuda_vector_apply(sfilt.operator, sfilt.filter_spec)
+        for dt, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+            ops_, p_ = sfn.operands(dt, dev)
+            w_ = torch.as_tensor(np.random.default_rng(11).random((2, 2) + sshape), dtype=dt,
+                                 device=dev)
+            cur, prev, acc_ = torch.empty_like(w_), w_.clone(), torch.empty_like(w_)
+            vec_pass(ops_, FIRST, p_[0], p_[1], w=w_, t_next=cur, acc=acc_)
+            for k in range(2, n1 + 1):
+                vec_pass(ops_, MIDDLE, p_[k], t=cur, t_prev=prev, t_next=prev, acc=acc_)
+                cur, prev = prev, cur
+            tl = sfn.plan(*sshape, dt).tile
+            outs = [torch.full_like(w_, float("nan")) for _ in range(3)]
+            vec_fused_pass(ops_, p_, 0, n1, tile=tl, w=w_, t_out=outs[0], t_prev_out=outs[1],
+                           acc=outs[2])
+            for nm, g, want in zip(("t", "t_prev", "acc"), outs, (cur, prev, acc_)):
+                bitwise(f"{gname} sentinel {name} {tl} {nm}", g, want, "the step-kernel chain")
+            log(f"  {gname} {sshape} batch 2 {name}: a first pass of {n1} steps on {tl} tiles "
+                f"into NaN-filled t_out, t_prev_out and acc: bit for bit equal to {n1} "
+                f"step-kernel launches")
+        del sfilt, sfn, ops_, w_, cur, prev, acc_, outs
     for op, k in vkey.items():
         log(f"fused {k} route on {vfworst[op]['cases']} small cases: vs the step-kernel chain max "
             f"abs 0 (bit for bit, NaNs in the same cells); vs plain max abs "
@@ -1082,10 +1225,10 @@ def main():
             ops_, p_ = fn.operands(dt_, dev)
             x_ = w3.to(dt_)
             ref_ = _fused_chain(vec_fused_pass, ops_, p_, fn.plan(ny, nx, dt_), x_, name="w")
-            for tl in VEC_TILES[op]:
+            isz = x_.element_size()
+            for tl in vec_tiles(op, isz):
                 for cap in (11, 6, 4, 3):
                     st_ = _balanced(vn, cap)
-                    isz = x_.element_size()
                     if vec_fused_shared_bytes(tl, max(st_), n_coef, isz) > SHARED_BYTES:
                         continue
                     pl = FusedPlan(tl, max(st_), st_, True)
@@ -1096,15 +1239,38 @@ def main():
                     log(f"  tile {k_}: {vsweep[k_]:.4f} ms/apply; model cost "
                         f"{_vec_pass_cost(op, tl, st_, isz):.2f} per cell")
             del ops_, x_, ref_
+        # the 44-step Taper (dx_min = 0.9, as 7c) at every tile and every
+        # split into passes of 4 to 16 steps, float32: the long filters' half
+        # of the sweep, each bitwise equal to the planned passes
+        tfilt = Filter(filter_scale=10.0, dx_min=0.9, filter_shape=FilterShape.TAPER,
+                       grid_type=GridType[gname], grid_vars=vhead_gv, dtype=torch.float32,
+                       device=dev)
+        tfn = tfilt._vector_fn()
+        tops, tp_ = tfn.operands(torch.float32, dev)
+        tref = _fused_chain(vec_fused_pass, tops, tp_, tfn.plan(ny, nx, torch.float32), w3,
+                            name="w")
+        tsweep = {}
+        for tl in VEC_TILES[op]:
+            for cap in range(4, MAX_FUSE + 1):
+                st_ = _balanced(tfilt.n_steps, cap)
+                if max(st_) != cap or vec_fused_shared_bytes(tl, cap, n_coef, item) > SHARED_BYTES:
+                    continue
+                pl = FusedPlan(tl, cap, st_, True)
+                k_ = f"float32 {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
+                run = lambda: _fused_chain(vec_fused_pass, tops, tp_, pl, w3, name="w")  # noqa: E731
+                bitwise(f"{gname} Taper sweep {k_}", run(), tref, "the planned passes")
+                tsweep[k_] = event_ms(run, 3)
+        fastest = min(tsweep, key=tsweep.get)
+        log(f"  Taper ({tfilt.n_steps} steps) sweep: {len(tsweep)} plans, the planned "
+            f"{tfn.plan(ny, nx, torch.float32).steps} on {tfn.plan(ny, nx, torch.float32).tile}; "
+            f"fastest {fastest}: {tsweep[fastest]:.4f} ms/apply")
+        del tops, tref
 
         # 7c. the Taper filter on the C-grid headline: several passes, carries between them
         taper = None
         if op == CTAP:
             # dx_min = 0.9, the metrics' least spacing: with 1 the Taper
             # amplifies the top of the operator's spectrum (see phase 6)
-            tfilt = Filter(filter_scale=10.0, dx_min=0.9, filter_shape=FilterShape.TAPER,
-                           grid_type=GridType[gname], grid_vars=vhead_gv, dtype=torch.float32,
-                           device=dev)
             tplan = tfilt._vector_fn().plan(ny, nx, torch.float32)
             reset_counters()
             tu, tv = tfilt.apply_to_vector(u_dev, v_dev)
@@ -1137,7 +1303,7 @@ def main():
                      "tile": list(tplan.tile), "plan_bound_ms": tpb_ms,
                      "filter_bound_ms": tfb_ms, "vs_step_chain_max_abs": t_vs,
                      "vs_f64_engine_max_abs": t_err}
-            del tfilt, tsteps, tu, tv
+            del tsteps, tu, tv
 
         # 7d. the route: where the planner sends a field to the fused passes,
         # they must beat the step chain. The float64 headline and a mid-size
@@ -1272,11 +1438,14 @@ def main():
             "step_chain_ms": ms_vsteps,
             "host_enqueue_ms": host_v,
             "tile_sweep_ms": vsweep,
+            "taper_sweep_ms": tsweep,
+            "ptxas": vec_tile_ptxas("vec_pass", "vec_fused_kernel", op, "WrapGeo"),
+            "ptxas_as_recorded": ptxas_check,
             "route_ms": route,
         }
         if taper:
             vec_fused_results[op]["taper"] = taper
-        del plain_v, steps_v, fu, fv, vhead, fn, vops
+        del plain_v, steps_v, fu, fv, vhead, fn, vops, tfilt, tfn
 
     # 9. sharded small grids: a one-rank process group and a 1x1 mesh
     import torch.distributed as dist
@@ -1754,16 +1923,18 @@ def main():
         ms_vex = event_ms(lambda: halo.exchange_2d(w_dev, cells, local_axis, local_axis), chain)
         we = halo.exchange_2d(w_dev, cells, local_axis, local_axis)
 
-        def run_round(pl, ops_, p_, we_, acc_, fn=vec_local_fused_pass):
+        def run_round(pl, ops_, p_, we_, acc_, fn=vec_local_fused_pass, fill=None):
             """The round's launches of ``fn`` as the plan ``pl`` splits it, on
             the exchanged input ``we_``, as the rounds run them: the result in
-            ``acc_``."""
+            ``acc_``. With ``fill`` every launch's t_out and t_prev_out start
+            filled with it."""
             t_ = tp_ = None
             start, left = 0, vn
             for n_ops in pl.steps:
                 left -= n_ops
-                outs = (None, None) if left == 0 else (torch.empty_like(we_),
-                                                       torch.empty_like(we_))
+                new_ = torch.empty_like if fill is None else (
+                    lambda x: torch.full_like(x, fill))
+                outs = (None, None) if left == 0 else (new_(we_), new_(we_))
                 fn(ops_, p_, start, n_ops, cells=cells, shrink=cells - left, tile=pl.tile,
                    w=we_ if start == 0 else None, t=t_, t_prev=tp_, t_out=outs[0],
                    t_prev_out=outs[1], acc=acc_)
@@ -1834,7 +2005,7 @@ def main():
             (pl_ref,) = svfn.plan(ny, nx, dt_)
             ref_ = run_round(pl_ref, ops_, p_, we_, acc_).clone()
             isz = we_.element_size()
-            for tl in VEC_TILES[op]:
+            for tl in vec_tiles(op, isz):
                 for cap in (11, 6, 4):
                     st_ = _balanced(vn, cap)
                     if vec_fused_shared_bytes(tl, max(st_), n_coef, isz) > SHARED_BYTES:
@@ -1888,7 +2059,8 @@ def main():
         del vk, vr
         # the fused round against its plain version: the planned round and one
         # launch of all 11 steps (split (a), where a tile holds it) in float32,
-        # the float64 plan in float64
+        # the float64 plan in float64; acc and every launch's carries out start
+        # as NaN (a tile that a launch skipped would keep it)
         lf_err = {"float32": 0.0, "float64": 0.0}
         one = next(tl for tl in VEC_TILES[op]
                    if vec_fused_shared_bytes(tl, vn, n_coef, item) <= SHARED_BYTES)
@@ -1897,7 +2069,9 @@ def main():
                              ("float64", torch.float64, svfn.plan(ny, nx, torch.float64)[0])):
             ops_, _, _, p_ = svfn.operands(ny, nx, dt_)
             we_ = we.to(dt_)
-            got_k, got_r = (run_round(pl, ops_, p_, we_, torch.empty_like(w_dev, dtype=dt_), fn)
+            got_k, got_r = (run_round(pl, ops_, p_, we_,
+                                      torch.full_like(w_dev, float("nan"), dtype=dt_), fn,
+                                      fill=float("nan"))
                             for fn in (vec_local_fused_pass, vec_local_fused_pass_reference))
             lf_err[tag] = max(lf_err[tag], compare(f"{gname} fused round {pl.tile} {pl.steps} "
                                                    f"{tag}", got_k, got_r, tag)[0])
@@ -1968,6 +2142,7 @@ def main():
             "unsharded_ms": vec_fused_results[op]["ms"],
             "host_enqueue_ms": host_sv,
             "round_sweep_ms": rsweep,
+            "ptxas": vec_tile_ptxas("vec_pass", "vec_fused_kernel", op, "RoundGeo"),
         }
         del we, racc, plain_sv, steps_sv, svhead, svfn, lvops, su, sv
     dist.destroy_process_group()
@@ -2454,23 +2629,6 @@ def main():
                 w_[1].copy_(v_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
         return load
 
-    def ptxas_of(kernel, op_name):
-        """This build's ``ptxas -v`` lines of one kernel template, per
-        instantiation (dtype and zap): registers, stack and spills."""
-        out, fn = {}, None
-        for line in build.build_logs.get("ring_pass", "").splitlines():
-            if "Function properties for" in line:
-                name = line.split("Function properties for")[-1].strip()
-                fn = name if kernel in name and op_name in name else None
-                if fn:
-                    dt = "f64" if f"{kernel}Id" in name else "f32"
-                    zap = "zap" if f"{op_name}ELi1" in name else "no zap"
-                    fn = f"{dt} {zap}"
-                    out[fn] = ""
-            elif fn and ("spill" in line or "registers" in line):
-                out[fn] = (out[fn] + "; " if out[fn] else "") + line.split("info    :")[-1].strip()
-        return out or None
-
     def vector_ring_headline(label, gname, op, p_y, k_out, k_ms, want64, n_chain=chain, **kw):
         """The fused vector ring on one headline: bitwise equal to the fused
         K3 / K4 and to the step ring of this run, timed beside both."""
@@ -2510,8 +2668,9 @@ def main():
         last: passes of 3, 3 and 5 steps; first and last: one pass of a
         5-step filter) against its plain and tiled plain versions on triplet
         states, the plain ones fed the kernel's buffers before each pass, on
-        the first tile of the planner's list whose window fits in this dtype;
-        returns the largest abs difference."""
+        the first tile of the planner's list whose window fits in this dtype,
+        the first pass's outputs filled with NaN before it; returns the
+        largest abs difference."""
         worst_ = 0.0
         itemsize = torch.empty((), dtype=dtype).element_size()
         for steps, pp in (((3, 3, 5), p_), ((5,), p_[:6])):
@@ -2521,6 +2680,10 @@ def main():
             states = [VecRingFusedState(rops, ny // 4, nx, dtype, dev) for _ in range(3)]
             for st_ in states:
                 load_vector(dtype)(st_)
+            # the first pass's carries out and acc start as NaN: a tile that
+            # the launch skipped would keep it
+            for buf in states[0].t[0] + states[0].t_prev[0] + states[0].acc:
+                buf.fill_(float("nan"))
             start = 0
             for m, n in enumerate(steps):
                 k_st = states[0]
@@ -2669,7 +2832,6 @@ def main():
             "host_enqueue_ms": r4v["step_ring_host_enqueue_ms"],
             "p_y": 4,
         })
-        op_name = "BGridLap" if op == BGRID else "CTapLap"
         vring[op] = {
             "name": f"vec_ring_fused_pass_{key}",
             "route": "cuda",
@@ -2701,7 +2863,7 @@ def main():
             "step_ring_ms_by_p_y": {str(k): v["step_ring_ms"] for k, v in sorted(by_p.items())},
             "by_p_y": {str(k): v for k, v in sorted(by_p.items())},
             "taper": taper,
-            "ptxas": ptxas_of("vec_ring_fused_kernel", op_name),
+            "ptxas": vec_tile_ptxas("ring_pass", "vec_ring_fused_kernel", op),
         }
         del rv4, outs4, steps4v, sstate, k34
     ring_results += [vring[BGRID], vring[CTAP]]

@@ -64,8 +64,8 @@
 // filter of n steps is then one launch per planned pass
 // (ops/cuda/vec_pass.py::plan_vec_fused_passes), and each result equals the
 // chain of the step entry's launches bit for bit. Bound of a fused pass:
-// shared memory and issue (vec_tile.cuh); per pass device memory moves the
-// n_coef coefficient planes and 2 (first) or 6 (later) state planes in, 6
+// issue (vec_tile.cuh); per pass device memory moves the n_coef coefficient
+// planes and 2 (first) or 6 (later) state planes in, 6
 // (or, last, 2) out, plus the halos. The step entry stays for fields smaller
 // than a tile and its halo, and as what the fused pass is checked against.
 //
@@ -112,8 +112,8 @@
 // after this launch), as ops/cuda/vec_local_pass.py::plan_vec_local_rounds
 // plans it. Cells outside the core step the carries and touch no acc. Each
 // result equals the chain of the windowed local step launches bit for bit.
-// Bound, as for the periodic fused pass: shared memory and issue; per launch
-// device memory moves the n_coef coefficient planes and 2 (first) or 6
+// Bound, as for the periodic fused pass: issue; per launch device memory
+// moves the n_coef coefficient planes and 2 (first) or 6
 // (later) state planes of the window in, 6 (or, last, 2) out, on a block
 // (1 + 2(c-s)/ly)(1 + 2(c-s)/lx) times the core.
 //

@@ -11,7 +11,9 @@
 //      5-point step reaches them within H steps): periodic in both axes on
 //      the whole field, cut from the halo-extended block on a shard; into
 //      shared memory: the raw state of both components (w on the first pass,
-//      else t and t_prev) and every coefficient plane; acc of the own cells;
+//      else t and t_prev) and every coefficient plane; acc of the own cells.
+//      Every value goes by cp.async straight into its slot, all of a
+//      window's copies in flight at once (vec_window_load);
 //   2. run the S steps in shared memory; step j updates the window shrunk by
 //      j cells on each side, so the last one ends exactly on the own tile.
 //      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
@@ -41,16 +43,25 @@
 // the core steps the carries; its acc slot in shared memory is scratch that
 // is never loaded from or stored to device memory.
 //
-// Bound: shared memory and issue, no longer HBM. A cell-step reads about 23
-// (B-grid: 10 coefficients, the centre, north, south, east and west values of
-// both components, t_prev and acc of both) or 31 (C-grid: 18 coefficients and
-// the two diagonal values) shared words and writes two to four; the strips of
-// rows per thread (below) share the centre column between rows. The
-// redundant cells of the trapezoid add (1 + 2H/by)(1 + 2H/bx) - 1 at most.
-// Device memory moves each input once per pass plus the halos, which
-// neighbouring tiles share through L2. With 4 + 10 or 4 + 18 window planes a
-// block holds less halo than the scalar pass: the planner
-// (ops/cuda/vec_pass.py::plan_vec_fused_passes) picks the tile and the split.
+// Bound: issue, with one 512-thread block an SM (a window takes most of its
+// shared memory, and the registers allow no second block), no longer HBM. A
+// cell-step reads about 23 (B-grid: 10 coefficients, the centre, north,
+// south, east and west values of both components, t_prev and acc of both) or
+// 31 (C-grid: 18 coefficients and the two diagonal values) shared words and
+// writes two to four; the strips of rows per thread share the centre column
+// between rows, and a warp's lanes take consecutive (strip, column) pairs so
+// that none idles at a window's edge. The redundant cells of the trapezoid
+// add (1 + 2H/by)(1 + 2H/bx) - 1 at most. The window's load is the other
+// part of the time: 14 or 22 cp.async copies a window cell, each with its
+// addresses, issued by the same warps. Its latency is one trip, not one per
+// row and column chunk; what is left is issue, and issue is what the steps
+// are bound by too, so a second window, loading while this one steps, does
+// not hide it: the steps run no faster beside the next window's copies, and
+// the smaller tiles that two windows need add redundant cells (PERF.md §6,
+// measured on the card). A block keeps one window. Device memory moves each
+// input once per pass plus the halos, which neighbouring tiles share through
+// L2. The planner (ops/cuda/vec_pass.py::plan_vec_fused_passes) picks the
+// tile and the split.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 #pragma once
@@ -93,10 +104,33 @@ __device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
 }
 __device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true; }
 
-// A load of the state into the window: through the read-only path where no
-// block of the launch writes the state, past L1 on a ring shard, whose halo
-// rows the sends of the same launch write (a 128-byte line may hold an own
-// row's end and a halo row's start).
+// The window's loads. Everything goes into shared memory by cp.async: the
+// copy lands in its slot without a round trip through a register, and every
+// copy of a window is in flight at once (one latency per window, where a
+// load into registers and a store per cell queue one behind the other).
+// cp.async of 4 or 8 bytes caches in L1, so it loads only what no block of
+// the launch writes: the coefficients, acc of the own tile (only its tile
+// writes it) and the state of the periodic field and of a shard block. A
+// ring shard's state is loaded past L1 (__ldcg, state_ld), through
+// registers: the sends of the same launch write its halo rows, and a
+// 128-byte line may hold an own row's end and a halo row's start.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Whether the state may go into the window by cp.async (see above).
+template <class GEO> struct StateAsync { static constexpr bool value = true; };
+template <> struct StateAsync<RingGeo> { static constexpr bool value = false; };
+
 template <typename T, class GEO>
 __device__ __forceinline__ T state_ld(const GEO&, const T* p) { return __ldg(p); }
 template <typename T>
@@ -119,7 +153,7 @@ struct VecFusedArgs {
   const T* coef;      // (n_coef, ny, nx), pre-scaled
 };
 
-// Shared planes of one window: the state pairs A (u, v) and B (u, v) (each
+// Shared planes of the window: the state pairs A (u, v) and B (u, v) (each
 // (by+2H) x (bx+2H)), the n_coef coefficients of every window cell, then acc
 // of the own tile for u and for v.
 template <typename T>
@@ -142,6 +176,14 @@ __host__ __device__ constexpr int vec_strip() {
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
 template <> struct Pair<double> { using type = double2; };
+
+// n / d for 0 <= n < 2^32 / d, as a multiply-high by the rounded-up
+// reciprocal m = ceil(2^32 / d): exact there, since m*d - 2^32 < d.
+struct Quot {
+  unsigned long long m;
+  __device__ explicit Quot(int d) : m(0xFFFFFFFFull / (unsigned)d + 1) {}
+  __device__ int operator()(int n) const { return (int)(((unsigned long long)n * m) >> 32); }
+};
 
 // Offsets of the window's planes in shared memory (offsets, not pointers,
 // keep every access in the shared address space). The coefficients are
@@ -168,14 +210,17 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, const 
   constexpr int NC = OP::N_COEF;
   const int wx = pl.wx, wa = pl.wa;
   const int own_plane = a.by * a.bx;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int rows = wy - 2 * j, cols = wx - 2 * j;
-  const int chunks = (cols + 31) / 32, strips = (rows + S - 1) / S;
+  const int strips = (rows + S - 1) / S;
   const int64_t P = geo.own_plane();
-  for (int item = warp; item < chunks * strips; item += nwarps) {
-    const int s_i = item / chunks;
-    const int q = j + (item - s_i * chunks) * 32 + lane;
-    if (q >= wx - j) continue;
+  // A work item is a strip's column: (strip, column) pairs, column fastest,
+  // one per thread, so a warp's 32 lanes take 32 consecutive pairs across a
+  // strip's end and none idles where `cols` is not a multiple of 32.
+  const int pairs = strips * cols;
+  const Quot per_strip(cols);
+  for (int idx = threadIdx.x; idx < pairs; idx += blockDim.x) {
+    const int s_i = per_strip(idx);
+    const int q = j + idx - s_i * cols;
     const int r0 = j + s_i * S;
     const int r1 = min(r0 + S, wy - j);  // rows past r1 load clamped rows and are not stored
     // loads, for each component: the centre column on rows r0-1 .. r0+S, the
@@ -269,71 +314,115 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, const 
   }
 }
 
-// One tile's pass, all of the block's threads, the dynamic shared memory its
-// window: the own cells of the tile at `org` (GridOrigin or TileOrigin of
-// cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io` the planes (w,
-// t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef): the VecFusedArgs
-// itself for vec_fused_kernel, a shard's row of a table for the ring. The
-// geometry goes by value, here and into vec_step_window: by reference, five
-// of the RoundGeo kernels got other register counts than when this body was
-// the kernel's own (ptxas -v, compared on the card).
-template <typename T, typename OP, int ZAP, class GEO, class IO, class ORG>
-__device__ __forceinline__ void vec_fused_tile(const VecFusedArgs<T>& a, const IO& io,
-                                               const GEO geo, const ORG& org) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* const sm = reinterpret_cast<T*>(smem_raw);
+// The planes of a window of wa cells, wx wide, in shared memory.
+__host__ __device__ inline VecPlanes vec_planes(int wx, int wa, int n_coef) {
+  return VecPlanes{wx, wa, 4 * wa, (4 + n_coef) * wa};
+}
+
+// Issue the loads of the window of the tile at y0, x0 of batch entry z, and
+// of acc of its own cells; the caller commits them as a cp.async group and
+// waits (cp_async_wait_all, then __syncthreads) before it reads them. Pair A
+// (offset 0) takes T_k (w on a first pass), pair B (2*wa) T_{k-1}; a first
+// pass leaves pair B unloaded (its first step writes T_1 there before any
+// step reads it). Coefficients go cell-major: a cell's n_coef values follow
+// each other. The window's cells are spread over the block's threads,
+// row-major, so a warp's copies read consecutive cells of a plane.
+template <typename T, typename OP, class GEO, class IO>
+__device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const IO& io,
+                                                const GEO geo, T* sm, int y0, int x0,
+                                                unsigned z) {
   constexpr int NC = OP::N_COEF;
   const int H = a.n_ops;
   const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
-  const VecPlanes pl{wx, wa, 4 * wa, (4 + NC) * wa};
-  const int own_plane = a.by * a.bx;
-  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
-  // this entry's u planes (v follows one plane later) of the inputs, the
-  // carries out and acc
-  const int64_t P = geo.in_plane(), PO = geo.out_plane(), PA = geo.own_plane();
-  const int64_t b_in = (int64_t)org.z() * 2 * P;
-  const int64_t b_out = (int64_t)org.z() * 2 * PO;
-  const int64_t b_acc = (int64_t)org.z() * 2 * PA;
-  const int ny = geo.rows(), nx = geo.cols();
-
-  // 1. the window, one warp per row. Pair A (offset 0) takes T_k (w on a
-  // first pass), pair B (offset 2*wa) T_{k-1}. A cell's loads are all issued
-  // before its stores: a global pointer might alias shared memory, so a
-  // store between two loads would make each load wait for the one before.
-  for (int r = warp; r < wy; r += nwarps) {
-    const int64_t row = geo.in_index(geo.row(y0 - H + r), 0);
-    for (int q = lane; q < wx; q += 32) {
-      const int64_t kk = row + geo.col(x0 - H + q, false);
-      const int k = r * wx + q;
-      T cv[NC], sv[4];
+  const VecPlanes pl = vec_planes(wx, wa, NC);
+  const int64_t P = geo.in_plane();
+  const int64_t b_in = (int64_t)z * 2 * P;
+  const T* const s0 = (a.first ? io.w : io.t) + b_in;
+  const T* const s1 = a.first ? s0 : io.t_prev + b_in;
+  const Quot per_row(wx);
+  for (int k = threadIdx.x; k < wa; k += blockDim.x) {
+    const int r = per_row(k), q = k - r * wx;
+    const int64_t kk = geo.in_index(geo.row(y0 - H + r), geo.col(x0 - H + q, false));
 #pragma unroll
-      for (int m = 0; m < NC; ++m) cv[m] = __ldg(io.coef + m * P + kk);
+    for (int m = 0; m < NC; ++m) cp_async(sm + pl.coef + k * NC + m, io.coef + m * P + kk);
+    if constexpr (StateAsync<GEO>::value) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        sv[c] = state_ld(geo, (a.first ? io.w : io.t) + b_in + c * P + kk);
-        sv[2 + c] = a.first ? T(0) : state_ld(geo, io.t_prev + b_in + c * P + kk);
+      for (int c = 0; c < 2; ++c) cp_async(sm + c * wa + k, s0 + c * P + kk);
+      if (!a.first) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, s1 + c * P + kk);
       }
-      auto* cp = reinterpret_cast<typename Pair<T>::type*>(sm + pl.coef + k * NC);
+    }
+  }
+  if constexpr (!StateAsync<GEO>::value) {
+    // the state through registers, U cells a thread at a time: all their
+    // loads, then all their stores
+    constexpr int U = 4;
+    for (int k0 = threadIdx.x; k0 < wa; k0 += U * blockDim.x) {
+      T v[U][4];
 #pragma unroll
-      for (int m = 0; m < NC / 2; ++m) cp[m] = {cv[2 * m], cv[2 * m + 1]};
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * blockDim.x;
+        if (k < wa) {
+          const int r = per_row(k), q = k - r * wx;
+          const int64_t kk = geo.in_index(geo.row(y0 - H + r), geo.col(x0 - H + q, false));
 #pragma unroll
-      for (int c = 0; c < 4; ++c) sm[c * wa + k] = sv[c];
+          for (int c = 0; c < 2; ++c) {
+            v[u][c] = state_ld(geo, s0 + c * P + kk);
+            v[u][2 + c] = a.first ? T(0) : state_ld(geo, s1 + c * P + kk);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * blockDim.x;
+        if (k < wa) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < 2 || !a.first) sm[c * wa + k] = v[u][c];
+        }
+      }
     }
   }
   if (!a.first) {
+    const int own_plane = a.by * a.bx;
+    const int64_t PA = geo.own_plane();
+    const int64_t b_acc = (int64_t)z * 2 * PA;
+    const int ny = geo.rows(), nx = geo.cols();
     for (int i = threadIdx.x; i < own_plane; i += blockDim.x) {
       const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
-      const bool in = gy < ny && gx < nx && has_acc(geo, gy, gx);
 #pragma unroll
-      for (int c = 0; c < 2; ++c)
-        sm[pl.acc + c * own_plane + i] =
-            in ? io.acc_in[b_acc + c * PA + geo.own_index(gy, gx)] : T(0);
+      for (int c = 0; c < 2; ++c) {
+        T* const dst = sm + pl.acc + c * own_plane + i;
+        if (gy < ny && gx < nx && has_acc(geo, gy, gx))
+          cp_async(dst, io.acc_in + b_acc + c * PA + geo.own_index(gy, gx));
+        else
+          *dst = T(0);
+      }
     }
   }
-  __syncthreads();
+}
 
-  // 2. the steps
+// The steps of one tile on its window, which has arrived, and the stores of
+// its own cells: the carries and, where it exists, acc (a last pass writes
+// acc in its last step instead). Every step ends with __syncthreads, so the
+// stores read the last step's values.
+template <typename T, typename OP, int ZAP, class GEO, class IO>
+__device__ __forceinline__ void vec_window_run(const VecFusedArgs<T>& a, const IO& io,
+                                               const GEO geo, T* sm, int y0, int x0,
+                                               unsigned z) {
+  constexpr int NC = OP::N_COEF;
+  const int H = a.n_ops;
+  const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+  const VecPlanes pl = vec_planes(wx, wa, NC);
+  const int own_plane = a.by * a.bx;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
+  // this entry's u planes (v follows one plane later) of the carries out and acc
+  const int64_t PO = geo.out_plane(), PA = geo.own_plane();
+  const int64_t b_out = (int64_t)z * 2 * PO;
+  const int64_t b_acc = (int64_t)z * 2 * PA;
+  const int ny = geo.rows(), nx = geo.cols();
+
   int cur = 0, prev = 2 * wa;
   for (int i = 0; i < H; ++i) {
     const int j = i + 1;  // this step's window: shrunk by j
@@ -353,7 +442,6 @@ __device__ __forceinline__ void vec_fused_tile(const VecFusedArgs<T>& a, const I
   }
   if (a.last) return;
 
-  // 3. the own cells of the carries and, where it exists, of acc
   for (int r = H + warp; r < H + a.by; r += nwarps) {
     const int gy = y0 - H + r;
     if (gy >= ny) break;
@@ -373,6 +461,27 @@ __device__ __forceinline__ void vec_fused_tile(const VecFusedArgs<T>& a, const I
       }
     }
   }
+}
+
+// One tile's pass on one window, all of the block's threads, the dynamic
+// shared memory its window: the own cells of the tile at `org` (GridOrigin or
+// TileOrigin of cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io`
+// the planes (w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef): the
+// VecFusedArgs itself for vec_fused_kernel, a shard's row of a table for the
+// ring. The geometry goes by value, here and into vec_step_window: by
+// reference, five of the RoundGeo kernels got other register counts than
+// when this body was the kernel's own (ptxas -v, compared on the card).
+template <typename T, typename OP, int ZAP, class GEO, class IO, class ORG>
+__device__ __forceinline__ void vec_fused_tile(const VecFusedArgs<T>& a, const IO& io,
+                                               const GEO geo, const ORG& org) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
+  vec_window_load<T, OP>(a, io, geo, sm, y0, x0, org.z());
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  vec_window_run<T, OP, ZAP>(a, io, geo, sm, y0, x0, org.z());
 }
 
 template <typename T, typename OP, int ZAP, class GEO>
@@ -395,8 +504,8 @@ int launch_vec_mode(const VecFusedArgs<T>& a, const GEO& g, dim3 grid, size_t by
 }
 
 // Launch one fused vector pass over the own domain of `g` (rows x cols
-// cells), tiles of by x bx, with the kernel compiled for the contraction and
-// for zap.
+// cells), tiles of by x bx, one block per tile, with the kernel compiled for
+// the contraction and for zap.
 template <typename T, class GEO>
 int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const GEO& g, int rows,
                      int cols, int batch, cudaStream_t st) {

@@ -53,8 +53,8 @@ from .cheb_pass import (
 )
 from .local_pass import _window
 from .vec_pass import (
-    BGRID, CTAP, N_COEF, VEC_TILES, VecPassOperands, _library as _vec_library,
-    _vec_pass_cost, vec_fused_shared_bytes,
+    BGRID, CTAP, N_COEF, VecPassOperands, _library as _vec_library,
+    _vec_pass_cost, vec_fused_shared_bytes, vec_tiles,
 )
 
 Tensor = torch.Tensor
@@ -250,7 +250,7 @@ def _round_plan(n_steps: int, ly: int, lx: int, itemsize: int, op: int) -> Fused
         return (ly >= by + 2 * halo and lx >= bx + 2 * halo
                 and vec_fused_shared_bytes(tile, halo, N_COEF[op], itemsize) <= SHARED_BYTES)
 
-    return search_plan(n_steps, ly, lx, MAX_FUSE, VEC_TILES[op], fits,
+    return search_plan(n_steps, ly, lx, MAX_FUSE, vec_tiles(op, itemsize), fits,
                        lambda tile, steps: _vec_pass_cost(op, tile, steps, itemsize))
 
 
@@ -260,7 +260,7 @@ def plan_vec_local_rounds(rounds, ly: int, lx: int, dtype: torch.dtype,
     lx)`` core: the counterpart of the JAX ``_plan_local_coupled``.
 
     A round of ``n`` steps is planned as the unsharded planner plans a vector
-    filter of ``n`` steps (``search_plan`` over ``VEC_TILES`` with the cost
+    filter of ``n`` steps (``search_plan`` over ``vec_tiles`` with the cost
     model ``_vec_pass_cost``, fitted to the tile sweeps of ``chip_smoke.py``):
     one launch of ``n`` steps (split (a)) or a balanced split into several
     launches with no exchange between them (split (b)), on the tile the

@@ -238,24 +238,43 @@ vec_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version do
 
 # Tile shapes (by, bx) the planner chooses from, bx a multiple of the warp
 # width, per contraction, each with the ratio of its measured time to the
-# cost model's, relative to the best tile: the tile sweep that chip_smoke.py
-# phase 7b runs and prints on one H100 (each tile at its fastest split of the
-# 11-step float32 headline, 2400x3600). It covers what the model does not see
-# (lane and strip quantization, how a tile's rows fall on the warps).
+# cost model's, relative to the best tile: the float32 tile sweep that
+# chip_smoke.py phase 7b runs and prints on one H100 (every tile at every
+# split of the 11-step headline, 2400x3600, and of the 44-step Taper). It
+# covers what the model does not see (strip quantization, how a tile's rows
+# fall on the warps).
 VEC_TILES = {
+    BGRID: {(32, 64): 1.114, (16, 96): 1.0, (24, 64): 1.088, (48, 32): 1.195,
+            (40, 32): 1.156, (16, 128): 1.03, (32, 32): 1.173, (16, 64): 1.106,
+            (24, 32): 1.203, (16, 48): 1.146, (16, 32): 1.243},
+    CTAP: {(16, 64): 1.0, (40, 32): 1.154, (32, 32): 1.112, (24, 64): 1.094,
+           (16, 96): 1.04, (24, 32): 1.121, (16, 32): 1.099, (8, 64): 1.032},
+}
+# float64 keeps the tiles and ratios of the float32 sweep of the tile's
+# first design, and that design's cost model below: a model fitted to the
+# 2400x3600 float64 sweep alone has no cost per launch, and took three
+# launches where two were faster at 128x256 (PERF.md §6).
+VEC_TILES_F64 = {
     BGRID: {(32, 64): 1.0, (16, 96): 0.873, (48, 32): 1.194, (40, 32): 1.164,
             (24, 64): 1.018, (16, 64): 1.047, (16, 128): 0.847, (32, 32): 1.208,
             (24, 32): 1.192, (16, 32): 1.192},
     CTAP: {(16, 64): 1.0, (32, 32): 1.205, (40, 32): 1.282, (24, 32): 1.225,
            (24, 64): 1.097, (16, 96): 1.047, (16, 32): 1.188, (8, 64): 1.045},
 }
-# The cost model, in window-cell loads of one plane: a cell-step costs
-# _VEC_STEP[(op, itemsize)] of them, times _VEC_ONE_BLOCK where a block takes
-# more than half an SM's shared memory. Fitted (least squares) to the same
-# sweep, in each dtype; float64 steps weigh more (two shared wavefronts a
-# value, half the FMA rate).
-_VEC_STEP = {(BGRID, 4): 0.57, (CTAP, 4): 1.19, (BGRID, 8): 1.32, (CTAP, 8): 2.97}
-_VEC_ONE_BLOCK = 1.25
+# The cost model, in window-cell loads of one plane: a pass costs its
+# window's load, every plane, plus its cell-steps at _VEC_STEP[(op, itemsize)]
+# each, times _VEC_ONE_BLOCK[itemsize] where a block takes more than half an
+# SM's shared memory. Fitted (least squares, with the tile ratios above) to
+# the float32 sweep, where the steps are most of the time; float64 steps
+# weigh more (two shared wavefronts a value, half the FMA rate).
+_VEC_STEP = {(BGRID, 4): 2.40, (CTAP, 4): 2.92, (BGRID, 8): 1.32, (CTAP, 8): 2.97}
+_VEC_ONE_BLOCK = {4: 1.0, 8: 1.25}
+
+
+def vec_tiles(op: int, itemsize: int) -> dict:
+    """The tiles the planner weighs for ``op`` in this item size, with their
+    measured ratios (:data:`VEC_TILES`, :data:`VEC_TILES_F64`)."""
+    return (VEC_TILES_F64 if itemsize == 8 else VEC_TILES)[op]
 
 
 def vec_fused_shared_bytes(tile, halo: int, n_coef: int, itemsize: int) -> int:
@@ -269,7 +288,7 @@ def vec_fused_shared_bytes(tile, halo: int, n_coef: int, itemsize: int) -> int:
 def _vec_pass_cost(op: int, tile, steps, itemsize: int) -> float:
     """Modelled cost per own cell of a plan: per pass the window's load (every
     plane) and every step's shrinking window, scaled by the tile's measured
-    factor (:data:`VEC_TILES`). Comparable within one dtype only."""
+    ratio (:func:`vec_tiles`). Comparable within one dtype only."""
     by, bx = tile
     n_coef = N_COEF[op]
     cost = 0.0
@@ -277,9 +296,9 @@ def _vec_pass_cost(op: int, tile, steps, itemsize: int) -> float:
         wy, wx = by + 2 * s, bx + 2 * s
         cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, s + 1))
         two = 2 * (vec_fused_shared_bytes(tile, s, n_coef, itemsize) + 1024) <= SM_SHARED_BYTES
-        step = _VEC_STEP[(op, itemsize)] * (1.0 if two else _VEC_ONE_BLOCK)
+        step = _VEC_STEP[(op, itemsize)] * (1.0 if two else _VEC_ONE_BLOCK[itemsize])
         cost += (4 + n_coef) * wy * wx + step * cells
-    return cost / (by * bx) * VEC_TILES[op].get(tuple(tile), 1.0)
+    return cost / (by * bx) * vec_tiles(op, itemsize).get(tuple(tile), 1.0)
 
 
 @functools.lru_cache(maxsize=None)
@@ -291,7 +310,7 @@ def _vec_plan(n_steps: int, ny: int, nx: int, itemsize: int, op: int, max_fuse: 
         return vec_fused_shared_bytes(tl, halo, N_COEF[op], itemsize) <= SHARED_BYTES
 
     return search_plan(
-        n_steps, ny, nx, max_fuse, (tile,) if tile else VEC_TILES[op], fits,
+        n_steps, ny, nx, max_fuse, (tile,) if tile else vec_tiles(op, itemsize), fits,
         lambda tl, steps: _vec_pass_cost(op, tl, steps, itemsize),
         predicate=(lambda tl, halo: ny >= halo) if ring else None)
 
@@ -305,7 +324,7 @@ def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op
     ``plan_ctap_passes``.
 
     Every balanced split of the steps into ``ceil(n_steps / cap)`` passes
-    (``cap <= max_fuse``) and every tile of ``VEC_TILES[op]`` (or only
+    (``cap <= max_fuse``) and every tile of ``vec_tiles(op, itemsize)`` (or only
     ``tile``) whose window fits in a block's shared memory is scored by a
     cost model fitted to measured times (:func:`_vec_pass_cost`); the
     cheapest wins. ``fused`` is False where the field is smaller than a tile

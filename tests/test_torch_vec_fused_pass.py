@@ -309,16 +309,16 @@ def test_dispatch_routes_by_the_predicate(grid_type):
 
 # -- the tiled plain version: the kernel's decomposition, bit for bit ----------
 
-@pytest.mark.parametrize("tile", [(8, 32), (16, 16)])
+@pytest.mark.parametrize("tile", [(8, 32), (16, 16), (16, 48), (24, 32), (16, 32)])
 @pytest.mark.parametrize("steps", [(6,), (4, 4), (3, 3, 2), (1, 2)])
 @pytest.mark.parametrize("case", ["B", "C", "C zap_nans=False"])
 def test_tiled_reference_equals_step_chain(case, steps, tile):
     """Windows periodic in both axes with their corners, spikes and a NaN at
     tile corners and seams (the diagonal taps reach a corner cell of the
     window from the first step on): float64, equal to the plain step chain
-    bit for bit."""
-    shape = (40, 80)
+    bit for bit. The field holds more than two tiles each way."""
     by, bx = tile
+    shape = (max(40, 2 * by + 8), max(80, 2 * bx + 16))
     n = sum(steps)
     grid_type = B if case == "B" else C
     ops, p = _operands(grid_type, shape, torch.float64, n_steps=n, zap="zap" not in case)

@@ -225,7 +225,7 @@ def test_launch_sequence(grid_type):
 
 # -- the tiled plain version: the kernel's decomposition, bit for bit ----------
 
-@pytest.mark.parametrize("tile", [(8, 32), (16, 16)])
+@pytest.mark.parametrize("tile", [(8, 32), (16, 16), (16, 48), (24, 32), (16, 32)])
 @pytest.mark.parametrize("rounds_cap", [(6, 16), (6, 3), (6, 2), (4, 3)])
 @pytest.mark.parametrize("case", ["B", "C", "C zap_nans=False"])
 def test_tiled_reference_equals_step_chain(case, rounds_cap, tile):
@@ -233,10 +233,10 @@ def test_tiled_reference_equals_step_chain(case, rounds_cap, tile):
     NaNs at core corners and at tile seams (the diagonal taps read a halo
     corner from the first step on), launches that end on a margin around the
     core (split (b)): float64, equal to the plain local step chain bit for
-    bit."""
+    bit. The core holds more than two tiles each way."""
     halo_steps, cap = rounds_cap
-    shape = (40, 80)
     by, bx = tile
+    shape = (max(40, 2 * by + 8), max(80, 2 * bx + 16))
     grid_type = B if case == "B" else C
     ops, p, cells, rounds = _setup(grid_type, shape, n_steps=12, halo_steps=halo_steps,
                                    zap="zap" not in case)
