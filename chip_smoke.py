@@ -11,7 +11,7 @@ and runs these phases; any failed check raises and the script exits non-zero:
 2. build: compiles ``gcm_filters_tpu_torch/csrc/*.cu`` (one nvcc per source,
    all at once), prints every kernel's ``ptxas -v`` lines and holds them to
    the record of this tree, ``gcm_filters_tpu_torch/csrc/ptxas_lines.json``
-   (where the same nvcc release built it): the vector tile's kernels apart,
+   (where the same nvcc release built it): the scalar tile's kernels apart,
    every other kernel with the lines it had before the tile was redesigned;
 3. small grids: all 9 scalar grids at 128x256 in float32 and float64, with
    the Gaussian and the Taper filter (several fused passes), plus
@@ -23,7 +23,10 @@ and runs these phases; any failed check raises and the script exits non-zero:
    launches bit for bit (NaNs in the same cells), and against the tiled
    plain version of the fused pass; each apply must launch the fused kernel
    once per planned pass (or, below the predicate, the step kernel n_steps
-   times) and no other kernel;
+   times) and no other kernel; then, on a ragged 396x601 fold grid with a
+   batch of two, a first pass and a middle pass into NaN-filled t_out,
+   t_prev_out and acc (an own cell that a launch skipped would keep the
+   sentinel), each bitwise equal to the step-kernel chain;
 4. scalar headline (the scalar path): the ``bench.py`` workload, 2400x3600
    float32 TRIPOLAR_REGULAR_WITH_LAND_AREA_WEIGHTED, Gaussian factor 10
    (11 steps), through ``Filter.apply`` on the card, checked against the
@@ -31,9 +34,11 @@ and runs these phases; any failed check raises and the script exits non-zero:
    and timed with CUDA events beside the step chain; the fused launch
    counter must equal passes x applies, every other counter 0, and no
    fallback may be recorded; then the fused plan's tile sweep (each tile
-   with its best split, timed) and two more headlines on the same footing:
-   the Taper filter (factor 10, several passes) on the same grid, and
-   IRREGULAR_WITH_LAND (five coefficient planes);
+   with its best split, timed, in float32 and float64) and two more
+   headlines on the same footing: the Taper filter (factor 10, several
+   passes) on the same grid, swept at 3, 4 and 5 passes (the TPU planner's
+   (13, 13, 13) among them), and IRREGULAR_WITH_LAND (five coefficient
+   planes), swept at every tile;
 5. each step kind of the scalar step kernel, and the fused pass, against its
    plain version at the headline shape;
 6. small vector grids: VECTOR_B_GRID and VECTOR_C_GRID at 128x256 through
@@ -74,7 +79,9 @@ and runs these phases; any failed check raises and the script exits non-zero:
    step-kernel launches bit for bit, and against the unsharded
    ``Filter.apply``; each apply must launch the fused local round once per
    round (below the predicate: the local step kernel n_steps times) and no
-   other kernel;
+   other kernel; then a middle round on the ragged 396x601 fold grid, batch
+   two, into NaN-filled t_out and t_prev_out, bitwise equal to the local
+   step-kernel chain on the same inputs;
 10. sharded headline (the sharded path): the phase-4 workload through the
     mesh path, checked against the float64 eager engine and against the
     local step chain bit for bit, and timed beside it, with one fused launch
@@ -124,7 +131,10 @@ and runs these phases; any failed check raises and the script exits non-zero:
     card; each apply must launch its fused ring kernel (``ring_fused_pass``,
     ``vec_ring_fused_pass``) once per planned pass (the step ring kernel
     n_steps times where the plan is not fused: one-row shards), and no other
-    kernel;
+    kernel; then the fused scalar ring on the ragged 396x601 fold grid at
+    ``p_y`` 4, a first, a middle and a last pass with acc and each pass's
+    carry pair out NaN-filled first, the own rows after the first two and the
+    result bitwise equal to the step-kernel chain;
 16. ring headlines (the ring path): the phase-4 workload at ``p_y`` 4, 2 and
     8, the Taper filter and ``IRREGULAR_WITH_LAND`` at ``p_y`` 4, each through
     the fused ring, bitwise equal to the fused K1 and to the step ring of this
@@ -441,11 +451,12 @@ def vec_round_cost(n_coef, plan, batch, ly, lx, cells, itemsize, key):
 
 
 # Each kernel's ``ptxas -v`` lines as this tree builds them, with the nvcc
-# release that printed them (write_ptxas_record); the kernels of the vector
-# tile (csrc/vec_tile.cuh) are named apart, every other kernel keeps its lines
-# from the tree before the tile was redesigned.
+# release that printed them (write_ptxas_record); the kernels of the scalar
+# tile (csrc/cheb_tile.cuh: the fused K1 and K2 kernels and the fused scalar
+# ring) are named apart, every other kernel keeps its lines from the tree
+# before the tile was redesigned.
 PTXAS_RECORD = Path(__file__).resolve().parent / "gcm_filters_tpu_torch/csrc/ptxas_lines.json"
-VECTOR_TILE_KERNELS = ("vec_fused_kernel", "vec_ring_fused_kernel")
+SCALAR_TILE_KERNEL = re.compile(r"(?:used_pass_kernel|(?<!vec_)ring_fused_kernel)I")
 
 
 def ptxas_lines(logs):
@@ -492,7 +503,7 @@ def check_ptxas_lines(build):
     """Every kernel's ``ptxas -v`` lines against the record of this tree
     (:data:`PTXAS_RECORD`), where nvcc is the release that wrote it and this
     run built the source; raises on a kernel whose lines differ. Returns the
-    counts compared, apart for the vector tile's kernels."""
+    counts compared, apart for the scalar tile's kernels."""
     release = nvcc_release(build)
     with open(PTXAS_RECORD) as fh:
         record = json.load(fh)
@@ -502,17 +513,17 @@ def check_ptxas_lines(build):
     got = ptxas_lines(build.build_logs)
     built = set(build.build_logs)
     names = sorted(k for k in set(record["kernels"]) | set(got) if k.split(":")[0] in built)
-    tile = {k for k in names if any(t in k for t in VECTOR_TILE_KERNELS)}
+    tile = {k for k in names if SCALAR_TILE_KERNEL.search(k)}
     differ = [k for k in names if record["kernels"].get(k) != got.get(k)]
     other = [k for k in names if k not in tile]
     counts = {"compared": True, "nvcc": release,
               "other_kernels": len(other),
               "other_as_recorded": sum(k not in differ for k in other),
-              "vector_tile_kernels": len(tile),
-              "vector_tile_as_recorded": sum(k not in differ for k in tile)}
+              "scalar_tile_kernels": len(tile),
+              "scalar_tile_as_recorded": sum(k not in differ for k in tile)}
     log(f"ptxas -v (nvcc {release}): {counts['other_as_recorded']} of {counts['other_kernels']} "
-        f"kernels outside the vector tile and {counts['vector_tile_as_recorded']} of "
-        f"{counts['vector_tile_kernels']} vector tile kernels as recorded in {PTXAS_RECORD}")
+        f"kernels outside the scalar tile and {counts['scalar_tile_as_recorded']} of "
+        f"{counts['scalar_tile_kernels']} scalar tile kernels as recorded in {PTXAS_RECORD}")
     for k in differ:
         log(f"  differs: {k}: {record['kernels'].get(k)} -> {got.get(k)}")
     if differ:
@@ -613,6 +624,18 @@ def main():
                 label = f"{'f64' if m.group(1) == 'd' else 'f32'} {'zap' if m.group(2) == '1' else 'no zap'}"
                 out[label] = "; ".join(lines)
         return out or None
+    def scalar_tile_ptxas(source, kernel):
+        """This build's ``ptxas -v`` lines of the scalar tile kernels of one
+        source (``kernel`` the regular expression of the name before its
+        dtype), by dtype and compiled mode."""
+        modes = {"0": "GENERIC", "1": "HSPACE", "2": "FLUX"}
+        out = {}
+        for name, lines in ptxas_lines(build.build_logs).items():
+            m = re.search(kernel + r"I([fd])(?:NS_\d+\w+?GeoE)?Li(\d)E", name)
+            if name.startswith(source + ":") and m and SCALAR_TILE_KERNEL.search(name):
+                out[f"{'f64' if m.group(1) == 'd' else 'f32'} {modes[m.group(2)]}"] = \
+                    "; ".join(lines)
+        return out or None
     dev = torch.device("cuda")
 
     def counters():
@@ -670,6 +693,24 @@ def main():
         if diff != 0.0 or not torch.equal(got[ok], want[ok]):
             raise AssertionError(f"{label}: differs from {what}, max abs {diff:.3e}")
         return diff
+
+    def step_snaps(ops_, p_, x_, ks):
+        """The step-kernel chain on ``x_``: ``{k: (T_k, T_{k-1}, acc)}`` after
+        each step k of ``ks`` (middle steps only)."""
+        h, cur, acc_ = (torch.empty_like(x_) for _ in range(3))
+        cheb_pass(ops_, FIRST, p_[0], p_[1], field=x_, t_next=cur, acc=acc_, h=h)
+        prev, snaps = h, {}
+        for k in range(2, max(ks) + 1):
+            cheb_pass(ops_, MIDDLE, p_[k], t=cur, t_prev=prev, t_next=prev, acc=acc_)
+            cur, prev = prev, cur
+            if k in ks:
+                snaps[k] = (cur.clone(), prev.clone(), acc_.clone())
+        return snaps
+
+    # the ragged fold-grid shape of the sentinel cases (phases 3, 9 and 15)
+    # and the passes they run: a first pass of SENT[0] steps, a middle one of
+    # SENT[1]
+    sshape_s, SENT = (396, 601), (4, 5)
 
     # 3. small grids: the fused dispatch vs the plain versions, the step-kernel
     # chain (bit for bit) and the tiled plain version of the fused pass
@@ -767,6 +808,36 @@ def main():
         filt = Filter(filter_scale=6.0, dx_min=1.0, grid_type=g, grid_vars=v, device=dev)
         check_filter(f"{g.name} (40, 100) below the fused predicate float64", filt, d, "float64",
                      want_fused=False)
+    # sentinel outputs (WrapGeo): every output of a pass starts as NaN (acc
+    # before the first pass; t_out and t_prev_out before each pass), so an own
+    # cell that the launch skipped would keep it; a first pass, then a middle
+    # one, each bitwise equal to the step-kernel chain, batch 2, on the fold
+    n0, n1 = SENT
+    sd, sv = scalar_grid_data(tri, required_grid_vars(tri), sshape_s)
+    sfilt = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri, grid_vars=sv, device=dev)
+    sfn_ = make_cuda_scalar_apply(sfilt.operator, sfilt.filter_spec)
+    for dt, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        ops_, p_ = sfn_.operands(dt, dev)
+        if len(p_) - 1 <= n0 + n1:
+            raise AssertionError(f"the sentinel case needs more than {n0 + n1} steps")
+        x_ = torch.as_tensor(np.random.default_rng(7).random((2,) + sshape_s), dtype=dt,
+                             device=dev)
+        tl = sfn_.plan(*sshape_s, dt).tile
+        snaps = step_snaps(ops_, p_, x_, (n0, n0 + n1))
+        nan = lambda: torch.full_like(x_, float("nan"))  # noqa: E731
+        a0, a1, acc_k = nan(), nan(), nan()
+        cheb_fused_pass(ops_, p_, 0, n0, tile=tl, field=x_, t_out=a0, t_prev_out=a1, acc=acc_k)
+        for nm, g, w in zip(("t", "t_prev", "acc"), (a0, a1, acc_k), snaps[n0]):
+            bitwise(f"K1 sentinel first pass {name} {tl} {nm}", g, w, "the step-kernel chain")
+        b0, b1 = nan(), nan()
+        cheb_fused_pass(ops_, p_, n0, n1, tile=tl, t=a0, t_prev=a1, t_out=b0, t_prev_out=b1,
+                        acc=acc_k)
+        for nm, g, w in zip(("t", "t_prev", "acc"), (b0, b1, acc_k), snaps[n0 + n1]):
+            bitwise(f"K1 sentinel middle pass {name} {tl} {nm}", g, w, "the step-kernel chain")
+        log(f"  {tri.name} {sshape_s} batch 2 {name}: a first pass of {n0} and a middle pass "
+            f"of {n1} steps on {tl} tiles into NaN-filled t_out, t_prev_out and acc: bit for "
+            f"bit equal to the step-kernel chain")
+    del sfilt, sfn_, ops_, x_, snaps, a0, a1, b0, b1, acc_k
     log(f"fused route on {fworst['cases']} small cases: vs the step-kernel chain max abs 0 "
         f"(bit for bit, NaNs in the same cells); vs plain max abs {fworst['vs_plain']:.3e}; "
         f"vs the tiled plain version max abs {fworst['vs_tiled']:.3e}")
@@ -860,23 +931,46 @@ def main():
 
     # 4b. the fused plan's tiles: each with the planner's best split for it,
     # and the chosen tile with fewer steps per pass, each bitwise equal
+    def tile_sweep(label, sops, sp, xs, want, cands, n=20):
+        """Each candidate plan of a headline, bitwise equal to its result,
+        timed: ``{"BYxBX s1+s2": ms per apply}``."""
+        n_pl, isz = fused_planes(sops), xs.element_size()
+        out_ = {}
+        for pl in cands:
+            run = lambda: _fused_chain(cheb_fused_pass, sops, sp, pl, xs)  # noqa: E731
+            bitwise(f"{label} tile sweep {pl.tile} {pl.steps}", run()[0], want,
+                    f"the fused {label} headline")
+            ms = event_ms(run, n)
+            key = f"{pl.tile[0]}x{pl.tile[1]} {'+'.join(map(str, pl.steps))}"
+            out_[key] = ms
+            log(f"  {label} tile {key}: {ms:.4f} ms/apply; model cost "
+                f"{_pass_cost(pl.tile, pl.steps, n_pl, isz):.2f} per cell")
+        return out_
+
     n_planes = fused_planes(ops)
-    sweep = {}
     cands = [plan_fused_passes(n_steps, ny, nx, torch.float32, n_planes, tile=tl) for tl in TILES]
     cands += [plan_fused_passes(n_steps, ny, nx, torch.float32, n_planes, max_fuse=cap,
                                 tile=plan.tile) for cap in (6, 4)]
-    for pl in cands:
-        run = lambda: _fused_chain(cheb_fused_pass, ops, p, pl, x3)  # noqa: E731
-        bitwise(f"tile sweep {pl.tile} {pl.steps}", run()[0], out, "the fused headline")
-        ms = event_ms(run, 20)
-        key = f"{pl.tile[0]}x{pl.tile[1]} {'+'.join(map(str, pl.steps))}"
-        sweep[key] = ms
-        log(f"  tile {key}: {ms:.4f} ms/apply; model cost "
-            f"{_pass_cost(pl.tile, pl.steps, n_planes, item):.2f} cell-steps per cell")
+    sweep = tile_sweep("headline", ops, p, x3, out, cands)
+    # the float64 headline (the same field and grid): every tile with its
+    # best split, and one pass and 6+5 at the planned tile
+    ops64, p64 = fn.operands(torch.float64, dev)
+    x64 = x3.double()
+    plan64 = fn.plan(ny, nx, torch.float64)
+    out64 = _fused_chain(cheb_fused_pass, ops64, p64, plan64, x64)[0]
+    bitwise("float64 headline", out64, steps_head(x_dev.double()), "the step-kernel chain")
+    cands = [plan_fused_passes(n_steps, ny, nx, torch.float64, n_planes, tile=tl) for tl in TILES]
+    for steps_ in ((n_steps,), (6, 5)):
+        c = dataclasses.replace(plan64, steps=steps_, halo=max(steps_))
+        if c not in cands:
+            cands.append(c)
+    sweep64 = tile_sweep("float64 headline", ops64, p64, x64, out64, cands, n=10)
+    del ops64, x64, out64
 
     # 4c. two more headlines on the same footing: the Taper filter (several
-    # passes) and a grid with five coefficient planes
-    def fused_headline(label, filt):
+    # passes), with the TPU's split (13, 13, 13) beside the planner's, and a
+    # grid with five coefficient planes, at every tile
+    def fused_headline(label, filt, sweep_cands=None):
         x = torch.as_tensor(field, device=dev)
         pl = filt._scalar_fn().plan(ny, nx, torch.float32)
         reset_counters()
@@ -893,7 +987,7 @@ def main():
         torch.testing.assert_close(o.double(), w64, rtol=1e-4, atol=1e-5)
         err = float((o.double() - w64).abs().max())
         del w64
-        fops, _ = filt._scalar_fn().operands(torch.float32, dev)
+        fops, fp = filt._scalar_fn().operands(torch.float32, dev)
         fst = fops.stencil
         n_op = sum(1 for k in ("c", "n", "s", "e", "w", "pre", "post", "area")
                    if isinstance(getattr(fst, k), torch.Tensor))
@@ -904,20 +998,41 @@ def main():
             f"{pl.steps}: {ms_f:.4f} ms/apply fused (host enqueue {host_f:.4f}), step chain "
             f"{ms_s:.4f} ms/apply, bit for bit equal; vs eager engine in float64 max abs "
             f"{err:.3e}; plan bound {pbm:.4f} ms ({pbb}), whole-filter bound {fbm:.4f} ms")
-        return {"ms": ms_f, "host_enqueue_ms": host_f, "step_chain_ms": ms_s,
-                "n_steps": filt.n_steps, "passes": list(pl.steps), "tile": list(pl.tile),
-                "plan_bound_ms": pbm, "filter_bound_ms": fbm, "vs_step_chain_max_abs": vs,
-                "vs_f64_engine_max_abs": err}
+        res = {"ms": ms_f, "host_enqueue_ms": host_f, "step_chain_ms": ms_s,
+               "n_steps": filt.n_steps, "passes": list(pl.steps), "tile": list(pl.tile),
+               "plan_bound_ms": pbm, "filter_bound_ms": fbm, "vs_step_chain_max_abs": vs,
+               "vs_f64_engine_max_abs": err}
+        if sweep_cands is not None:
+            res["tile_sweep_ms"] = tile_sweep(label, fops, fp, x.reshape(1, ny, nx), o,
+                                              sweep_cands(pl, fused_planes(fops)), n=10)
+        return res
+
+    def taper_cands(pl, n_pl):
+        """The planner's plan and the splits into 3, 4 and 5 passes (the TPU
+        planner's (13, 13, 13) among them), at 32x96 and at the planned tile."""
+        out_ = [pl]
+        for tl in dict.fromkeys([(32, 96), pl.tile]):
+            for steps_ in ((13, 13, 13), (10, 10, 10, 9), (8, 8, 8, 8, 7)):
+                c = dataclasses.replace(pl, tile=tl, steps=steps_, halo=max(steps_))
+                if c not in out_:
+                    out_.append(c)
+        return out_
+
+    def every_tile(pl, n_pl):
+        """Every tile of the planner with its best split."""
+        return [plan_fused_passes(sum(pl.steps), ny, nx, torch.float32, n_pl,
+                                  tile=tl) for tl in TILES]
 
     more_heads = {"taper": fused_headline("TAPER " + tri.name, Filter(
         filter_scale=10.0, dx_min=1.0, filter_shape=FilterShape.TAPER, grid_type=tri,
-        grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32, device=dev))}
+        grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32, device=dev),
+        taper_cands)}
     m = 0.9 + 0.2 * rng.random((ny, nx))
     ones = np.ones((ny, nx))
     more_heads["irregular_with_land"] = fused_headline("IRREGULAR_WITH_LAND", Filter(
         filter_scale=10.0, dx_min=1.0, grid_type=GridType.IRREGULAR_WITH_LAND,
         grid_vars=dict(wet_mask=wet, dxw=m, dyw=m, dxs=m, dys=m, area=m * m, kappa_w=ones,
-                       kappa_s=ones), dtype=torch.float32, device=dev))
+                       kappa_s=ones), dtype=torch.float32, device=dev), every_tile)
     del m, ones
 
     # 5. each step kind of the kernel against its plain version, headline shape
@@ -1548,6 +1663,43 @@ def main():
     check_sharded(f"sharded {tri.name} (40, 100) below the fused predicate float64", d,
                   "float64", want_fused=False, filter_scale=6.0, dx_min=1.0, grid_type=tri,
                   grid_vars=v)
+
+    # sentinel outputs (BlockGeo): a middle round on a ragged fold grid,
+    # batch 2, from finite random extended carries and acc, its t_out and
+    # t_prev_out NaN-filled: the core of each and acc bitwise equal to the
+    # chain of local step-kernel launches on the same inputs
+    n0, n1 = SENT
+    sd, sv = scalar_grid_data(tri, required_grid_vars(tri), sshape_s)
+    sfilt = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri, grid_vars=sv, device=dev,
+                   mesh=mesh, spatial_axes=axes)
+    ly_, lx_ = sshape_s
+    for dt, name in both:
+        lops_, cells_, _, lp = sfilt._scalar_fn().operands(ly_, lx_, dt)
+        if cells_ < n1 or len(lp) - 1 <= n0 + n1:
+            raise AssertionError(f"the sentinel round needs {n1} cells and {n0 + n1} steps")
+        tl = plan_fused_passes(cells_, ly_, lx_, dt, fused_planes(lops_), one_pass=True).tile
+        rng_ = np.random.default_rng(8)
+        ext = (2, ly_ + 2 * cells_, lx_ + 2 * cells_)
+        t_, tp_ = (torch.as_tensor(rng_.random(ext), dtype=dt, device=dev) for _ in "ab")
+        acc0 = torch.as_tensor(rng_.random((2,) + sshape_s), dtype=dt, device=dev)
+        cur, prev, acc_s = t_.clone(), tp_.clone(), acc0.clone()
+        for j in range(1, n1 + 1):
+            local_pass(lops_, MIDDLE, lp[n0 + j], cells=cells_, shrink=j, t=cur, t_prev=prev,
+                       t_next=prev, acc=acc_s)
+            cur, prev = prev, cur
+        o0, o1 = (torch.full(ext, float("nan"), dtype=dt, device=dev) for _ in "ab")
+        acc_f = acc0.clone()
+        local_fused_pass(lops_, lp, n0, n1, cells=cells_, tile=tl, t=t_, t_prev=tp_, t_out=o0,
+                         t_prev_out=o1, acc=acc_f)
+        core = (Ellipsis, slice(cells_, cells_ + ly_), slice(cells_, cells_ + lx_))
+        for nm, g, w in (("t", o0[core], cur[core]), ("t_prev", o1[core], prev[core]),
+                         ("acc", acc_f, acc_s)):
+            bitwise(f"K2 sentinel middle round {name} {tl} {nm}", g, w,
+                    "the local step-kernel chain")
+        log(f"  sharded {tri.name} {sshape_s} batch 2 {name}: a middle round of {n1} steps "
+            f"(block of {cells_} cells) on {tl} tiles into NaN-filled t_out and t_prev_out: bit "
+            f"for bit equal to the local step-kernel chain")
+    del sfilt, lops_, t_, tp_, acc0, cur, prev, acc_s, o0, o1, acc_f
 
     # 10. sharded headline: the phase-4 workload through the mesh path
     shead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri,
@@ -2298,6 +2450,52 @@ def main():
                        (u_r[:p_y, :70], v_r[:p_y, :70]),
                        **dict(std, filter_scale=4.0, grid_type=GridType[gname], grid_vars=gv))
 
+    # sentinel outputs (RingGeo): the ragged fold shape at p_y 4 (shards of
+    # 99 rows), a first pass, a middle one and a last one; acc and each
+    # pass's carry pair out start as NaN; the own rows after the first and
+    # the middle pass bitwise equal to the step-kernel chain, the result to
+    # the unsharded step-kernel chain
+    from gcm_filters_tpu_torch.ops.cuda.ring_pass import RingFusedOperands, RingFusedState
+
+    n0, n1 = SENT
+    sd, sv = scalar_grid_data(tri, required_grid_vars(tri), sshape_s)
+    sfilt = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri, grid_vars=sv, device=dev)
+    sfn_ = make_cuda_scalar_apply(sfilt.operator, sfilt.filter_spec)
+    ssteps_ = make_cuda_scalar_apply(sfilt.operator, sfilt.filter_spec, fused_fn=None)
+    (ny_s, nx_s), p_ys = sshape_s, 4
+    ly_s = ny_s // p_ys
+    for dt, name in ((torch.float32, "float32"), (torch.float64, "float64")):
+        ops_, p_ = sfn_.operands(dt, dev)
+        n_all = len(p_) - 1
+        steps_ = (n0, n1, n_all - n0 - n1)
+        x_ = torch.as_tensor(np.random.default_rng(7).random(sshape_s), dtype=dt, device=dev)
+        tl = plan_fused_passes(n_all, ly_s, nx_s, dt, fused_planes(ops_),
+                               max_fuse=min(16, ly_s), ring=True).tile
+        st_ = RingFusedState(RingFusedOperands.cut(ops_, p_ys, max(steps_)), ly_s, nx_s, dt, dev)
+        for r, f in enumerate(st_.input):
+            f.copy_(x_[r * ly_s:(r + 1) * ly_s])
+        snaps = step_snaps(ops_, p_, x_.reshape(1, ny_s, nx_s), (n0, n0 + n1))
+        own = slice(st_.pad, st_.pad + ly_s)
+        start = 0
+        for m, n in enumerate(steps_):
+            for buf in st_.t[m % 2] + st_.t_prev[m % 2] + (st_.acc if m == 0 else []):
+                buf.fill_(float("nan"))
+            ring_fused_pass(st_, p_, start, n, tile=tl, out=m % 2)
+            start += n
+            if start in snaps:
+                for nm, bufs_, w in zip(("t", "t_prev", "acc"),
+                                        (st_.t[m % 2], st_.t_prev[m % 2], st_.acc),
+                                        snaps[start]):
+                    g = torch.cat([b if nm == "acc" else b[own] for b in bufs_])
+                    bitwise(f"ring sentinel pass {m} {name} {tl} {nm}", g, w[0],
+                            "the step-kernel chain")
+        bitwise(f"ring sentinel result {name} {tl}", torch.cat(st_.acc), ssteps_(x_),
+                "the step-kernel chain")
+        log(f"  ring p_y={p_ys} {tri.name} {sshape_s} {name}: passes {steps_} on {tl} tiles, "
+            f"acc and each carry pair out NaN-filled first: bit for bit equal to the step-kernel "
+            f"chain")
+    del sfilt, sfn_, ssteps_, st_, snaps, x_
+
     # 16. ring headlines: the phase-4 and phase-7 workloads on resident shards
     def ring_state(fn):
         """The state and p of a ring apply that has run one shape."""
@@ -2613,6 +2811,7 @@ def main():
         "by_p_y": {str(k): v for k, v in sorted(ring_by_p.items())},
         "taper": ring_more["taper"],
         "irregular_with_land": ring_more["irregular_with_land"],
+        "ptxas": scalar_tile_ptxas("ring_pass", "ring_fused_kernel"),
     }]
     del rhead, rstate, r_out, kept4, steps4
 
@@ -2914,8 +3113,11 @@ def main():
         "step_chain_ms": ms_steps,
         "host_enqueue_ms": host_apply,
         "tile_sweep_ms": sweep,
+        "float64_plan": [list(plan64.tile), list(plan64.steps)],
+        "float64_tile_sweep_ms": sweep64,
         "taper": more_heads["taper"],
         "irregular_with_land": more_heads["irregular_with_land"],
+        "ptxas": scalar_tile_ptxas("cheb_pass", "pass_kernel"),
     }, vec_results[BGRID], vec_results[CTAP], vec_fused_results[BGRID],
         vec_fused_results[CTAP], {
         "name": "local_pass",
@@ -2967,6 +3169,7 @@ def main():
         "exchange_ms": ms_exchange,
         "round_alone_ms": ms_round,
         "host_enqueue_ms": host_sharded,
+        "ptxas": scalar_tile_ptxas("local_pass", "pass_kernel"),
     }, svec_results[BGRID], svec_results[CTAP], svfused_results[BGRID],
         svfused_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)

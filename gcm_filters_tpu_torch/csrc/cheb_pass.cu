@@ -41,7 +41,7 @@
 // immediates), as the TPU kernel does in VMEM. A filter of n steps is then a
 // few launches, one per planned pass (ops/cuda/cheb_pass.py::
 // plan_fused_passes), and each result equals the chain of the step entry's
-// launches bit for bit. Bound of a fused pass: shared memory and issue (see
+// launches bit for bit. Bound of a fused pass: issue in its steps (see
 // cheb_tile.cuh); the step entry stays for fields smaller than a tile and its
 // halo, and as what the fused pass is checked against.
 //

@@ -9,12 +9,18 @@
 // (overlapped-halo) decomposition of the TPU kernel
 // (gcm_filters_tpu/ops/pallas/cheb_pass.py, head comment), with a halo in
 // both y and x:
-//   1. load a window of (by+2H) x (bx+2H) cells, H = S, into shared memory:
-//      the carries (T_0 = h computed from the raw field on the first pass,
-//      else t and t_prev) and the coefficient planes that are arrays (c, n,
-//      s, e, w, post, pre); acc of the own cells;
+//   1. load a window of (by+2H) x (bx+2H) cells, H = S, into shared memory
+//      in one burst: every copy of the window goes by cp.async straight into
+//      its slot, all of them in flight at once (fused_window_load): the
+//      carries (t_prev and t, or on a first pass the raw field and area) and
+//      the coefficient planes that are arrays (c, n, s, e, w, post, pre);
+//      acc of the own cells. A first pass then computes T_0 = h in place
+//      from the raw field, area and post (t0_value), one sweep over the
+//      window between two barriers;
 //   2. run the S steps in shared memory; step j updates the window shrunk by
 //      j cells on each side, so the last one ends exactly on the own tile.
+//      A step's work items are (strip, column) pairs, one per thread, so no
+//      lane idles at a window's right edge (step_window).
 //      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
 //      it), acc of the own cells is updated in place;
 //   3. write the own cells of t, t_prev and acc, or, when the pass ends the
@@ -38,10 +44,16 @@
 // whatever its south neighbour holds (post = 0, or all coefficients 0), so
 // no real cell reads the drift.
 //
-// Bound: shared memory and issue, no longer HBM. A cell-step reads about 9
-// shared words (5 gathered values, the coefficient arrays, post, t_prev) and
-// writes one; the redundant cells of the trapezoid add (1 + 2H/b)^2 - 1 at
-// most. Device memory moves each input once per pass plus the halos, which
+// Bound: issue in the steps, no longer HBM. A cell-step reads about 7 shared
+// words (the centre column shared by a strip's rows, east, west, c, post,
+// t_prev, acc of an own cell) and writes one or two; the (strip, column)
+// items keep every lane of a round busy but the last round's; the redundant
+// cells of the trapezoid add (1 + 2H/by)(1 + 2H/bx) - 1 at most. Measured on
+// one H100 (PERF.md §6, python3 -m gcm_filters_tpu_torch.utils.tile_split):
+// on the 2400x3600 float32 headline (40x80 tiles, one pass of 11 steps, two
+// blocks an SM) the steps take 82% of the time, the window's burst load 13%,
+// and the two add up: the load does not hide under the other block's steps.
+// Device memory moves each input once per pass plus the halos, which
 // neighbouring tiles share through L2.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
@@ -170,6 +182,41 @@ struct BlockGeo {
   __device__ T ld(const T* p, int64_t k) const { return p[k]; }
 };
 
+// The window's copies. cp.async puts a value from device memory straight
+// into its shared-memory slot, with no round trip through a register, so
+// every copy of a window is in flight at once: one latency per window, where
+// a load into a register and a store per cell queue one behind the other.
+// cp.async of 4 or 8 bytes caches in L1, so it copies only what no block of
+// the launch writes: the coefficients, acc of the own tile (only its tile
+// writes it) and the carries of the whole field and of a shard block. A ring
+// shard's carries and raw field go through registers past L1 (RingGeo::ld,
+// __ldcg): the sends of the same launch write their halo rows, and a
+// 128-byte line may hold an own row's end and a halo row's start.
+template <typename T>
+__device__ __forceinline__ void cp_async(T* dst, const T* src) {
+  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
+               "n"(sizeof(T)) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Whether the carries may go into the window by cp.async (see above).
+template <class GEO> struct StateAsync { static constexpr bool value = true; };
+template <> struct StateAsync<RingGeo> { static constexpr bool value = false; };
+
+// n / d for 0 <= n < 2^32 / d, as a multiply-high by the rounded-up
+// reciprocal m = ceil(2^32 / d): exact there, since m*d - 2^32 < d.
+struct Quot {
+  unsigned long long m;
+  __device__ explicit Quot(int d) : m(0xFFFFFFFFull / (unsigned)d + 1) {}
+  __device__ int operator()(int n) const { return (int)(((unsigned long long)n * m) >> 32); }
+};
+
 // Shared planes of one window: 2 carries, the array coefficients, post, pre
 // (each (by+2H) x (bx+2H)), then acc of the own tile.
 template <typename T>
@@ -217,22 +264,24 @@ constexpr int STRIP = 4;
 
 // One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
 // [j, wx-j): cur holds T_k, prev T_{k-1}, T_{k+1} goes over prev. `pl` holds
-// the planes (see fused_tile).
+// the planes (see fused_tile). A work item is a strip's column: (strip,
+// column) pairs, column fastest, one per thread, so a warp's 32 lanes take
+// 32 consecutive pairs across a strip's end and none idles where the
+// window's width is not a multiple of 32.
 template <typename T, int MODE, int KIND, class Geo, class P>
-__device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const P& pl, const Geo& geo,
+__device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const P& pl, const Geo geo,
                                             int j, int wy, int H, int y0, int x0, int cur,
                                             int prev, T p_a, int64_t b_own) {
   const FusedArgs<T>& a = tl.a;
   T* const sm = tl.sm;
   const int wx = tl.wx;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, nwarps = blockDim.x >> 5;
   const int rows = wy - 2 * j, cols = wx - 2 * j;
-  const int chunks = (cols + 31) / 32, strips = (rows + STRIP - 1) / STRIP;
+  const int pairs = (rows + STRIP - 1) / STRIP * cols;
+  const Quot per_strip(cols);
   const int ny = geo.rows(), nx = geo.cols();
-  for (int item = warp; item < chunks * strips; item += nwarps) {
-    const int s_i = item / chunks;
-    const int q = j + (item - s_i * chunks) * 32 + lane;
-    if (q >= wx - j) continue;
+  for (int idx = threadIdx.x; idx < pairs; idx += blockDim.x) {
+    const int s_i = per_strip(idx);
+    const int q = j + idx - s_i * cols;
     const int r0 = j + s_i * STRIP;
     const int r1 = min(r0 + STRIP, wy - j);  // rows past r1 load row r1-1 and are not stored
     // loads: the centre column on rows r0-1 .. r0+STRIP, the rest on the strip
@@ -310,13 +359,95 @@ struct TileOrigin {
   __device__ unsigned z() const { return 0; }
 };
 
+// Issue the copies of the window of the tile at (y0, x0), batch bases b_in
+// (the "in" planes) and b_own (acc), and of acc of its own cells; the caller
+// commits them as a cp.async group and waits (cp_async_wait_all, then
+// __syncthreads) before it reads them. Plane 0 takes t_prev, plane 1 t; a
+// first pass takes the raw field into plane 0 and area into plane 1, which
+// its first step overwrites with T_1 after the transform has read it. The
+// window's cells are spread over the block's threads, row-major, so a
+// warp's copies read consecutive cells of a plane; a row above the fold
+// reads its real row reversed in x. Clamped rows of a shard block or a ring
+// shard copy a source cell into several slots, each its own copy. On a ring
+// shard (StateAsync false) the carries and the field go through registers,
+// U cells a thread at a time: all their loads, then all their stores.
+template <typename T, class Geo, int MODE, class P>
+__device__ __forceinline__ void fused_window_load(const Tile<T, MODE>& tl, const P& pl,
+                                                  const Geo geo, int wy, int H, int y0, int x0,
+                                                  int64_t b_in, int64_t b_own) {
+  const FusedArgs<T>& a = tl.a;
+  T* const sm = tl.sm;
+  const int wx = tl.wx, wa = wy * wx;
+  const bool first = a.first != 0;
+  const Quot per_row(wx);
+  for (int k = threadIdx.x; k < wa; k += blockDim.x) {
+    const int r = per_row(k), q = k - r * wx;
+    const int gy = y0 - H + r;
+    const int64_t kk = geo.in_index(geo.row(gy), geo.col(x0 - H + q, geo.mirror(gy)));
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+      if (tl.coef_array(m)) cp_async(sm + tl.o_coef[m] + k, pl.coef[m] + kk);
+    if (tl.has_post()) cp_async(sm + tl.o_post + k, pl.post + kk);
+    if (tl.has_pre()) cp_async(sm + tl.o_pre + k, pl.pre + kk);
+    if (first && pl.area) cp_async(sm + wa + k, pl.area + kk);
+    if constexpr (StateAsync<Geo>::value) {
+      if (first) {
+        cp_async(sm + k, pl.field + b_in + kk);
+      } else {
+        cp_async(sm + k, pl.t_prev + b_in + kk);
+        cp_async(sm + wa + k, pl.t + b_in + kk);
+      }
+    }
+  }
+  if constexpr (!StateAsync<Geo>::value) {
+    constexpr int U = 4;
+    const T* const s0 = first ? pl.field : pl.t_prev;
+    for (int k0 = threadIdx.x; k0 < wa; k0 += U * blockDim.x) {
+      T v[U][2];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * blockDim.x;
+        if (k < wa) {
+          const int r = per_row(k), q = k - r * wx;
+          const int gy = y0 - H + r;
+          const int64_t kk =
+              b_in + geo.in_index(geo.row(gy), geo.col(x0 - H + q, geo.mirror(gy)));
+          v[u][0] = geo.ld(s0, kk);
+          v[u][1] = first ? T(0) : geo.ld(pl.t, kk);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int k = k0 + u * blockDim.x;
+        if (k < wa) {
+          sm[k] = v[u][0];
+          if (!first) sm[wa + k] = v[u][1];
+        }
+      }
+    }
+  }
+  if (!first) {
+    const int ny = geo.rows(), nx = geo.cols();
+    const Quot per_tile_row(a.bx);
+    for (int i = threadIdx.x; i < a.by * a.bx; i += blockDim.x) {
+      const int oy = per_tile_row(i);
+      const int gy = y0 + oy, gx = x0 + i - oy * a.bx;
+      if (gy < ny && gx < nx)
+        cp_async(sm + tl.o_acc + i, pl.acc_in + b_own + geo.own_index(gy, gx));
+      else
+        sm[tl.o_acc + i] = T(0);
+    }
+  }
+}
+
 // One tile's pass, all of the block's threads, the dynamic shared memory its
 // window: the own cells of the tile at `org`. `a` holds the pass (steps, p_a,
 // tile, constants), `pl` the planes (field, field_own, t, t_prev, acc_in,
 // t_out, t_prev_out, acc_out, coef, pre, post, area): the FusedArgs itself
-// for fused_pass_kernel, a shard's row of a table for the ring.
+// for fused_pass_kernel, a shard's row of a table for the ring. The geometry
+// goes by value, here and into the load and the steps, as in vec_tile.cuh.
 template <typename T, class Geo, int MODE, class P, class Org>
-__device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, const Geo& geo,
+__device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, const Geo geo,
                                            const Org& org) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   const int H = a.n_ops;
@@ -345,37 +476,17 @@ __device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, c
   const int64_t b_out = (int64_t)org.z() * geo.out_plane();
   const int ny = geo.rows(), nx = geo.cols();
 
-  // 1. the window, one warp per row
-  for (int r = warp; r < wy; r += nwarps) {
-    const int gy = y0 - H + r;
-    const bool mir = geo.mirror(gy);
-    const int64_t row = geo.in_index(geo.row(gy), 0);
-#pragma unroll 3
-    for (int q = lane; q < wx; q += 32) {
-      const int64_t kk = row + geo.col(x0 - H + q, mir);
-      const int k = r * wx + q;
-      const T post = at(pl.post, kk);
-      if (pl.post) sm[tl.o_post + k] = post;
-      if (pl.pre) sm[tl.o_pre + k] = pl.pre[kk];
-#pragma unroll
-      for (int m = 0; m < 5; ++m)
-        if (pl.coef[m]) sm[tl.o_coef[m] + k] = pl.coef[m][kk];
-      if (a.first) {
-        sm[k] = t0_value<true>(geo.ld(pl.field, b_in + kk), has_area, at(pl.area, kk), drop_pre,
-                               post);
-      } else {
-        sm[k] = geo.ld(pl.t_prev, b_in + kk);
-        sm[wa + k] = geo.ld(pl.t, b_in + kk);
-      }
-    }
-  }
-  if (!a.first) {
-    for (int i = threadIdx.x; i < a.by * a.bx; i += blockDim.x) {
-      const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
-      sm[tl.o_acc + i] = gy < ny && gx < nx ? pl.acc_in[b_own + geo.own_index(gy, gx)] : T(0);
-    }
-  }
+  // 1. the window, in one burst; on a first pass, T_0 in place
+  fused_window_load(tl, pl, geo, wy, H, y0, x0, b_in, b_own);
+  cp_async_commit();
+  cp_async_wait_all();
   __syncthreads();
+  if (a.first && (has_area || drop_pre)) {
+    for (int k = threadIdx.x; k < wa; k += blockDim.x)
+      sm[k] = t0_value<true>(sm[k], has_area, sm[wa + k], drop_pre,
+                             tl.has_post() ? sm[tl.o_post + k] : T(0));
+    __syncthreads();
+  }
 
   // 2. the steps. On a first pass plane 0 holds T_0 and FIRST writes T_1
   // into plane 1.

@@ -106,7 +106,7 @@
 // the halo rows of the pair that pass m wrote, which stream order puts after
 // every block of pass m. acc is own-shaped and updated in place by its tile.
 //
-// Bound (fused pass): shared memory and issue, as the fused K1, plus the
+// Bound (fused pass): issue in the steps, as the fused K1, plus the
 // 2p sends of S rows of one or two fields.
 //
 // The fused vector pass (vec_ring_fused_pass_*) is the same protocol for the

@@ -66,7 +66,7 @@
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 #pragma once
 
-#include "cheb_tile.cuh"  // WrapGeo, MAX_FUSE, FUSED_THREADS, MAX_SHARED
+#include "cheb_tile.cuh"  // the geometries, FUSED_THREADS, MAX_SHARED, cp_async, Quot
 #include "vec_step.cuh"
 
 namespace {
@@ -104,33 +104,10 @@ __device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
 }
 __device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true; }
 
-// The window's loads. Everything goes into shared memory by cp.async: the
-// copy lands in its slot without a round trip through a register, and every
-// copy of a window is in flight at once (one latency per window, where a
-// load into registers and a store per cell queue one behind the other).
-// cp.async of 4 or 8 bytes caches in L1, so it loads only what no block of
-// the launch writes: the coefficients, acc of the own tile (only its tile
-// writes it) and the state of the periodic field and of a shard block. A
-// ring shard's state is loaded past L1 (__ldcg, state_ld), through
-// registers: the sends of the same launch write its halo rows, and a
-// 128-byte line may hold an own row's end and a halo row's start.
-template <typename T>
-__device__ __forceinline__ void cp_async(T* dst, const T* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;\n" ::"r"(d), "l"(src),
-               "n"(sizeof(T)) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Whether the state may go into the window by cp.async (see above).
-template <class GEO> struct StateAsync { static constexpr bool value = true; };
-template <> struct StateAsync<RingGeo> { static constexpr bool value = false; };
-
+// The window's loads go into shared memory by cp.async (cp_async of
+// cheb_tile.cuh), except a ring shard's state, which StateAsync<RingGeo>
+// sends through registers past L1 (__ldcg): the sends of the same launch
+// write its halo rows.
 template <typename T, class GEO>
 __device__ __forceinline__ T state_ld(const GEO&, const T* p) { return __ldg(p); }
 template <typename T>
@@ -176,14 +153,6 @@ __host__ __device__ constexpr int vec_strip() {
 template <typename T> struct Pair;
 template <> struct Pair<float> { using type = float2; };
 template <> struct Pair<double> { using type = double2; };
-
-// n / d for 0 <= n < 2^32 / d, as a multiply-high by the rounded-up
-// reciprocal m = ceil(2^32 / d): exact there, since m*d - 2^32 < d.
-struct Quot {
-  unsigned long long m;
-  __device__ explicit Quot(int d) : m(0xFFFFFFFFull / (unsigned)d + 1) {}
-  __device__ int operator()(int n) const { return (int)(((unsigned long long)n * m) >> 32); }
-};
 
 // Offsets of the window's planes in shared memory (offsets, not pointers,
 // keep every access in the shared address space). The coefficients are

@@ -235,18 +235,30 @@ cheb_pass.launches = 0  # kernel launches; the plain version does not count
 MAX_FUSE = 16              # steps per pass at most (csrc/cheb_tile.cuh)
 SHARED_BYTES = 232448      # shared memory one block may take on sm_90
 SM_SHARED_BYTES = 233472   # shared memory of one SM (1 KB of it reserved per block)
-# Tile shapes (by, bx) the planner chooses from, bx a multiple of the warp
-# width, each with the ratio of its measured time to the cost model's at the
-# 2400x3600 float32 headline, relative to 32x96 (the tile sweep that
-# chip_smoke.py runs and prints on one H100): what the model does not see
-# (lane and strip quantization, the load's access pattern).
-TILES = {(32, 96): 1.0, (16, 128): 0.943, (48, 64): 1.198, (32, 64): 1.199,
-         (16, 64): 1.225, (32, 32): 1.241, (16, 32): 1.274}
-# The cost model, in cell-steps of the f32 kernel: loading one window cell of
-# one plane costs about _LOAD cell-steps (the load is latency-bound and does
-# not overlap the steps), and steps cost _ONE_BLOCK times more where a block
-# takes more than half an SM's shared memory. Fitted to the same sweep.
-_LOAD, _ONE_BLOCK = 3.3, 1.25
+FUSED_THREADS = 512        # threads of a block (csrc/cheb_tile.cuh)
+STRIP = 4                  # rows of a step's work item (csrc/cheb_tile.cuh)
+# Tile shapes (by, bx) the planner chooses from, each with the ratio of its
+# measured time to the cost model's at the 2400x3600 float32 headline,
+# relative to 32x96 (the tile sweep that chip_smoke.py phase 4b runs and
+# prints on one H100, PERF.md §6): what the model does not see (the load's
+# access pattern, bank conflicts where a warp's items cross a strip's end).
+# The items are per column, so bx need not be a multiple of the warp width.
+TILES = {(32, 96): 1.0, (16, 128): 0.932, (48, 64): 1.017, (32, 64): 0.98,
+         (16, 64): 1.04, (32, 32): 1.119, (16, 32): 1.041, (56, 56): 1.047,
+         (40, 80): 0.99, (64, 48): 1.025}
+# The cost model, in lane slots of the f32 kernel's steps (step_slots): a
+# step issues its (strip, column) items in whole rounds of FUSED_THREADS;
+# loading one window cell of one plane costs about _LOAD slots (a burst of
+# cp.async copies, which the steps do not overlap: PERF.md §6), and steps
+# cost _ONE_BLOCK times more where an SM holds one block, not two. Two fit
+# where two windows fit in an SM's shared memory and the kernel is the f32
+# kernel of four planes (the h-space mode, 56 registers a thread); the other
+# modes and float64 take more than 64 registers, one block an SM. Fitted to
+# the same sweeps: _LOAD to the headline's tiles and splits, _ONE_BLOCK to
+# the Taper's (13, 13, 13) against its (10, 10, 10, 9).
+_LOAD, _ONE_BLOCK = 1.78, 1.55
+
+
 @dataclasses.dataclass(frozen=True)
 class FusedPlan:
     """How a filter of ``sum(steps)`` steps runs as fused passes: tiles of
@@ -282,17 +294,26 @@ def _balanced(n_steps: int, cap: int) -> Tuple[int, ...]:
     return tuple(base + (1 if i < extra else 0) for i in range(n_pass))
 
 
+def step_slots(wy: int, wx: int, j: int) -> int:
+    """Lane slots that step j issues on a wy x wx window: its (strip,
+    column) items, rows ``[j, wy-j)`` in strips of :data:`STRIP`, columns
+    ``[j, wx-j)``, in whole rounds of the block's threads."""
+    items = -(-(wy - 2 * j) // STRIP) * (wx - 2 * j)
+    return -(-items // FUSED_THREADS) * FUSED_THREADS * STRIP
+
+
 def _pass_cost(tile, steps, n_planes: int, itemsize: int) -> float:
-    """Modelled cost per own cell of a plan, in f32 cell-steps: per pass the
-    window's load and every step's shrinking window, scaled by the tile's
-    measured factor (:data:`TILES`)."""
+    """Modelled cost per own cell of a plan, in f32 lane slots: per pass the
+    window's load and every step's lane slots, scaled by the tile's measured
+    factor (:data:`TILES`)."""
     by, bx = tile
     cost = 0.0
     for s in steps:
         wy, wx = by + 2 * s, bx + 2 * s
-        cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, s + 1))
-        two = 2 * (fused_shared_bytes(tile, s, n_planes, itemsize) + 1024) <= SM_SHARED_BYTES
-        cost += (_LOAD * n_planes * wy * wx + cells * (1.0 if two else _ONE_BLOCK)) * itemsize / 4
+        slots = sum(step_slots(wy, wx, j) for j in range(1, s + 1))
+        two = (2 * (fused_shared_bytes(tile, s, n_planes, itemsize) + 1024) <= SM_SHARED_BYTES
+               and itemsize == 4 and n_planes == 4)
+        cost += (_LOAD * n_planes * wy * wx + slots * (1.0 if two else _ONE_BLOCK)) * itemsize / 4
     return cost / (by * bx) * TILES.get(tuple(tile), 1.0)
 
 
@@ -478,12 +499,15 @@ def from_tiles(x: Tensor, shape) -> Tensor:
 
 def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
                field: Optional[Tensor], field_own: Optional[Tensor], t: Optional[Tensor],
-               t_prev: Optional[Tensor], acc: Tensor) -> dict:
+               t_prev: Optional[Tensor], acc: Tensor, cols=None, width: Optional[int] = None
+               ) -> dict:
     """The kernel's tile decomposition of one fused pass, in torch, for any
     geometry: the own domain is ``acc``'s ``(batch, ny, nx)``; ``rows(r)``
     maps the window rows ``r`` (own coordinates, may lie outside) to the rows
     of the "in" planes (the stencil's planes, ``field``, ``t``, ``t_prev``)
-    that hold them and says which are mirror cells; x is periodic.
+    that hold them and says which are mirror cells; ``cols(q)`` maps the
+    window columns to the columns of the "in" planes, ``width`` wide (by
+    default x is periodic and the "in" planes are ``nx`` wide).
     ``field_own`` is the own-shaped raw field of a last pass. Every tile's
     window is cut at once, a dimension of its own beside the batch, and the
     steps run on all of them together (every op is elementwise or a shift
@@ -500,8 +524,9 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     wy, wx = by + 2 * H, bx + 2 * H
     src_r, mirror = rows(torch.arange(-H, by + H, device=dev)
                          + by * torch.arange(n_ty, device=dev)[:, None])
-    cols = (torch.arange(-H, bx + H, device=dev) + bx * torch.arange(n_tx, device=dev)[:, None]) % nx
-    idx = tile_windows(n_ty, n_tx, src_r, cols, nx, mirror)
+    q = torch.arange(-H, bx + H, device=dev) + bx * torch.arange(n_tx, device=dev)[:, None]
+    idx = tile_windows(n_ty, n_tx, src_r, q % nx if cols is None else cols(q),
+                       nx if width is None else width, mirror)
     # (tiles, wy): which window rows are mirror cells
     mirror = mirror[:, None, :].expand(-1, n_tx, -1).reshape(n_ty * n_tx, wy)
     flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
@@ -509,9 +534,14 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     coef = {k: take(getattr(st, k)) for k in COEF_FIELDS}
     post, pre, area = take(st.post), take(st.pre), take(st.area)
     if first:
-        fbar = take(field) * area if area is not None else take(field)
-        cur = post * torch.nan_to_num(fbar) if ops.drop_pre else fbar
-        prev = torch.empty_like(cur)
+        # the kernel's window: the raw field in plane 0 and area in plane 1,
+        # then T_0 in place from both and post; FIRST writes T_1 over plane 1
+        cur = take(field)
+        prev = area.expand_as(cur).clone() if area is not None else torch.empty_like(cur)
+        if area is not None:
+            cur = cur * prev
+        if ops.drop_pre:
+            cur = post * torch.nan_to_num(cur)
     else:
         cur, prev = take(t), take(t_prev)
     own = (Ellipsis, slice(H, H + by), slice(H, H + bx))

@@ -24,7 +24,8 @@ launch on shared-memory tiles of the core (entries ``local_fused_pass_f32/f64``
 of the same source, built on ``csrc/cheb_tile.cuh``), and
 :func:`local_fused_pass_reference` is its plain version: the round's steps as
 a chain of :func:`local_pass_reference`, so the two routes give the same
-bits.
+bits. :func:`local_fused_pass_tiled_reference` runs the kernel's tile
+decomposition of the round in torch.
 
 The operands are a :class:`~.cheb_pass.PassOperands` whose stencil holds the
 *extended* coefficient planes (``c, n, s, e, w`` pre-scaled by
@@ -42,7 +43,7 @@ import torch
 from ..stencil import COEF_FIELDS
 from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
-    coefficient_args, fused_planes, fused_shared_bytes,
+    coefficient_args, fused_planes, fused_shared_bytes, tiled_pass,
 )
 
 Tensor = torch.Tensor
@@ -284,6 +285,40 @@ def local_fused_pass_reference(
     if not last:
         _window(t_out, cells).copy_(_window(cur, cells))
         _window(t_prev_out, cells).copy_(_window(prev, cells))
+
+
+def local_fused_pass_tiled_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+) -> None:
+    """One fused round computed as the kernel decomposes it, in torch: for
+    each ``tile = (by, bx)`` of core cells, a window of ``(by+2H) x
+    (bx+2H)`` cells (``H = n_ops``) cut from the extended block as
+    ``BlockGeo`` of csrc/cheb_tile.cuh cuts it (no wrap, no fold, rows and
+    columns past the block clamped into it: such cells lie more than H cells
+    from every core cell), the steps on the window shrunk by j at step j, and
+    the core cells kept (:func:`~.cheb_pass.tiled_pass`). Same arguments and
+    outputs as :func:`local_fused_pass_reference`, and the same torch
+    arithmetic per cell, so the two are equal bit for bit wherever the
+    decomposition is right."""
+    _, last = _kinds(p, start, n_ops)
+    if n_ops > cells:
+        raise ValueError(f"a round runs at most cells = {cells} steps, got {n_ops}")
+    ly, lx = acc.shape[-2:]
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+
+    def rows(r):
+        return (r + cells).clamp(0, ey - 1), torch.zeros_like(r, dtype=torch.bool)
+
+    outs = tiled_pass(ops, p, start, n_ops, tile, rows, field=field, field_own=field_own,
+                      t=t, t_prev=t_prev, acc=acc, cols=lambda q: (q + cells).clamp(0, ex - 1),
+                      width=ex)
+    acc.copy_(outs["acc"])
+    if not last:
+        _window(t_out, cells).copy_(outs["t"])
+        _window(t_prev_out, cells).copy_(outs["t_prev"])
 
 
 _FUSED_ARGTYPES = (
