@@ -150,7 +150,31 @@ and runs these phases; any failed check raises and the script exits non-zero:
     fused scalar and vector rings (first only, middle, last, first and last;
     the vector ring's first pass into NaN-filled outputs) against its plain
     and tiled plain versions, at the headline shape, in float32 and float64;
-18. a ``{"kernels": [...]}`` line (eighteen entries: the step kernels, timed
+18. the user-facing paths (``user_paths``), at full width, 2400x3600
+    float32 from numpy seeds, each with every launch counter and the
+    fallback counters at 0 just before it and read just after:
+    (a) ``Filter.apply_streamed`` of 32 snapshots of the phase-4 headline
+    (land NaN and a wet NaN) in chunks of 16, and of a (2, 4) lead in chunks
+    of 3: each snapshot bitwise equal to ``Filter.apply`` of it alone, one
+    fused launch per chunk per planned pass; ms per snapshot end to end and,
+    for one chunk, host->device, kernels and device->host by CUDA events;
+    (b) ``apply_to_vector_streamed`` of 16 (u, v) pairs in chunks of 8 on
+    the phase-7 B-grid and C-grid headlines, the same checks and numbers;
+    (c) a batch of 8 ``IRREGULAR_WITH_LAND`` fields (the flux form, on the
+    satellite example's lat/lon metrics) in one call, bitwise equal entry by
+    entry to the batch-1 applies, timed both ways; (d) ``Filter.apply`` of a
+    dict of ``(array, dims)`` pairs with a non-spatial entry; (e) the
+    headline's ``ScalarStencil5`` as ``custom_operator`` (the fused kernel,
+    bitwise equal to the grid path) and a free-form protocol operator (plain
+    torch on the card, no kernel launched, against the float64 eager engine);
+    (f) ``utils/profiling.trace`` around one headline apply, whose
+    ``trace.json`` must name ``fused_pass_kernel``; (g) every
+    ``examples/torch_*.py`` through ``main(device="cuda")`` at its own size,
+    with the checks it prints held (variance drops, land NaN and ocean
+    finite, the ring and the sharded paths equal to the single-device
+    filter), and the kernels each launched; then a ``{"user_paths": ...}``
+    line of these numbers;
+19. a ``{"kernels": [...]}`` line (eighteen entries: the step kernels, timed
     as step chains, and the nine fused passes), then ``{"ok": true,
     "device": ...}`` last.
 
@@ -548,6 +572,318 @@ def event_ms(fn, n, host=False):
     torch.cuda.synchronize()
     ms = start.elapsed_time(end) / n
     return (ms, host_ms) if host else ms
+
+
+# The examples phase 18 runs on the card, each through main(device="cuda").
+EXAMPLES = ("torch_filter_types.py", "torch_tripole_grid.py", "torch_satellite_observations.py",
+            "torch_viscosity_filter.py", "torch_sharded_filtering.py", "torch_gpu_filtering.py")
+EXAMPLE_DIR = Path(__file__).resolve().parent / "examples"
+
+
+def user_paths(dev, counters, reset_counters, bitwise):
+    """Phase 18: the entry points a user calls around the kernels, at full
+    width (2400x3600 float32, data made on the host from numpy seeds), each
+    driven with every launch counter and the fallback counters set to 0 just
+    before it and read just after. Returns what it measured, by path."""
+    import os
+    import runpy
+
+    import torch
+
+    from gcm_filters_tpu_torch import BaseScalarOperator, Filter, GridType
+    from gcm_filters_tpu_torch.engine import scalar_filter_apply
+    from gcm_filters_tpu_torch.utils.profiling import trace
+    from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
+
+    ny, nx = 2400, 3600
+    out = {}
+
+    def start():
+        torch.cuda.synchronize()
+        reset_counters()
+        reset_fallback_counts()
+
+    def launched(label, want):
+        """Raise unless the launches since ``start()`` are ``want`` (kernel ->
+        count; every other kernel 0) and no fallback was recorded."""
+        torch.cuda.synchronize()
+        got = counters()
+        expected = {k: want.get(k, 0) for k in got}
+        if got != expected:
+            raise AssertionError(f"{label}: kernel launches {got}, expected {expected}")
+        if fallback_counts():
+            raise AssertionError(f"{label}: fallbacks recorded {fallback_counts()}")
+
+    def split_ms(fn, *chunks):
+        """One chunk through ``fn`` as the streamed loop moves it, each part
+        timed by CUDA events: host->device (pageable numpy), the filter's
+        kernels, device->host."""
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        torch.cuda.synchronize()
+        ev[0].record()
+        xs = [torch.as_tensor(c).to(dev) for c in chunks]
+        ev[1].record()
+        res = fn(*xs)
+        ev[2].record()
+        for r in res if isinstance(res, tuple) else (res,):
+            r.cpu().numpy()
+        ev[3].record()
+        torch.cuda.synchronize()
+        return {"h2d_ms": ev[0].elapsed_time(ev[1]), "kernel_ms": ev[1].elapsed_time(ev[2]),
+                "d2h_ms": ev[2].elapsed_time(ev[3])}
+
+    def bitwise_host(label, got, want, what):
+        bitwise(label, torch.as_tensor(np.ascontiguousarray(got), device=dev), want, what)
+
+    # the phase-4 headline grid and field (the same seed and draws)
+    rng = np.random.default_rng(42)
+    wet = np.ones((ny, nx))
+    wet[0, :] = 0
+    wet[: ny // 6, : nx // 5] = 0
+    area = 0.9 + 0.2 * rng.random((ny, nx))
+    field = torch.as_tensor(rng.random((ny, nx)).astype(np.float32), device=dev)
+    head = Filter(filter_scale=10.0, dx_min=1.0,
+                  grid_type=GridType.TRIPOLAR_REGULAR_WITH_LAND_AREA_WEIGHTED,
+                  grid_vars={"area": area, "wet_mask": wet}, dtype=torch.float32, device=dev)
+    fn = head._scalar_fn()
+    passes = len(fn.plan(ny, nx, torch.float32).steps)
+    ref = head.apply(field)
+
+    # 18a. Filter.apply_streamed: 32 snapshots of the headline, land NaN and
+    # one wet NaN, in chunks of 16; then a (2, 4) lead in chunks of 3
+    n_snap, chunk = 32, 16
+    snaps = np.random.default_rng(18).random((n_snap, ny, nx), dtype=np.float32)
+    snaps[:, wet == 0] = np.nan
+    snaps[5, ny // 2, nx // 2] = np.nan
+    start()
+    t0 = time.perf_counter()
+    streamed = head.apply_streamed(snaps, chunk=chunk)
+    e2e = [1e3 * (time.perf_counter() - t0) / n_snap]
+    launched("apply_streamed", {"cheb_fused_pass": passes * -(-n_snap // chunk)})
+    t0 = time.perf_counter()
+    head.apply_streamed(snaps, chunk=chunk)
+    e2e.append(1e3 * (time.perf_counter() - t0) / n_snap)
+    if streamed.shape != snaps.shape or streamed.dtype != np.float32:
+        raise AssertionError(f"apply_streamed gave {streamed.dtype} {streamed.shape}")
+    for i in range(n_snap):
+        bitwise_host(f"streamed snapshot {i}", streamed[i], head.apply(snaps[i]),
+                     "Filter.apply of the snapshot alone")
+    lead = snaps[:8].reshape(2, 4, ny, nx)
+    start()
+    streamed4 = head.apply_streamed(lead, chunk=3)
+    launched("apply_streamed (2, 4) lead", {"cheb_fused_pass": passes * 3})
+    if streamed4.shape != lead.shape:
+        raise AssertionError(f"apply_streamed of a (2, 4) lead gave {streamed4.shape}")
+    bitwise_host("streamed (2, 4) lead", streamed4.reshape(8, ny, nx),
+                 torch.as_tensor(streamed[:8], device=dev), "the flat streamed snapshots")
+    out["apply_streamed"] = dict(
+        snapshots=n_snap, chunk=chunk, launches_per_chunk=passes,
+        ms_per_snapshot=e2e, chunk_split=split_ms(fn, snaps[:chunk]),
+        chunk_kernel_alone_ms=event_ms(
+            lambda x=torch.as_tensor(snaps[:chunk], device=dev): fn(x), 5))
+    log(f"18a apply_streamed {n_snap}x{ny}x{nx} float32, chunk {chunk}: {e2e[0]:.3f}, "
+        f"{e2e[1]:.3f} ms per snapshot end to end; one chunk {out['apply_streamed']['chunk_split']}"
+        f" (kernels alone {out['apply_streamed']['chunk_kernel_alone_ms']:.4f} ms); "
+        f"{passes} launch(es) a chunk; every snapshot and the (2, 4) lead bitwise equal to "
+        f"Filter.apply of it alone")
+    del snaps, streamed, streamed4, lead
+
+    # 18b. apply_to_vector_streamed on the phase-7 headlines: 16 (u, v)
+    # pairs in chunks of 8
+    n_pair, vchunk = 16, 8
+    vrng = np.random.default_rng(7)
+    us = vrng.random((n_pair, ny, nx), dtype=np.float32)
+    vs = vrng.random((n_pair, ny, nx), dtype=np.float32)
+    out["apply_to_vector_streamed"] = {}
+    for gname, key in (("VECTOR_B_GRID", "bgrid"), ("VECTOR_C_GRID", "ctap")):
+        vf = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname],
+                    grid_vars=unit_vector_grid_vars(gname, (ny, nx), vrng, 0.0),
+                    dtype=torch.float32, device=dev)
+        vfn = vf._vector_fn()
+        vpasses = len(vfn.plan(ny, nx, torch.float32).steps)
+        vf.apply_to_vector(us[0], vs[0])  # the operands (the C-grid taps) on the card
+        start()
+        t0 = time.perf_counter()
+        su, sv = vf.apply_to_vector_streamed(us, vs, chunk=vchunk)
+        e2e = [1e3 * (time.perf_counter() - t0) / n_pair]
+        launched(f"{gname} apply_to_vector_streamed",
+                 {f"vec_fused_pass_{key}": vpasses * -(-n_pair // vchunk)})
+        t0 = time.perf_counter()
+        vf.apply_to_vector_streamed(us, vs, chunk=vchunk)
+        e2e.append(1e3 * (time.perf_counter() - t0) / n_pair)
+        for i in range(n_pair):
+            fu, fv = vf.apply_to_vector(us[i], vs[i])
+            bitwise_host(f"{gname} streamed pair {i} u", su[i], fu, "apply_to_vector of it alone")
+            bitwise_host(f"{gname} streamed pair {i} v", sv[i], fv, "apply_to_vector of it alone")
+        res = dict(pairs=n_pair, chunk=vchunk, launches_per_chunk=vpasses, ms_per_pair=e2e,
+                   chunk_split=split_ms(vfn, us[:vchunk], vs[:vchunk]),
+                   chunk_kernel_alone_ms=event_ms(
+                       lambda u=torch.as_tensor(us[:vchunk], device=dev),
+                       v=torch.as_tensor(vs[:vchunk], device=dev): vfn(u, v), 5))
+        out["apply_to_vector_streamed"][gname] = res
+        log(f"18b {gname} apply_to_vector_streamed {n_pair} pairs, chunk {vchunk}: "
+            f"{e2e[0]:.3f}, {e2e[1]:.3f} ms per pair end to end; one chunk "
+            f"{res['chunk_split']} (kernels alone {res['chunk_kernel_alone_ms']:.4f} ms); "
+            f"{vpasses} launches a chunk; every pair bitwise equal to apply_to_vector of it alone")
+        del vf, vfn, su, sv
+    del us, vs
+
+    # 18c. a batch in one call: IRREGULAR_WITH_LAND (the flux form) on the
+    # satellite example's lat/lon metrics and fields at full width, 8 snapshots
+    sat = runpy.run_path(str(EXAMPLE_DIR / "torch_satellite_observations.py"))
+    nb = 8
+    lat, lon, u, _, swet = sat["synthesize_observations"](ny, nx, nb, np.random.default_rng(42))
+    dx, dy, sarea = sat["metrics_from_latlon"](lat, lon)
+    irr = Filter(filter_scale=10 * float(dx.min()), dx_min=float(dx.min()),
+                 grid_type=GridType.IRREGULAR_WITH_LAND,
+                 grid_vars=sat["grid_vars"](swet, dx, dy, sarea), dtype=torch.float32, device=dev)
+    xb = torch.as_tensor((np.nan_to_num(u) * swet).astype(np.float32), device=dev)
+    del u
+    ifn = irr._scalar_fn()
+    ipasses = len(ifn.plan(ny, nx, torch.float32).steps)
+    ist = ifn.operands(torch.float32, dev)[0].stencil
+    if not (ist.zap_nans and ist.pre is None and ist.post is None
+            and all(isinstance(getattr(ist, k), torch.Tensor) for k in "cnsew")):
+        raise AssertionError("IRREGULAR_WITH_LAND does not take the flux form")
+    start()
+    ob = irr.apply(xb)
+    launched("IRREGULAR_WITH_LAND batch", {"cheb_fused_pass": ipasses})
+    if ob.shape != (nb, ny, nx) or not bool(torch.isfinite(ob).all()):
+        raise AssertionError("the batch result is not a finite (8, ny, nx) tensor")
+    for i in range(nb):
+        bitwise(f"batch entry {i}", ob[i], irr.apply(xb[i]), "the batch-1 apply")
+    w64 = scalar_filter_apply(irr.operator, irr.filter_spec, xb[0].double())
+    torch.testing.assert_close(ob[0].double(), w64, rtol=1e-4, atol=1e-5)
+    ms_b = event_ms(lambda: irr.apply(xb), 10)
+    ms_1 = event_ms(lambda: [irr.apply(xb[i]) for i in range(nb)], 10)
+    out["batch"] = dict(grid="IRREGULAR_WITH_LAND", batch=nb, n_steps=irr.n_steps,
+                        launches_per_apply=ipasses, ms_per_field_batched=ms_b / nb,
+                        ms_per_field_one_by_one=ms_1 / nb,
+                        vs_f64_engine_max_abs=float((ob[0].double() - w64).abs().max()))
+    log(f"18c IRREGULAR_WITH_LAND ({nb}, {ny}, {nx}) float32, n_steps {irr.n_steps}, "
+        f"{ipasses} launch(es) an apply: {ms_b / nb:.4f} ms per field batched, "
+        f"{ms_1 / nb:.4f} one by one; every entry bitwise equal to its batch-1 apply")
+    del irr, ifn, ist, xb, ob, w64, sat, lat, lon, swet, dx, dy, sarea
+
+    # 18d. the dict path: (array, dims) pairs and a non-spatial entry
+    f0 = field.cpu().numpy()
+    g0 = np.stack([f0, f0[::-1].copy()])
+    mask = wet[:, 0].copy()
+    start()
+    res = head.apply({"sst": (f0, ("y", "x")), "ssh": (g0, ("time", "y", "x")),
+                      "mask": (mask, ("y",))}, dims=("y", "x"))
+    launched("dict", {"cheb_fused_pass": 2 * passes})
+    if res["sst"][1] != ("y", "x") or res["ssh"][1] != ("time", "y", "x"):
+        raise AssertionError("the dict path lost the entries' dims")
+    if res["mask"][0] is not mask or res["mask"][1] != ("y",):
+        raise AssertionError("the non-spatial entry did not pass through unchanged")
+    bitwise("dict sst", res["sst"][0], ref, "Filter.apply of it")
+    bitwise("dict ssh", res["ssh"][0], head.apply(g0), "Filter.apply of it")
+    log("18d dict: sst and ssh bitwise equal to Filter.apply of each, mask passed through")
+
+    # 18e. custom_operator: the headline's own stencil runs the fused kernel;
+    # a free-form protocol operator runs plain torch on the card
+    cust = Filter(filter_scale=10.0, dx_min=1.0, custom_operator=head.operator,
+                  dtype=torch.float32, device=dev)
+    start()
+    oc = cust.apply(field)
+    launched("custom_operator stencil", {"cheb_fused_pass": passes})
+    bitwise("custom_operator stencil", oc, ref, "the grid path")
+    st32 = head.operator.to(torch.float32, dev)
+
+    class FivePoint(BaseScalarOperator):
+        is_dimensional = st32.is_dimensional
+
+        def prepare(self, f):
+            return st32.prepare(f)
+
+        def finalize(self, f):
+            return st32.finalize(f)
+
+        def __call__(self, f):
+            return st32.laplacian(f)
+
+    proto = Filter(filter_scale=10.0, dx_min=1.0, custom_operator=FivePoint(),
+                   dtype=torch.float32, device=dev)
+    start()
+    op_ = proto.apply(field)
+    launched("protocol custom_operator", {})
+    w64 = scalar_filter_apply(head.operator, head.filter_spec, field.double())
+    if op_.device != field.device or op_.dtype != torch.float32:
+        raise AssertionError(f"the protocol operator gave {op_.dtype} on {op_.device}")
+    torch.testing.assert_close(op_.double(), w64, rtol=1e-4, atol=1e-5)
+    out["custom_operator"] = dict(
+        protocol_vs_f64_engine_max_abs=float((op_.double() - w64).abs().max()),
+        protocol_ms=event_ms(lambda: proto.apply(field), 5))
+    log(f"18e custom_operator: the headline stencil bitwise equal to the grid path in "
+        f"{passes} fused launch(es); the protocol operator on the card, no kernel, vs eager "
+        f"engine in float64 max abs {out['custom_operator']['protocol_vs_f64_engine_max_abs']:.3e}"
+        f", {out['custom_operator']['protocol_ms']:.4f} ms/apply")
+    del cust, oc, proto, op_, w64, st32
+
+    # 18f. utils/profiling.trace around one headline apply
+    with tempfile.TemporaryDirectory() as d:
+        with trace(d):
+            head.apply(field)
+            torch.cuda.synchronize()
+        path = os.path.join(d, "trace.json")
+        with open(path) as fh:
+            events = json.load(fh).get("traceEvents", [])
+    kern = [e for e in events if "fused_pass_kernel" in str(e.get("name", ""))]
+    if not kern:
+        raise AssertionError(f"trace.json ({len(events)} events) names no fused_pass_kernel")
+    out["trace"] = dict(events=len(events), fused_pass_kernel_events=len(kern),
+                        fused_pass_kernel_us=[e.get("dur") for e in kern
+                                              if e.get("cat") == "kernel"])
+    log(f"18f trace.json: {len(events)} events, {len(kern)} name fused_pass_kernel, device "
+        f"time {out['trace']['fused_pass_kernel_us']} us")
+
+    # 18g. every example, on the card at its own default size
+    out["examples"] = {}
+    for name in EXAMPLES:
+        log(f"18g {name}:")
+        start()
+        t0 = time.perf_counter()
+        r = runpy.run_path(str(EXAMPLE_DIR / name))["main"](device="cuda")
+        secs = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        launches = {k: n for k, n in counters().items() if n}
+        if name == "torch_filter_types.py":
+            for k, v in r["results"].items():
+                if not (np.isfinite(v["out"]).all() and v["var_out"] < v["var_in"]):
+                    raise AssertionError(f"{name} {k}: not finite or variance did not drop")
+            checked = {k: [v["var_in"], v["var_out"]] for k, v in r["results"].items()}
+        elif name == "torch_tripole_grid.py":
+            if not (r["simple"]["across"] > 0 and r["pop"]["across"] > 0
+                    and max(r["simple"]["mass_err"], r["pop"]["mass_err"]) < 1e-12
+                    and r["sharded"]["max_err"] == 0.0):
+                raise AssertionError(f"{name}: {r['sharded']['max_err']=}")
+            checked = {"ring_vs_unsharded_max_abs": r["sharded"]["max_err"]}
+        elif name == "torch_satellite_observations.py":
+            ocean = r["wet"] == 1
+            if not (np.isfinite(r["u_bar"][:, ocean]).all() and r["means"]["eke"] > 0
+                    and r["means"]["mke"] < r["means"]["ke"]):
+                raise AssertionError(f"{name}: {r['means']}")
+            checked = r["means"]
+        elif name == "torch_viscosity_filter.py":
+            if not (max(r["solid_body_dev"]) < 1e-12
+                    and all(b > a for b, a in r["var"].values())):
+                raise AssertionError(f"{name}: {r['solid_body_dev']}, {r['var']}")
+            checked = {"solid_body_dev": r["solid_body_dev"], "var": r["var"]}
+        elif name == "torch_sharded_filtering.py":
+            if not (r["mesh"]["max_err"] < 1e-12 and r["ring"]["max_err"] == 0.0):
+                raise AssertionError(f"{name}: {r['mesh']['max_err']}, {r['ring']['max_err']}")
+            checked = {"mesh_vs_single_max_abs": r["mesh"]["max_err"],
+                       "ring_vs_unsharded_max_abs": r["ring"]["max_err"]}
+        else:
+            if not (r["land_nan"] and r["ocean_finite"]):
+                raise AssertionError(f"{name}: land NaN {r['land_nan']}, ocean finite "
+                                     f"{r['ocean_finite']}")
+            checked = {"ms_per_filter": r["ms"], "card": r["card"]}
+        if not launches or fallback_counts():
+            raise AssertionError(f"{name}: launches {launches}, fallbacks {fallback_counts()}")
+        out["examples"][name] = dict(seconds=secs, launches=launches, **checked)
+    return out
 
 
 def main():
@@ -3067,6 +3403,11 @@ def main():
         del rv4, outs4, steps4v, sstate, k34
     ring_results += [vring[BGRID], vring[CTAP]]
 
+    # 18. the user-facing paths around the kernels, at full width
+    print(json.dumps({"user_paths": user_paths(dev, counters, reset_counters, bitwise)}),
+          flush=True)
+
+    # 19. the kernels line
     kernels = [{
         "name": "cheb_pass",
         "route": "cuda",
