@@ -122,7 +122,8 @@ and runs these phases; any failed check raises and the script exits non-zero:
     also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
     kappa_aniso 0 and 1 and with 37 steps, the vector fields with a NaN and
-    spikes at shard-edge tile corners; one-row vector shards) through
+    spikes at shard-edge tile corners; both vector grids at ``nx = 250``;
+    one-row vector shards) through
     ``Filter(mesh=ResidentMesh(p_y, "cuda"), spatial_axes=("y", None))`` at
     ``p_y`` 2, 4 and 8: several y-shards resident on the one card, whose
     kernels exchange the halo rows themselves. Each result must equal the
@@ -145,11 +146,20 @@ and runs these phases; any failed check raises and the script exits non-zero:
     this run and timed beside both, then 50 more B-grid applies, each bitwise
     equal to the first; all checked against the float64 eager engine, with
     launches = the plan's passes x applies, every other counter 0 and no
-    fallback;
+    fallback; each vector ring headline also timed as its fused launches
+    alone and the copies around them alone, beside the fused K3 / K4
+    launches alone (the split of ``utils/ring_split.py``); then, at ``p_y``
+    4 on both grids, 24 applies alternating two inputs, each bitwise equal to
+    the fused K3 / K4 of its own input (a halo row read stale would show);
 17. each step kind of the three ring step kernels, and each pass kind of the
     fused scalar and vector rings (first only, middle, last, first and last;
     the vector ring's first pass into NaN-filled outputs) against its plain
     and tiled plain versions, at the headline shape, in float32 and float64;
+    then the fused vector ring's blocks where tiles are shorter than the
+    halo: one 5-step pass on 4x16 tiles of a 48x250 field, at ``p_y`` 2
+    (two interior tile rows a shard, by block index, and two edge rows a
+    side, by ticket) and 4 (every tile an edge tile), bitwise equal to the
+    step ring and against the tiled plain version;
 18. the user-facing paths (``user_paths``), at full width, 2400x3600
     float32 from numpy seeds, each with every launch counter and the
     fallback counters at 0 just before it and read just after:
@@ -352,18 +362,6 @@ def vec_ring_plan_cost(n_coef, plan, p_y, ny, nx, itemsize, key):
     sends = sum(2 * p_y * 2 * (1 if i == 0 else 2) * s * nx * itemsize * 2
                 for i, s in enumerate(plan.steps))
     return p_y * nbytes + sends, p_y * flops
-
-
-def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso):
-    """Unit-scale metrics, m = 0.9 + 0.2 * uniform, as
-    benchmarks/bench_suite.py builds the vector grids."""
-    m = 0.9 + 0.2 * rng.random(shape)
-    ones = np.ones(shape)
-    if grid_name == "VECTOR_B_GRID":
-        return dict(DXU=m, DYU=m, HUS=m, HUW=m, HTE=m, HTN=m, UAREA=m * m, TAREA=m * m)
-    return dict(wet_mask_t=ones, wet_mask_q=ones, dxT=m, dyT=m, dxCu=m, dyCu=m,
-                dxCv=m, dyCv=m, dxBu=m, dyBu=m, area_u=m * m, area_v=m * m,
-                kappa_iso=ones, kappa_aniso=kappa_aniso * ones)
 
 
 def spherical_vector_grid_vars(names, shape):
@@ -593,6 +591,7 @@ def user_paths(dev, counters, reset_counters, bitwise):
     from gcm_filters_tpu_torch import BaseScalarOperator, Filter, GridType
     from gcm_filters_tpu_torch.engine import scalar_filter_apply
     from gcm_filters_tpu_torch.utils.profiling import trace
+    from gcm_filters_tpu_torch.utils.ring_split import unit_vector_grid_vars
     from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
 
     ny, nx = 2400, 3600
@@ -920,6 +919,9 @@ def main():
         vec_pass, vec_pass_reference, vec_tiles,
     )
     from gcm_filters_tpu_torch.utils.profiling import bound_ms
+    from gcm_filters_tpu_torch.utils.ring_split import (
+        ring_parts, unit_vector_grid_vars, unsharded_launches,
+    )
     from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2780,6 +2782,14 @@ def main():
                                **dict(std, grid_type=GridType[gname], grid_vars=gv, **extra))
             if not bool(torch.isnan(fu[384, 64])):
                 raise AssertionError("a NaN cell must stay NaN")
+        for gname in vec_ops:  # 250 columns: no tile width divides them
+            gv = unit_vector_grid_vars(gname, (rshape[0], 250), np.random.default_rng(9), 0.0)
+            fu, _ = check_ring(f"ring p_y={p_y} {gname} nx=250", p_y,
+                               (np.ascontiguousarray(u_r[:, :250]),
+                                np.ascontiguousarray(v_r[:, :250])),
+                               **dict(std, grid_type=GridType[gname], grid_vars=gv))
+            if not bool(torch.isnan(fu[384, 64])):
+                raise AssertionError("a NaN cell must stay NaN")
         for gname in vec_ops:  # one-row shards: the vector step ring
             gv = unit_vector_grid_vars(gname, one_row, np.random.default_rng(9), 0.0)
             check_ring(f"ring p_y={p_y} {gname} one-row shards {one_row}", p_y,
@@ -3154,7 +3164,8 @@ def main():
     # 16 and 17 (vector). the B-grid and C-grid ring headlines, fused, beside
     # the fused K3 / K4 and the step ring; each step and pass kind vs plain
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        VecRingFusedOperands, VecRingFusedState, vec_ring_fused_pass_tiled_reference,
+        VecRingFusedOperands, VecRingFusedState, VecRingItems,
+        vec_ring_fused_pass_tiled_reference,
     )
 
     def load_vector(dtype):
@@ -3164,9 +3175,13 @@ def main():
                 w_[1].copy_(v_dev[r * state.ly:(r + 1) * state.ly].to(dtype))
         return load
 
-    def vector_ring_headline(label, gname, op, p_y, k_out, k_ms, want64, n_chain=chain, **kw):
+    def vector_ring_headline(label, gname, op, p_y, k_out, k_ms, k_launch_ms, want64,
+                             n_chain=chain, **kw):
         """The fused vector ring on one headline: bitwise equal to the fused
-        K3 / K4 and to the step ring of this run, timed beside both."""
+        K3 / K4 and to the step ring of this run, timed beside both, and its
+        time split into the fused launches alone and the copies around them
+        (``utils/ring_split.py``), beside the fused K3 / K4 launches alone
+        (``k_launch_ms``)."""
         key = vkey[op]
         filt, outs, ms_f, host_f, n_l, err, vs_k = ring_headline(
             label, f"vec_ring_fused_pass_{key}", p_y, (u_h, v_h), (u_dev, v_dev), k_out, want64,
@@ -3178,6 +3193,10 @@ def main():
         vs_steps = max(bitwise(f"ring headline {label} p_y={p_y} {c} vs step ring", g, s_,
                                "the step ring") for c, g, s_ in zip("uv", outs, s_out))
         ms_s, host_s = event_ms(lambda: steps_fn(u_dev, v_dev), 10, host=True)
+        # the split: the fused launches alone and the copies around them alone
+        parts, _ = ring_parts(filt, u_dev, v_dev)
+        ms_passes = event_ms(parts["passes"], n_chain)
+        ms_copies = event_ms(parts["copies"], n_chain)
         n_coef = entry.state.ops.coefs[0].shape[0]
         rbytes, rflops = vec_ring_plan_cost(n_coef, entry.plan, p_y, ny, nx, item, key)
         pbm, pbb = bound_ms(rbytes, rflops, "float32")
@@ -3189,8 +3208,12 @@ def main():
             f"{ms_s:.4f} ms/apply (host enqueue {host_s:.4f}), bit for bit equal; fused "
             f"{'K3' if op == BGRID else 'K4'} {k_ms:.4f} ms/apply, bit for bit equal; plan bound "
             f"{pbm:.4f} ms ({rbytes / 1e9:.4f} GB, {pbb}), whole-filter bound {fbm:.4f} ms on {smi}")
+        log(f"    split: passes alone {ms_passes:.4f} ms, copies around them {ms_copies:.4f} ms, "
+            f"fused {'K3' if op == BGRID else 'K4'} launches alone {k_launch_ms:.4f} ms "
+            f"(passes {ms_passes / k_launch_ms - 1:+.1%})")
         return filt, outs, steps_fn, {
-            "ms": ms_f, "host_enqueue_ms": host_f, "step_ring_ms": ms_s,
+            "ms": ms_f, "passes_ms": ms_passes, "copies_ms": ms_copies,
+            "unsharded_launches_ms": k_launch_ms, "host_enqueue_ms": host_f, "step_ring_ms": ms_s,
             "step_ring_host_enqueue_ms": host_s, "unsharded_ms": k_ms, "launches": n_l,
             "launches_per_apply": len(entry.plan.steps), "n_steps": filt.n_steps,
             "passes": list(entry.plan.steps), "tile": list(entry.plan.tile),
@@ -3248,6 +3271,50 @@ def main():
             del states, rops
         return worst_
 
+    def vec_ring_short_tiles(gname):
+        """One 5-step pass of the fused vector ring on 4x16 tiles of a 48x250
+        field (a NaN on a shard edge): at p_y 2 each shard has two interior
+        tile rows, taken by block index, and two edge rows a side, drawn by
+        ticket; at p_y 4 every tile is an edge tile. The kernel bitwise equal
+        to the step ring, and against the tiled plain version; returns the
+        largest abs difference from the latter."""
+        shape_s, tile_s, worst_ = (48, 250), (4, 16), 0.0
+        rng_s = np.random.default_rng(11)
+        f_s = Filter(filter_scale=4.0, dx_min=1.0, grid_type=GridType[gname], device=dev,
+                     grid_vars=unit_vector_grid_vars(gname, shape_s, rng_s, 0.0))
+        ops_s, p_s = make_cuda_vector_apply(f_s.operator, f_s.filter_spec).operands(
+            torch.float32, dev)
+        if len(p_s) - 1 != 5:
+            raise AssertionError(f"{gname}: the filter has {len(p_s) - 1} steps, not 5")
+        u_s, v_s = (torch.as_tensor(rng_s.random(shape_s), dtype=torch.float32, device=dev)
+                    for _ in "uv")
+        u_s[24, 40] = float("nan")
+        for p_y, n_int in ((2, 2), (4, 0)):
+            ly_s = shape_s[0] // p_y
+            items = VecRingItems(p_y, ly_s, shape_s[1], tile_s, 5)
+            if (items.int_lo, items.n_int) != (2, n_int):
+                raise AssertionError(f"p_y={p_y}: interior rows {items.int_lo}, {items.n_int}")
+            outs = []
+            for fn_ in (vec_ring_fused_pass, vec_ring_fused_pass_tiled_reference):
+                st_ = VecRingFusedState(VecRingFusedOperands.cut(ops_s, p_y, 5), ly_s,
+                                        shape_s[1], torch.float32, dev)
+                for r, w_ in enumerate(st_.input):
+                    w_[0].copy_(u_s[r * ly_s:(r + 1) * ly_s])
+                    w_[1].copy_(v_s[r * ly_s:(r + 1) * ly_s])
+                for buf in st_.t[0] + st_.t_prev[0] + st_.acc:
+                    buf.fill_(float("nan"))
+                fn_(st_, p_s, 0, 5, tile=tile_s, out=0)
+                outs.append(torch.cat(st_.acc, dim=1))
+            steps_s = make_ring_vector_apply(f_s.operator, f_s.filter_spec,
+                                             ResidentMesh(p_y, dev), ring_axes, fused_fn=None)
+            label_s = f"fused vector ring {gname} p_y={p_y} {tile_s} tiles, one 5-step pass"
+            bitwise(label_s, outs[0], torch.stack(steps_s(u_s, v_s)), "the step ring")
+            worst_ = max(worst_, compare(f"{label_s} vs tiled plain", outs[0], outs[1],
+                                         "float32")[0])
+            log(f"  {label_s} ({items.n_int} interior tile rows a shard, {items.tickets} "
+                f"tickets): bit for bit equal to the step ring")
+        return worst_
+
     vring = {}
     for gname, op in vec_ops.items():
         key = vkey[op]
@@ -3259,11 +3326,14 @@ def main():
         for _ in range(warm):
             k34.apply_to_vector(u_dev, v_dev)
         k_ms = event_ms(lambda: k34.apply_to_vector(u_dev, v_dev), chain)
+        k_launch = unsharded_launches(k34, u_dev, v_dev)  # without the apply's stack
+        k_launch()
+        k_launch_ms = event_ms(k_launch, chain)
         by_p = {}
         for p_y in ((4, 2, 8) if op == BGRID else (4,)):
             rv, outs, steps_rv, by_p[p_y] = vector_ring_headline(
-                f"{ny}x{nx} float32 {gname}", gname, op, p_y, kept["out"], k_ms, kept["want"],
-                **vkw)
+                f"{ny}x{nx} float32 {gname}", gname, op, p_y, kept["out"], k_ms, k_launch_ms,
+                kept["want"], **vkw)
             if p_y == 4:
                 rv4, outs4, steps4v = rv, outs, steps_rv
             else:
@@ -3276,6 +3346,21 @@ def main():
                                                              outs4)):
                     raise AssertionError(f"vector ring apply {k + 2} differs from the first")
             log("  50 more fused vector ring applies, each bitwise equal to the first")
+        # a halo value read stale (through L1, or before its send) would show
+        # where two inputs alternate: every apply against the fused K3 / K4 of
+        # its own input
+        u2 = torch.as_tensor(np.random.default_rng(44).random((ny, nx)).astype(np.float32),
+                             device=dev)
+        v2 = torch.flip(u_dev, dims=(1,)).contiguous()
+        pairs = [((u_dev, v_dev), kept["out"]), ((u2, v2), k34.apply_to_vector(u2, v2))]
+        for k in range(24):
+            (ua, va), want_ = pairs[k % 2]
+            for comp, g, w in zip("uv", rv4.apply_to_vector(ua, va), want_):
+                bitwise(f"ring headline {gname} p_y=4 alternating apply {k} {comp}", g, w,
+                        "the fused K3 / K4 of the same input")
+        log(f"  24 fused vector ring applies alternating two inputs, each bitwise equal to the "
+            f"fused {'K3' if op == BGRID else 'K4'} of its input")
+        del u2, v2, pairs
         taper = None
         if op == CTAP:  # the Taper (44 steps, several passes), on the same footing
             # dx_min = 0.9 as in phase 7c: with 1 the Taper amplifies rounding
@@ -3286,9 +3371,11 @@ def main():
                 kt.apply_to_vector(u_dev, v_dev)
             kt_ms = event_ms(lambda: kt.apply_to_vector(u_dev, v_dev), 20)
             kt64 = vector_filter_apply(kt.operator, kt.filter_spec, u_dev.double(), v_dev.double())
+            kt_launch = unsharded_launches(kt, u_dev, v_dev)
+            kt_launch()
             ft, _, _, taper = vector_ring_headline(
-                f"taper {ny}x{nx} float32 {gname}", gname, op, 4, kt_out, kt_ms, kt64, n_chain=20,
-                **tkw)
+                f"taper {ny}x{nx} float32 {gname}", gname, op, 4, kt_out, kt_ms,
+                event_ms(kt_launch, 20), kt64, n_chain=20, **tkw)
             del kt, kt_out, kt64, ft
         vn = rv4.n_steps
         sstate, vp4 = ring_state(steps4v)  # the step ring's state
@@ -3333,6 +3420,7 @@ def main():
                                        torch.float32, "float32")
         rvf_err64 = vec_ring_fused_kinds(f"fused vector ring {gname} float64", vops64, vp64, op,
                                          torch.float64, "float64")
+        rvf_err = max(rvf_err, vec_ring_short_tiles(gname))
         del vops32, vops64
         log(f"ring {gname} step kinds vs plain at {ny}x{nx}, 4 shards: max abs {rvstep:.3e} "
             f"(float32), {rvstep64:.3e} (float64); fused vector ring pass kinds vs plain and "
@@ -3396,6 +3484,10 @@ def main():
             "p_y": 4,
             "ms_by_p_y": {str(k): v["ms"] for k, v in sorted(by_p.items())},
             "step_ring_ms_by_p_y": {str(k): v["step_ring_ms"] for k, v in sorted(by_p.items())},
+            "split_ms_by_p_y": {str(k): {"apply": v["ms"], "passes": v["passes_ms"],
+                                         "copies": v["copies_ms"],
+                                         "unsharded_launches": v["unsharded_launches_ms"]}
+                                for k, v in sorted(by_p.items())},
             "by_p_y": {str(k): v for k, v in sorted(by_p.items())},
             "taper": taper,
             "ptxas": vec_tile_ptxas("ring_pass", "vec_ring_fused_kernel", op),

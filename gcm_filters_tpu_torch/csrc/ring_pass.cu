@@ -109,24 +109,43 @@
 // Bound (fused pass): issue in the steps, as the fused K1, plus the
 // 2p sends of S rows of one or two fields.
 //
-// The fused vector pass (vec_ring_fused_pass_*) is the same protocol for the
-// stacked (u, v) pair, what the ring mode of _build_coupled_pass computes per
-// call (build_vec_pass, build_ctap_pass with ring_axis): every shard's planes
-// are (2, ly+2*pad, nx) pairs and (n_coef, ly+2*pad, nx) coefficients,
-// extended as above; a send stores the S rows nearest one edge of both
-// components of every live field (w on a first pass, else t and t_prev: 2
-// or 4 planes) and ends in the same release store; a tile is the fused K3 /
-// K4 tile (vec_fused_tile of vec_tile.cuh, the same code, contraction and zap
-// compiled in) on RingGeo without a fold, so a cell gets the bits of the
-// fused K3 / K4 and of the vector step ring. Vector grids do not fold: an
-// edge tile waits for the flag of each halo its window reaches, the top
-// shard's north one too. The work order, the tickets, the flags, the table
-// in the kernel's parameters and the reuse of the two carry pairs are the
-// scalar pass's. The deadlock argument holds as it stands: a 32 x 64 B-grid
-// tile with a halo of 6 takes about 203 KB of shared memory in float32, so
-// one block runs on an SM, and a block that waits holds a ticket above every
-// send's, each drawn by a block that runs and never waits. acc is own-shaped
-// (2, ly, nx) and every own cell has one.
+// The fused vector pass (vec_ring_fused_pass_*) runs the protocol above for
+// the stacked (u, v) pair, what the ring mode of _build_coupled_pass computes
+// per call (build_vec_pass, build_ctap_pass with ring_axis): every shard's
+// planes are (2, ly+2*pad, nx) pairs and (n_coef, ly+2*pad, nx)
+// coefficients, extended as above; a send stores the S rows nearest one edge
+// of both components of every live field (w on a first pass, else t and
+// t_prev: 2 or 4 planes, fused_send) and ends in the same release store; a
+// tile is the fused K3 / K4 tile (vec_tile.cuh, the same code, contraction
+// and zap compiled in) on RingGeo without a fold, so a cell gets the bits of
+// the fused K3 / K4 and of the vector step ring. Vector grids do not fold:
+// an edge tile waits for the flag of each halo its window reaches, the top
+// shard's north one too. The flags, the epochs, the table in the kernel's
+// parameters and the reuse of the two carry pairs are the scalar pass's; the
+// items and the window's load are its own:
+//   - items (vec_ring_item): the interior tiles, which wait for nothing, take
+//     their item from blockIdx, blocks [2p, 2p + m) with m =
+//     vec_ring_interior(q), so they issue their window's copies at once.
+//     Only the other blocks, [0, 2p) and [2p + m, total), draw tickets,
+//     from one counter: the sends of every shard first, then the edge tiles
+//     (vec_ring_tickets(q) a launch, `base` the count drawn before it). The
+//     ticketed blocks sit at both ends of blockIdx, so the sends tend to run
+//     first and the edge tiles last, but nothing depends on that order.
+//   - the window: a tile issues the cp.async copies of its coefficients, acc
+//     and the state of the shard's own rows [0, ly) (no block of the launch
+//     writes them: the sends read them, the tiles write the other pair)
+//     before it waits for any flag; then it waits for the flags of the halo
+//     rows its window reaches and loads their state through registers past
+//     L1 (vec_halo_load, __ldcg). No halo cell is read through L1: a .ca copy
+//     of an own row may bring in a line that ends in a halo row still stale.
+// Deadlock: the only blocks that wait are edge tiles, and every one of them
+// holds a ticket above every send's: each send was drawn, before it, by a
+// block that was running then and never waits. Interior tiles never wait.
+// So every wait ends, whatever blocks the hardware runs together and in
+// whatever order; a 32 x 64 B-grid tile with a halo of 6 takes about 203 KB
+// of shared memory in float32, so one block runs on an SM, which the
+// argument does not need. acc is own-shaped (2, ly, nx) and every own cell
+// has one.
 //
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
@@ -507,7 +526,8 @@ __host__ __device__ inline long long fused_items(const FusedRing& q) {
   return (long long)q.p * (2 + (long long)q.tiles_x * q.tiles_y);
 }
 
-// The block's item: sends of every shard, then interior tiles, then edge tiles.
+// The block's item in a fused scalar ring launch: sends of every shard, then
+// interior tiles, then edge tiles, all by ticket.
 __device__ __forceinline__ Item draw_fused_item(const FusedRing& q, int tid) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned long long* drawn = reinterpret_cast<unsigned long long*>(smem_raw);
@@ -645,21 +665,76 @@ int launch_ring_fused(const FusedArgs<T>& a, int p, int ly, int nx, int pad, int
 
 // ---- fused vector pass ------------------------------------------------------
 
+// Blocks of a fused vector ring launch that take their item from blockIdx:
+// the interior tiles of every shard. The others draw tickets.
+__host__ __device__ inline long long vec_ring_interior(const FusedRing& q) {
+  return (long long)q.p * q.n_int * q.tiles_x;
+}
+
+// Tickets a fused vector ring launch draws: the sends and the edge tiles.
+__host__ __device__ inline long long vec_ring_tickets(const FusedRing& q) {
+  return fused_items(q) - vec_ring_interior(q);
+}
+
+// The block's item (head comment): blocks [2p, 2p + vec_ring_interior(q))
+// are the interior tiles, shard by shard and row by row; the other blocks
+// draw tickets, the sends of every shard first, then the edge tiles of every
+// shard (its rows below the interior ones, then those above).
+__device__ __forceinline__ Item vec_ring_item(const FusedRing& q, int tid) {
+  const long long b = (long long)blockIdx.x - 2LL * q.p;
+  Item it;
+  it.what = TILE; it.side = 0;
+  if (b >= 0 && b < vec_ring_interior(q)) {
+    const long long per = (long long)q.n_int * q.tiles_x;
+    it.shard = (int)(b / per);
+    const long long rem = b - it.shard * per;
+    it.ty = q.int_lo + (int)(rem / q.tiles_x);
+    it.tx = (int)(rem % q.tiles_x);
+    return it;
+  }
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  unsigned long long* drawn = reinterpret_cast<unsigned long long*>(smem_raw);
+  if (tid == 0) *drawn = atomicAdd(q.ticket, 1ULL) - q.base;
+  __syncthreads();
+  long long idx = __shfl_sync(0xffffffffu, (long long)*drawn, 0);  // warp-uniform, as above
+  __syncthreads();  // the window will overwrite the slot
+  if (idx < 2LL * q.p) {
+    it.what = SEND; it.shard = (int)(idx / 2); it.side = (int)(idx % 2); it.tx = it.ty = 0;
+    return it;
+  }
+  idx -= 2LL * q.p;
+  const long long n_edge = (long long)(q.tiles_y - q.n_int) * q.tiles_x;
+  it.shard = (int)(idx / n_edge);
+  const long long rem = idx - it.shard * n_edge;
+  const int e = (int)(rem / q.tiles_x);  // the e-th edge row: below, then above the interior
+  it.ty = e < q.int_lo ? e : e + q.n_int;
+  it.tx = (int)(rem % q.tiles_x);
+  return it;
+}
+
 template <typename T, typename OP, int ZAP>
 __global__ void __launch_bounds__(FUSED_THREADS)
 vec_ring_fused_kernel(const VecFusedArgs<T> a, const FusedRing q,
                       const __grid_constant__ VecRingTable<T> tab) {
   const int tid = threadIdx.x;
-  const Item it = draw_fused_item(q, tid);
+  const Item it = vec_ring_item(q, tid);
   if (it.what == SEND) {
     fused_send<T>(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
     return;
   }
-  const int H = a.n_ops, y0 = it.ty * a.by;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const RingGeo geo{q.ly, q.nx, q.pad, 0};
+  const int H = a.n_ops, y0 = it.ty * a.by, x0 = it.tx * a.bx;
+  // the coefficients, acc and the own rows' state first: no flag covers them
+  vec_window_load<T, OP>(a, tab.shard[it.shard], geo, sm, y0, x0, 0u);
+  cp_async_commit();
   if (y0 - H < 0) wait_flag(q.flags + 2 * it.shard, q.epoch, tid);
   if (y0 + a.by + H > q.ly) wait_flag(q.flags + 2 * it.shard + 1, q.epoch, tid);
-  vec_fused_tile<T, OP, ZAP>(a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, 0},
-                             TileOrigin{it.ty, it.tx});
+  vec_halo_load<T>(a, tab.shard[it.shard], geo, sm, y0, x0);
+  cp_async_wait_all();
+  __syncthreads();
+  vec_window_run<T, OP, ZAP>(a, tab.shard[it.shard], geo, sm, y0, x0, 0u);
 }
 
 template <typename T, typename OP, int ZAP>

@@ -13,7 +13,10 @@
 //      shared memory: the raw state of both components (w on the first pass,
 //      else t and t_prev) and every coefficient plane; acc of the own cells.
 //      Every value goes by cp.async straight into its slot, all of a
-//      window's copies in flight at once (vec_window_load);
+//      window's copies in flight at once (vec_window_load), except, on a
+//      ring shard, the state of the halo rows, which the same launch's sends
+//      write: those go through registers past L1 after the flag wait
+//      (vec_halo_load);
 //   2. run the S steps in shared memory; step j updates the window shrunk by
 //      j cells on each side, so the last one ends exactly on the own tile.
 //      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
@@ -34,8 +37,10 @@
 // vec_ring_fused_pass_f32/f64 in ring_pass.cu), whose window rows past the
 // shard's edges are halo rows that the neighbours' sends fill. `vec_fused_tile`
 // is one tile's whole pass, with the planes (`io`) and the tile's origin as
-// arguments: `vec_fused_kernel` runs it for the tile of its blockIdx, the
-// ring kernel for the tile its ticket names, with a shard's row of its table.
+// arguments: `vec_fused_kernel` runs it for the tile of its blockIdx. The
+// ring kernel runs its parts, with a flag wait and vec_halo_load between the
+// load and the steps, for the tile its blockIdx or its ticket names, with a
+// shard's row of its table as `io`.
 // Every buffer is indexed through its own plane: the inputs (the state and
 // the coefficients) through in_plane/in_index, the carries out through
 // out_plane/out_index, acc through own_plane/own_index, and acc exists only
@@ -105,13 +110,14 @@ __device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
 __device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true; }
 
 // The window's loads go into shared memory by cp.async (cp_async of
-// cheb_tile.cuh), except a ring shard's state, which StateAsync<RingGeo>
-// sends through registers past L1 (__ldcg): the sends of the same launch
-// write its halo rows.
-template <typename T, class GEO>
-__device__ __forceinline__ T state_ld(const GEO&, const T* p) { return __ldg(p); }
-template <typename T>
-__device__ __forceinline__ T state_ld(const RingGeo&, const T* p) { return __ldcg(p); }
+// cheb_tile.cuh), except the state of a ring shard's halo rows
+// (StateAsync<RingGeo> is false): the sends of the same launch write those
+// rows, so they go through registers past L1 (__ldcg), after the flag wait
+// (vec_halo_load). A ring shard's own rows [0, ly) go by cp.async like the
+// coefficients: no block of the launch writes them (the sends read them,
+// the tiles write the other carry pair). That a .ca copy of an own row may
+// bring into L1 a line that also holds the end of a halo row, still stale
+// while the send is on its way, is why no halo cell is ever read through L1.
 
 template <typename T>
 struct VecFusedArgs {
@@ -293,9 +299,11 @@ __host__ __device__ inline VecPlanes vec_planes(int wx, int wa, int n_coef) {
 // waits (cp_async_wait_all, then __syncthreads) before it reads them. Pair A
 // (offset 0) takes T_k (w on a first pass), pair B (2*wa) T_{k-1}; a first
 // pass leaves pair B unloaded (its first step writes T_1 there before any
-// step reads it). Coefficients go cell-major: a cell's n_coef values follow
-// each other. The window's cells are spread over the block's threads,
-// row-major, so a warp's copies read consecutive cells of a plane.
+// step reads it); on a ring shard only the state of its own rows goes here,
+// that of its halo rows to vec_halo_load. Coefficients go cell-major: a
+// cell's n_coef values follow each other. The window's cells are spread over
+// the block's threads, row-major, so a warp's copies read consecutive cells
+// of a plane.
 template <typename T, typename OP, class GEO, class IO>
 __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const IO& io,
                                                 const GEO geo, T* sm, int y0, int x0,
@@ -321,35 +329,13 @@ __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const 
 #pragma unroll
         for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, s1 + c * P + kk);
       }
-    }
-  }
-  if constexpr (!StateAsync<GEO>::value) {
-    // the state through registers, U cells a thread at a time: all their
-    // loads, then all their stores
-    constexpr int U = 4;
-    for (int k0 = threadIdx.x; k0 < wa; k0 += U * blockDim.x) {
-      T v[U][4];
+    } else if ((unsigned)(y0 - H + r) < (unsigned)geo.rows()) {
+      // a ring shard's own rows; its halo rows wait for vec_halo_load
 #pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = k0 + u * blockDim.x;
-        if (k < wa) {
-          const int r = per_row(k), q = k - r * wx;
-          const int64_t kk = geo.in_index(geo.row(y0 - H + r), geo.col(x0 - H + q, false));
+      for (int c = 0; c < 2; ++c) cp_async(sm + c * wa + k, s0 + c * P + kk);
+      if (!a.first) {
 #pragma unroll
-          for (int c = 0; c < 2; ++c) {
-            v[u][c] = state_ld(geo, s0 + c * P + kk);
-            v[u][2 + c] = a.first ? T(0) : state_ld(geo, s1 + c * P + kk);
-          }
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = k0 + u * blockDim.x;
-        if (k < wa) {
-#pragma unroll
-          for (int c = 0; c < 4; ++c)
-            if (c < 2 || !a.first) sm[c * wa + k] = v[u][c];
-        }
+        for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, s1 + c * P + kk);
       }
     }
   }
@@ -367,6 +353,56 @@ __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const 
           cp_async(dst, io.acc_in + b_acc + c * PA + geo.own_index(gy, gx));
         else
           *dst = T(0);
+      }
+    }
+  }
+}
+
+// The state of the window rows outside a ring shard's own rows [0, ly)
+// (RingGeo, where StateAsync is false; nothing elsewhere), after the wait for
+// the flags of those rows: through registers past L1 (__ldcg), U
+// cells a thread at a time, all their loads, then all their stores. Window
+// rows [0, lo) lie below row 0, rows [hi, wy) from row ly on; an interior
+// tile has none. The caller waits for the cp.async group and then for the
+// block (__syncthreads) before the window is read.
+template <typename T, class GEO, class IO>
+__device__ __forceinline__ void vec_halo_load(const VecFusedArgs<T>& a, const IO& io,
+                                              const GEO geo, T* sm, int y0, int x0) {
+  if constexpr (!StateAsync<GEO>::value) {
+    const int H = a.n_ops;
+    const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+    const int64_t P = geo.in_plane();
+    const T* const s0 = a.first ? io.w : io.t;
+    const T* const s1 = a.first ? s0 : io.t_prev;
+    const int lo = min(max(H - y0, 0), wy);
+    const int hi = max(min(geo.rows() + H - y0, wy), lo);
+    const int n_lo = lo * wx, cells = n_lo + (wy - hi) * wx;
+    const Quot per_row(wx);
+    constexpr int U = 4;
+    for (int i0 = threadIdx.x; i0 < cells; i0 += U * blockDim.x) {
+      T v[U][4];
+      int ks[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * blockDim.x;
+        ks[u] = i < n_lo ? i : i + (hi - lo) * wx;  // the window cell
+        if (i < cells) {
+          const int r = per_row(ks[u]), q = ks[u] - r * wx;
+          const int64_t kk = geo.in_index(geo.row(y0 - H + r), geo.col(x0 - H + q, false));
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            v[u][c] = __ldcg(s0 + c * P + kk);
+            v[u][2 + c] = a.first ? T(0) : __ldcg(s1 + c * P + kk);
+          }
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u * (int)blockDim.x < cells) {
+#pragma unroll
+          for (int c = 0; c < 4; ++c)
+            if (c < 2 || !a.first) sm[c * wa + ks[u]] = v[u][c];
+        }
       }
     }
   }
@@ -436,8 +472,8 @@ __device__ __forceinline__ void vec_window_run(const VecFusedArgs<T>& a, const I
 // shared memory its window: the own cells of the tile at `org` (GridOrigin or
 // TileOrigin of cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io`
 // the planes (w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef): the
-// VecFusedArgs itself for vec_fused_kernel, a shard's row of a table for the
-// ring. The geometry goes by value, here and into vec_step_window: by
+// VecFusedArgs itself for vec_fused_kernel. The geometry goes by value, here,
+// into vec_step_window and in the ring kernel: by
 // reference, five of the RoundGeo kernels got other register counts than
 // when this body was the kernel's own (ptxas -v, compared on the card).
 template <typename T, typename OP, int ZAP, class GEO, class IO, class ORG>

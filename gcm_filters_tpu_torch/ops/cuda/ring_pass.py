@@ -60,7 +60,10 @@ live field (``w`` on a first pass, else ``t`` and ``t_prev``), then runs the
 fused K3 / K4 tile on windows cut from the extended planes.
 :func:`vec_ring_fused_pass` is its wrapper, :func:`vec_ring_fused_pass_reference`
 its plain version (the unsharded plain fused pass on each extended block) and
-:func:`vec_ring_fused_pass_tiled_reference` the kernel's tile decomposition.
+:func:`vec_ring_fused_pass_tiled_reference` the kernel's tile decomposition;
+:class:`VecRingItems` mirrors the kernel's blocks: the interior tiles by
+block index, the sends and the edge tiles by ticket, and the window rows a
+tile loads before and after its flag waits.
 """
 from __future__ import annotations
 
@@ -690,6 +693,91 @@ def vec_ring_fused_pass_tiled_reference(state: VecRingFusedState, p, start: int,
         _store(state, r, last, out, {k: v[0] for k, v in outs.items()})
 
 
+# -- the fused vector kernel's blocks ------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class VecRingItems:
+    """The blocks of one fused vector ring launch as csrc/ring_pass.cu lays
+    them out (``fused_ring``, ``vec_ring_interior``, ``vec_ring_tickets``,
+    ``vec_ring_item``) and the window rows each tile loads before and after
+    its flag waits (``vec_window_load``, ``vec_halo_load`` of vec_tile.cuh).
+
+    A shard has ``tiles_y`` rows of ``tiles_x`` tiles of ``tile = (by, bx)``
+    own cells; tile rows ``[int_lo, int_lo + n_int)`` are interior (their
+    windows, ``n_ops`` rows past the tile on each side, lie in the shard's own
+    rows ``[0, ly)``), the others are edge rows. Blocks ``[2p, 2p +
+    interior)`` are the interior tiles, shard by shard and row by row; the
+    other blocks draw ``tickets`` tickets from one counter: the two sends of
+    every shard first, then every shard's edge tiles.
+    """
+
+    p: int
+    ly: int
+    nx: int
+    tile: Tuple[int, int]
+    n_ops: int
+
+    @property
+    def tiles_x(self) -> int:
+        return -(-self.nx // self.tile[1])
+
+    @property
+    def tiles_y(self) -> int:
+        return -(-self.ly // self.tile[0])
+
+    @property
+    def int_lo(self) -> int:
+        return min(-(-self.n_ops // self.tile[0]), self.tiles_y)
+
+    @property
+    def n_int(self) -> int:
+        return max(0, min((self.ly - self.n_ops) // self.tile[0], self.tiles_y) - self.int_lo)
+
+    @property
+    def total(self) -> int:
+        return self.p * (2 + self.tiles_x * self.tiles_y)
+
+    @property
+    def interior(self) -> int:
+        return self.p * self.n_int * self.tiles_x
+
+    @property
+    def tickets(self) -> int:
+        return self.total - self.interior
+
+    def block(self, b: int):
+        """Block ``b``'s item, ``("tile", shard, ty, tx)``, or None where it
+        draws a ticket."""
+        i = b - 2 * self.p
+        if not 0 <= i < self.interior:
+            return None
+        shard, rem = divmod(i, self.n_int * self.tiles_x)
+        return ("tile", shard, self.int_lo + rem // self.tiles_x, rem % self.tiles_x)
+
+    def ticket(self, t: int):
+        """The item of ticket ``t`` (drawn since the launch began):
+        ``("send", shard, side)`` or ``("tile", shard, ty, tx)``."""
+        if t < 2 * self.p:
+            return ("send", t // 2, t % 2)
+        shard, rem = divmod(t - 2 * self.p, (self.tiles_y - self.n_int) * self.tiles_x)
+        e, tx = divmod(rem, self.tiles_x)
+        return ("tile", shard, e if e < self.int_lo else e + self.n_int, tx)
+
+    def window(self, ty: int):
+        """``(own, halo, waits)`` of a tile in row ``ty``: the window rows,
+        in the shard's row numbers, whose state goes by cp.async before any
+        wait; those whose state ``vec_halo_load`` loads after the waits; and
+        the flags waited for, ``(south, north)``."""
+        by, h = self.tile[0], self.n_ops
+        y0 = ty * by
+        wy = by + 2 * h
+        own = [y0 - h + r for r in range(wy) if 0 <= y0 - h + r < self.ly]
+        lo = min(max(h - y0, 0), wy)
+        hi = max(min(self.ly + h - y0, wy), lo)
+        halo = [y0 - h + r for r in (*range(lo), *range(hi, wy))]
+        return own, halo, (y0 - h < 0, y0 + by + h > self.ly)
+
+
 # -- kernels -------------------------------------------------------------------
 
 _SCALAR_ARGTYPES = (
@@ -903,7 +991,8 @@ def _vec_fused_launch(state: VecRingFusedState, p, start: int, n_ops: int, tile,
     if err != 0:
         msg = lib.ring_pass_error_string(err).decode()
         raise RuntimeError(f"vec_ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    state.drawn += ops.p_y * (2 + -(-state.ly // by) * -(-state.nx // bx))
+    # only the sends and the edge tiles draw tickets
+    state.drawn += VecRingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
 
 
 def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, tile,

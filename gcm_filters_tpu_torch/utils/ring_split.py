@@ -1,0 +1,154 @@
+"""Split the fused vector ring's time on one card: the whole apply, its fused
+passes alone and the copies around them, beside the unsharded fused K3 / K4
+launches alone.
+
+    python3 -m gcm_filters_tpu_torch.utils.ring_split [--rounds N] [--chain N] [--json PATH]
+
+Run from the root of the repository on a machine with a CUDA card and nvcc.
+The cases are the vector ring headlines of ``chip_smoke.py`` phase 16: the
+2400x3600 float32 B-grid at ``p_y`` 4, 2 and 8 and the C-grid at 4, Gaussian
+of factor 10 (11 steps) on unit-scale metrics and fields drawn as phase 7
+draws them. For each it times, with CUDA events (3 warm-ups, then
+``--chain`` calls), every case in turn, ``--rounds`` times:
+
+- ``apply``: one ``Filter.apply_to_vector`` through ``ResidentMesh(p_y)``;
+- ``passes``: the apply's fused launches alone (``parallel.ring._passes`` on
+  the state whose input the apply set);
+- ``copies``: what the apply does around them, the copies of u and v into
+  the shards' input rows and the ``torch.cat`` of acc out;
+- ``k_launches``: the unsharded fused K3 / K4 launches of the same filter
+  on the same field (``ops.cuda.dispatch._fused_chain`` on a stacked state
+  made once), without the ``torch.stack`` of its apply.
+
+``chip_smoke.py`` times the same parts through :func:`ring_parts` and
+:func:`unsharded_launches`. It prints one line per case, then the card's
+name and power limit and a JSON object of every time; ``--json`` writes that
+object to a file.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from .tile_split import event_ms
+
+SHAPE = (2400, 3600)
+# (grid, p_y) of the phase-16 vector ring headlines
+CASES = (("VECTOR_B_GRID", 4), ("VECTOR_B_GRID", 2), ("VECTOR_B_GRID", 8), ("VECTOR_C_GRID", 4))
+
+
+def unit_vector_grid_vars(grid_name, shape, rng, kappa_aniso=0.0):
+    """Unit-scale metrics, m = 0.9 + 0.2 * uniform, as
+    benchmarks/bench_suite.py builds the vector grids."""
+    m = 0.9 + 0.2 * rng.random(shape)
+    ones = np.ones(shape)
+    if grid_name == "VECTOR_B_GRID":
+        return dict(DXU=m, DYU=m, HUS=m, HUW=m, HTE=m, HTN=m, UAREA=m * m, TAREA=m * m)
+    return dict(wet_mask_t=ones, wet_mask_q=ones, dxT=m, dyT=m, dxCu=m, dyCu=m,
+                dxCv=m, dyCv=m, dxBu=m, dyBu=m, area_u=m * m, area_v=m * m,
+                kappa_iso=ones, kappa_aniso=kappa_aniso * ones)
+
+
+def ring_parts(filt, u, v):
+    """``({"apply", "passes", "copies"}, entry)``: functions that run a
+    vector ring Filter's whole apply, its fused launches alone on the state
+    whose input the last apply set, and the copies around them alone; and
+    the apply's ``RingEntry``."""
+    from ..parallel import ring
+
+    filt.apply_to_vector(u, v)
+    fn = filt._vector_fn()
+    (entry,) = fn.shape_cache.values()
+    if entry.chain is None:
+        raise ValueError("the ring runs the step ring here, not fused passes")
+    state, ly = entry.state, entry.state.ly
+
+    def copies():
+        for r, w in enumerate(state.input):
+            w[0].copy_(u[r * ly:(r + 1) * ly])
+            w[1].copy_(v[r * ly:(r + 1) * ly])
+        acc = torch.cat(state.acc, dim=1)
+        return acc[0], acc[1]
+
+    return {"apply": lambda: filt.apply_to_vector(u, v),
+            "passes": lambda: ring._passes(entry.chain, state, entry.p),
+            "copies": copies}, entry
+
+
+def unsharded_launches(filt, u, v):
+    """A function that runs the unsharded fused K3 / K4 launches of
+    ``filt`` (no mesh) on a stacked state made once."""
+    from ..ops.cuda.dispatch import _fused_chain
+    from ..ops.cuda.vec_pass import vec_fused_pass
+
+    fn = filt._vector_fn()
+    ops, p = fn.operands(torch.float32, u.device)
+    pl = fn.plan(*u.shape, torch.float32)
+    w = torch.stack([u, v]).unsqueeze(0)
+    return lambda: _fused_chain(vec_fused_pass, ops, p, pl, w, name="w")
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--chain", type=int, default=30)
+    parser.add_argument("--json", metavar="PATH")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ring_split: no CUDA device", file=sys.stderr)
+        return 2
+    from ..filter import Filter
+    from ..models.grids import GridType
+    from ..parallel.ring import ResidentMesh
+
+    dev = torch.device("cuda")
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60).stdout.strip()
+    # drawn as chip_smoke.py phase 7 draws them: u, v, then each grid's metrics
+    rng = np.random.default_rng(42)
+    u, v = (torch.as_tensor(rng.random(SHAPE).astype(np.float32), device=dev) for _ in "uv")
+    gvs = {g: unit_vector_grid_vars(g, SHAPE, rng) for g in ("VECTOR_B_GRID", "VECTOR_C_GRID")}
+    kw = dict(filter_scale=10.0, dx_min=1.0, dtype=torch.float32, device=dev)
+    unsharded, cases = {}, {}
+    for grid, p_y in CASES:
+        if grid not in unsharded:
+            unsharded[grid] = unsharded_launches(
+                Filter(grid_type=GridType[grid], grid_vars=gvs[grid], **kw), u, v)
+        filt = Filter(grid_type=GridType[grid], grid_vars=gvs[grid], mesh=ResidentMesh(p_y, dev),
+                      spatial_axes=("y", None), **kw)
+        parts, entry = ring_parts(filt, u, v)
+        cases[f"{grid} p_y={p_y}"] = (dict(parts, k_launches=unsharded[grid]), entry)
+    times = {label: {} for label in cases}
+    for _ in range(args.rounds):
+        for label, (parts, _) in cases.items():
+            for k, fn in parts.items():
+                for _ in range(3):
+                    fn()
+                times[label].setdefault(k, []).append(event_ms(fn, args.chain))
+    for label, (_, entry) in cases.items():
+        t = {k: min(ts) for k, ts in times[label].items()}
+        print(f"{label}, plan {entry.plan.tile} {entry.plan.steps}: " + ", ".join(
+            f"{k} {', '.join(f'{ms:.4f}' for ms in ts)}" for k, ts in times[label].items())
+            + f" ms; passes over K3/K4 launches {t['passes'] / t['k_launches'] - 1:+.1%}, "
+            f"apply over passes + copies {t['apply'] - t['passes'] - t['copies']:+.4f} ms",
+            flush=True)
+    result = {"device": torch.cuda.get_device_name(0), "nvidia_smi": smi, "ms": times,
+              "plans": {label: [list(e.plan.tile), list(e.plan.steps)]
+                        for label, (_, e) in cases.items()}}
+    print(smi)
+    print(json.dumps(result))
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(result, indent=1) + "\n")
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

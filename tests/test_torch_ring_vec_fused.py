@@ -162,6 +162,22 @@ def test_long_filters_run_several_passes(filter_kw, case, version):
 
 
 @pytest.mark.parametrize("version", list(VERSIONS))
+@pytest.mark.parametrize("p_y, n_int, tiles_y", [(2, 2, 6), (4, 0, 3)])
+@pytest.mark.parametrize("case", ["bgrid", "cgrid_aniso1"])
+def test_tiles_shorter_than_the_halo_have_two_edge_rows_a_side(case, p_y, n_int, tiles_y,
+                                                                version):
+    # 4-row tiles under a 5-step pass: the kernel's edge tiles are the two
+    # tile rows at each shard edge (in a 12-row shard the middle row reaches
+    # both), drawn by ticket, and the rows between take their items from
+    # blockIdx
+    _, _, ops, p, u, v = _setup(case)
+    items = rp.VecRingItems(p_y, NY // p_y, NX, (4, 16), 5)
+    assert (items.int_lo, items.n_int, items.tiles_y) == (2, n_int, tiles_y)
+    got, _ = _fused_ring(VERSIONS[version], ops, p, u, v, p_y, (5,), tile=(4, 16))
+    _assert_equal(got, _step_ring(ops, p, u, v, p_y), f"{case} p_y={p_y} (4, 16) {version}")
+
+
+@pytest.mark.parametrize("version", list(VERSIONS))
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64], ids=str)
 @pytest.mark.parametrize("case", ["bgrid", "cgrid_aniso0"])
 def test_fused_vector_ring_in_both_dtypes(case, dtype, version):
