@@ -101,23 +101,33 @@ and runs these phases; any failed check raises and the script exits non-zero:
     ``vec_local_pass_reference``) on the card, against the chain of local
     step-kernel launches bit for bit (NaNs in the same cells), against the
     tiled plain version of the fused round, and against the unsharded
-    ``apply_to_vector``; each apply must launch the fused local kernel of its
-    grid once per planned launch of its rounds (below the predicate: the
-    windowed local step kernel n_steps times) and no other kernel;
+    ``apply_to_vector``; each apply must launch the strip entry of its grid
+    once per round (the round's first launch, on u and v or the carries'
+    cores and their halo strips) and the extended-block entry once per later
+    launch of its rounds (below the predicate: the windowed local step
+    kernel n_steps times) and no other kernel;
 13. sharded vector headlines (the sharded vector path): the phase-7 B-grid
     and C-grid workloads through the mesh path, checked against the float64
     eager engine, bit for bit against the fused unsharded result and against
-    the local step-kernel chain, and timed beside both, with launches = the
-    round's planned launches x applies, every other counter (the windowed
-    local step's too) 0 and no fallback; the halo exchange, the fused round
-    and the chain of 11 local steps are also timed alone; then the round
-    sweep: every tile at one launch per round (split (a)) and at balanced
-    splits into several launches (split (b)), in float32 and float64, each
-    bitwise equal to the planned round and timed;
+    the local step-kernel chain, and timed beside both, with one strip
+    launch and the round's other planned launches x applies, every other
+    counter (the windowed local step's too) 0 and no fallback; the apply's
+    parts timed alone (``utils/round_split.py``: the strips, the rounds with
+    their strips frozen, and the parent's stack and halo exchange), the
+    round on strips bit for bit equal to the parent's round on the extended
+    block (also timed), its first launch alone against its plain version and
+    beside the parent's first launch, and the chain of 11 local steps alone;
+    then the round sweep on strips: every tile at one launch per round
+    (split (a)) and at balanced splits into several launches (split (b)), in
+    float32 and float64, each bitwise equal to the planned round and timed;
+    then (13c) the C-grid Taper (44 steps, three rounds whose later strips
+    come from the carries' cores) through the mesh, bit for bit equal to the
+    unsharded Taper, its launches counted, timed with its parts;
 14. each step kind of both windowed local vector kernels, and the fused round
     in float32 and float64 (the planned round and one launch of 11 steps,
-    every launch's outputs first filled with NaN),
-    against its plain version at the headlines' extended shape;
+    every launch's outputs first filled with NaN), on the extended block and
+    on strips, against its plain version at the headlines' extended shape,
+    the round on strips bit for bit equal to the one on the extended block;
 15. ring small grids: the cases of tests/test_ring.py in float32 (REGULAR,
     also with 37 steps; IRREGULAR_WITH_LAND; both tripolar grids; ``exact_nan``
     with a wet NaN; ``nx = 250``; one-row shards; B-grid; C-grid at
@@ -184,8 +194,9 @@ and runs these phases; any failed check raises and the script exits non-zero:
     finite, the ring and the sharded paths equal to the single-device
     filter), and the kernels each launched; then a ``{"user_paths": ...}``
     line of these numbers;
-19. a ``{"kernels": [...]}`` line (eighteen entries: the step kernels, timed
-    as step chains, and the nine fused passes), then ``{"ok": true,
+19. a ``{"kernels": [...]}`` line (twenty entries: the step kernels, timed
+    as step chains, the nine fused passes and the two strip entries of the
+    sharded vector round, timed as one launch), then ``{"ok": true,
     "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2. With
@@ -446,30 +457,40 @@ def vec_plan_cost(n_coef, plan, batch, ny, nx, itemsize, key):
     return nbytes, VEC_FLOPS_PER_CELL_STEP[key] * batch * cells
 
 
-def vec_round_cost(n_coef, plan, batch, ly, lx, cells, itemsize, key):
-    """``(bytes, flops)`` of a filter that is one round of the sharded vector
-    engine, as the round's fused launches run it on the extended block: a
-    launch that ends on the block shrunk by s (s = cells less the round's
-    steps after it) reads the coefficient planes and its state (the first w,
-    a later one t and t_prev, 2 planes each, and acc on the core) where its
-    windows reach, on the block shrunk by s - n_ops, and writes its state once
-    (t and t_prev on the block shrunk by s and acc; the last launch acc
-    only), and computes every cell of its tiles' shrinking windows, the
-    redundant cells included."""
-    win = lambda s: (ly + 2 * (cells - s)) * (lx + 2 * (cells - s))  # noqa: E731
-    by, bx = plan.tile
-    nbytes = ncells = 0
-    left = sum(plan.steps)
-    for i, n in enumerate(plan.steps):
-        left -= n
-        s = cells - left
-        first, last = i == 0, left == 0
-        state_in = 2 * win(s - n) if first else 4 * win(s - n) + 2 * ly * lx
-        state_out = 2 * ly * lx if last else 4 * win(s) + 2 * ly * lx
-        nbytes += (n_coef * win(s - n) + batch * (state_in + state_out)) * itemsize
-        tiles = math.ceil((ly + 2 * (cells - s)) / by) * math.ceil((lx + 2 * (cells - s)) / bx)
-        ncells += tiles * sum((by + 2 * n - 2 * j) * (bx + 2 * n - 2 * j) for j in range(1, n + 1))
+def vec_launch_cost(n_coef, tile, n, s, first, last, batch, ly, lx, cells, itemsize, key):
+    """``(bytes, flops)`` of one fused launch of the sharded vector engine
+    that runs ``n`` steps and ends on the block shrunk by ``s``: it reads the
+    coefficient planes and its state (the filter's first launch u and v, any
+    other t and t_prev, 2 planes each, and acc on the core) where its
+    windows reach, on the block shrunk by s - n, and writes its state once
+    (t and t_prev on the block shrunk by s and acc; the filter's last launch
+    acc only), and computes every cell of its tiles' shrinking windows, the
+    redundant cells included. Where the state comes from (an extended block
+    or the core and its strips) moves no byte."""
+    win = lambda s_: (ly + 2 * (cells - s_)) * (lx + 2 * (cells - s_))  # noqa: E731
+    by, bx = tile
+    state_in = 2 * win(s - n) if first else 4 * win(s - n) + 2 * ly * lx
+    state_out = 2 * ly * lx if last else 4 * win(s) + 2 * ly * lx
+    nbytes = (n_coef * win(s - n) + batch * (state_in + state_out)) * itemsize
+    tiles = math.ceil((ly + 2 * (cells - s)) / by) * math.ceil((lx + 2 * (cells - s)) / bx)
+    ncells = tiles * sum((by + 2 * n - 2 * j) * (bx + 2 * n - 2 * j) for j in range(1, n + 1))
     return nbytes, VEC_FLOPS_PER_CELL_STEP[key] * batch * ncells
+
+
+def vec_rounds_cost(n_coef, plans, batch, ly, lx, cells, itemsize, key):
+    """``(bytes, flops)`` of a filter as the sharded vector engine's rounds
+    run it, one fused plan a round: the sum of :func:`vec_launch_cost` over
+    every launch of every round."""
+    n_steps = sum(sum(pl.steps) for pl in plans)
+    nbytes = flops = done = 0
+    for pl in plans:
+        left = sum(pl.steps)
+        for n in pl.steps:
+            left -= n
+            b, f = vec_launch_cost(n_coef, pl.tile, n, cells - left, done == 0,
+                                   done + n == n_steps, batch, ly, lx, cells, itemsize, key)
+            nbytes, flops, done = nbytes + b, flops + f, done + n
+    return nbytes, flops
 
 
 # Each kernel's ``ptxas -v`` lines as this tree builds them, with the nvcc
@@ -989,6 +1010,8 @@ def main():
                 "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
                 "vec_local_fused_pass_bgrid": vec_local_fused_pass.launches[BGRID],
                 "vec_local_fused_pass_ctap": vec_local_fused_pass.launches[CTAP],
+                "vec_local_strip_pass_bgrid": vec_local_fused_pass.strip_launches[BGRID],
+                "vec_local_strip_pass_ctap": vec_local_fused_pass.strip_launches[CTAP],
                 "ring_pass": ring_pass.launches,
                 "ring_fused_pass": ring_fused_pass.launches,
                 "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
@@ -1005,6 +1028,7 @@ def main():
         vec_fused_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
+        vec_local_fused_pass.strip_launches = {BGRID: 0, CTAP: 0}
         ring_pass.launches = 0
         ring_fused_pass.launches = 0
         vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
@@ -2218,8 +2242,10 @@ def main():
         fused = all(pl.fused for pl in plans)
         if fused != want_fused:
             raise AssertionError(f"{label}: fused rounds {fused}, expected {want_fused}")
+        # a round's first launch reads strips, its later ones the extended carries
         launched = launched_since(
-            before, label, {f"vec_local_fused_pass_{key}": sum(len(pl.steps) for pl in plans)}
+            before, label, {f"vec_local_strip_pass_{key}": len(plans),
+                            f"vec_local_fused_pass_{key}": sum(len(pl.steps) - 1 for pl in plans)}
             if fused else {f"vec_local_pass_{key}": filt.n_steps})
         vlocal_step_path[op] += launched[f"vec_local_pass_{key}"]
         if not all(isinstance(g, DTensor) for g in got):
@@ -2337,11 +2363,15 @@ def main():
             f"plain version max abs {svfworst[op]['vs_tiled']:.3e}")
 
     # 13. sharded vector headlines: the phase-7 workloads through the mesh path
-    w_dev = torch.stack([u_dev, v_dev]).unsqueeze(0)  # (1, 2, ny, nx), as the rounds stack it
-    svec_results, svfused_results = {}, {}
+    from gcm_filters_tpu_torch.utils.round_split import round_parts
+
+    w_dev = torch.stack([u_dev, v_dev]).unsqueeze(0)  # (1, 2, ny, nx), the parent's stack
+    uv = (u_dev[None], v_dev[None])  # what the rounds read now, in place
+    svec_results, svfused_results, svstrip_results = {}, {}, {}
     for gname, op in vec_ops.items():
         key = "bgrid" if op == BGRID else "ctap"
         mine, step_mine = f"vec_local_fused_pass_{key}", f"vec_local_pass_{key}"
+        strip_mine = f"vec_local_strip_pass_{key}"
         kept = vec_kept[op]
         svhead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=GridType[gname],
                         grid_vars=kept["gv"], dtype=torch.float32, device=dev,
@@ -2361,15 +2391,18 @@ def main():
         ms_sv, host_sv = event_ms(lambda: svhead.apply_to_vector(u_dev, v_dev), chain,
                                   host=True)
         counts = counters()
-        sv_launches = counts.pop(mine)
+        sv_launches, sv_strip_launches = counts.pop(mine), counts.pop(strip_mine)
         sv_fallbacks = fallback_counts()
         log(f"sharded headline {ny}x{nx} float32 {gname} on a 1x1 mesh, n_steps {vn}, round "
-            f"plan tile {splan.tile} launches {splan.steps}: {sv_launches} {mine} launches over "
-            f"{applies} applies (first apply with operand set-up {first_s:.2f} s), other kernels "
-            f"{counts}, fallbacks {sv_fallbacks}")
-        if not splan.fused or sv_launches != len(splan.steps) * applies:
+            f"plan tile {splan.tile} launches {splan.steps}: {sv_strip_launches} {strip_mine} "
+            f"and {sv_launches} {mine} launches over {applies} applies (first apply with "
+            f"operand set-up {first_s:.2f} s), other kernels {counts}, fallbacks {sv_fallbacks}")
+        # the round's first launch reads the strips, its later ones the extended carries
+        if (not splan.fused or sv_strip_launches != applies
+                or sv_launches != (len(splan.steps) - 1) * applies):
             raise AssertionError(
-                f"expected {len(splan.steps) * applies} launches, saw {sv_launches}")
+                f"expected {applies} strip and {(len(splan.steps) - 1) * applies} extended-block "
+                f"launches, saw {sv_strip_launches} and {sv_launches}")
         if any(counts.values()):
             raise AssertionError(f"the sharded vector path launched another kernel: {counts}")
         if sv_fallbacks:
@@ -2408,16 +2441,29 @@ def main():
         plain_sv(u_dev, v_dev)
         ms_sv_plain = event_ms(lambda: plain_sv(u_dev, v_dev), 5)
 
-        # the exchange alone, the fused round alone and the chain of local
-        # steps alone, on the exchanged block
-        ms_vex = event_ms(lambda: halo.exchange_2d(w_dev, cells, local_axis, local_axis), chain)
+        # the apply's parts alone (utils/round_split.py): the stack and the
+        # extended block that the parent's rounds built, the strips that the
+        # rounds exchange now, and the rounds with their strips frozen; then
+        # the parent's round on the extended block alone, and the chain of
+        # local steps alone on it
+        sparts, sinfo = round_parts(svhead, u_dev, v_dev)
+        if not sinfo["rounds_alone_equal_apply"]:
+            raise AssertionError(f"{gname}: the rounds alone differ from the apply")
+        ms_vstack = event_ms(sparts["stack"], chain)
+        ms_vex = event_ms(sparts["exchange"], chain)
+        ms_vstrips = event_ms(sparts["strips"], chain)
+        ms_vround = event_ms(sparts["rounds_alone"], chain)
         we = halo.exchange_2d(w_dev, cells, local_axis, local_axis)
+        sstrips = halo.exchange_strips(uv, cells, local_axis, local_axis, stack_dim=1)
 
-        def run_round(pl, ops_, p_, we_, acc_, fn=vec_local_fused_pass, fill=None):
-            """The round's launches of ``fn`` as the plan ``pl`` splits it, on
-            the exchanged input ``we_``, as the rounds run them: the result in
-            ``acc_``. With ``fill`` every launch's t_out and t_prev_out start
-            filled with it."""
+        def run_round(pl, ops_, p_, we_, acc_, fn=vec_local_fused_pass, fill=None,
+                      strips_=None):
+            """The round's launches of ``fn`` as the plan ``pl`` splits it, as
+            the rounds run them: the result in ``acc_``. The first launch
+            reads ``strips_ = ((u, v), strips)`` where given (the apply's
+            route), else the exchanged input ``we_`` (the parent's). With
+            ``fill`` every launch's t_out and t_prev_out start filled with
+            it."""
             t_ = tp_ = None
             start, left = 0, vn
             for n_ops in pl.steps:
@@ -2425,19 +2471,62 @@ def main():
                 new_ = torch.empty_like if fill is None else (
                     lambda x: torch.full_like(x, fill))
                 outs = (None, None) if left == 0 else (new_(we_), new_(we_))
+                src = {}
+                if start == 0:
+                    src = dict(w=strips_[0], strips=strips_[1]) if strips_ else dict(w=we_)
                 fn(ops_, p_, start, n_ops, cells=cells, shrink=cells - left, tile=pl.tile,
-                   w=we_ if start == 0 else None, t=t_, t_prev=tp_, t_out=outs[0],
-                   t_prev_out=outs[1], acc=acc_)
+                   t=t_, t_prev=tp_, t_out=outs[0], t_prev_out=outs[1], acc=acc_, **src)
                 t_, tp_ = outs
                 start += n_ops
             return acc_
 
-        racc = torch.empty_like(w_dev)
-        round_alone = lambda: run_round(splan, lvops, lvp, we, racc)  # noqa: E731
-        round_alone()
-        ms_vround = event_ms(round_alone, chain)
+        racc, sacc = torch.empty_like(w_dev), torch.empty_like(w_dev)
+        ext_round = lambda: run_round(splan, lvops, lvp, we, racc)  # noqa: E731
+        ext_round()
+        ms_ext_round = event_ms(ext_round, chain)
+        run_round(splan, lvops, lvp, we, sacc, strips_=(uv, sstrips))
         for m, (comp, g) in enumerate((("u", su), ("v", sv))):
-            bitwise(f"{gname} the fused round alone {comp}", racc[0, m], g, "the sharded apply")
+            bitwise(f"{gname} the parent's round alone {comp}", racc[0, m], g,
+                    "the sharded apply")
+            bitwise(f"{gname} the round on strips {comp}", sacc[0, m], racc[0, m],
+                    "the parent's round on the extended block")
+
+        # the strip launch alone (the round's first): its carries and acc bit
+        # for bit equal to the parent's first launch on the extended block,
+        # its acc against its plain version (the carries out start as NaN:
+        # every version writes only the block shrunk by the launch's shrink)
+        n0, left0 = splan.steps[0], vn - splan.steps[0]
+
+        def launch_outs():
+            return ([None, None] if left0 == 0
+                    else [torch.full_like(we, float("nan")) for _ in range(2)],
+                    torch.empty_like(w_dev))
+
+        (s_out, s_acc), (e_out, e_acc), (p_out, p_acc) = (launch_outs() for _ in range(3))
+
+        def first_launch(fn=vec_local_fused_pass, strips_=True, outs_=s_out, acc_=s_acc):
+            src = dict(w=uv, strips=sstrips) if strips_ else dict(w=we)
+            fn(lvops, lvp, 0, n0, cells=cells, shrink=cells - left0, tile=splan.tile,
+               t_out=outs_[0], t_prev_out=outs_[1], acc=acc_, **src)
+
+        ext_first = lambda: first_launch(strips_=False, outs_=e_out, acc_=e_acc)  # noqa: E731
+        first_launch()
+        ext_first()
+        ms_strip = event_ms(first_launch, chain)
+        ms_ext_first = event_ms(ext_first, chain)
+        for name_, g_, w_ in zip(("t_out", "t_prev_out", "acc"), s_out + [s_acc],
+                                 e_out + [e_acc]):
+            if g_ is not None:
+                bitwise(f"{gname} strip launch {name_}", g_, w_,
+                        "the parent's first launch on the extended block")
+        first_launch(vec_local_fused_pass_reference, outs_=p_out, acc_=p_acc)
+        ms_strip_plain = event_ms(
+            lambda: first_launch(vec_local_fused_pass_reference, outs_=p_out, acc_=p_acc), 3)
+        strip_err = compare(f"{gname} strip launch acc", s_acc, p_acc, "float32")[0]
+        st_bytes, st_flops = vec_launch_cost(n_coef, splan.tile, n0, cells - left0, True,
+                                             left0 == 0, 1, ny, nx, cells, item, key)
+        stb_ms, stb_by = bound_ms(st_bytes, st_flops, "float32")
+        del s_out, s_acc, e_out, e_acc, p_out, p_acc
 
         vc = [torch.zeros_like(we), torch.zeros_like(we), torch.zeros_like(w_dev)]
 
@@ -2469,16 +2558,21 @@ def main():
         svb_ms, svb_by = bound_ms(sv_bytes, sv_flops, "float32")
         svfb_ms, svfb_by = bound_ms((n_coef + 4) * ny * nx * item,
                                     VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * vn, "float32")
-        sr_bytes, sr_flops = vec_round_cost(n_coef, splan, 1, ny, nx, cells, item, key)
+        sr_bytes, sr_flops = vec_rounds_cost(n_coef, [splan], 1, ny, nx, cells, item, key)
         srb_ms, srb_by = bound_ms(sr_bytes, sr_flops, "float32")
         log(f"sharded {gname} headline: {ms_sv:.4f} ms/apply fused (host enqueue {host_sv:.4f} "
             f"ms/apply) = {ny * nx * vn / (ms_sv * 1e-3):.4e} grid-point-steps/s on {smi}; bit "
             f"for bit equal to the local step chain, {ms_sv_steps:.4f} ms/apply in "
             f"{svstep_launches} launches (host enqueue {host_sv_steps:.4f})")
-        log(f"  halo exchange alone ({cells} cells, block {tuple(we.shape[-2:])}) {ms_vex:.4f} ms; "
-            f"the fused round alone ({splan.tile} {splan.steps}) {ms_vround:.4f} ms; the {vn} "
-            f"local steps alone {ms_vchain:.4f} ms (both bit for bit equal to the apply); "
-            f"unsharded fused path {vec_fused_results[op]['ms']:.4f} ms/apply")
+        log(f"  strips alone ({cells} cells) {ms_vstrips:.4f} ms; the fused round alone on "
+            f"strips ({splan.tile} {splan.steps}) {ms_vround:.4f} ms, its first launch "
+            f"{ms_strip:.4f} ms (on the extended block {ms_ext_first:.4f}, plain "
+            f"{ms_strip_plain:.4f}, max abs {strip_err:.3e}, bound {stb_ms:.4f} ms, {stb_by}); "
+            f"the parent's parts: stack {ms_vstack:.4f} ms, halo exchange (block "
+            f"{tuple(we.shape[-2:])}) {ms_vex:.4f} ms, round on the extended block "
+            f"{ms_ext_round:.4f} ms (bit for bit equal to the round on strips); the {vn} local "
+            f"steps alone {ms_vchain:.4f} ms; unsharded fused path "
+            f"{vec_fused_results[op]['ms']:.4f} ms/apply")
         log(f"  plan bound {srb_ms:.4f} ms ({sr_bytes / 1e9:.3f} GB, {sr_flops / 1e9:.2f} GFLOP "
             f"with the trapezoid's redundant cells, {srb_by}); whole-filter bound {svfb_ms:.4f} "
             f"ms; step chain's per-launch bound {svb_ms:.4f} ms ({sv_bytes / 1e9:.3f} GB, "
@@ -2491,23 +2585,25 @@ def main():
         for dt_, tag, reps in ((torch.float32, "float32", 10), (torch.float64, "float64", 5)):
             ops_, _, _, p_ = svfn.operands(ny, nx, dt_)
             we_ = we.to(dt_)
+            uv_ = tuple(x.to(dt_) for x in uv)
+            st_ = (uv_, halo.exchange_strips(uv_, cells, local_axis, local_axis, stack_dim=1))
             acc_ = torch.empty_like(w_dev, dtype=dt_)
             (pl_ref,) = svfn.plan(ny, nx, dt_)
-            ref_ = run_round(pl_ref, ops_, p_, we_, acc_).clone()
+            ref_ = run_round(pl_ref, ops_, p_, we_, acc_, strips_=st_).clone()
             isz = we_.element_size()
             for tl in vec_tiles(op, isz):
                 for cap in (11, 6, 4):
-                    st_ = _balanced(vn, cap)
-                    if vec_fused_shared_bytes(tl, max(st_), n_coef, isz) > SHARED_BYTES:
+                    split_ = _balanced(vn, cap)
+                    if vec_fused_shared_bytes(tl, max(split_), n_coef, isz) > SHARED_BYTES:
                         continue
-                    pl = FusedPlan(tl, max(st_), st_, True)
-                    k_ = f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
-                    run = lambda: run_round(pl, ops_, p_, we_, acc_)  # noqa: E731
+                    pl = FusedPlan(tl, max(split_), split_, True)
+                    k_ = f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, split_))}"
+                    run = lambda: run_round(pl, ops_, p_, we_, acc_, strips_=st_)  # noqa: E731
                     bitwise(f"{gname} round sweep {k_}", run(), ref_, "the planned round")
                     rsweep[k_] = event_ms(run, reps)
                     log(f"  round {k_}: {rsweep[k_]:.4f} ms; model cost "
-                        f"{_vec_pass_cost(op, tl, st_, isz):.2f} per cell")
-            del ops_, we_, acc_, ref_
+                        f"{_vec_pass_cost(op, tl, split_, isz):.2f} per cell")
+            del ops_, we_, uv_, st_, acc_, ref_
 
         # 14. each step kind of the windowed local kernel against its plain
         # version, at the headline's extended shape (buffers start at zero: a
@@ -2551,7 +2647,10 @@ def main():
         # launch of all 11 steps (split (a), where a tile holds it) in float32,
         # the float64 plan in float64; acc and every launch's carries out start
         # as NaN (a tile that a launch skipped would keep it)
+        # the round on strips too, against its plain version and bit for bit
+        # against the parent's round on the extended block
         lf_err = {"float32": 0.0, "float64": 0.0}
+        lstrip_err = {"float32": 0.0, "float64": 0.0}
         one = next(tl for tl in VEC_TILES[op]
                    if vec_fused_shared_bytes(tl, vn, n_coef, item) <= SHARED_BYTES)
         for tag, dt_, pl in (("float32", torch.float32, splan),
@@ -2559,15 +2658,70 @@ def main():
                              ("float64", torch.float64, svfn.plan(ny, nx, torch.float64)[0])):
             ops_, _, _, p_ = svfn.operands(ny, nx, dt_)
             we_ = we.to(dt_)
-            got_k, got_r = (run_round(pl, ops_, p_, we_,
-                                      torch.full_like(w_dev, float("nan"), dtype=dt_), fn,
-                                      fill=float("nan"))
-                            for fn in (vec_local_fused_pass, vec_local_fused_pass_reference))
-            lf_err[tag] = max(lf_err[tag], compare(f"{gname} fused round {pl.tile} {pl.steps} "
-                                                   f"{tag}", got_k, got_r, tag)[0])
-            del ops_, we_, got_k, got_r
+            uv_ = tuple(x.to(dt_) for x in uv)
+            st_ = (uv_, halo.exchange_strips(uv_, cells, local_axis, local_axis, stack_dim=1))
+            got_k, got_r, got_sk, got_sr = (
+                run_round(pl, ops_, p_, we_, torch.full_like(w_dev, float("nan"), dtype=dt_),
+                          fn, fill=float("nan"), strips_=sv_)
+                for sv_ in (None, st_)
+                for fn in (vec_local_fused_pass, vec_local_fused_pass_reference))
+            label_ = f"{gname} fused round {pl.tile} {pl.steps} {tag}"
+            lf_err[tag] = max(lf_err[tag], compare(label_, got_k, got_r, tag)[0])
+            lstrip_err[tag] = max(lstrip_err[tag], compare(label_ + " on strips", got_sk, got_sr,
+                                                           tag)[0])
+            bitwise(label_ + " on strips", got_sk, got_k, "the round on the extended block")
+            del ops_, we_, uv_, st_, got_k, got_r, got_sk, got_sr
         log(f"{gname} fused round vs plain at block {tuple(we.shape[-2:])}: max abs "
-            f"{lf_err['float32']:.3e} (float32), {lf_err['float64']:.3e} (float64)")
+            f"{lf_err['float32']:.3e} (float32), {lf_err['float64']:.3e} (float64); on strips "
+            f"{lstrip_err['float32']:.3e}, {lstrip_err['float64']:.3e}, bit for bit equal to the round "
+            f"on the extended block")
+
+        # 13c. the C-grid Taper through the mesh: 44 steps in three rounds,
+        # whose later rounds cut their strips from the carries' cores
+        taper = None
+        if op == CTAP:
+            tkw = dict(filter_scale=10.0, dx_min=0.9, filter_shape=FilterShape.TAPER,
+                       grid_type=GridType[gname], grid_vars=kept["gv"], dtype=torch.float32,
+                       device=dev)
+            kt = Filter(**tkw)
+            kt_out = kt.apply_to_vector(u_dev, v_dev)
+            ms_kt = event_ms(lambda: kt.apply_to_vector(u_dev, v_dev), 10)
+            stf = Filter(mesh=mesh, spatial_axes=axes, **tkw)
+            tcells, trounds = stf._vector_fn().operands(ny, nx, torch.float32)[1:3]
+            tplans = stf._vector_fn().plan(ny, nx, torch.float32)
+            reset_counters()
+            tsu, tsv = stf.apply_to_vector(u_dev, v_dev)
+            torch.cuda.synchronize()
+            launched_since({k: 0 for k in counters()}, "sharded TAPER " + gname, {
+                strip_mine: len(tplans), mine: sum(len(pl.steps) - 1 for pl in tplans)})
+            t_vs_k = max(bitwise(f"sharded TAPER {gname} {comp}", g.full_tensor(), w,
+                                 "the unsharded (fused) kernel path")
+                         for comp, g, w in zip("uv", (tsu, tsv), kt_out))
+            ms_st, host_st = event_ms(lambda: stf.apply_to_vector(u_dev, v_dev), 10, host=True)
+            tparts, tinfo = round_parts(stf, u_dev, v_dev)
+            if not tinfo["rounds_alone_equal_apply"]:
+                raise AssertionError(f"sharded TAPER {gname}: the rounds alone differ")
+            tsplit = {k + "_ms": event_ms(f, 5) for k, f in tparts.items() if k != "apply"}
+            tb_ms, tb_by = bound_ms(*vec_rounds_cost(n_coef, tplans, 1, ny, nx, tcells, item,
+                                                     key), "float32")
+            tfb_ms, _ = bound_ms((n_coef + 4) * ny * nx * item,
+                                 VEC_FLOPS_PER_CELL_STEP[key] * ny * nx * stf.n_steps,
+                                 "float32")
+            log(f"sharded TAPER {gname} {ny}x{nx} float32 on a 1x1 mesh, {stf.n_steps} steps "
+                f"in rounds {trounds} (cells {tcells}), plans "
+                f"{[(pl.tile, pl.steps) for pl in tplans]}: {ms_st:.4f} ms/apply (host enqueue "
+                f"{host_st:.4f}), bit for bit equal to the unsharded {ms_kt:.4f} ms/apply; "
+                + ", ".join(f"{k} {v_:.4f}" for k, v_ in tsplit.items())
+                + f"; plan bound {tb_ms:.4f} ms ({tb_by}), whole-filter bound {tfb_ms:.4f} ms")
+            taper = dict({"ms": ms_st, "host_enqueue_ms": host_st, "n_steps": stf.n_steps,
+                          "rounds": list(trounds), "cells": tcells,
+                          "plans": [[list(pl.tile), list(pl.steps)] for pl in tplans],
+                          "launches_per_apply": len(tplans) + sum(len(pl.steps) - 1
+                                                                   for pl in tplans),
+                          "strip_launches_per_apply": len(tplans),
+                          "vs_unsharded_kernel_max_abs": t_vs_k, "unsharded_ms": ms_kt,
+                          "plan_bound_ms": tb_ms, "filter_bound_ms": tfb_ms}, **tsplit)
+            del kt, kt_out, stf, tsu, tsv, tparts
 
         worst_sv = svworst[op]
         replaces = ("gcm_filters_tpu/parallel/sharded.py:908 (gcm_filters_tpu/ops/pallas/"
@@ -2607,7 +2761,8 @@ def main():
             "source": "gcm_filters_tpu_torch/csrc/vec_pass.cu",
             "replaces": replaces,
             "launches": sv_launches,
-            "launches_per_apply": len(splan.steps),
+            "launches_per_apply": len(splan.steps) - 1,
+            "strip_launches_per_apply": 1,
             "max_abs_err": max(lf_err["float32"], lf_err["float64"], worst_sv["float32"][0],
                                worst_sv["float64"][0], svfworst[op]["vs_tiled"]),
             "vs_step_chain_max_abs": sv_vs_steps,
@@ -2618,23 +2773,49 @@ def main():
             "bound_ms": svfb_ms,
             "bound_by": svfb_by,
             "library_ms": None,
-            "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + "
+            "unit": f"one sharded headline apply on a 1x1 mesh = the halo strips + "
                     f"{len(splan.steps)} launch(es) of {splan.steps} steps on "
-                    f"{splan.tile[0]}x{splan.tile[1]} tiles, {ny}x{nx} float32 {gname}, block "
-                    f"{block}",
+                    f"{splan.tile[0]}x{splan.tile[1]} tiles, the first on strips, "
+                    f"{ny}x{nx} float32 {gname}, block {block}",
             "bytes_moved": sr_bytes,
             "plan_bound_ms": srb_ms,
             "filter_bound_ms": svfb_ms,
             "step_chain_ms": ms_sv_steps,
-            "exchange_ms": ms_vex,
+            "strips_ms": ms_vstrips,
             "round_alone_ms": ms_vround,
+            "stack_ms": ms_vstack,
+            "exchange_ms": ms_vex,
+            "extended_round_alone_ms": ms_ext_round,
             "steps_alone_ms": ms_vchain,
             "unsharded_ms": vec_fused_results[op]["ms"],
             "host_enqueue_ms": host_sv,
             "round_sweep_ms": rsweep,
+            "taper": taper,
             "ptxas": vec_tile_ptxas("vec_pass", "vec_fused_kernel", op, "RoundGeo"),
         }
-        del we, racc, plain_sv, steps_sv, svhead, svfn, lvops, su, sv
+        svstrip_results[op] = {
+            "name": strip_mine,
+            "route": "cuda",
+            "source": "gcm_filters_tpu_torch/csrc/vec_pass.cu",
+            "replaces": replaces,
+            "launches": sv_strip_launches,
+            "launches_per_apply": 1,
+            "max_abs_err": max(strip_err, lstrip_err["float32"], lstrip_err["float64"]),
+            "vs_extended_round_max_abs": 0.0,
+            "ms": ms_strip,
+            "plain_ms": ms_strip_plain,
+            "bound_ms": stb_ms,
+            "bound_by": stb_by,
+            "library_ms": None,
+            "unit": f"one launch, the round's first: {n0} steps on {splan.tile[0]}x"
+                    f"{splan.tile[1]} tiles reading u and v in place and their halo strips, "
+                    f"{ny}x{nx} float32 {gname}",
+            "bytes_moved": st_bytes,
+            "extended_first_launch_ms": ms_ext_first,
+            "strips_ms": ms_vstrips,
+            "ptxas": vec_tile_ptxas("vec_pass", "vec_strip_kernel", op),
+        }
+        del we, racc, sacc, sparts, sstrips, plain_sv, steps_sv, svhead, svfn, lvops, su, sv
     dist.destroy_process_group()
     store_dir.cleanup()
 
@@ -3604,7 +3785,7 @@ def main():
         "host_enqueue_ms": host_sharded,
         "ptxas": scalar_tile_ptxas("local_pass", "pass_kernel"),
     }, svec_results[BGRID], svec_results[CTAP], svfused_results[BGRID],
-        svfused_results[CTAP]] + ring_results
+        svfused_results[CTAP], svstrip_results[BGRID], svstrip_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": card, "count": torch.cuda.device_count()}}), flush=True)

@@ -2,7 +2,8 @@
 // periodic entries on a whole field (vec_pass_f32/f64) and windowed local
 // entries on a halo-extended shard block (vec_local_pass_f32/f64, below); and
 // the fused passes of several steps per launch on either (vec_fused_pass_*,
-// vec_local_fused_pass_*, on the tiles of vec_tile.cuh).
+// vec_local_fused_pass_*, and a round's first launch on halo strips,
+// vec_local_strip_pass_*, on the tiles of vec_tile.cuh).
 //
 // The periodic entries replace the two TPU kernels built by
 // gcm_filters_tpu/ops/pallas/vec_pass.py::_build_coupled_pass (kernel body
@@ -116,6 +117,17 @@
 // moves the n_coef coefficient planes and 2 (first) or 6
 // (later) state planes of the window in, 6 (or, last, 2) out, on a block
 // (1 + 2(c-s)/ly)(1 + 2(c-s)/lx) times the core.
+//
+// Strip entries (vec_local_strip_pass_f32/f64): a round's first launch with
+// no extended copy of the state. The engine exchanges only the four halo
+// strips (parallel/halo.py::exchange_strips: south and north c x (lx+2c)
+// with the corners, west and east ly x c), and the launch reads each window
+// cell's state where it lies (vec_tile.cuh, StripGeo): the core planes in
+// place (u and v on the filter's first launch, the cores of the previous
+// round's extended carries later, one row pitch and batch stride) or a
+// strip; the coefficients stay on the extended planes. Everything else is
+// the fused local entry's, so each result equals it bit for bit. The
+// round's later launches keep the fused local entry.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 
@@ -301,7 +313,7 @@ VEC_LOCAL_PASS_ENTRY(vec_local_pass_f64, double)
                                                 t, t_prev, acc_in, t_out, t_prev_out,     \
                                                 acc_out, coef);                           \
     const WrapGeo g{ny, nx, 0};                                                           \
-    return launch_vec_fused<T>(op, zap, a, g, ny, nx, batch,                              \
+    return launch_vec_fused<T>(op, zap, a, a, g, ny, nx, batch,                              \
                                static_cast<cudaStream_t>(stream));                        \
   }
 
@@ -329,12 +341,54 @@ VEC_FUSED_ENTRY(vec_fused_pass_f64, double)
                                                 t, t_prev, acc_in, t_out, t_prev_out,    \
                                                 acc_out, coef);                          \
     const RoundGeo g{ly, lx, cells, shrink};                                             \
-    return launch_vec_fused<T>(op, zap, a, g, g.rows(), g.cols(), batch,                 \
+    return launch_vec_fused<T>(op, zap, a, a, g, g.rows(), g.cols(), batch,                 \
                                static_cast<cudaStream_t>(stream));                       \
   }
 
 VEC_LOCAL_FUSED_ENTRY(vec_local_fused_pass_f32, float)
 VEC_LOCAL_FUSED_ENTRY(vec_local_fused_pass_f64, double)
+
+// A round's first launch on strips: VEC_LOCAL_FUSED_ENTRY's launch, whose
+// state is read in place from the core planes (own_u, own_v of T_k, or of w
+// on the filter's first launch; own_pu, own_pv of T_{k-1}, null on a first
+// launch; core cell (0, 0) of batch entry 0, one batch stride and row pitch)
+// and from the halo strips (south, north: (batch, 2, cells, lx+2*cells);
+// west, east: (batch, 2, ly, cells); T_{k-1}'s strips follow T_k's in the
+// same tensors), with no extended copy of the state. The launch must not
+// write what it reads.
+#define VEC_LOCAL_STRIP_ENTRY(NAME, T)                                                    \
+  extern "C" int NAME(int op, int batch, int ly, int lx, int cells, int shrink, int by,  \
+                      int bx, int n_ops, int first, int last, const double* pa,           \
+                      double p_b, const T* own_u, const T* own_v, const T* own_pu,        \
+                      const T* own_pv, long long own_batch, long long own_pitch,          \
+                      const T* south, const T* north, const T* west, const T* east,       \
+                      const T* acc_in, T* t_out, T* t_prev_out, T* acc_out,               \
+                      const T* coef, int zap, void* stream) {                             \
+    cudaGetLastError();                                                                   \
+    if (ly < 1 || lx < 1 || n_ops < 1 || shrink < n_ops || shrink > cells ||              \
+        cells > ly || cells > lx || (!first && (!own_pu || !own_pv)))                     \
+      return (int)cudaErrorInvalidValue;                                                  \
+    const VecFusedArgs<T> a = vec_fused_args<T>(by, bx, n_ops, first, last, pa, p_b,     \
+                                                nullptr, nullptr, nullptr, acc_in, t_out, \
+                                                t_prev_out, acc_out, coef);               \
+    const int64_t row = (int64_t)batch * 2 * cells * (lx + 2 * cells);                    \
+    const int64_t col = (int64_t)batch * 2 * ly * cells;                                  \
+    StripIO<T> io;                                                                        \
+    io.own[0][0] = own_u; io.own[0][1] = own_v;                                           \
+    io.own[1][0] = own_pu; io.own[1][1] = own_pv;                                         \
+    io.strip[0][0] = south; io.strip[0][1] = north;                                       \
+    io.strip[0][2] = west; io.strip[0][3] = east;                                         \
+    io.strip[1][0] = south + row; io.strip[1][1] = north + row;                           \
+    io.strip[1][2] = west + col; io.strip[1][3] = east + col;                             \
+    io.coef = coef; io.acc_in = acc_in;                                                   \
+    io.t_out = t_out; io.t_prev_out = t_prev_out; io.acc_out = acc_out;                   \
+    const StripGeo g{{ly, lx, cells, shrink}, own_batch, own_pitch};                      \
+    return launch_vec_fused<T>(op, zap, a, io, g, g.rows(), g.cols(), batch,              \
+                               static_cast<cudaStream_t>(stream));                        \
+  }
+
+VEC_LOCAL_STRIP_ENTRY(vec_local_strip_pass_f32, float)
+VEC_LOCAL_STRIP_ENTRY(vec_local_strip_pass_f64, double)
 
 extern "C" const char* vec_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

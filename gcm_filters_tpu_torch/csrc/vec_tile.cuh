@@ -33,9 +33,13 @@
 // no fold) for the whole periodic field, RoundGeo (below) for the fused
 // local round of the sharded engine (entries vec_local_fused_pass_f32/f64),
 // whose window comes from the halo-extended shard block instead of a wrap,
-// and RingGeo (cheb_tile.cuh, no fold) for a y-shard of the ring (entries
-// vec_ring_fused_pass_f32/f64 in ring_pass.cu), whose window rows past the
-// shard's edges are halo rows that the neighbours' sends fill. `vec_fused_tile`
+// StripGeo (below), a round's first launch (entries
+// vec_local_strip_pass_f32/f64, vec_strip_kernel), whose window state comes
+// from the shard's core planes in place and four halo strips instead of an
+// extended block, and RingGeo (cheb_tile.cuh, no fold) for a y-shard of the
+// ring (entries vec_ring_fused_pass_f32/f64 in ring_pass.cu), whose window
+// rows past the shard's edges are halo rows that the neighbours' sends
+// fill. `vec_fused_tile`
 // is one tile's whole pass, with the planes (`io`) and the tile's origin as
 // arguments: `vec_fused_kernel` runs it for the tile of its blockIdx. The
 // ring kernel runs its parts, with a flag wait and vec_halo_load between the
@@ -70,6 +74,8 @@
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num.
 #pragma once
+
+#include <type_traits>
 
 #include "cheb_tile.cuh"  // the geometries, FUSED_THREADS, MAX_SHARED, cp_async, Quot
 #include "vec_step.cuh"
@@ -109,6 +115,58 @@ __device__ __forceinline__ bool has_acc(const RoundGeo& g, int gy, int gx) {
 }
 __device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true; }
 
+// A round's first launch on strips (entries vec_local_strip_pass_f32/f64):
+// RoundGeo's block, own region and coordinates, with no extended copy of the
+// state. The state of a window cell lies where the exchange left it: the
+// core's own planes, read in place (the caller's u and v on round 0, the
+// cores of the previous round's carries later), or one of the four halo
+// strips that halo.exchange_strips returns, south and north (c, lx+2c) with
+// the corners, west and east (ly, c), each (batch, 2, rows, cols) a carry.
+// The coefficients stay on the extended planes (in_index); the carries out
+// and acc are RoundGeo's.
+struct StripGeo : RoundGeo {
+  int64_t own_batch, own_pitch;  // of the own planes: batch stride, row pitch
+};
+
+// Where the state of extended cell (r, cc) of batch entry z lies: strip s (0
+// south, 1 north, 2 west, 3 east) at `off` for component u and off + plane
+// for v; with s = -1 the own planes at `off`.
+struct StripCell {
+  int s;
+  int64_t off, plane;
+};
+
+__device__ __forceinline__ StripCell strip_cell(const StripGeo g, int r, int cc, unsigned z) {
+  const int c = g.c, ex = g.lx + 2 * c;
+  const int64_t e = 2 * (int64_t)z;  // the entry's u plane of a strip
+  if (r < c) return {0, (e * c + r) * ex + cc, (int64_t)c * ex};
+  if (r >= c + g.ly) return {1, (e * c + (r - c - g.ly)) * ex + cc, (int64_t)c * ex};
+  if (cc < c) return {2, (e * g.ly + (r - c)) * c + cc, (int64_t)g.ly * c};
+  if (cc >= c + g.lx) return {3, (e * g.ly + (r - c)) * c + (cc - c - g.lx), (int64_t)g.ly * c};
+  return {-1, z * g.own_batch + (r - c) * g.own_pitch + (cc - c), 0};
+}
+
+// The planes of a launch on strips, the IO of vec_strip_kernel: the state's
+// sources by carry, [0] T_k (w on the filter's first launch), [1] T_{k-1}
+// (unused on a first launch), then the planes of VecFusedArgs that the tile
+// reads and writes.
+template <typename T>
+struct StripIO {
+  const T* own[2][2];    // [carry][component]: core cell (0, 0) of batch entry 0
+  const T* strip[2][4];  // [carry][south, north, west, east]
+  const T* coef;
+  const T* acc_in;
+  T* t_out;
+  T* t_prev_out;
+  T* acc_out;
+};
+
+template <typename T>
+__device__ __forceinline__ const T* strip_src(const StripIO<T>& io, const StripCell& s,
+                                              int carry, int comp) {
+  return s.s < 0 ? io.own[carry][comp] + s.off : io.strip[carry][s.s] + s.off + comp * s.plane;
+}
+
 // The window's loads go into shared memory by cp.async (cp_async of
 // cheb_tile.cuh), except the state of a ring shard's halo rows
 // (StateAsync<RingGeo> is false): the sends of the same launch write those
@@ -118,6 +176,12 @@ __device__ __forceinline__ bool has_acc(const RingGeo&, int, int) { return true;
 // the tiles write the other carry pair). That a .ca copy of an own row may
 // bring into L1 a line that also holds the end of a halo row, still stale
 // while the send is on its way, is why no halo cell is ever read through L1.
+// On strips (StripGeo) all the state goes by cp.async: no block of the
+// launch writes the own planes or the strips (the tiles write the two fresh
+// extended carries out, which alias neither; the wrapper refuses a launch
+// whose outputs share storage with what it reads), and nothing else on the
+// stream runs during the launch, so no line a .ca copy brings into L1 can
+// be stale.
 
 template <typename T>
 struct VecFusedArgs {
@@ -358,6 +422,55 @@ __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const 
   }
 }
 
+// The window's copies on a round's first launch (StripGeo, StripIO): as
+// vec_window_load's, but a window cell's state comes from where strip_cell
+// finds it, the own planes or a strip, never from an extended block. The
+// coefficient and acc copies repeat vec_window_load's rather than share a
+// helper with it, so the kernels that inline it keep their code and their
+// recorded ptxas -v lines.
+template <typename T, typename OP>
+__device__ __forceinline__ void vec_strip_window_load(const VecFusedArgs<T>& a,
+                                                      const StripIO<T>& io, const StripGeo geo,
+                                                      T* sm, int y0, int x0, unsigned z) {
+  constexpr int NC = OP::N_COEF;
+  const int H = a.n_ops;
+  const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+  const VecPlanes pl = vec_planes(wx, wa, NC);
+  const int64_t P = geo.in_plane();
+  const Quot per_row(wx);
+  for (int k = threadIdx.x; k < wa; k += blockDim.x) {
+    const int r = per_row(k), q = k - r * wx;
+    const int er = geo.row(y0 - H + r), ec = geo.col(x0 - H + q, false);
+    const int64_t kk = geo.in_index(er, ec);
+#pragma unroll
+    for (int m = 0; m < NC; ++m) cp_async(sm + pl.coef + k * NC + m, io.coef + m * P + kk);
+    const StripCell cell = strip_cell(geo, er, ec, z);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) cp_async(sm + c * wa + k, strip_src(io, cell, 0, c));
+    if (!a.first) {
+#pragma unroll
+      for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, strip_src(io, cell, 1, c));
+    }
+  }
+  if (!a.first) {
+    const int own_plane = a.by * a.bx;
+    const int64_t PA = geo.own_plane();
+    const int64_t b_acc = (int64_t)z * 2 * PA;
+    const int ny = geo.rows(), nx = geo.cols();
+    for (int i = threadIdx.x; i < own_plane; i += blockDim.x) {
+      const int gy = y0 + i / a.bx, gx = x0 + i % a.bx;
+#pragma unroll
+      for (int c = 0; c < 2; ++c) {
+        T* const dst = sm + pl.acc + c * own_plane + i;
+        if (gy < ny && gx < nx && has_acc(geo, gy, gx))
+          cp_async(dst, io.acc_in + b_acc + c * PA + geo.own_index(gy, gx));
+        else
+          *dst = T(0);
+      }
+    }
+  }
+}
+
 // The state of the window rows outside a ring shard's own rows [0, ly)
 // (RingGeo, where StateAsync is false; nothing elsewhere), after the wait for
 // the flags of those rows: through registers past L1 (__ldcg), U
@@ -495,25 +608,53 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_fused_kernel(const VecFused
   vec_fused_tile<T, OP, ZAP>(a, a, geo, GridOrigin{});
 }
 
-template <typename T, typename OP, int ZAP, class GEO>
-int launch_vec_mode(const VecFusedArgs<T>& a, const GEO& g, dim3 grid, size_t bytes,
-                    cudaStream_t st) {
-  if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        vec_fused_kernel<T, OP, ZAP, GEO>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)bytes);
-    if (err != cudaSuccess) return (int)err;
+// A round's first launch on strips: vec_fused_tile's load, wait and run,
+// the load from the own planes and the strips.
+template <typename T, typename OP, int ZAP>
+__global__ void __launch_bounds__(FUSED_THREADS) vec_strip_kernel(const VecFusedArgs<T> a,
+                                                                   const StripIO<T> io,
+                                                                   const StripGeo geo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const GridOrigin org;
+  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
+  vec_strip_window_load<T, OP>(a, io, geo, sm, y0, x0, org.z());
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  vec_window_run<T, OP, ZAP>(a, io, geo, sm, y0, x0, org.z());
+}
+
+// Let `kernel` take `bytes` of dynamic shared memory.
+template <class K>
+int allow_shared(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)bytes);
+}
+
+// The kernel of a launch: vec_strip_kernel on strips (`io` a StripIO), else
+// vec_fused_kernel, whose planes are the VecFusedArgs themselves.
+template <typename T, typename OP, int ZAP, class GEO, class IO>
+int launch_vec_mode(const VecFusedArgs<T>& a, const IO& io, const GEO& g, dim3 grid,
+                    size_t bytes, cudaStream_t st) {
+  if constexpr (std::is_same<GEO, StripGeo>::value) {
+    if (const int err = allow_shared(vec_strip_kernel<T, OP, ZAP>, bytes)) return err;
+    vec_strip_kernel<T, OP, ZAP><<<grid, FUSED_THREADS, bytes, st>>>(a, io, g);
+  } else {
+    if (const int err = allow_shared(vec_fused_kernel<T, OP, ZAP, GEO>, bytes)) return err;
+    vec_fused_kernel<T, OP, ZAP, GEO><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   }
-  vec_fused_kernel<T, OP, ZAP, GEO><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   return (int)cudaGetLastError();
 }
 
 // Launch one fused vector pass over the own domain of `g` (rows x cols
 // cells), tiles of by x bx, one block per tile, with the kernel compiled for
-// the contraction and for zap.
-template <typename T, class GEO>
-int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const GEO& g, int rows,
-                     int cols, int batch, cudaStream_t st) {
+// the contraction and for zap; `io` the planes (the VecFusedArgs, or a
+// StripIO on strips).
+template <typename T, class GEO, class IO>
+int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const IO& io, const GEO& g,
+                     int rows, int cols, int batch, cudaStream_t st) {
   if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
   if (rows < 1 || cols < 1 || a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 ||
       batch < 1 || batch > 65535)
@@ -524,10 +665,10 @@ int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const GEO& g, in
   const dim3 grid((cols + a.bx - 1) / a.bx, (rows + a.by - 1) / a.by, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (op == BGRID)
-    return zap ? launch_vec_mode<T, BGridLap, 1>(a, g, grid, bytes, st)
-               : launch_vec_mode<T, BGridLap, 0>(a, g, grid, bytes, st);
-  return zap ? launch_vec_mode<T, CTapLap, 1>(a, g, grid, bytes, st)
-             : launch_vec_mode<T, CTapLap, 0>(a, g, grid, bytes, st);
+    return zap ? launch_vec_mode<T, BGridLap, 1>(a, io, g, grid, bytes, st)
+               : launch_vec_mode<T, BGridLap, 0>(a, io, g, grid, bytes, st);
+  return zap ? launch_vec_mode<T, CTapLap, 1>(a, io, g, grid, bytes, st)
+             : launch_vec_mode<T, CTapLap, 0>(a, io, g, grid, bytes, st);
 }
 
 // Fill the fields both fused entries pass the same way.

@@ -30,12 +30,18 @@ pre-scaled by ``-2*lap_scale``.
 :func:`vec_local_fused_pass` runs a whole round, or a part of one, in one
 launch on the shared-memory tiles of ``csrc/vec_tile.cuh`` (entries
 ``vec_local_fused_pass_f32/f64`` of ``csrc/vec_pass.cu``): the counterpart of
-the JAX sharded engine's one coupled Pallas call per round.
-:func:`vec_local_fused_pass_reference` is its plain version (the same steps
-as a chain of :func:`vec_local_pass_reference`, so the two routes give the
-same bits), :func:`vec_local_fused_pass_tiled_reference` the kernel's tile
-decomposition in torch, and :func:`plan_vec_local_rounds` the planner: the
-tile and the split of each round into launches, and the static predicate.
+the JAX sharded engine's one coupled Pallas call per round. A round's first
+launch takes its state as the core planes and their four halo strips
+(:func:`strip_state`, ``halo.exchange_strips``) and runs the strip entry
+``vec_local_strip_pass_f32/f64``, which reads each window cell where it lies
+(:func:`strip_index`), so the engine builds no extended block of the state;
+the round's later launches read the extended carries the launch before
+wrote. :func:`vec_local_fused_pass_reference` is its plain version (the same
+steps as a chain of :func:`vec_local_pass_reference`, so the two routes give
+the same bits), :func:`vec_local_fused_pass_tiled_reference` the kernel's
+tile decomposition in torch, and :func:`plan_vec_local_rounds` the planner:
+the tile and the split of each round into launches, and the static
+predicate.
 """
 from __future__ import annotations
 
@@ -45,6 +51,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...parallel.halo import Strips
 from ..ctaps import CTAPS
 from ..stencil import BGRID_DIFF
 from .cheb_pass import (
@@ -276,12 +283,87 @@ def plan_vec_local_rounds(rounds, ly: int, lx: int, dtype: torch.dtype,
     return tuple(_round_plan(int(n), int(ly), int(lx), itemsize, int(op)) for n in rounds)
 
 
+# -- a round's first launch on the core and its four halo strips --------------
+
+# sources of a window cell's state on a round's first launch (strip_cell of vec_tile.cuh)
+OWN, SOUTH, NORTH, WEST, EAST = range(5)
+
+
+def strip_index(r: Tensor, c: Tensor, cells: int, ly: int, lx: int):
+    """``(source, row, column)`` of cell ``(r, c)`` of the extended block
+    ``(ly+2*cells, lx+2*cells)`` (integer tensors, broadcast), as
+    ``strip_cell`` of ``csrc/vec_tile.cuh`` maps it on a round's first
+    launch: rows below the core come from the south strip and rows above it
+    from the north strip (``(cells, lx+2*cells)`` each, corners included),
+    the other rows' columns left of the core from the west strip and right
+    of it from the east strip (``(ly, cells)`` each), the core from the own
+    planes."""
+    k = cells
+    south, north = r < k, r >= k + ly
+    mid = ~(south | north)
+    west, east = mid & (c < k), mid & (c >= k + lx)
+    src = torch.where(south, SOUTH, torch.where(north, NORTH, torch.where(
+        west, WEST, torch.where(east, EAST, OWN))))
+    row = torch.where(south, r, torch.where(north, r - k - ly, r - k))
+    col = torch.where(south | north | west, c, torch.where(east, c - k - lx, c - k))
+    return src, row, col
+
+
+def _strip_cut(own, s: Strips, ridx: Tensor, cidx: Tensor, cells: int) -> Tensor:
+    """The ``(batch, 2, len(ridx), len(cidx))`` state of extended rows
+    ``ridx`` and columns ``cidx``, cut from the own planes ``own = (u, v)``
+    and the strips ``s`` of one carry by :func:`strip_index`."""
+    ly, lx = own[0].shape[-2:]
+    src, row, col = strip_index(ridx[:, None], cidx[None, :], cells, ly, lx)
+
+    def take(x):
+        return x[..., row.clamp(0, x.shape[-2] - 1), col.clamp(0, x.shape[-1] - 1)]
+
+    out = torch.stack([take(x) for x in own], 1)
+    for k, x in ((SOUTH, s.south), (NORTH, s.north), (WEST, s.west), (EAST, s.east)):
+        out = torch.where(src == k, take(x), out)
+    return out
+
+
+def strip_state(first: bool, cells: int, w, t, t_prev, strips: Strips):
+    """The state of a round's first launch as ``((own, strips), ...)``, one
+    pair a carry: ``own`` the carry's (u, v) core planes, ``(batch, ly, lx)``
+    each, ``strips`` its :class:`~..parallel.halo.Strips`.
+
+    The filter's first launch reads ``w = (u, v)``, the caller's planes, and
+    strips of ``(batch, 2)`` leading dims; a later round's first launch reads
+    ``t`` and ``t_prev``, core-shaped ``(batch, 2, ly, lx)`` (the cores of
+    the previous round's carries, views of them in place), and strips of
+    ``(2, batch, 2)`` leading dims, ``t``'s at index 0 and ``t_prev``'s at 1:
+    what :func:`~..parallel.halo.exchange_strips` returns for ``(u, v)``
+    stacked along dim 1 and for ``(t, t_prev)`` stacked along dim 0."""
+    if not isinstance(strips, Strips):
+        raise TypeError(f"strips must be halo.Strips, got {type(strips).__name__}")
+    if first:
+        if w is None or len(w) != 2 or t is not None or t_prev is not None:
+            raise ValueError("the filter's first launch on strips takes w = (u, v) only")
+        pairs = ((tuple(w), strips),)
+    else:
+        if t is None or t_prev is None or w is not None:
+            raise ValueError("a later round's first launch on strips takes t and t_prev only")
+        pairs = tuple((x.unbind(1), Strips(*(a[i] for a in strips)))
+                      for i, x in enumerate((t, t_prev)))
+    for own, s in pairs:
+        batch, ly, lx = own[0].shape
+        want = ((batch, 2, cells, lx + 2 * cells),) * 2 + ((batch, 2, ly, cells),) * 2
+        if any(x.shape != (batch, ly, lx) for x in own) or any(
+                tuple(x.shape) != sh for x, sh in zip(s, want)):
+            raise ValueError(f"strips {[tuple(x.shape) for x in s]} do not fit planes "
+                             f"{[tuple(x.shape) for x in own]} with a halo of {cells}")
+    return pairs
+
+
 def vec_local_fused_pass_reference(
     ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int,
     shrink: Optional[int] = None, tile=None,
-    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    w=None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
-    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor, strips: Optional[Strips] = None,
 ) -> None:
     """The plain PyTorch version of one fused launch, on any device: steps
     ``start+1 .. start+n_ops`` of the filter as a chain of
@@ -298,8 +380,17 @@ def vec_local_fused_pass_reference(
     filter leaves the result in ``acc``; any other writes ``acc`` and the
     carries on the block shrunk by ``shrink`` into ``t_out`` and
     ``t_prev_out`` (nothing outside it). The inputs are not written.
+
+    With ``strips`` (a round's first launch, :func:`strip_state`), the state
+    is the core and its halo strips: this version assembles the extended
+    blocks from them and runs as above.
     """
     first, last = _kinds(p, start, n_ops)
+    if strips is not None:
+        pairs = strip_state(first, cells, w, t, t_prev, strips)
+        ext = [torch.cat([s.south, torch.cat([s.west, torch.stack(own, 1), s.east], -1),
+                          s.north], -2) for own, s in pairs]
+        w, t, t_prev = (ext[0], None, None) if first else (None, ext[0], ext[1])
     shrink = cells if shrink is None else shrink
     if not 1 <= n_ops <= shrink <= cells:
         raise ValueError(f"need 1 <= n_ops <= shrink <= cells, got n_ops {n_ops}, "
@@ -329,9 +420,9 @@ def vec_local_fused_pass_reference(
 def vec_local_fused_pass_tiled_reference(
     ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int, tile,
     shrink: Optional[int] = None,
-    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    w=None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
-    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor, strips: Optional[Strips] = None,
 ) -> None:
     """One fused launch computed as the kernel decomposes it, in torch.
 
@@ -344,9 +435,13 @@ def vec_local_fused_pass_tiled_reference(
     plain version (each cell in its order of summation); keep the own cells
     of the carries, and acc of the own cells that lie in the core only. Same
     arguments and outputs as :func:`vec_local_fused_pass_reference`, so the
-    two are equal bit for bit wherever the decomposition is right.
+    two are equal bit for bit wherever the decomposition is right. With
+    ``strips`` each window's state is cut from the own planes and the strips
+    by the kernel's index map (:func:`strip_index`), never from an extended
+    block.
     """
     first, last = _kinds(p, start, n_ops)
+    pairs = None if strips is None else strip_state(first, cells, w, t, t_prev, strips)
     shrink = cells if shrink is None else shrink
     by, bx = tile
     H = n_ops
@@ -367,11 +462,12 @@ def vec_local_fused_pass_tiled_reference(
             cidx = (torch.arange(x0 - H, x0 + bx + H, device=dev) + shrink).clamp(0, ex - 1)
             cut = lambda x: x[..., ridx[:, None], cidx[None, :]]  # noqa: E731
             wops = VecPassOperands(ops.op, cut(ops.coef), ops.zap)
-            if first:
-                cur = cut(w)
-                prev = torch.empty_like(cur)
+            if pairs is not None:
+                state = [_strip_cut(*pair, ridx, cidx, cells) for pair in pairs]
             else:
-                cur, prev = cut(t), cut(t_prev)
+                state = [cut(w)] if first else [cut(t), cut(t_prev)]
+            cur = state[0]
+            prev = torch.empty_like(cur) if first else state[1]
             wy, wx = cur.shape[-2:]
             ox = min(bx, cols - x0)
             cx = (max(x0, margin), min(x0 + ox, margin + lx))
@@ -422,6 +518,16 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
 )
+_STRIP_ARGTYPES = (
+    [ctypes.c_int] * 11           # op, batch, ly, lx, cells, shrink, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 4       # own planes: u, v of T_k (w), then of T_{k-1}
+    + [ctypes.c_longlong] * 2     # their batch stride and row pitch
+    + [ctypes.c_void_p] * 4       # strips: south, north, west, east
+    + [ctypes.c_void_p] * 5       # acc_in, t_out, t_prev_out, acc_out, coef
+    + [ctypes.c_int]              # zap
+    + [ctypes.c_void_p]           # stream
+)
 
 
 def _fused_library():
@@ -430,11 +536,43 @@ def _fused_library():
         for fn in (lib.vec_local_fused_pass_f32, lib.vec_local_fused_pass_f64):
             fn.argtypes = _FUSED_ARGTYPES
             fn.restype = ctypes.c_int
+        for fn in (lib.vec_local_strip_pass_f32, lib.vec_local_strip_pass_f64):
+            fn.argtypes = _STRIP_ARGTYPES
+            fn.restype = ctypes.c_int
         lib._local_fused_bound = True
     return lib
 
 
-def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs) -> None:
+def _own_args(pairs, device, dtype):
+    """The own planes' pointers (four; a first launch's T_{k-1} null), batch
+    stride and row pitch, after checking them: unit column stride, one
+    batch stride and one pitch for all of them."""
+    planes = [x for own, _ in pairs for x in own]
+    batch = planes[0].shape[0]
+    for x in planes:
+        if x.device != device or x.dtype != dtype:
+            raise ValueError(f"own plane: {x.dtype} on {x.device}, expected {dtype} on {device}")
+        if x.stride(-1) != 1 or x.stride(-2) != planes[0].stride(-2) or (
+                batch > 1 and x.stride(0) != planes[0].stride(0)):
+            raise ValueError(f"own planes need a unit column stride and one row pitch and "
+                             f"batch stride, got strides {[y.stride() for y in planes]}")
+    ptrs = [x.data_ptr() for x in planes] + [None] * (4 - len(planes))
+    return ptrs, planes[0].stride(0), planes[0].stride(-2)
+
+
+def _strip_args(pairs, check):
+    """The pointers of the four strips of T_k (the kernel finds T_{k-1}'s
+    right after them), after checking them: contiguous, and on a later
+    round's launch both carries' strips in one tensor each."""
+    for name, *xs in zip(("south", "north", "west", "east"), *(s for _, s in pairs)):
+        for x in xs:
+            check(name, x, tuple(x.shape))
+        if len(xs) == 2 and xs[1].data_ptr() != xs[0].data_ptr() + xs[0].nbytes:
+            raise ValueError(f"{name}: the carries' strips must follow each other in one tensor")
+    return [x.data_ptr() for x in pairs[0][1]]
+
+
+def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs, strips) -> None:
     first, last = _kinds(p, start, n_ops)
     if not 1 <= n_ops <= min(shrink, MAX_FUSE) or shrink > cells:
         raise ValueError(f"a fused launch runs 1..min(shrink, {MAX_FUSE}) steps with "
@@ -455,58 +593,80 @@ def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs) -> None:
         raise ValueError(f"block {(batch, 2, ey, ex)} exceeds the kernel's launch grid")
     if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()) > SHARED_BYTES:
         raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
-    required = ("acc",) + (("w",) if first else ("t", "t_prev")) + (
-        () if last else ("t_out", "t_prev_out"))
-    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
-    if not last and any(bufs[o].data_ptr() == bufs[i].data_ptr()
-                        for o in ("t_out", "t_prev_out") for i in ("w", "t", "t_prev")
-                        if i in required):
-        raise ValueError("t_out and t_prev_out must not alias w, t or t_prev")
+    outs = () if last else ("t_out", "t_prev_out")
+    state = () if strips is not None else ("w",) if first else ("t", "t_prev")
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, ("acc",) + state + outs)
     check = functools.partial(_check, device, dtype)
+    if strips is not None:
+        pairs = strip_state(first, cells, bufs["w"], bufs["t"], bufs["t_prev"], strips)
+        if pairs[0][0][0].shape[0] != batch:
+            raise ValueError(f"own planes of batch {pairs[0][0][0].shape[0]}, acc of {batch}")
+        reads = [x for own, s in pairs for x in own + tuple(s)]
+    else:
+        reads = [bufs[k] for k in state]
+    if any(bufs[o].untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+           for o in outs for x in reads):
+        raise ValueError("t_out and t_prev_out must not alias the state the launch reads")
     ptr = {k: check(k, bufs[k], (batch, 2, ly, lx) if k == "acc" else (batch, 2, ey, ex))
-           if k in required else None
+           if k in ("acc",) + state + outs else None
            for k in ("w", "t", "t_prev", "t_out", "t_prev_out", "acc")}
     coef = check("coef", ops.coef, (N_COEF[ops.op], ey, ex))
 
     lib = _fused_library()
-    fn = lib.vec_local_fused_pass_f32 if dtype == torch.float32 else lib.vec_local_fused_pass_f64
+    f64 = dtype == torch.float64
     stream = torch.cuda.current_stream(device).cuda_stream
+    head = (ops.op, batch, ly, lx, cells, shrink, by, bx, n_ops, int(first), int(last), pa, p_b)
     with torch.cuda.device(device):
-        err = fn(ops.op, batch, ly, lx, cells, shrink, by, bx, n_ops, int(first), int(last),
-                 pa, p_b, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
-                 ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
+        if strips is None:
+            fn = lib.vec_local_fused_pass_f64 if f64 else lib.vec_local_fused_pass_f32
+            err = fn(*head, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                     ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
+        else:
+            own, own_batch, own_pitch = _own_args(pairs, device, dtype)
+            fn = lib.vec_local_strip_pass_f64 if f64 else lib.vec_local_strip_pass_f32
+            err = fn(*head, *own, own_batch, own_pitch, *_strip_args(pairs, check), ptr["acc"],
+                     ptr["t_out"], ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
     if err != 0:
         msg = lib.vec_pass_error_string(err).decode()
         raise RuntimeError(f"vec_local_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    vec_local_fused_pass.launches[ops.op] += 1
+    counts = vec_local_fused_pass.launches if strips is None else vec_local_fused_pass.strip_launches
+    counts[ops.op] += 1
 
 
 def vec_local_fused_pass(
     ops: VecPassOperands, p, start: int, n_ops: int, *, cells: int, tile,
     shrink: Optional[int] = None,
-    w: Optional[Tensor] = None, t: Optional[Tensor] = None,
+    w=None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
-    t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    t_prev_out: Optional[Tensor] = None, acc: Tensor, strips: Optional[Strips] = None,
 ) -> None:
     """Steps ``start+1 .. start+n_ops`` of the vector filter on the extended
     block in one launch, on tiles of ``tile = (by, bx)`` cells of the block
     shrunk by ``shrink`` (default ``cells``: the core), as
     :func:`vec_local_fused_pass_reference` documents them.
 
-    CUDA tensors launch the kernel (counted per contraction in
-    ``vec_local_fused_pass.launches[BGRID]`` and
-    ``vec_local_fused_pass.launches[CTAP]``) on the current stream, without
-    synchronizing; CPU tensors run the plain version. Anything else raises.
+    Which entry runs is static, given by the arguments: with ``strips`` (a
+    round's first launch) the strip entry ``vec_local_strip_pass_f32/f64``,
+    which reads the state in place from the core planes and the strips
+    (:func:`strip_state`), else the extended-block entry
+    ``vec_local_fused_pass_f32/f64``. CUDA tensors launch the kernel
+    (counted per contraction in ``vec_local_fused_pass.launches[BGRID|CTAP]``
+    for the extended-block entry and ``vec_local_fused_pass.strip_launches``
+    for the strip entry) on the current stream, without synchronizing; CPU
+    tensors run the plain version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
     shrink = cells if shrink is None else shrink
     if acc.is_cuda:
-        _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs)
+        _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs, strips)
     elif acc.device.type == "cpu":
-        vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink, **bufs)
+        vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink,
+                                       strips=strips, **bufs)
     else:
         raise RuntimeError(f"vec_local_fused_pass has no kernel for device {acc.device}")
 
 
-# kernel launches per contraction; the plain version does not count
+# kernel launches per contraction, of the extended-block entry and of the
+# strip entry; the plain version does not count
 vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
+vec_local_fused_pass.strip_launches = {BGRID: 0, CTAP: 0}

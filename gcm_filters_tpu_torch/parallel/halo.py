@@ -17,16 +17,21 @@ no message and no initialised process group. Where JAX posts one
 the phase in one ``torch.distributed.batch_isend_irecv`` and waits on them
 all, on NCCL (CUDA tensors) and gloo (CPU tensors) alike. A rank whose
 partner is itself copies locally and posts nothing.
+
+``exchange_strips`` returns a block's four k-cell halo strips and builds no
+extended block; ``exchange_2d`` is the strips concatenated around the
+block. Both post the same messages, so the pattern lives in one place.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.distributed as dist
 
 Tensor = torch.Tensor
 Axis = Tuple[Optional[object], Optional[int]]
+Fields = Union[Tensor, Sequence[Tensor]]  # a field, or fields that ride as one stack
 
 
 def _sharded(axis: Axis) -> bool:
@@ -125,6 +130,82 @@ def extend_x(f: Tensor, k: int, x_axis: Axis) -> Tensor:
     return torch.cat([lo, f, hi], dim=-1)
 
 
+class Strips(NamedTuple):
+    """The four k-cell halo strips of a ``(..., ly, lx)`` block: ``south``
+    and ``north`` ``(..., k, lx+2k)``, corners included, ``west`` and
+    ``east`` ``(..., ly, k)``; contiguous. Around the block they make the
+    extended block of :func:`exchange_2d`."""
+
+    south: Tensor
+    north: Tensor
+    west: Tensor
+    east: Tensor
+
+
+def _edge(f: Fields, sl: slice, dim: int, stack_dim: int) -> Tensor:
+    """The slice ``sl`` of ``f`` along ``dim``, or of each of a sequence of
+    fields, stacked along ``stack_dim``."""
+    if isinstance(f, Tensor):
+        return _take(f, sl, dim)
+    return torch.stack([_take(x, sl, dim) for x in f], dim=stack_dim)
+
+
+def _x_rows(f: Fields, west: Tensor, east: Tensor, rows: slice, stack_dim: int) -> Tensor:
+    """Rows ``rows`` of the x-extended block ``cat([west, f, east], -1)``,
+    without building it."""
+    return torch.cat([west[..., rows, :], _edge(f, rows, -2, stack_dim), east[..., rows, :]],
+                     dim=-1)
+
+
+def exchange_strips(
+    f: Fields,
+    k: int,
+    y_axis: Axis,
+    x_axis: Axis,
+    fold_north: bool = False,
+    fold_src: Optional[Fields] = None,
+    stack_dim: int = 0,
+) -> Strips:
+    """The k-cell halos of (..., ly, lx) on both spatial dims as four
+    :class:`Strips`, without building the extended block.
+
+    Two phases: x first, then y over the x-extended edge rows so corner data
+    rides along (k steps of a radius-1 stencil reach the diagonal
+    neighbours' corners). With ``fold_north``, the north halo of the top mesh
+    row is the tripolar seam partner's top k rows, reversed in x and flipped
+    in y (extended row ly-1+m = real row ly-m reversed). ``fold_src``
+    supplies another source for that chunk: the seam reflection swaps the
+    n<->s and e<->w stencil coefficients, so coefficient planes fold from
+    their swapped partner. Leading dims ride along in the same messages.
+
+    ``f`` (and ``fold_src``) may be a sequence of fields of one shape, which
+    ride as one stacked along ``stack_dim``: only their edges are stacked,
+    and the messages are those of the stacked field. Whatever ``f`` is, the
+    messages are :func:`exchange_2d`'s: the same phases, partners, tags and
+    bytes.
+    """
+    west, east = _edge(f, slice(-k, None), -1, stack_dim), _edge(f, slice(None, k), -1, stack_dim)
+    if _sharded(x_axis):
+        west, east = _ring(west, east, x_axis)
+    south = _x_rows(f, west, east, slice(-k, None), stack_dim)
+    north = _x_rows(f, west, east, slice(None, k), stack_dim)
+    on_top = True
+    if _sharded(y_axis):
+        south, north = _ring(south, north, y_axis)
+        on_top = _group_index(y_axis[0]) == y_axis[1] - 1
+    if fold_north and on_top:
+        if fold_src is None:
+            top = _x_rows(f, west, east, slice(-k, None), stack_dim)
+        else:
+            fw = _edge(fold_src, slice(-k, None), -1, stack_dim)
+            fe = _edge(fold_src, slice(None, k), -1, stack_dim)
+            if _sharded(x_axis):
+                fw, fe = _ring(fw, fe, x_axis)
+            top = _x_rows(fold_src, fw, fe, slice(-k, None), stack_dim)
+        north = _fold_partner(top.flip(-2, -1), x_axis)
+    return Strips(*(s.contiguous() for s in (south, north, west, east)))
+
+
 def exchange_2d(
     f: Tensor,
     k: int,
@@ -133,27 +214,10 @@ def exchange_2d(
     fold_north: bool = False,
     fold_src: Optional[Tensor] = None,
 ) -> Tensor:
-    """Extend (..., ly, lx) by k-cell halos on both spatial dims.
-
-    Two phases: x first, then y over the x-extended strips so corner data
-    rides along (k steps of a radius-1 stencil reach the diagonal
-    neighbours' corners). With ``fold_north``, the north halo of the top mesh
-    row is the tripolar seam partner's top k rows, reversed in x and flipped
-    in y (extended row ly-1+m = real row ly-m reversed). ``fold_src``
-    supplies another source for that chunk: the seam reflection swaps the
-    n<->s and e<->w stencil coefficients, so coefficient planes fold from
-    their swapped partner. Leading dims ride along in the same messages.
-    """
-    fx = extend_x(f, k, x_axis)
-    south, north = fx[..., -k:, :], fx[..., :k, :]
-    on_top = True
-    if _sharded(y_axis):
-        south, north = _ring(south, north, y_axis)
-        on_top = _group_index(y_axis[0]) == y_axis[1] - 1
-    if fold_north and on_top:
-        src_x = fx if fold_src is None else extend_x(fold_src, k, x_axis)
-        north = _fold_partner(src_x[..., -k:, :].flip(-2, -1), x_axis)
-    return torch.cat([south, fx, north], dim=-2)
+    """Extend (..., ly, lx) by k-cell halos on both spatial dims: the
+    :func:`exchange_strips` of ``f`` around it, (..., ly+2k, lx+2k)."""
+    s = exchange_strips(f, k, y_axis, x_axis, fold_north, fold_src)
+    return torch.cat([s.south, torch.cat([s.west, f, s.east], dim=-1), s.north], dim=-2)
 
 
 def north_neighbor_sharded(g: Tensor, fold_north: bool, y_axis: Axis, x_axis: Axis) -> Tensor:

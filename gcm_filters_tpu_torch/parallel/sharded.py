@@ -11,8 +11,10 @@ halo.py) and then advances the recurrence up to ``cells`` steps purely
 locally on the halo-extended block (ops/cuda/local_pass.py for scalars: one
 launch of the fused round where its static predicate holds;
 ops/cuda/vec_local_pass.py for (u, v) pairs: the planned fused launches of
-each round, one or a few; else one step launch per step; kernels on CUDA
-tensors, their plain versions on CPU tensors). The
+each round, one or a few, the first of which reads the core in place and
+the four halo strips, so that no extended block of u, v or the carries is
+built; else one step launch per step; kernels on CUDA tensors, their plain
+versions on CPU tensors). The
 tripolar fold is a reversed pairing among the ranks of the top mesh row, and the stencil
 coefficients are halo-extended once per (local shape, dtype) with the seam's
 n<->s / e<->w coefficient swap in their fold chunks. Vector grids have no
@@ -484,33 +486,43 @@ def local_vector_operands(op: int, planes: Dict[str, Tensor], zap: bool, cells: 
     return VecPassOperands(op, coef, zap)
 
 
-def local_rounds_vector(ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
+def _uv(w):
+    """The (u, v) planes, ``(batch, ly, lx)`` each, of a stacked ``(batch, 2,
+    ly, lx)`` state (views) or of a pair."""
+    return tuple(w.unbind(1)) if isinstance(w, Tensor) else tuple(w)
+
+
+def local_rounds_vector(ops: VecPassOperands, w, p, cells: int, rounds,
                         y_axis: halo.Axis, x_axis: halo.Axis,
                         pass_fn=vec_local_pass, fused_fn=vec_local_fused_pass) -> Tensor:
-    """Wide-halo rounds of the coupled recurrence on one rank:
-    ``(batch, 2, ly, lx) -> (batch, 2, ly, lx)`` on the stacked (u, v) pair.
+    """Wide-halo rounds of the coupled recurrence on one rank: the (u, v)
+    pair ``w``, a stacked ``(batch, 2, ly, lx)`` tensor or two ``(batch, ly,
+    lx)`` ones, to a ``(batch, 2, ly, lx)`` result.
 
-    Counterpart of the JAX ``_local_pallas_2d``. Round 0 exchanges the stacked
+    Counterpart of the JAX ``_local_pallas_2d``. Where every round's fused
+    plan (:func:`plan_vec_local_rounds`) holds its static predicate, each
+    round runs as its plan's ``fused_fn`` launches
+    (:func:`_fused_vector_rounds`), on halo strips. Otherwise, or with
+    ``fused_fn=None``, the step chain runs: round 0 exchanges the stacked
     input by ``cells`` (the extension is T_0 itself: vector grids have no
     mask, area or prepare); every later round exchanges one stack of both
     carries' cores, so one message per phase carries both carries, both
     components and the whole batch. The diagonal C-grid taps read the halo's
-    corner cells, which ride the exchange's second phase. Where every round's
-    fused plan (:func:`plan_vec_local_rounds`) holds its static predicate,
-    each round runs as its plan's ``fused_fn`` launches
-    (:func:`_fused_vector_rounds`); otherwise, or with
-    ``fused_fn=None``, step ``j`` of a round runs on the window shrunk by
-    ``j``, one ``pass_fn`` call per step, the first on the window shrunk by 1.
-    ``acc`` is core-shaped. ``ops`` holds the extended, pre-scaled
-    coefficient planes; ``sum(rounds)`` is the filter's n_steps. The caller's
-    ``w`` is only read: the carries that the steps overwrite are the
-    exchanges' fresh tensors.
+    corner cells, which ride the exchange's second phase. Step ``j`` of a
+    round runs on the window shrunk by ``j``, one ``pass_fn`` call per
+    step, the first on the window shrunk by 1. ``acc`` is core-shaped.
+    ``ops`` holds the extended, pre-scaled coefficient planes;
+    ``sum(rounds)`` is the filter's n_steps. The caller's ``w`` is only
+    read: the carries that the steps overwrite are fresh tensors.
     """
     if fused_fn is not None:
-        plans = plan_vec_local_rounds(rounds, *w.shape[-2:], w.dtype, ops.op)
+        u = _uv(w)[0]
+        plans = plan_vec_local_rounds(rounds, *u.shape[-2:], u.dtype, ops.op)
         if all(pl.fused for pl in plans):
             return _fused_vector_rounds(fused_fn, ops, w, p, cells, rounds, y_axis, x_axis,
                                         plans)
+    if not isinstance(w, Tensor):
+        w = torch.stack(w, dim=1)
     n_steps = sum(rounds)
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
     acc = torch.empty_like(w)
@@ -541,39 +553,51 @@ def local_rounds_vector(ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
     return acc
 
 
-def _fused_vector_rounds(fused_fn, ops: VecPassOperands, w: Tensor, p, cells: int, rounds,
+def _fused_vector_rounds(fused_fn, ops: VecPassOperands, w, p, cells: int, rounds,
                          y_axis: halo.Axis, x_axis: halo.Axis, plans) -> Tensor:
     """The rounds of :func:`local_rounds_vector` as fused launches, ``plans``
     one per round: each round one launch per entry of its plan's ``steps``
-    on its plan's tile, with no exchange between them. A launch ends on the
-    block shrunk by ``cells`` less the round's steps still to run after it
-    (the round's last launch ends on the core), and writes its carries there
-    into two fresh extended buffers, which the next launch, or the next
-    round's exchange, reads (a tile reads its neighbours' cells, so a launch
-    cannot update the carries it reads)."""
+    on its plan's tile, with no exchange between them.
+
+    No extended block of the state is built. A round exchanges only the four
+    halo strips (:func:`~.halo.exchange_strips`, the messages of
+    ``exchange_2d``): of u and v for round 0, of the previous round's
+    carries' cores for a later one, one message per phase for both carries,
+    both components and the whole batch. The round's first launch reads its
+    state from the core planes in place (the caller's u and v, or the
+    carries' cores) and from the strips; every later launch of the round
+    reads the extended carries the launch before it wrote. A launch ends on
+    the block shrunk by ``cells`` less the round's steps still to run after
+    it (the round's last launch ends on the core), and writes its carries
+    there into two fresh extended buffers (a tile reads its neighbours'
+    cells, so a launch cannot update the carries it reads)."""
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    u, v = _uv(w)
+    batch, ly, lx = u.shape
+    ext = (batch, 2, ly + 2 * cells, lx + 2 * cells)
     n_steps = sum(rounds)
-    acc = torch.empty_like(w)
-    w_ext = t = t_prev = None
+    acc = u.new_empty((batch, 2, ly, lx))
+    t = t_prev = None
     start = 0
-    for i, (n_round, plan) in enumerate(zip(rounds, plans)):
-        if i == 0:
-            w_ext = halo.exchange_2d(w, cells, y_axis, x_axis)
+    for n_round, plan in zip(rounds, plans):
+        if start == 0:
+            src = dict(w=(u, v), strips=halo.exchange_strips((u, v), cells, y_axis, x_axis,
+                                                             stack_dim=1))
         else:
+            ct, ctp = core(t), core(t_prev)
             # one message per phase carries both carries and the whole batch
-            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]),
-                                   cells, y_axis, x_axis)
-            t, t_prev = ext[0], ext[1]
+            src = dict(t=ct, t_prev=ctp,
+                       strips=halo.exchange_strips((ct, ctp), cells, y_axis, x_axis))
         left = n_round
         for n_ops in plan.steps:
             left -= n_ops
             t_out = t_prev_out = None
             if start + n_ops < n_steps:
-                t_out, t_prev_out = torch.empty_like(w_ext), torch.empty_like(w_ext)
+                t_out, t_prev_out = u.new_empty(ext), u.new_empty(ext)
             fused_fn(ops, p, start, n_ops, cells=cells, shrink=cells - left, tile=plan.tile,
-                     w=w_ext if start == 0 else None, t=t, t_prev=t_prev, t_out=t_out,
-                     t_prev_out=t_prev_out, acc=acc)
+                     t_out=t_out, t_prev_out=t_prev_out, acc=acc, **src)
             t, t_prev = t_out, t_prev_out
+            src = dict(t=t, t_prev=t_prev)
             start += n_ops
     return acc
 
@@ -668,16 +692,16 @@ def make_sharded_vector_apply(
         # both components run in one floating compute dtype: mixed and
         # integer inputs must not truncate coefficients or compute in ints
         dtype = _compute_dtype(lu.dtype, lv.dtype)
-        xu, restore = _normalize(lu.to(device=device, dtype=dtype))
-        xv, _ = _normalize(lv.to(device=device, dtype=dtype))
-        # a fresh stacked state (batch, 2, ly, lx), owned here
-        w = torch.stack([xu, xv], dim=1)
-        if w.numel() == 0:
-            out = torch.empty_like(w)
+        # contiguous: the fused rounds read both planes with one row pitch
+        xu, restore = _normalize(lu.to(device=device, dtype=dtype).contiguous())
+        xv, _ = _normalize(lv.to(device=device, dtype=dtype).contiguous())
+        # the rounds only read u and v: the fused ones in place, through strips
+        if xu.numel() == 0:
+            out = xu.new_empty((xu.shape[0], 2) + tuple(xu.shape[1:]))
         else:
-            ly, lx = w.shape[-2:]
+            ly, lx = xu.shape[-2:]
             ops, cells, rounds, p = operands(ly, lx, dtype)
-            out = local_rounds_vector(ops, w, p, cells, rounds, y_axis, x_axis, pass_fn,
+            out = local_rounds_vector(ops, (xu, xv), p, cells, rounds, y_axis, x_axis, pass_fn,
                                       fused_fn)
         return tuple(DTensor.from_local(restore(out[:, m]), mesh, placements, run_check=False)
                      for m in (0, 1))

@@ -17,6 +17,8 @@ acc on the core only) and must equal the plain local step chain bit for bit
 too. The kernels themselves are held to the local step kernels, bit for bit,
 by chip_smoke.py on the card.
 """
+import functools
+
 import numpy as np
 import pytest
 import torch
@@ -439,3 +441,184 @@ def test_last_launch_leaves_the_result_in_acc():
                                _plans(rounds, (8, 32), 4))
     assert [c[:3] for c in spy.calls] == [(0, 4, 4), (4, 4, 4)]
     np.testing.assert_array_equal(got.numpy(), want.numpy())
+
+
+# -- a round's first launch on strips: no extended block of the state --------
+
+def _parent_fused_rounds(fused_fn, ops, w, p, cells, rounds, plans):
+    """The fused rounds as they ran before the strips: each round's input
+    halo-extended into a fresh block (``exchange_2d`` of the stacked state,
+    later of the stacked carries' cores), every launch on extended blocks."""
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    n_steps = sum(rounds)
+    acc = torch.empty_like(w)
+    t = t_prev = w_ext = None
+    start = 0
+    for i, (n_round, plan) in enumerate(zip(rounds, plans)):
+        if i == 0:
+            w_ext = halo.exchange_2d(w, cells, LOCAL, LOCAL)
+        else:
+            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]), cells, LOCAL, LOCAL)
+            t, t_prev = ext[0], ext[1]
+        left = n_round
+        for n_ops in plan.steps:
+            left -= n_ops
+            t_out = t_prev_out = None
+            if start + n_ops < n_steps:
+                t_out, t_prev_out = torch.empty_like(w_ext), torch.empty_like(w_ext)
+            fused_fn(ops, p, start, n_ops, cells=cells, shrink=cells - left, tile=plan.tile,
+                     w=w_ext if start == 0 else None, t=t, t_prev=t_prev, t_out=t_out,
+                     t_prev_out=t_prev_out, acc=acc)
+            t, t_prev = t_out, t_prev_out
+            start += n_ops
+    return acc
+
+
+def _bitwise(got, want):
+    assert got.shape == want.shape and got.dtype == want.dtype
+    assert torch.equal(torch.isnan(got), torch.isnan(want)), "NaNs in other cells"
+    np.testing.assert_array_equal(got.nan_to_num(7.5).numpy(), want.nan_to_num(7.5).numpy())
+
+
+STRIP_FNS = {"plain": vlp.vec_local_fused_pass_reference,
+             "tiled": functools.partial(vlp.vec_local_fused_pass_tiled_reference, tile=(8, 32))}
+
+
+@pytest.mark.parametrize("fn", sorted(STRIP_FNS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["B", "C", "C zap_nans=False"])
+@pytest.mark.parametrize("launch", ["first", "later round"])
+@pytest.mark.parametrize("shape", [(20, 40), (4, 40), (20, 4)])
+def test_strip_launch_equals_extended_block(shape, launch, case, dtype, fn):
+    """One launch on the core planes and their strips (the filter's first
+    launch on u and v, or a later round's first launch on the carries'
+    cores, views of extended buffers in place) equals the parent's launch on
+    the halo-extended block bit for bit, NaNs in the same cells: acc and the
+    carries out, which start as NaN. Cores down to ``cells`` wide; batch 2;
+    NaNs and spikes at the core corners."""
+    cells, n_ops, shrink = 4, 3, 4
+    grid_type = B if case == "B" else C
+    ops, p, _, _ = _setup(grid_type, (20, 40), dtype, n_steps=12, halo_steps=cells,
+                          zap="zap" not in case)
+    ly, lx = shape
+    # the planes cut to the core's block: their values need only be the same in both routes
+    ops = vp.VecPassOperands(ops.op, ops.coef[:, :ly + 2 * cells, :lx + 2 * cells].contiguous(),
+                             ops.zap)
+    rng = np.random.default_rng(31)
+    mk = lambda lead: torch.as_tensor(rng.random(lead + shape), dtype=dtype)  # noqa: E731
+    e = (2, 2, ly + 2 * cells, lx + 2 * cells)
+    outs = lambda: [torch.full(e, float("nan"), dtype=dtype) for _ in range(2)] + [  # noqa: E731
+        torch.full((2, 2) + shape, float("nan"), dtype=dtype)]
+    if launch == "first":
+        u, v = mk((2,)), mk((2,))
+        u[0, 0, 0], v[1, -1, -1], u[1, 0, -1] = float("nan"), float("nan"), 40.0
+        start = 0
+        strips = halo.exchange_strips((u, v), cells, LOCAL, LOCAL, stack_dim=1)
+        mine = dict(w=(u, v), strips=strips)
+        parent = dict(w=halo.exchange_2d(torch.stack([u, v], 1), cells, LOCAL, LOCAL))
+    else:
+        # the carries' cores as views of extended buffers, whose margins hold junk
+        te, tpe = (torch.as_tensor(rng.random(e), dtype=dtype) for _ in range(2))
+        core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+        core(te)[0, 0, 0, 0], core(tpe)[1, 1, -1, -1] = float("nan"), -30.0
+        start = 3
+        strips = halo.exchange_strips((core(te), core(tpe)), cells, LOCAL, LOCAL)
+        mine = dict(t=core(te), t_prev=core(tpe), strips=strips)
+        parent = dict(t=halo.exchange_2d(core(te).contiguous(), cells, LOCAL, LOCAL),
+                      t_prev=halo.exchange_2d(core(tpe).contiguous(), cells, LOCAL, LOCAL))
+    acc0 = mk((2, 2))
+    got, want = outs(), outs()
+    got[2].copy_(acc0)
+    want[2].copy_(acc0)
+    STRIP_FNS[fn](ops, p, start, n_ops, cells=cells, shrink=shrink, t_out=got[0],
+                  t_prev_out=got[1], acc=got[2], **mine)
+    vlp.vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink,
+                                       t_out=want[0], t_prev_out=want[1], acc=want[2], **parent)
+    for g, w in zip(got, want):
+        _bitwise(g, w)
+
+
+@pytest.mark.parametrize("fn", sorted(STRIP_FNS))
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("grid_type", [B, C])
+@pytest.mark.parametrize("n_rounds", [1, 3])
+def test_strip_rounds_equal_parent_rounds(n_rounds, grid_type, dtype, fn):
+    """Whole filters: the rounds on strips (the plain and the tiled plain
+    launch) equal the parent's rounds on extended blocks bit for bit, for
+    one round (11 steps, two launches) and three (12 steps, rounds of 4, the
+    later rounds' strips cut from the carries' cores), batch 2, NaNs and
+    spikes at core corners; u and v given as two planes, no stack."""
+    shape = (40, 72)
+    n_steps, halo_steps = (11, None) if n_rounds == 1 else (12, 4)
+    ops, p, cells, rounds = _setup(grid_type, shape, dtype, n_steps=n_steps,
+                                   halo_steps=halo_steps)
+    assert len(rounds) == n_rounds
+    plans = _plans(rounds, (8, 32), 6 if n_rounds == 1 else 2)
+    w = _state(shape, dtype, marks=[(1, 0, 0, 0), (1, 1, 39, 71), (0, 1, 0, 71)],
+               nans=[(0, 0, 39, 0), (1, 1, 20, 36)])
+    pair = (w[:, 0].clone(), w[:, 1].clone())
+    want = _parent_fused_rounds(vlp.vec_local_fused_pass_reference, ops, w, p, cells, rounds,
+                                plans)
+    got = _fused_vector_rounds(STRIP_FNS[fn], ops, pair, p, cells, rounds, LOCAL, LOCAL, plans)
+    _bitwise(got, want)
+    assert torch.equal(pair[0].nan_to_num(), w[:, 0].nan_to_num()), "u must not be written"
+
+
+def test_strip_index_assembles_the_extended_block():
+    """Every cell of the extended block taken through ``strip_index`` (the
+    kernel's ``StripGeo`` map) from the own planes and the strips is the cell
+    that ``exchange_2d`` puts there."""
+    cells, shape = 3, (7, 10)
+    w = torch.as_tensor(np.random.default_rng(2).random((2, 2) + shape))
+    s = halo.exchange_strips(w, cells, LOCAL, LOCAL)
+    ext = halo.exchange_2d(w, cells, LOCAL, LOCAL)
+    r = torch.arange(shape[0] + 2 * cells)
+    c = torch.arange(shape[1] + 2 * cells)
+    got = vlp._strip_cut(tuple(w.unbind(1)), s, r, c, cells)
+    assert torch.equal(got, ext)
+    src, _, _ = vlp.strip_index(r[:, None], c[None, :], cells, *shape)
+    counts = [int((src == k).sum()) for k in range(5)]
+    ey, ex = shape[0] + 2 * cells, shape[1] + 2 * cells
+    assert counts == [shape[0] * shape[1], cells * ex, cells * ex, shape[0] * cells,
+                      shape[0] * cells]
+
+
+def test_strip_wrapper_routes_and_refuses():
+    """On the CPU the strip launch runs the plain version and counts no
+    launch; strips that do not fit the planes, a first launch given t, a
+    later one given w, and a device without a kernel raise."""
+    shape = (24, 40)
+    ops, p, cells, _ = _setup(B, shape, n_steps=12, halo_steps=4)
+    u, v = (torch.rand((1,) + shape, dtype=torch.float64) for _ in range(2))
+    strips = halo.exchange_strips((u, v), cells, LOCAL, LOCAL, stack_dim=1)
+    e = (1, 2, shape[0] + 2 * cells, shape[1] + 2 * cells)
+    t, tp, acc = torch.zeros(e), torch.zeros(e), torch.empty((1, 2) + shape)
+    t, tp, acc = (x.double() for x in (t, tp, acc))
+    before = dict(vlp.vec_local_fused_pass.strip_launches)
+    vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=(u, v),
+                             strips=strips, t_out=t, t_prev_out=tp, acc=acc)
+    assert vlp.vec_local_fused_pass.strip_launches == before
+    want = [torch.zeros(e, dtype=torch.float64) for _ in range(2)] + [torch.empty_like(acc)]
+    vlp.vec_local_fused_pass_reference(
+        ops, p, 0, 3, cells=cells, shrink=4, t_out=want[0], t_prev_out=want[1], acc=want[2],
+        w=halo.exchange_2d(torch.stack([u, v], 1), cells, LOCAL, LOCAL))
+    for g, w in zip((t, tp, acc), want):
+        assert torch.equal(g, w)
+    narrow = halo.exchange_strips((u, v), cells - 1, LOCAL, LOCAL, stack_dim=1)
+    with pytest.raises(ValueError, match="do not fit"):
+        vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=(u, v),
+                                 strips=narrow, t_out=t, t_prev_out=tp, acc=acc)
+    with pytest.raises(ValueError, match="takes w"):
+        vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), t=acc,
+                                 t_prev=acc, strips=strips, t_out=t, t_prev_out=tp, acc=acc)
+    with pytest.raises(ValueError, match="takes t and t_prev"):
+        vlp.vec_local_fused_pass(ops, p, 3, 2, cells=cells, tile=(8, 32), w=(u, v),
+                                 strips=strips, t_out=t, t_prev_out=tp, acc=acc)
+    with pytest.raises(TypeError, match="halo.Strips"):
+        vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=(u, v),
+                                 strips=tuple(strips)[:3], t_out=t, t_prev_out=tp, acc=acc)
+    meta = torch.empty(e, device="meta")
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32),
+                                 w=(u.to("meta"), v.to("meta")), strips=strips, t_out=meta,
+                                 t_prev_out=meta, acc=torch.empty((1, 2) + shape, device="meta"))
