@@ -74,19 +74,29 @@ and runs these phases; any failed check raises and the script exits non-zero:
    ``exact_nan``, 97x300, a batch, NaN fields, ``halo_steps`` 1, 3 and None
    and a block below the fused predicate, each through
    ``Filter(mesh=..., spatial_axes=("y", "x")).apply`` against the same
-   sharded apply driven by the plain versions (``local_fused_pass_reference``,
+   sharded apply driven by the plain versions (``local_strip_pass_reference``,
    ``local_pass_reference``) on the card, against the chain of local
-   step-kernel launches bit for bit, and against the unsharded
-   ``Filter.apply``; each apply must launch the fused local round once per
-   round (below the predicate: the local step kernel n_steps times) and no
-   other kernel; then a middle round on the ragged 396x601 fold grid, batch
-   two, into NaN-filled t_out and t_prev_out, bitwise equal to the local
-   step-kernel chain on the same inputs;
+   step-kernel launches and the parent's rounds on the extended block
+   (``exchange_2d`` and ``local_fused_pass``) bit for bit, and against the
+   unsharded ``Filter.apply``; each apply must launch the round on strips
+   (``local_strip_pass``) once per round (below the predicate: the local
+   step kernel n_steps times) and no other kernel; then a middle round on
+   the ragged 396x601 fold grid, batch two, on the extended block and on
+   strips (the cores read in place from it), into NaN-filled t_out and
+   t_prev_out, bitwise equal to the local step-kernel chain on the same
+   inputs;
 10. sharded headline (the sharded path): the phase-4 workload through the
     mesh path, checked against the float64 eager engine and against the
-    local step chain bit for bit, and timed beside it, with one fused launch
-    per round x applies and no fallback; the halo exchange, the fused round
-    and the chain of 11 local steps are also timed alone;
+    local step chain bit for bit, and timed beside it, with one strip
+    launch per round x applies and no fallback; its parts timed alone
+    (``utils/round_split.py``: the strips, the rounds with their strips
+    frozen, the parent's halo exchange), the round on strips alone against
+    its plain version and bit for bit against the parent's round on the
+    extended block (also timed), and the chain of 11 local steps alone;
+    then (10b) the Taper (39 steps, several rounds whose later strips come
+    from the carries' cores) through the mesh, bit for bit equal to the
+    local step chain and the parent's rounds, its launches counted, timed
+    with its parts;
 11. each step kind of the local step kernel against its plain version at the
     headline's extended shape;
 12. sharded small vector grids, on the same 1x1 mesh: both vector grids at
@@ -149,7 +159,10 @@ and runs these phases; any failed check raises and the script exits non-zero:
 16. ring headlines (the ring path): the phase-4 workload at ``p_y`` 4, 2 and
     8, the Taper filter and ``IRREGULAR_WITH_LAND`` at ``p_y`` 4, each through
     the fused ring, bitwise equal to the fused K1 and to the step ring of this
-    run and timed beside both; then 200 more fused scalar applies, each
+    run and timed beside both, and split (``utils/ring_split.py``: its passes
+    alone and the copies around them, beside K1's launches alone); at each
+    ``p_y`` 24 applies alternating two inputs, each bitwise equal to the
+    fused K1 of its own input; then 200 more fused scalar applies, each
     bitwise equal to the first; the phase-7 workloads through the fused
     vector ring (B-grid at ``p_y`` 4, 2 and 8, C-grid and its Taper at 4),
     each bitwise equal to the fused K3 / K4 and to the vector step ring of
@@ -194,10 +207,11 @@ and runs these phases; any failed check raises and the script exits non-zero:
     finite, the ring and the sharded paths equal to the single-device
     filter), and the kernels each launched; then a ``{"user_paths": ...}``
     line of these numbers;
-19. a ``{"kernels": [...]}`` line (twenty entries: the step kernels, timed
-    as step chains, the nine fused passes and the two strip entries of the
-    sharded vector round, timed as one launch), then ``{"ok": true,
-    "device": ...}`` last.
+19. a ``{"kernels": [...]}`` line (twenty-one entries: the step kernels,
+    timed as step chains, the fused passes and rounds, the scalar round on
+    strips timed per apply, the extended-block round it replaced as one
+    round alone, and the two strip entries of the sharded vector round,
+    timed as one launch), then ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2. With
 ``--write-ptxas-record PATH`` it stops after phase 2 and writes the build's
@@ -495,11 +509,10 @@ def vec_rounds_cost(n_coef, plans, batch, ly, lx, cells, itemsize, key):
 
 # Each kernel's ``ptxas -v`` lines as this tree builds them, with the nvcc
 # release that printed them (write_ptxas_record); the kernels of the scalar
-# tile (csrc/cheb_tile.cuh: the fused K1 and K2 kernels and the fused scalar
-# ring) are named apart, every other kernel keeps its lines from the tree
-# before the tile was redesigned.
+# tile (csrc/cheb_tile.cuh: the fused K1 and K2 kernels, the K2 strip round
+# and the fused scalar ring) are named apart.
 PTXAS_RECORD = Path(__file__).resolve().parent / "gcm_filters_tpu_torch/csrc/ptxas_lines.json"
-SCALAR_TILE_KERNEL = re.compile(r"(?:used_pass_kernel|(?<!vec_)ring_fused_kernel)I")
+SCALAR_TILE_KERNEL = re.compile(r"(?:used_pass_kernel|(?<!vec_)ring_fused_kernel|local_strip_kernel)I")
 
 
 def ptxas_lines(logs):
@@ -929,9 +942,11 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.dispatch import (
         _fused_chain, _vec_step_chain, make_cuda_scalar_apply, make_cuda_vector_apply,
     )
-    from gcm_filters_tpu_torch.ops.cuda.local_pass import local_fused_pass, local_pass
+    from gcm_filters_tpu_torch.ops.cuda.local_pass import (
+        local_fused_pass, local_pass, local_strip_pass,
+    )
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        ring_fused_pass, ring_pass, vec_ring_fused_pass, vec_ring_pass,
+        RingItems, ring_fused_pass, ring_pass, vec_ring_fused_pass, vec_ring_pass,
     )
     from gcm_filters_tpu_torch.ops.cuda.vec_local_pass import vec_local_fused_pass, vec_local_pass
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
@@ -1002,6 +1017,7 @@ def main():
         return {"cheb_pass": cheb_pass.launches, "cheb_fused_pass": cheb_fused_pass.launches,
                 "local_pass": local_pass.launches,
                 "local_fused_pass": local_fused_pass.launches,
+                "local_strip_pass": local_strip_pass.launches,
                 "vec_pass_bgrid": vec_pass.launches[BGRID],
                 "vec_pass_ctap": vec_pass.launches[CTAP],
                 "vec_fused_pass_bgrid": vec_fused_pass.launches[BGRID],
@@ -1024,6 +1040,7 @@ def main():
         cheb_fused_pass.launches = 0
         local_pass.launches = 0
         local_fused_pass.launches = 0
+        local_strip_pass.launches = 0
         vec_pass.launches = {BGRID: 0, CTAP: 0}
         vec_fused_pass.launches = {BGRID: 0, CTAP: 0}
         vec_local_pass.launches = {BGRID: 0, CTAP: 0}
@@ -1930,10 +1947,11 @@ def main():
     from torch.distributed.tensor import DTensor
 
     from gcm_filters_tpu_torch.ops.cuda.local_pass import (
-        local_fused_pass_reference, local_pass_reference,
+        local_fused_pass_reference, local_pass_reference, local_strip_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel import halo
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_scalar_apply
+    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds, scalar_round_parts
 
     torch.cuda.set_device(0)
     store_dir = tempfile.TemporaryDirectory()
@@ -1947,16 +1965,19 @@ def main():
     tol_unsharded = {"float64": dict(rtol=1e-10, atol=1e-12), "float32": TOL["float32"]}
 
     local_step_path = {"launches": 0}  # local_pass launched by Filter.apply below the predicate
+    # local_fused_pass, the strip round's oracle: the parent's rounds on the extended block
+    ext_path = {"launches": 0, "cases": 0}
+    local_axis = (None, 1)
 
     def check_sharded(label, x, dtype_name, want_fused=True, **kw):
         filt = Filter(device=dev, mesh=mesh, spatial_axes=axes, **kw)
         mk = lambda **k: make_sharded_scalar_apply(  # noqa: E731
             filt.operator, filt.filter_spec, mesh, axes, halo_steps=filt.halo_steps,
             exact_nan=filt.exact_nan, **k)
-        plain = mk(pass_fn=local_pass_reference, fused_fn=local_fused_pass_reference)
+        plain = mk(pass_fn=local_pass_reference, fused_fn=local_strip_pass_reference)
         steps = mk(fused_fn=None)
         xs = filt._coerce(x)
-        lops, cells, rounds, _ = filt._scalar_fn().operands(*xs.shape[-2:], xs.dtype)
+        lops, cells, rounds, lp_all = filt._scalar_fn().operands(*xs.shape[-2:], xs.dtype)
         lplan = plan_fused_passes(cells, *xs.shape[-2:], xs.dtype, fused_planes(lops),
                                   one_pass=True)
         if lplan.fused != want_fused:
@@ -1964,7 +1985,7 @@ def main():
         before = counters()
         got = filt.apply(x)
         torch.cuda.synchronize()
-        launched = launched_since(before, label, {"local_fused_pass": len(rounds)} if lplan.fused
+        launched = launched_since(before, label, {"local_strip_pass": len(rounds)} if lplan.fused
                                   else {"local_pass": filt.n_steps})
         local_step_path["launches"] += launched["local_pass"]
         if not isinstance(got, DTensor):
@@ -1976,6 +1997,16 @@ def main():
         a, r = compare(label, got, want, dtype_name)
         sworst[dtype_name] = [max(sworst[dtype_name][0], a), max(sworst[dtype_name][1], r)]
         bitwise(label, got, steps(xs).full_tensor(), "the local step-kernel chain")
+        if lplan.fused:
+            # the oracle: the parent's rounds, exchange_2d and the extended-block entry
+            x3_ = xs.to(device=dev, dtype=got.dtype).reshape((-1,) + tuple(xs.shape[-2:]))
+            before = local_fused_pass.launches
+            ext = extended_scalar_rounds(local_fused_pass, lops, x3_, lp_all, cells, rounds,
+                                         local_axis, local_axis, filt.operator.fold_north,
+                                         lplan.tile)
+            ext_path["launches"] += local_fused_pass.launches - before
+            ext_path["cases"] += 1
+            bitwise(label, got, ext.reshape(got.shape), "the parent's extended-block rounds")
         kw.pop("halo_steps", None)
         unsharded = Filter(device=dev, **kw).apply(x)
         if not torch.equal(torch.isnan(got), torch.isnan(unsharded)):
@@ -1986,7 +2017,8 @@ def main():
         u = float((got[ok] - unsharded[ok]).abs().max())
         log(f"  {label}: {'fused rounds' if lplan.fused else 'step chain'} {rounds} tile "
             f"{lplan.tile}: vs plain max abs {a:.3e} max rel {r:.3e}; vs the local step chain "
-            f"0 (bit for bit); vs unsharded max abs {u:.3e} ({sum(launched.values())} launches)")
+            f"{'and the extended-block rounds ' if lplan.fused else ''}0 (bit for bit); vs "
+            f"unsharded max abs {u:.3e} ({sum(launched.values())} launches)")
         return got
 
     both = ((torch.float32, "float32"), (torch.float64, "float64"))
@@ -2054,14 +2086,26 @@ def main():
         local_fused_pass(lops_, lp, n0, n1, cells=cells_, tile=tl, t=t_, t_prev=tp_, t_out=o0,
                          t_prev_out=o1, acc=acc_f)
         core = (Ellipsis, slice(cells_, cells_ + ly_), slice(cells_, cells_ + lx_))
+        # the same round on strips: the cores read in place from the extended
+        # carries (their row pitch and batch stride), the strips cut from them
+        c_, e_ = cells_, cells_ + ly_
+        sstr = halo.Strips(*(torch.stack([a[..., r_, q_] for a in (t_, tp_)]) for r_, q_ in (
+            (slice(0, c_), slice(None)), (slice(e_, None), slice(None)),
+            (slice(c_, e_), slice(0, c_)), (slice(c_, e_), slice(c_ + lx_, None)))))
+        so0, so1 = (torch.full((2,) + sshape_s, float("nan"), dtype=dt, device=dev) for _ in "ab")
+        acc_st = acc0.clone()
+        local_strip_pass(lops_, lp, n0, n1, cells=cells_, tile=tl, t=t_[core], t_prev=tp_[core],
+                         t_out=so0, t_prev_out=so1, acc=acc_st, strips=sstr)
         for nm, g, w in (("t", o0[core], cur[core]), ("t_prev", o1[core], prev[core]),
-                         ("acc", acc_f, acc_s)):
+                         ("acc", acc_f, acc_s), ("strips t", so0, cur[core]),
+                         ("strips t_prev", so1, prev[core]), ("strips acc", acc_st, acc_s)):
             bitwise(f"K2 sentinel middle round {name} {tl} {nm}", g, w,
                     "the local step-kernel chain")
         log(f"  sharded {tri.name} {sshape_s} batch 2 {name}: a middle round of {n1} steps "
-            f"(block of {cells_} cells) on {tl} tiles into NaN-filled t_out and t_prev_out: bit "
-            f"for bit equal to the local step-kernel chain")
-    del sfilt, lops_, t_, tp_, acc0, cur, prev, acc_s, o0, o1, acc_f
+            f"(block of {cells_} cells) on {tl} tiles, on the extended block and on strips "
+            f"(cores read in place from it), into NaN-filled t_out and t_prev_out: bit for bit "
+            f"equal to the local step-kernel chain")
+    del sfilt, lops_, t_, tp_, acc0, cur, prev, acc_s, o0, o1, acc_f, sstr, so0, so1, acc_st
 
     # 10. sharded headline: the phase-4 workload through the mesh path
     shead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri,
@@ -2077,11 +2121,11 @@ def main():
         y = shead.apply(y)
     ms_sharded, host_sharded = event_ms(lambda: shead.apply(x_dev), chain, host=True)
     s_other = counters()
-    s_launches = s_other.pop("local_fused_pass")
+    s_launches = s_other.pop("local_strip_pass")
     s_fallbacks = fallback_counts()
     lops, cells, rounds, lp_ = sfn.operands(ny, nx, torch.float32)
     log(f"sharded headline {ny}x{nx} float32 {tri.name} on a 1x1 mesh, n_steps {n_steps}, "
-        f"rounds {rounds}: {s_launches} local_fused_pass launches over {applies} applies, "
+        f"rounds {rounds}: {s_launches} local_strip_pass launches over {applies} applies, "
         f"other kernels {s_other}, fallbacks {s_fallbacks}")
     if s_launches != len(rounds) * applies:
         raise AssertionError(f"expected {len(rounds) * applies} launches, saw {s_launches}")
@@ -2108,7 +2152,7 @@ def main():
     lplan = plan_fused_passes(cells, ny, nx, torch.float32, fused_planes(lops), one_pass=True)
     plain_shead = make_sharded_scalar_apply(shead.operator, shead.filter_spec, mesh, axes,
                                             pass_fn=local_pass_reference,
-                                            fused_fn=local_fused_pass_reference)
+                                            fused_fn=local_strip_pass_reference)
     plain_shead(x_dev)
     ms_s_plain = event_ms(lambda: plain_shead(x_dev), 10)
     # the chain of local step-kernel launches: the same bits, timed in the same run
@@ -2120,10 +2164,19 @@ def main():
     ms_s_steps, host_s_steps = event_ms(lambda: steps_shead(x_dev), chain, host=True)
     s_step_chain_launches = (local_pass.launches - before) // chain
 
-    # the exchange alone, and the chain of local steps alone on an extended block
-    local_axis = (None, 1)
-    ms_exchange = event_ms(lambda: halo.exchange_2d(x3, cells, local_axis, local_axis, True), chain)
+    # the apply's parts alone (utils/round_split.py): the parent's halo
+    # exchange (exchange_2d, the extended block), the strips the round reads
+    # now, and the round with its strips frozen; then the round on strips
+    # alone, the parent's round on the extended block alone, and the chain
+    # of local steps alone on it
+    hparts, hinfo = scalar_round_parts(shead, x_dev)
+    if not (hinfo["rounds_alone_equal_apply"] and hinfo["extended_rounds_equal_apply"]):
+        raise AssertionError(f"sharded headline parts: {hinfo}")
+    ms_exchange = event_ms(hparts["exchange"], chain)
+    ms_strips = event_ms(hparts["strips"], chain)
+    ms_rounds_alone = event_ms(hparts["rounds_alone"], chain)
     xe = halo.exchange_2d(x3, cells, local_axis, local_axis, True)
+    xs_strips = halo.exchange_strips(x3, cells, local_axis, local_axis, True)
     kbuf = [torch.zeros_like(xe), torch.zeros_like(xe), torch.zeros_like(x3)]
 
     def local_chain():
@@ -2141,18 +2194,27 @@ def main():
     local_chain()
     ms_chain = event_ms(local_chain, chain)
     chain_err = bitwise("the local step chain alone", kbuf[2][0], s_full, "the sharded apply")
-    facc = torch.empty_like(x3)
-    fused_round = lambda: local_fused_pass(  # noqa: E731
-        lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=xe, field_own=x3, acc=facc)
+    facc, eacc = torch.empty_like(x3), torch.empty_like(x3)
+    fused_round = lambda: local_strip_pass(  # noqa: E731
+        lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=x3, field_own=x3, acc=facc,
+        strips=xs_strips)
+    parent_round = lambda: local_fused_pass(  # noqa: E731
+        lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=xe, field_own=x3, acc=eacc)
     fused_round()
+    parent_round()
     ms_round = event_ms(fused_round, chain)
-    bitwise("the fused round alone", facc[0], s_full, "the sharded apply")
-    # the fused round against its plain version, at the headline's block
+    ms_parent_round = event_ms(parent_round, chain)
+    bitwise("the round on strips alone", facc[0], s_full, "the sharded apply")
+    bitwise("the round on strips alone", facc, eacc, "the parent's round on the extended block")
+    # the round on strips against its plain version, at the headline's block
     racc = torch.empty_like(x3)
-    local_fused_pass_reference(lops, lp_, 0, n_steps, cells=cells, field=xe, field_own=x3,
-                               acc=racc)
-    lfused_err = compare("fused round vs plain", facc, racc, "float32")[0]
-    del racc
+    local_strip_pass_reference(lops, lp_, 0, n_steps, cells=cells, field=x3, field_own=x3,
+                               acc=racc, strips=xs_strips)
+    ms_round_plain = event_ms(lambda: local_strip_pass_reference(
+        lops, lp_, 0, n_steps, cells=cells, field=x3, field_own=x3, acc=racc,
+        strips=xs_strips), 3)
+    lfused_err = compare("round on strips vs plain", facc, racc, "float32")[0]
+    del racc, eacc
     slp_bytes, slp_flops = plan_cost(lops, dataclasses.replace(lplan, steps=rounds), 1, ny, nx,
                                      item)
     slb_ms, slb_by = bound_ms(slp_bytes, slp_flops, "float32")
@@ -2167,14 +2229,77 @@ def main():
         f"ms/apply) = {ny * nx * n_steps / (ms_sharded * 1e-3):.4e} grid-point-steps/s on {smi}; "
         f"bit for bit equal to the local step chain, {ms_s_steps:.4f} ms/apply in "
         f"{s_step_chain_launches} launches")
-    log(f"  halo exchange alone ({cells} cells, block {tuple(xe.shape[-2:])}) "
-        f"{ms_exchange:.4f} ms; the fused round alone (tile {lplan.tile}) {ms_round:.4f} ms; "
-        f"the {n_steps} local steps alone {ms_chain:.4f} ms (both bit for bit equal to the "
-        f"apply); unsharded fused path {ms_apply:.4f} ms/apply; fused round vs plain max abs "
-        f"{lfused_err:.3e}")
+    log(f"  {s_launches // applies} strip launch(es) an apply; strips alone ({cells} cells) "
+        f"{ms_strips:.4f} ms, the parent's halo exchange alone (block {tuple(xe.shape[-2:])}) "
+        f"{ms_exchange:.4f} ms; the rounds with their strips frozen {ms_rounds_alone:.4f} ms; "
+        f"the round on strips alone (tile {lplan.tile}) {ms_round:.4f} ms, the parent's round "
+        f"on the extended block alone {ms_parent_round:.4f} ms, the {n_steps} local steps alone "
+        f"{ms_chain:.4f} ms (all bit for bit equal to the apply); unsharded fused path "
+        f"{ms_apply:.4f} ms/apply; round on strips vs plain max abs {lfused_err:.3e} (plain "
+        f"{ms_round_plain:.4f} ms)")
     log(f"  plan bound {slb_ms:.4f} ms ({slb_by}); whole-filter bound {sfb_ms:.4f} ms "
         f"({filter_bytes / 1e6:.1f} MB); step chain's per-launch bound {sb_ms:.4f} ms "
         f"({s_bytes / 1e9:.3f} GB, {sb_by}); plain PyTorch {ms_s_plain:.4f} ms/apply")
+
+    # 10b. the sharded scalar Taper: 39 steps in several rounds, whose later
+    # strips come from the previous round's core-shaped carries
+    staper = Filter(filter_scale=10.0, dx_min=1.0, filter_shape=FilterShape.TAPER,
+                    grid_type=tri, grid_vars={"area": area, "wet_mask": wet},
+                    dtype=torch.float32, device=dev, mesh=mesh, spatial_axes=axes)
+    t_ops, t_cells, t_rounds, _ = staper._scalar_fn().operands(ny, nx, torch.float32)
+    torch.cuda.synchronize()
+    reset_fallback_counts()
+    reset_counters()
+    t_first = staper.apply(x_dev)
+    for _ in range(warm):
+        staper.apply(x_dev)
+    ms_staper, host_staper = event_ms(lambda: staper.apply(x_dev), 20, host=True)
+    t_counts = counters()
+    t_launches = t_counts.pop("local_strip_pass")
+    t_applies = 1 + warm + 20
+    if len(t_rounds) < 2 or t_launches != len(t_rounds) * t_applies or any(t_counts.values()):
+        raise AssertionError(f"sharded Taper: rounds {t_rounds}, {t_launches} strip launches "
+                             f"over {t_applies} applies, other kernels {t_counts}")
+    if fallback_counts():
+        raise AssertionError(f"fallbacks recorded on the kernel path: {fallback_counts()}")
+    t_full = t_first.full_tensor()
+    t64 = scalar_filter_apply(staper.operator, staper.filter_spec, x_dev.double())
+    if not bool(torch.isfinite(t_full).all()):
+        raise AssertionError("the sharded Taper result is not finite")
+    torch.testing.assert_close(t_full.double(), t64, rtol=1e-4, atol=1e-5)
+    t_err = float((t_full.double() - t64).abs().max())
+    del t64
+    t_steps = make_sharded_scalar_apply(staper.operator, staper.filter_spec, mesh, axes,
+                                        fused_fn=None)
+    bitwise("sharded Taper", t_full, t_steps(x_dev).full_tensor(), "the local step-kernel chain")
+    tparts, tinfo = scalar_round_parts(staper, x_dev)
+    if not (tinfo["rounds_alone_equal_apply"] and tinfo["extended_rounds_equal_apply"]):
+        raise AssertionError(f"sharded Taper parts: {tinfo}")
+    bitwise("sharded Taper", t_full, tinfo.pop("out"), "its apply again")
+    k1_taper = Filter(filter_scale=10.0, dx_min=1.0, filter_shape=FilterShape.TAPER,
+                      grid_type=tri, grid_vars={"area": area, "wet_mask": wet},
+                      dtype=torch.float32, device=dev)
+    t_vs_k1 = float((t_full - k1_taper.apply(x_dev)).abs().max())
+    t_split = {k: event_ms(fn_, 20) for k, fn_ in tparts.items() if k != "apply"}
+    t_split["unsharded"] = event_ms(lambda: k1_taper.apply(x_dev), 20)
+    tplan = plan_fused_passes(t_cells, ny, nx, torch.float32, fused_planes(t_ops), one_pass=True)
+    tb_bytes, tb_flops = plan_cost(t_ops, dataclasses.replace(tplan, steps=t_rounds), 1, ny, nx,
+                                   item)
+    tb_ms, tb_by = bound_ms(tb_bytes, tb_flops, "float32")
+    del k1_taper, t_steps
+    sh_taper = {"ms": ms_staper, "host_enqueue_ms": host_staper, "n_steps": staper.n_steps,
+                "rounds": list(t_rounds), "cells": t_cells, "tile": list(tplan.tile),
+                "launches": t_launches, "launches_per_apply": len(t_rounds),
+                "plan_bound_ms": tb_ms, "plan_bound_by": tb_by, "vs_f64_engine_max_abs": t_err,
+                "vs_unsharded_k1_max_abs": t_vs_k1, "split_ms": t_split}
+    log(f"sharded Taper {ny}x{nx} float32 on a 1x1 mesh, {staper.n_steps} steps in rounds "
+        f"{t_rounds} (cells {t_cells}, tile {tplan.tile}): {ms_staper:.4f} ms/apply (host "
+        f"enqueue {host_staper:.4f}), {t_launches} local_strip_pass launches over {t_applies} "
+        f"applies; bit for bit equal to the local step chain and to the parent's rounds on the "
+        f"extended block; vs eager float64 max abs {t_err:.3e}, vs unsharded K1 max abs "
+        f"{t_vs_k1:.3e}; parts alone " + ", ".join(f"{k} {v:.4f}" for k, v in t_split.items())
+        + f" ms; plan bound {tb_ms:.4f} ms ({tb_by}) on {smi}")
+    del staper, t_first, t_full
 
     # 11. each step kind of the local step against its plain version, at the
     # headline's extended shape (buffers start at zero: a step leaves the
@@ -3073,12 +3198,29 @@ def main():
             f"float64 max abs {err:.3e}; {ms:.4f} ms/apply (host enqueue {host:.4f} ms/apply) on {smi}")
         return filt, first, ms, host, n_launched, err, vs_un
 
-    def scalar_ring_headline(label, p_y, x, k1_out, k1_ms, want64, n_chain=chain, **kw):
+    def scalar_ring_headline(label, p_y, x, k1_out, k1_ms, want64, k1_filt, n_chain=chain,
+                             alt=None, **kw):
         """The fused scalar ring on one headline: bitwise equal to the fused
-        K1 and to the step ring of this run, timed beside both."""
+        K1 and to the step ring of this run, timed beside both, and split
+        (utils/ring_split.py): its passes alone and the copies around them,
+        beside K1's launches alone. With ``alt = (x2, k1_out2)``, 24 applies
+        alternating the two inputs, each bitwise equal to K1 of its own."""
         filt, (o,), ms_f, host_f, n_l, err, vs_k1 = ring_headline(
             f"{label}", "ring_fused_pass", p_y, (x.cpu().numpy(),), (x,), (k1_out,), (want64,),
             n_chain=n_chain, **kw)
+        parts, _ = ring_parts(filt, x)
+        k_launch = unsharded_launches(k1_filt, x)
+        split = {k: event_ms(fn_, n_chain) for k, fn_ in
+                 (("passes", parts["passes"]), ("copies", parts["copies"]),
+                  ("k1_launches", k_launch))}
+        bitwise(f"ring headline {label} p_y={p_y} passes alone", torch.cat(
+            ring_entry(filt._scalar_fn()).state.acc), k1_out, "the fused K1")
+        if alt is not None:
+            # a halo row read stale, or a tile skipped, would show as a flicker
+            for k in range(24):
+                xk, wk = (x, k1_out) if k % 2 else alt
+                bitwise(f"ring headline {label} p_y={p_y} alternating apply {k}", filt.apply(xk),
+                        wk, "the fused K1 of its own input")
         entry = ring_entry(filt._scalar_fn())
         steps_fn = make_ring_scalar_apply(filt.operator, filt.filter_spec, filt.mesh, ring_axes,
                                           exact_nan=filt.exact_nan, fused_fn=None)
@@ -3097,8 +3239,12 @@ def main():
         log(f"  fused ring {label} p_y={p_y}: plan {entry.plan.tile} {entry.plan.steps}, "
             f"{len(entry.plan.steps)} launch(es)/apply, {ms_f:.4f} ms/apply; step ring "
             f"{ms_s:.4f} ms/apply (host enqueue {host_s:.4f}), bit for bit equal; fused K1 "
-            f"{k1_ms:.4f} ms/apply, bit for bit equal; plan bound {pbm:.4f} ms "
-            f"({rbytes / 1e9:.3f} GB, {pbb}), whole-filter bound {fbm:.4f} ms on {smi}")
+            f"{k1_ms:.4f} ms/apply, bit for bit equal; passes alone {split['passes']:.4f} ms "
+            f"({split['passes'] / split['k1_launches'] - 1:+.1%} over K1's launches alone, "
+            f"{split['k1_launches']:.4f}), copies alone {split['copies']:.4f} ms; "
+            f"{RingItems(p_y, ny // p_y, nx, entry.plan.tile, entry.plan.steps[0]).tickets} "
+            f"tickets a launch; {'24 alternating applies bit for bit; ' if alt else ''}plan bound "
+            f"{pbm:.4f} ms ({rbytes / 1e9:.3f} GB, {pbb}), whole-filter bound {fbm:.4f} ms on {smi}")
         return filt, o, {
             "ms": ms_f, "host_enqueue_ms": host_f, "step_ring_ms": ms_s,
             "step_ring_host_enqueue_ms": host_s, "k1_ms": k1_ms, "launches": n_l,
@@ -3106,16 +3252,21 @@ def main():
             "passes": list(entry.plan.steps), "tile": list(entry.plan.tile),
             "plan_bound_ms": pbm, "filter_bound_ms": fbm, "filter_bound_by": fbb,
             "bytes_moved": rbytes, "vs_k1_max_abs": vs_k1, "vs_step_ring_max_abs": vs_steps,
-            "vs_f64_engine_max_abs": err}
+            "vs_f64_engine_max_abs": err, "split_ms": split,
+            "tickets_per_launch": [RingItems(p_y, ny // p_y, nx, entry.plan.tile, n).tickets
+                                   for n in entry.plan.steps]}
 
     head_kw = dict(filter_scale=10.0, dx_min=1.0, grid_type=tri,
                    grid_vars={"area": area, "wet_mask": wet})
     want64 = scalar_filter_apply(head.operator, head.filter_spec, x_dev.double())
     ms_unsharded_again = event_ms(lambda: head.apply(x_dev), chain)
     ring_by_p = {}
+    x_alt = x_dev.flip(0).contiguous()
+    alt = (x_alt, head.apply(x_alt))
     for p_y in (4, 2, 8):
         rhead, r_out, r_info = scalar_ring_headline(
-            f"{ny}x{nx} float32 {tri.name}", p_y, x_dev, out, ms_unsharded_again, want64, **head_kw)
+            f"{ny}x{nx} float32 {tri.name}", p_y, x_dev, out, ms_unsharded_again, want64, head,
+            alt=alt, **head_kw)
         ring_by_p[p_y] = r_info
         if p_y == 4:
             kept4 = (rhead, r_out)
@@ -3147,7 +3298,7 @@ def main():
         k1_ms = event_ms(lambda: k1.apply(x_dev), 20)
         w64 = scalar_filter_apply(k1.operator, k1.filter_spec, x_dev.double())
         f5, _, ring_more[key] = scalar_ring_headline(
-            f"{key} {ny}x{nx} float32", 4, x_dev, k1_out, k1_ms, w64, n_chain=20, **kw5)
+            f"{key} {ny}x{nx} float32", 4, x_dev, k1_out, k1_ms, w64, k1, n_chain=20, **kw5)
         del k1, k1_out, w64, f5
     del m5, ones5
 
@@ -3345,8 +3496,7 @@ def main():
     # 16 and 17 (vector). the B-grid and C-grid ring headlines, fused, beside
     # the fused K3 / K4 and the step ring; each step and pass kind vs plain
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
-        VecRingFusedOperands, VecRingFusedState, VecRingItems,
-        vec_ring_fused_pass_tiled_reference,
+        VecRingFusedOperands, VecRingFusedState, vec_ring_fused_pass_tiled_reference,
     )
 
     def load_vector(dtype):
@@ -3472,7 +3622,7 @@ def main():
         u_s[24, 40] = float("nan")
         for p_y, n_int in ((2, 2), (4, 0)):
             ly_s = shape_s[0] // p_y
-            items = VecRingItems(p_y, ly_s, shape_s[1], tile_s, 5)
+            items = RingItems(p_y, ly_s, shape_s[1], tile_s, 5)
             if (items.int_lo, items.n_int) != (2, n_int):
                 raise AssertionError(f"p_y={p_y}: interior rows {items.int_lo}, {items.n_int}")
             outs = []
@@ -3763,6 +3913,25 @@ def main():
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
         "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
+        "launches": ext_path["launches"],
+        "launches_from": f"the parent's rounds on the extended block, the strip round's oracle "
+                         f"({ext_path['cases']} sharded cases of phase 9)",
+        "max_abs_err": max(sworst["float32"][0], sworst["float64"][0]),
+        "ms": ms_parent_round,
+        "plain_ms": ms_round_plain,
+        "bound_ms": slb_ms,
+        "bound_by": slb_by,
+        "library_ms": None,
+        "unit": f"one headline round alone on the extended block {tuple(xe.shape[-2:])} "
+                f"(after exchange_2d), {lplan.tile[0]}x{lplan.tile[1]} tiles, {ny}x{nx} float32",
+        "bytes_moved": slp_bytes,
+        "filter_bound_ms": sfb_ms,
+        "ptxas": scalar_tile_ptxas("local_pass", "pass_kernel"),
+    }, {
+        "name": "local_strip_pass",
+        "route": "cuda",
+        "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
+        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
         "launches": s_launches,
         "launches_per_apply": len(rounds),
         "max_abs_err": max(lfused_err, sworst["float32"][0], sworst["float64"][0]),
@@ -3773,17 +3942,22 @@ def main():
         "bound_ms": sfb_ms,
         "bound_by": sfb_by,
         "library_ms": None,
-        "unit": f"one sharded headline apply on a 1x1 mesh = one halo exchange + "
-                f"{len(rounds)} fused round(s) on {lplan.tile[0]}x{lplan.tile[1]} tiles, "
-                f"{ny}x{nx} float32, block {tuple(xe.shape[-2:])}",
+        "unit": f"one sharded headline apply on a 1x1 mesh = the halo strips + "
+                f"{len(rounds)} round(s) on strips, {lplan.tile[0]}x{lplan.tile[1]} tiles, "
+                f"{ny}x{nx} float32, core {ny}x{nx}, {cells} cells",
         "bytes_moved": slp_bytes,
         "plan_bound_ms": slb_ms,
         "filter_bound_ms": sfb_ms,
         "step_chain_ms": ms_s_steps,
-        "exchange_ms": ms_exchange,
-        "round_alone_ms": ms_round,
         "host_enqueue_ms": host_sharded,
-        "ptxas": scalar_tile_ptxas("local_pass", "pass_kernel"),
+        "strips_ms": ms_strips,
+        "rounds_alone_ms": ms_rounds_alone,
+        "round_alone_ms": ms_round,
+        "round_alone_plain_ms": ms_round_plain,
+        "parent_exchange_ms": ms_exchange,
+        "parent_round_alone_ms": ms_parent_round,
+        "taper": sh_taper,
+        "ptxas": scalar_tile_ptxas("local_pass", "local_strip_kernel"),
     }, svec_results[BGRID], svec_results[CTAP], svfused_results[BGRID],
         svfused_results[CTAP], svstrip_results[BGRID], svstrip_results[CTAP]] + ring_results
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,9 +1,11 @@
 // The fused scalar Chebyshev pass on shared-memory tiles: S steps per
 // launch, shared by the unsharded fused entry (cheb_pass.cu, WrapGeo), the
-// fused local round of the sharded engine (local_pass.cu, BlockGeo) and the
+// fused local round of the sharded engine (local_pass.cu: BlockGeo on the
+// extended block, BlockStripGeo on the core and four halo strips) and the
 // fused ring pass (ring_pass.cu, RingGeo). `fused_tile` is one tile's whole
-// pass; `fused_pass_kernel` runs it for the tile of its blockIdx, the ring
-// kernel for the tile its ticket names.
+// pass; `fused_pass_kernel` and `local_strip_kernel` run it for the tile of
+// their blockIdx, the ring kernel for the tile its blockIdx or its ticket
+// names.
 //
 // A block owns a by x bx tile of the output and runs the trapezoid
 // (overlapped-halo) decomposition of the TPU kernel
@@ -123,8 +125,6 @@ struct WrapGeo {
   __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
   __device__ int64_t out_plane() const { return (int64_t)ny * nx; }
   __device__ int64_t out_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
-  template <typename T>
-  __device__ T ld(const T* p, int64_t k) const { return p[k]; }
 };
 
 // A y-shard of the ring (ly rows of nx cells): every "in" plane is the
@@ -135,14 +135,18 @@ struct WrapGeo {
 // rows, as WrapGeo's are of the field's (needs ly >= the pass's halo). Rows
 // further than the pass's halo from every own row are clamped into the
 // block: their values reach no own cell. The carries go to the own rows of
-// extended planes; acc and the last pass's field are own-shaped. Carries and
-// the field are loaded past L1: the sends of the same launch wrote the halo
-// rows.
+// extended planes; acc and the last pass's field are own-shaped. The state
+// of a window row that lies in the shard's own rows (own()) goes by
+// cp.async; that of a halo row, which the sends of the same launch write,
+// past L1 after the flag wait (fused_halo_load).
 struct RingGeo {
   int ly, nx, pad, fold;
   __device__ int rows() const { return ly; }
   __device__ int cols() const { return nx; }
   __device__ bool mirror(int gy) const { return fold && gy >= ly; }
+  // whether window row gy reads the shard's own rows: rows [0, ly) and, on a
+  // folding top shard, the mirror rows above them
+  __device__ bool own(int gy) const { return (unsigned)gy < (unsigned)ly || (fold && gy >= ly); }
   __device__ int row(int gy) const {
     if (mirror(gy)) gy = max(2 * ly - 1 - gy, 0);  // ext row ly-1+m -> real row ly-m
     return min(max(gy, -pad), ly + pad - 1) + pad;
@@ -158,8 +162,6 @@ struct RingGeo {
   __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * nx + gx; }
   __device__ int64_t out_plane() const { return in_plane(); }
   __device__ int64_t out_index(int gy, int gx) const { return (int64_t)(gy + pad) * nx + gx; }
-  template <typename T>
-  __device__ T ld(const T* p, int64_t k) const { return __ldcg(p + k); }
 };
 
 // A halo-extended block (ly+2c, lx+2c) of the sharded engine: the own domain
@@ -178,9 +180,47 @@ struct BlockGeo {
   __device__ int64_t own_index(int gy, int gx) const { return (int64_t)gy * lx + gx; }
   __device__ int64_t out_plane() const { return in_plane(); }
   __device__ int64_t out_index(int gy, int gx) const { return in_index(gy + c, gx + c); }
-  template <typename T>
-  __device__ T ld(const T* p, int64_t k) const { return p[k]; }
 };
+
+// A round of the sharded engine on strips (entries local_strip_pass_f32/f64):
+// BlockGeo's block and own domain with no extended copy of the state. The
+// state of a window cell lies where the exchange left it: the core's own
+// planes, read in place (the caller's field on round 0, the previous round's
+// core-shaped carries later; a row pitch and a batch stride), or one of the
+// four halo strips of parallel/halo.py::exchange_strips, south and north
+// (batch, c, lx+2c) with the corners, west and east (batch, ly, c). The
+// clamps of BlockGeo::row/col pick the extended cell, so every window cell
+// gets the value it gets from the extended block. The coefficients and area
+// stay on the extended planes (in_index); acc and the carries out are
+// core-shaped (own_index), and the next round reads those in place.
+struct BlockStripGeo : BlockGeo {
+  int64_t own_batch, own_pitch;  // of the own planes: batch stride, row pitch
+  __device__ int64_t out_plane() const { return own_plane(); }
+  __device__ int64_t out_index(int gy, int gx) const { return own_index(gy, gx); }
+};
+
+// The planes of a launch on strips, the kernel's argument: the pass and its
+// planes as FusedArgs (field, t and t_prev unused), and the sources of the
+// window's two state planes, [0] the raw field (a first round) or T_{k-1},
+// [1] T_k: [plane][south, north, west, east, own], own at core cell (0, 0)
+// of batch entry 0.
+template <typename T>
+struct StripArgs : FusedArgs<T> {
+  const T* src[2][5];
+};
+
+// Where the state of extended cell (r, cc) of batch entry z lies: source s
+// (0 south, 1 north, 2 west, 3 east, 4 the own planes) at the offset returned.
+__device__ __forceinline__ int64_t block_strip_cell(const BlockStripGeo g, int r, int cc,
+                                                    unsigned z, int& s) {
+  const int c = g.c, ex = g.lx + 2 * c;
+  if (r < c) { s = 0; return ((int64_t)z * c + r) * ex + cc; }
+  if (r >= c + g.ly) { s = 1; return ((int64_t)z * c + (r - c - g.ly)) * ex + cc; }
+  if (cc < c) { s = 2; return ((int64_t)z * g.ly + (r - c)) * c + cc; }
+  if (cc >= c + g.lx) { s = 3; return ((int64_t)z * g.ly + (r - c)) * c + (cc - c - g.lx); }
+  s = 4;
+  return z * g.own_batch + (r - c) * g.own_pitch + (cc - c);
+}
 
 // The window's copies. cp.async puts a value from device memory straight
 // into its shared-memory slot, with no round trip through a register, so
@@ -188,10 +228,15 @@ struct BlockGeo {
 // a load into a register and a store per cell queue one behind the other.
 // cp.async of 4 or 8 bytes caches in L1, so it copies only what no block of
 // the launch writes: the coefficients, acc of the own tile (only its tile
-// writes it) and the carries of the whole field and of a shard block. A ring
-// shard's carries and raw field go through registers past L1 (RingGeo::ld,
-// __ldcg): the sends of the same launch write their halo rows, and a
-// 128-byte line may hold an own row's end and a halo row's start.
+// writes it), the carries of the whole field and of a shard block, a strip
+// round's own planes and strips (the launch writes fresh core-shaped carries,
+// which the wrapper checks alias nothing it reads), and the state of a ring
+// shard's own rows (the sends read them, the tiles write the other carry
+// pair). The state of a ring shard's halo rows goes through registers past
+// L1 (__ldcg, fused_halo_load) after the flag wait: the sends of the same
+// launch write those rows, and a 128-byte line that a .ca copy of an own row
+// brings into L1 may hold the start of a halo row still stale, so no halo
+// cell is ever read through L1.
 template <typename T>
 __device__ __forceinline__ void cp_async(T* dst, const T* src) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
@@ -205,7 +250,8 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
 }
 
-// Whether the carries may go into the window by cp.async (see above).
+// Whether the state of every window row may go into the window by cp.async
+// (see above); on RingGeo only that of the rows own() names.
 template <class GEO> struct StateAsync { static constexpr bool value = true; };
 template <> struct StateAsync<RingGeo> { static constexpr bool value = false; };
 
@@ -343,20 +389,15 @@ __device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const P& pl
 }
 
 // Where a block's tile lies: the tile of its blockIdx, batch entry
-// blockIdx.z (the grid of fused_pass_kernel) ... z() is unsigned, as
-// blockIdx.z is: an int there changed the fused K1's registers and spills.
+// blockIdx.z (the grid of fused_pass_kernel), with nothing to wait for
+// before the state of its halo loads (the ring's tiles, RingTile of
+// ring_pass.cu, wait for flags there). z() is unsigned, as blockIdx.z is: an
+// int there changed the fused K1's registers and spills.
 struct GridOrigin {
   __device__ int y0(int by) const { return blockIdx.y * by; }
   __device__ int x0(int bx) const { return blockIdx.x * bx; }
   __device__ unsigned z() const { return blockIdx.z; }
-};
-
-// ... or a tile that the block was handed, in an unbatched field.
-struct TileOrigin {
-  int ty, tx;
-  __device__ int y0(int by) const { return ty * by; }
-  __device__ int x0(int bx) const { return tx * bx; }
-  __device__ unsigned z() const { return 0; }
+  __device__ void wait() const {}
 };
 
 // Issue the copies of the window of the tile at (y0, x0), batch bases b_in
@@ -369,8 +410,8 @@ struct TileOrigin {
 // warp's copies read consecutive cells of a plane; a row above the fold
 // reads its real row reversed in x. Clamped rows of a shard block or a ring
 // shard copy a source cell into several slots, each its own copy. On a ring
-// shard (StateAsync false) the carries and the field go through registers,
-// U cells a thread at a time: all their loads, then all their stores.
+// shard (StateAsync false) only the state of the rows own() names goes here;
+// that of its halo rows waits for fused_halo_load.
 template <typename T, class Geo, int MODE, class P>
 __device__ __forceinline__ void fused_window_load(const Tile<T, MODE>& tl, const P& pl,
                                                   const Geo geo, int wy, int H, int y0, int x0,
@@ -397,32 +438,12 @@ __device__ __forceinline__ void fused_window_load(const Tile<T, MODE>& tl, const
         cp_async(sm + k, pl.t_prev + b_in + kk);
         cp_async(sm + wa + k, pl.t + b_in + kk);
       }
-    }
-  }
-  if constexpr (!StateAsync<Geo>::value) {
-    constexpr int U = 4;
-    const T* const s0 = first ? pl.field : pl.t_prev;
-    for (int k0 = threadIdx.x; k0 < wa; k0 += U * blockDim.x) {
-      T v[U][2];
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = k0 + u * blockDim.x;
-        if (k < wa) {
-          const int r = per_row(k), q = k - r * wx;
-          const int gy = y0 - H + r;
-          const int64_t kk =
-              b_in + geo.in_index(geo.row(gy), geo.col(x0 - H + q, geo.mirror(gy)));
-          v[u][0] = geo.ld(s0, kk);
-          v[u][1] = first ? T(0) : geo.ld(pl.t, kk);
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < U; ++u) {
-        const int k = k0 + u * blockDim.x;
-        if (k < wa) {
-          sm[k] = v[u][0];
-          if (!first) sm[wa + k] = v[u][1];
-        }
+    } else if (geo.own(gy)) {
+      if (first) {
+        cp_async(sm + k, pl.field + b_in + kk);
+      } else {
+        cp_async(sm + k, pl.t_prev + b_in + kk);
+        cp_async(sm + wa + k, pl.t + b_in + kk);
       }
     }
   }
@@ -436,6 +457,101 @@ __device__ __forceinline__ void fused_window_load(const Tile<T, MODE>& tl, const
         cp_async(sm + tl.o_acc + i, pl.acc_in + b_own + geo.own_index(gy, gx));
       else
         sm[tl.o_acc + i] = T(0);
+    }
+  }
+}
+
+// The window's copies on a strip round (BlockStripGeo, StripArgs): as above,
+// but a window cell's state comes from where block_strip_cell finds it, the
+// own planes or a strip, never from an extended block. The coefficient and
+// acc copies repeat the general load's rather than share a helper with it,
+// so the kernels that inline that one keep their code and their recorded
+// ptxas -v lines. The strip kernel's tiles are GridOrigin's: batch entry
+// blockIdx.z.
+template <typename T, int MODE, class P>
+__device__ __forceinline__ void fused_window_load(const Tile<T, MODE>& tl, const P& pl,
+                                                  const BlockStripGeo geo, int wy, int H, int y0,
+                                                  int x0, int64_t, int64_t b_own) {
+  const FusedArgs<T>& a = tl.a;
+  T* const sm = tl.sm;
+  const int wx = tl.wx, wa = wy * wx;
+  const bool first = a.first != 0;
+  const unsigned z = blockIdx.z;
+  const Quot per_row(wx);
+  for (int k = threadIdx.x; k < wa; k += blockDim.x) {
+    const int r = per_row(k), q = k - r * wx;
+    const int er = geo.row(y0 - H + r), ec = geo.col(x0 - H + q, false);
+    const int64_t kk = geo.in_index(er, ec);
+#pragma unroll
+    for (int m = 0; m < 5; ++m)
+      if (tl.coef_array(m)) cp_async(sm + tl.o_coef[m] + k, pl.coef[m] + kk);
+    if (tl.has_post()) cp_async(sm + tl.o_post + k, pl.post + kk);
+    if (tl.has_pre()) cp_async(sm + tl.o_pre + k, pl.pre + kk);
+    if (first && pl.area) cp_async(sm + wa + k, pl.area + kk);
+    int s;
+    const int64_t off = block_strip_cell(geo, er, ec, z, s);
+    cp_async(sm + k, pl.src[0][s] + off);
+    if (!first) cp_async(sm + wa + k, pl.src[1][s] + off);
+  }
+  if (!first) {
+    const int ny = geo.rows(), nx = geo.cols();
+    const Quot per_tile_row(a.bx);
+    for (int i = threadIdx.x; i < a.by * a.bx; i += blockDim.x) {
+      const int oy = per_tile_row(i);
+      const int gy = y0 + oy, gx = x0 + i - oy * a.bx;
+      if (gy < ny && gx < nx)
+        cp_async(sm + tl.o_acc + i, pl.acc_in + b_own + geo.own_index(gy, gx));
+      else
+        sm[tl.o_acc + i] = T(0);
+    }
+  }
+}
+
+// The state of the window rows outside a ring shard's own rows (RingGeo,
+// where StateAsync is false; nothing elsewhere), after the wait for the
+// flags of those rows: through registers past L1 (__ldcg), U cells a thread
+// at a time, all their loads, then all their stores. Window rows [0, lo) lie
+// below row 0, rows [hi, wy) from row ly on, none on a folding top shard,
+// whose rows above ly are mirror cells of its own; an interior tile has
+// none. The caller waits for the cp.async group and then for the block
+// (__syncthreads) before the window is read.
+template <typename T, class Geo, int MODE, class P>
+__device__ __forceinline__ void fused_halo_load(const Tile<T, MODE>& tl, const P& pl,
+                                                const Geo geo, int wy, int H, int y0, int x0,
+                                                int64_t b_in) {
+  if constexpr (!StateAsync<Geo>::value) {
+    T* const sm = tl.sm;
+    const int wx = tl.wx, wa = wy * wx;
+    const bool first = tl.a.first != 0;
+    const T* const s0 = first ? pl.field : pl.t_prev;
+    const int lo = min(max(H - y0, 0), wy);
+    const int hi = geo.fold ? wy : max(min(geo.ly + H - y0, wy), lo);
+    const int n_lo = lo * wx, cells = n_lo + (wy - hi) * wx;
+    const Quot per_row(wx);
+    constexpr int U = 4;
+    for (int i0 = threadIdx.x; i0 < cells; i0 += U * blockDim.x) {
+      T v[U][2];
+      int ks[U];
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int i = i0 + u * blockDim.x;
+        ks[u] = i < n_lo ? i : i + (hi - lo) * wx;  // the window cell
+        if (i < cells) {
+          const int r = per_row(ks[u]), q = ks[u] - r * wx;
+          const int gy = y0 - H + r;
+          const int64_t kk =
+              b_in + geo.in_index(geo.row(gy), geo.col(x0 - H + q, geo.mirror(gy)));
+          v[u][0] = __ldcg(s0 + kk);
+          v[u][1] = first ? T(0) : __ldcg(pl.t + kk);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        if (i0 + u * (int)blockDim.x < cells) {
+          sm[ks[u]] = v[u][0];
+          if (!first) sm[wa + ks[u]] = v[u][1];
+        }
+      }
     }
   }
 }
@@ -476,9 +592,12 @@ __device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, c
   const int64_t b_out = (int64_t)org.z() * geo.out_plane();
   const int ny = geo.rows(), nx = geo.cols();
 
-  // 1. the window, in one burst; on a first pass, T_0 in place
+  // 1. the window, in one burst (a ring tile's halo rows after their flags);
+  // on a first pass, T_0 in place
   fused_window_load(tl, pl, geo, wy, H, y0, x0, b_in, b_own);
   cp_async_commit();
+  org.wait();
+  fused_halo_load(tl, pl, geo, wy, H, y0, x0, b_in);
   cp_async_wait_all();
   __syncthreads();
   if (a.first && (has_area || drop_pre)) {
@@ -528,6 +647,14 @@ __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedAr
   fused_tile<T, Geo, MODE>(a, a, geo, GridOrigin{});
 }
 
+// A strip round: fused_tile on BlockStripGeo, the planes and the state's
+// sources in one StripArgs.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(FUSED_THREADS) local_strip_kernel(const StripArgs<T> a,
+                                                                     const BlockStripGeo geo) {
+  fused_tile<T, BlockStripGeo, MODE>(a, a, geo, GridOrigin{});
+}
+
 template <typename T, class Geo, int MODE>
 int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cudaStream_t st) {
   if (bytes > 48 * 1024) {
@@ -536,6 +663,18 @@ int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cu
     if (err != cudaSuccess) return (int)err;
   }
   fused_pass_kernel<T, Geo, MODE><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, class Geo, int MODE>
+int launch_mode(const StripArgs<T>& a, const BlockStripGeo& g, dim3 grid, size_t bytes,
+                cudaStream_t st) {
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        local_strip_kernel<T, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    if (err != cudaSuccess) return (int)err;
+  }
+  local_strip_kernel<T, MODE><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   return (int)cudaGetLastError();
 }
 
@@ -550,10 +689,10 @@ int fused_mode(const FusedArgs<T>& a) {
 }
 
 // Launch one fused pass over the own domain of `geo`, tiles of by x bx, with
-// the kernel compiled for the stencil's shape.
-template <typename T, class Geo>
-int launch_fused(const FusedArgs<T>& a, const Geo& g, int ny, int nx, int batch,
-                 cudaStream_t st) {
+// the kernel compiled for the stencil's shape: `a` the FusedArgs, or the
+// StripArgs of a strip round.
+template <typename T, class Geo, class A>
+int launch_fused(const A& a, const Geo& g, int ny, int nx, int batch, cudaStream_t st) {
   if (a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 || batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
   const size_t bytes = fused_shared_bytes(a);

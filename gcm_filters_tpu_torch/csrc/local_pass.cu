@@ -55,6 +55,19 @@
 // exchange reads them as it reads the step chain's. Their result equals the
 // chain of this file's step launches bit for bit.
 //
+// The strip entries local_strip_pass_f32/f64 run the same round with no
+// extended copy of the state: the engine exchanges only the four halo strips
+// (parallel/halo.py::exchange_strips: south and north c x (lx+2c) with the
+// corners, west and east ly x c; exchange_2d is those strips concatenated
+// around the core), and the launch reads each window cell's state where it
+// lies (cheb_tile.cuh, BlockStripGeo): the core planes in place (the
+// caller's field on the first round, the previous round's core-shaped
+// carries later) or a strip, by cp.async; the coefficients stay on the
+// extended planes. BlockGeo's clamps pick the same cells, so each result
+// equals the fused entry's on the block the strips make, bit for bit. The
+// carries go out core-shaped, and the next round's strips are cut from them.
+// This is the engine's round; the fused entries stay as the card's oracle.
+//
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
 
@@ -234,6 +247,49 @@ LOCAL_PASS_ENTRY(local_pass_f64, double)
 
 LOCAL_FUSED_ENTRY(local_fused_pass_f32, float)
 LOCAL_FUSED_ENTRY(local_fused_pass_f64, double)
+
+// One fused round on strips: LOCAL_FUSED_ENTRY's round, whose state is read
+// in place from the core planes (`own`: the raw field on a first round, else
+// T_k; `own_prev`: T_{k-1}, null on a first round; core cell (0, 0) of batch
+// entry 0, one batch stride and row pitch) and from the halo strips of
+// `own` (south, north: (batch, cells, lx+2*cells); west, east: (batch, ly,
+// cells)), T_{k-1}'s strips following T_k's in the same tensors. Unless
+// `last`, the carries go into the core-shaped t_out and t_prev_out, which
+// must not alias what the launch reads; acc_in may be acc_out.
+#define LOCAL_STRIP_ENTRY(NAME, T)                                                       \
+  extern "C" int NAME(int batch, int ly, int lx, int cells, int by, int bx, int n_ops,   \
+                      int first, int last, const double* pa, double p_b, const T* own,   \
+                      const T* own_prev, long long own_batch, long long own_pitch,       \
+                      const T* south, const T* north, const T* west, const T* east,      \
+                      const T* field_own, const T* acc_in, T* t_out, T* t_prev_out,      \
+                      T* acc_out, const T* c, const T* n, const T* s, const T* e,        \
+                      const T* w, double cv, double nv, double sv, double ev, double wv, \
+                      const T* pre, const T* post, const T* area, double land_gain,      \
+                      int zap, int drop_pre, void* stream) {                             \
+    cudaGetLastError();                                                                  \
+    if (ly < 1 || lx < 1 || n_ops > cells || cells > ly || cells > lx || !own ||         \
+        (!first && !own_prev))                                                           \
+      return (int)cudaErrorInvalidValue;                                                 \
+    StripArgs<T> a;                                                                      \
+    static_cast<FusedArgs<T>&>(a) = fused_args<T>(                                       \
+        by, bx, n_ops, first, last, pa, p_b, nullptr, field_own, nullptr, nullptr,       \
+        acc_in, t_out, t_prev_out, acc_out, c, n, s, e, w, cv, nv, sv, ev, wv, pre, post, \
+        area, land_gain, zap, drop_pre);                                                 \
+    const int64_t row = (int64_t)batch * cells * (lx + 2 * cells);                       \
+    const int64_t col = (int64_t)batch * ly * cells;                                     \
+    const T* const src[5] = {south, north, west, east, own};                             \
+    const int64_t next[5] = {row, row, col, col, 0};                                     \
+    for (int k = 0; k < 5; ++k) {                                                        \
+      /* plane 0: the raw field, or T_{k-1}; plane 1: T_k */                             \
+      a.src[0][k] = first ? src[k] : k == 4 ? own_prev : src[k] + next[k];               \
+      a.src[1][k] = first ? nullptr : src[k];                                            \
+    }                                                                                    \
+    const BlockStripGeo g{{ly, lx, cells}, own_batch, own_pitch};                        \
+    return launch_fused<T>(a, g, ly, lx, batch, static_cast<cudaStream_t>(stream));      \
+  }
+
+LOCAL_STRIP_ENTRY(local_strip_pass_f32, float)
+LOCAL_STRIP_ENTRY(local_strip_pass_f64, double)
 
 extern "C" const char* local_pass_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));

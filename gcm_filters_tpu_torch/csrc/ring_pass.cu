@@ -79,20 +79,36 @@
 // neighbours' halo rows. A tile is the unsharded fused kernel's (fused_tile,
 // the same code), its window cut from the extended planes, so a cell gets
 // the bits of the fused K1 and of the step chain. Work order, one block of
-// FUSED_THREADS per item and one ticket per block:
-//   1. the two sends of every shard, each ending in a release store of the
-//      launch's epoch into the receiver's flag;
-//   2. interior tiles of every shard: window rows [y0-S, y0+by+S) inside
-//      [0, ly), no wait;
-//   3. edge tiles: they wait, with acquire order, for the flag of every halo
-//      their window reaches (the top shard of a fold grid reads mirror cells
-//      of its own rows instead of a north halo), then load their window.
-// The deadlock argument is the one above, whatever the occupancy: a block
-// may take most of an SM's shared memory, so as few as one block an SM may
-// run, but a block that waits holds a ticket above every send's, and every
-// send was drawn by a block that runs and never waits. The ticket is not
-// reset: the launch gets the count drawn before it (`base`) and a block's
-// item is its ticket less that. The ticket sits in the first word of the
+// FUSED_THREADS per item:
+//   - items (ring_item): the interior tiles, whose window rows [y0-S,
+//     y0+by+S) lie inside [0, ly) and which wait for nothing, take their
+//     item from blockIdx, blocks [2p, 2p + m) with m = ring_interior(q), so
+//     they issue their window's copies at once. Only the other blocks, [0,
+//     2p) and [2p + m, total), draw tickets, from one counter: first the two
+//     sends of every shard, each ending in a release store of the launch's
+//     epoch into the receiver's flag, then the edge tiles of every shard
+//     (ring_tickets(q) a launch). The ticketed blocks sit at both ends of
+//     blockIdx, so the sends tend to run first and the edge tiles last, but
+//     nothing depends on that order.
+//   - the window (fused_tile, RingTile): a tile issues the cp.async copies of
+//     its coefficients, acc and the state of the window rows that read the
+//     shard's own rows (RingGeo::own: [0, ly), and on the top shard of a
+//     fold grid the mirror cells of its own rows above them; no block of the
+//     launch writes those: the sends read them, the tiles write the other
+//     pair) before it waits for any flag; then an edge tile waits, with
+//     acquire order, for the flag of every halo its window reaches (the top
+//     shard of a fold grid reads no north halo) and loads the state of its
+//     halo rows through registers past L1 (fused_halo_load, __ldcg). No halo
+//     cell is read through L1: a .ca copy of an own row may bring in a line
+//     that ends in a halo row still stale.
+// Deadlock: the only blocks that wait are edge tiles, and every one of them
+// holds a ticket above every send's: each send was drawn, before it, by a
+// block that was running then and never waits. Interior tiles never wait.
+// So every wait ends whatever the occupancy (a block may take most of an
+// SM's shared memory, so as few as one block an SM may run) and whatever
+// blocks the hardware runs together and in whatever order. The ticket is not
+// reset: the launch gets the count drawn before it (`base`) and a ticket's
+// item is the ticket less that. The ticket sits in the first word of the
 // dynamic shared memory (a static one would take from the window's room).
 // The shards' plane pointers are a table in the kernel's parameters
 // (__grid_constant__, at most MAX_RING_SHARDS rows): a block reads them where
@@ -121,31 +137,12 @@
 // the fused K3 / K4 and of the vector step ring. Vector grids do not fold:
 // an edge tile waits for the flag of each halo its window reaches, the top
 // shard's north one too. The flags, the epochs, the table in the kernel's
-// parameters and the reuse of the two carry pairs are the scalar pass's; the
-// items and the window's load are its own:
-//   - items (vec_ring_item): the interior tiles, which wait for nothing, take
-//     their item from blockIdx, blocks [2p, 2p + m) with m =
-//     vec_ring_interior(q), so they issue their window's copies at once.
-//     Only the other blocks, [0, 2p) and [2p + m, total), draw tickets,
-//     from one counter: the sends of every shard first, then the edge tiles
-//     (vec_ring_tickets(q) a launch, `base` the count drawn before it). The
-//     ticketed blocks sit at both ends of blockIdx, so the sends tend to run
-//     first and the edge tiles last, but nothing depends on that order.
-//   - the window: a tile issues the cp.async copies of its coefficients, acc
-//     and the state of the shard's own rows [0, ly) (no block of the launch
-//     writes them: the sends read them, the tiles write the other pair)
-//     before it waits for any flag; then it waits for the flags of the halo
-//     rows its window reaches and loads their state through registers past
-//     L1 (vec_halo_load, __ldcg). No halo cell is read through L1: a .ca copy
-//     of an own row may bring in a line that ends in a halo row still stale.
-// Deadlock: the only blocks that wait are edge tiles, and every one of them
-// holds a ticket above every send's: each send was drawn, before it, by a
-// block that was running then and never waits. Interior tiles never wait.
-// So every wait ends, whatever blocks the hardware runs together and in
-// whatever order; a 32 x 64 B-grid tile with a halo of 6 takes about 203 KB
-// of shared memory in float32, so one block runs on an SM, which the
-// argument does not need. acc is own-shaped (2, ly, nx) and every own cell
-// has one.
+// parameters, the reuse of the two carry pairs, the items (ring_item) and
+// the deadlock argument are the scalar pass's; the window's halo rows go
+// through vec_halo_load, its own rows by cp.async in vec_window_load. A 32 x
+// 64 B-grid tile with a halo of 6 takes about 203 KB of shared memory in
+// float32, so one block runs on an SM. acc is own-shaped (2, ly, nx) and
+// every own cell has one.
 //
 // Build without --use_fast_math: it breaks isnan/isinf in nan_to_num and the
 // 0*fbar NaN poison.
@@ -526,9 +523,33 @@ __host__ __device__ inline long long fused_items(const FusedRing& q) {
   return (long long)q.p * (2 + (long long)q.tiles_x * q.tiles_y);
 }
 
-// The block's item in a fused scalar ring launch: sends of every shard, then
-// interior tiles, then edge tiles, all by ticket.
-__device__ __forceinline__ Item draw_fused_item(const FusedRing& q, int tid) {
+// Blocks of a fused ring launch, scalar or vector, that take their item from
+// blockIdx: the interior tiles of every shard. The others draw tickets.
+__host__ __device__ inline long long ring_interior(const FusedRing& q) {
+  return (long long)q.p * q.n_int * q.tiles_x;
+}
+
+// Tickets a fused ring launch draws: the sends and the edge tiles.
+__host__ __device__ inline long long ring_tickets(const FusedRing& q) {
+  return fused_items(q) - ring_interior(q);
+}
+
+// The block's item (head comment): blocks [2p, 2p + ring_interior(q)) are
+// the interior tiles, shard by shard and row by row; the other blocks draw
+// tickets, the sends of every shard first, then the edge tiles of every
+// shard (its rows below the interior ones, then those above).
+__device__ __forceinline__ Item ring_item(const FusedRing& q, int tid) {
+  const long long b = (long long)blockIdx.x - 2LL * q.p;
+  Item it;
+  it.what = TILE; it.side = 0;
+  if (b >= 0 && b < ring_interior(q)) {
+    const long long per = (long long)q.n_int * q.tiles_x;
+    it.shard = (int)(b / per);
+    const long long rem = b - it.shard * per;
+    it.ty = q.int_lo + (int)(rem / q.tiles_x);
+    it.tx = (int)(rem % q.tiles_x);
+    return it;
+  }
   extern __shared__ __align__(16) unsigned char smem_raw[];
   unsigned long long* drawn = reinterpret_cast<unsigned long long*>(smem_raw);
   if (tid == 0) *drawn = atomicAdd(q.ticket, 1ULL) - q.base;
@@ -537,27 +558,16 @@ __device__ __forceinline__ Item draw_fused_item(const FusedRing& q, int tid) {
   // and reads the shard's row of the table with uniform loads (1-4% faster)
   long long idx = __shfl_sync(0xffffffffu, (long long)*drawn, 0);
   __syncthreads();  // the window will overwrite the slot
-  Item it;
   if (idx < 2LL * q.p) {
     it.what = SEND; it.shard = (int)(idx / 2); it.side = (int)(idx % 2); it.tx = it.ty = 0;
     return it;
   }
   idx -= 2LL * q.p;
-  it.what = TILE; it.side = 0;
-  const long long n_int = (long long)q.n_int * q.tiles_x;
-  long long rem;
-  if (idx < q.p * n_int) {
-    it.shard = (int)(idx / n_int);
-    rem = idx % n_int;
-    it.ty = q.int_lo + (int)(rem / q.tiles_x);
-  } else {
-    idx -= q.p * n_int;
-    const long long n_edge = (long long)(q.tiles_y - q.n_int) * q.tiles_x;
-    it.shard = (int)(idx / n_edge);
-    rem = idx % n_edge;
-    const int e = (int)(rem / q.tiles_x);  // the e-th edge row: below, then above the interior
-    it.ty = e < q.int_lo ? e : e + q.n_int;
-  }
+  const long long n_edge = (long long)(q.tiles_y - q.n_int) * q.tiles_x;
+  it.shard = (int)(idx / n_edge);
+  const long long rem = idx - it.shard * n_edge;
+  const int e = (int)(rem / q.tiles_x);  // the e-th edge row: below, then above the interior
+  it.ty = e < q.int_lo ? e : e + q.n_int;
   it.tx = (int)(rem % q.tiles_x);
   return it;
 }
@@ -588,11 +598,28 @@ __device__ __forceinline__ void fused_send(const FusedRing& q, const TAB& tab, i
   publish(q.flags + 2 * to + (side ? 0 : 1), q.epoch, tid);
 }
 
+// The tile a ring block was handed, in an unbatched shard, and the flags
+// its window needs: fused_tile calls wait() after it has issued the copies
+// of the shard's own rows and before it loads the halo rows.
+struct RingTile {
+  int ty, tx;
+  const unsigned* south;  // the flag of the south halo rows, null: none read
+  const unsigned* north;  // the same for the north halo rows
+  unsigned epoch;
+  __device__ int y0(int by) const { return ty * by; }
+  __device__ int x0(int bx) const { return tx * bx; }
+  __device__ unsigned z() const { return 0; }
+  __device__ void wait() const {
+    if (south) wait_flag(south, epoch, threadIdx.x);
+    if (north) wait_flag(north, epoch, threadIdx.x);
+  }
+};
+
 template <typename T, int MODE>
 __global__ void __launch_bounds__(FUSED_THREADS)
 ring_fused_kernel(const FusedArgs<T> a, const FusedRing q, const __grid_constant__ RingTable<T> tab) {
   const int tid = threadIdx.x;
-  const Item it = draw_fused_item(q, tid);
+  const Item it = ring_item(q, tid);
   if (it.what == SEND) {
     fused_send<T>(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
     return;
@@ -600,10 +627,11 @@ ring_fused_kernel(const FusedArgs<T> a, const FusedRing q, const __grid_constant
   const int H = a.n_ops, y0 = it.ty * a.by;
   // the seam folds the top shard onto its own rows: it reads no north halo
   const bool folds = q.fold && it.shard == q.p - 1;
-  if (y0 - H < 0) wait_flag(q.flags + 2 * it.shard, q.epoch, tid);
-  if (y0 + a.by + H > q.ly && !folds) wait_flag(q.flags + 2 * it.shard + 1, q.epoch, tid);
-  fused_tile<T, RingGeo, MODE>(a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, folds},
-                               TileOrigin{it.ty, it.tx});
+  const unsigned* const flags = q.flags + 2 * it.shard;
+  fused_tile<T, RingGeo, MODE>(
+      a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, folds},
+      RingTile{it.ty, it.tx, y0 - H < 0 ? flags : nullptr,
+               y0 + a.by + H > q.ly && !folds ? flags + 1 : nullptr, q.epoch});
 }
 
 template <typename T, int MODE>
@@ -665,59 +693,12 @@ int launch_ring_fused(const FusedArgs<T>& a, int p, int ly, int nx, int pad, int
 
 // ---- fused vector pass ------------------------------------------------------
 
-// Blocks of a fused vector ring launch that take their item from blockIdx:
-// the interior tiles of every shard. The others draw tickets.
-__host__ __device__ inline long long vec_ring_interior(const FusedRing& q) {
-  return (long long)q.p * q.n_int * q.tiles_x;
-}
-
-// Tickets a fused vector ring launch draws: the sends and the edge tiles.
-__host__ __device__ inline long long vec_ring_tickets(const FusedRing& q) {
-  return fused_items(q) - vec_ring_interior(q);
-}
-
-// The block's item (head comment): blocks [2p, 2p + vec_ring_interior(q))
-// are the interior tiles, shard by shard and row by row; the other blocks
-// draw tickets, the sends of every shard first, then the edge tiles of every
-// shard (its rows below the interior ones, then those above).
-__device__ __forceinline__ Item vec_ring_item(const FusedRing& q, int tid) {
-  const long long b = (long long)blockIdx.x - 2LL * q.p;
-  Item it;
-  it.what = TILE; it.side = 0;
-  if (b >= 0 && b < vec_ring_interior(q)) {
-    const long long per = (long long)q.n_int * q.tiles_x;
-    it.shard = (int)(b / per);
-    const long long rem = b - it.shard * per;
-    it.ty = q.int_lo + (int)(rem / q.tiles_x);
-    it.tx = (int)(rem % q.tiles_x);
-    return it;
-  }
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  unsigned long long* drawn = reinterpret_cast<unsigned long long*>(smem_raw);
-  if (tid == 0) *drawn = atomicAdd(q.ticket, 1ULL) - q.base;
-  __syncthreads();
-  long long idx = __shfl_sync(0xffffffffu, (long long)*drawn, 0);  // warp-uniform, as above
-  __syncthreads();  // the window will overwrite the slot
-  if (idx < 2LL * q.p) {
-    it.what = SEND; it.shard = (int)(idx / 2); it.side = (int)(idx % 2); it.tx = it.ty = 0;
-    return it;
-  }
-  idx -= 2LL * q.p;
-  const long long n_edge = (long long)(q.tiles_y - q.n_int) * q.tiles_x;
-  it.shard = (int)(idx / n_edge);
-  const long long rem = idx - it.shard * n_edge;
-  const int e = (int)(rem / q.tiles_x);  // the e-th edge row: below, then above the interior
-  it.ty = e < q.int_lo ? e : e + q.n_int;
-  it.tx = (int)(rem % q.tiles_x);
-  return it;
-}
-
 template <typename T, typename OP, int ZAP>
 __global__ void __launch_bounds__(FUSED_THREADS)
 vec_ring_fused_kernel(const VecFusedArgs<T> a, const FusedRing q,
                       const __grid_constant__ VecRingTable<T> tab) {
   const int tid = threadIdx.x;
-  const Item it = vec_ring_item(q, tid);
+  const Item it = ring_item(q, tid);
   if (it.what == SEND) {
     fused_send<T>(q, tab, it.shard, it.side, a.n_ops, a.first != 0, tid);
     return;

@@ -582,8 +582,8 @@ __device__ __forceinline__ void vec_window_run(const VecFusedArgs<T>& a, const I
 }
 
 // One tile's pass on one window, all of the block's threads, the dynamic
-// shared memory its window: the own cells of the tile at `org` (GridOrigin or
-// TileOrigin of cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io`
+// shared memory its window: the own cells of the tile at `org` (GridOrigin
+// of cheb_tile.cuh). `a` holds the pass (steps, p_a, tile), `io`
 // the planes (w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef): the
 // VecFusedArgs itself for vec_fused_kernel. The geometry goes by value, here,
 // into vec_step_window and in the ring kernel: by

@@ -508,7 +508,10 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     that hold them and says which are mirror cells; ``cols(q)`` maps the
     window columns to the columns of the "in" planes, ``width`` wide (by
     default x is periodic and the "in" planes are ``nx`` wide).
-    ``field_own`` is the own-shaped raw field of a last pass. Every tile's
+    ``field_own`` is the own-shaped raw field of a last pass. A state plane
+    (``field``, ``t``, ``t_prev``) may also be a function of the windows'
+    flat indices into an "in" plane that returns their values (a strip
+    round's, which has no extended plane). Every tile's
     window is cut at once, a dimension of its own beside the batch, and the
     steps run on all of them together (every op is elementwise or a shift
     inside a window); the own cells of the ragged last tiles past the field
@@ -530,7 +533,8 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     # (tiles, wy): which window rows are mirror cells
     mirror = mirror[:, None, :].expand(-1, n_tx, -1).reshape(n_ty * n_tx, wy)
     flat = lambda x: x.reshape(x.shape[:-2] + (-1,))  # noqa: E731
-    take = lambda x: flat(x)[..., idx] if isinstance(x, Tensor) else x  # noqa: E731
+    take = lambda x: (x(idx) if callable(x)  # noqa: E731
+                      else flat(x)[..., idx] if isinstance(x, Tensor) else x)
     coef = {k: take(getattr(st, k)) for k in COEF_FIELDS}
     post, pre, area = take(st.post), take(st.pre), take(st.area)
     if first:

@@ -27,6 +27,16 @@ a chain of :func:`local_pass_reference`, so the two routes give the same
 bits. :func:`local_fused_pass_tiled_reference` runs the kernel's tile
 decomposition of the round in torch.
 
+:func:`local_strip_pass` is the round the sharded engine runs (entries
+``local_strip_pass_f32/f64``): the same round with no extended block of the
+state. It reads the core planes in place (the caller's field on the first
+round, the previous round's core-shaped carries later) and their four halo
+strips (``parallel/halo.py::exchange_strips``), each window cell where
+:func:`strip_index` finds it, and writes core-shaped carries.
+:func:`local_strip_pass_reference` assembles the extended blocks from the
+strips and runs :func:`local_fused_pass_reference`;
+:func:`local_strip_pass_tiled_reference` cuts each window by the index map.
+
 The operands are a :class:`~.cheb_pass.PassOperands` whose stencil holds the
 *extended* coefficient planes (``c, n, s, e, w`` pre-scaled by
 ``-2*lap_scale``; ``pre``, ``post``, ``area`` unscaled) with ``fold_north``
@@ -40,6 +50,7 @@ from typing import Optional
 
 import torch
 
+from ...parallel.halo import Strips
 from ..stencil import COEF_FIELDS
 from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
@@ -421,3 +432,257 @@ def local_fused_pass(
 
 
 local_fused_pass.launches = 0  # kernel launches; the plain version does not count
+
+
+# -- the engine's round: the core in place and four halo strips ----------------
+
+# sources of a window cell's state on strips (block_strip_cell of
+# csrc/cheb_tile.cuh, strip_cell of csrc/vec_tile.cuh)
+OWN, SOUTH, NORTH, WEST, EAST = range(5)
+
+
+def strip_index(r: Tensor, c: Tensor, cells: int, ly: int, lx: int):
+    """``(source, row, column)`` of cell ``(r, c)`` of the extended block
+    ``(ly+2*cells, lx+2*cells)`` (integer tensors, broadcast), as the strip
+    kernels map it: rows below the core come from the south strip and rows
+    above it from the north strip (``(cells, lx+2*cells)`` each, corners
+    included), the other rows' columns left of the core from the west strip
+    and right of it from the east strip (``(ly, cells)`` each), the core from
+    the own planes."""
+    k = cells
+    south, north = r < k, r >= k + ly
+    mid = ~(south | north)
+    west, east = mid & (c < k), mid & (c >= k + lx)
+    src = torch.where(south, SOUTH, torch.where(north, NORTH, torch.where(
+        west, WEST, torch.where(east, EAST, OWN))))
+    row = torch.where(south, r, torch.where(north, r - k - ly, r - k))
+    col = torch.where(south | north | west, c, torch.where(east, c - k - lx, c - k))
+    return src, row, col
+
+
+def around(own: Tensor, s: Strips) -> Tensor:
+    """The extended block the strips ``s`` make around the core ``own``."""
+    return torch.cat([s.south, torch.cat([s.west, own, s.east], -1), s.north], -2)
+
+
+def strip_planes(first: bool, cells: int, field, t, t_prev, strips: Strips):
+    """The state of a round on strips as ``{name: (own, strips)}``: the raw
+    ``field`` of a first round with the strips of its ``(batch, ...)``
+    leading dims, or a later round's core-shaped ``t`` and ``t_prev`` with
+    strips of ``(2, batch, ...)`` leading dims, ``t``'s at index 0 and
+    ``t_prev``'s at 1 (what :func:`~..parallel.halo.exchange_strips` returns
+    for ``(t, t_prev)``). Raises on anything else."""
+    if not isinstance(strips, Strips):
+        raise TypeError(f"strips must be halo.Strips, got {type(strips).__name__}")
+    if first:
+        if field is None or t is not None or t_prev is not None:
+            raise ValueError("a first round on strips takes the field only")
+        planes = {"field": (field, strips)}
+    else:
+        if t is None or t_prev is None or field is not None:
+            raise ValueError("a later round on strips takes t and t_prev only")
+        planes = {k: (x, Strips(*(a[i] for a in strips))) for i, (k, x) in
+                  enumerate((("t", t), ("t_prev", t_prev)))}
+    for own, s in planes.values():
+        batch, ly, lx = own.shape
+        want = ((batch, cells, lx + 2 * cells),) * 2 + ((batch, ly, cells),) * 2
+        if any(tuple(x.shape) != sh for x, sh in zip(s, want)):
+            raise ValueError(f"strips {[tuple(x.shape) for x in s]} do not fit a core of "
+                             f"{tuple(own.shape)} with a halo of {cells}")
+    return planes
+
+
+def local_strip_pass_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile=None,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    strips: Strips,
+) -> None:
+    """The plain PyTorch version of one round on strips, on any device.
+
+    ``field`` (a first round), ``t`` and ``t_prev`` (a later one) are
+    core-shaped ``(batch, ly, lx)``, ``strips`` their halo strips
+    (:func:`strip_planes`); this version assembles the extended blocks from
+    them and runs :func:`local_fused_pass_reference`. A round that ends the
+    filter leaves the result in ``acc``; any other writes the core-shaped
+    ``t_out`` and ``t_prev_out`` and ``acc``."""
+    first, last = _kinds(p, start, n_ops)
+    ext = {k: around(*v) for k, v in strip_planes(first, cells, field, t, t_prev,
+                                                   strips).items()}
+    outs = {} if last else {k: acc.new_empty(ext["field" if first else "t"].shape)
+                            for k in ("t_out", "t_prev_out")}
+    local_fused_pass_reference(ops, p, start, n_ops, cells=cells, field_own=field_own,
+                               acc=acc, **ext, **outs)
+    if not last:
+        t_out.copy_(_window(outs["t_out"], cells))
+        t_prev_out.copy_(_window(outs["t_prev_out"], cells))
+
+
+def local_strip_pass_tiled_reference(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    strips: Strips,
+) -> None:
+    """One round on strips computed as the kernel decomposes it, in torch:
+    :func:`local_fused_pass_tiled_reference`'s windows (``BlockGeo``'s
+    clamps), each window cell's state cut from the core planes or a strip by
+    :func:`strip_index`, never from an extended block. Same arguments and
+    outputs as :func:`local_strip_pass_reference`."""
+    first, last = _kinds(p, start, n_ops)
+    if n_ops > cells:
+        raise ValueError(f"a round runs at most cells = {cells} steps, got {n_ops}")
+    ly, lx = acc.shape[-2:]
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+
+    def cut(own, s):
+        def take(idx):
+            src, row, col = strip_index(idx // ex, idx % ex, cells, ly, lx)
+
+            def at(x):
+                return x[..., row.clamp(0, x.shape[-2] - 1), col.clamp(0, x.shape[-1] - 1)]
+
+            out = at(own)
+            for k, x in ((SOUTH, s.south), (NORTH, s.north), (WEST, s.west), (EAST, s.east)):
+                out = torch.where(src == k, at(x), out)
+            return out
+        return take
+
+    state = {k: cut(*v) for k, v in strip_planes(first, cells, field, t, t_prev,
+                                                  strips).items()}
+
+    def rows(r):
+        return (r + cells).clamp(0, ey - 1), torch.zeros_like(r, dtype=torch.bool)
+
+    outs = tiled_pass(ops, p, start, n_ops, tile, rows, field_own=field_own, acc=acc,
+                      cols=lambda q: (q + cells).clamp(0, ex - 1), width=ex,
+                      **{k: state.get(k) for k in ("field", "t", "t_prev")})
+    acc.copy_(outs["acc"])
+    if not last:
+        t_out.copy_(outs["t"])
+        t_prev_out.copy_(outs["t_prev"])
+
+
+_STRIP_ARGTYPES = (
+    [ctypes.c_int] * 9            # batch, ly, lx, cells, by, bx, n_ops, first, last
+    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
+    + [ctypes.c_void_p] * 2       # own planes: the field or T_k, T_{k-1}
+    + [ctypes.c_longlong] * 2     # their batch stride and row pitch
+    + [ctypes.c_void_p] * 4       # strips: south, north, west, east
+    + [ctypes.c_void_p] * 10      # field_own, acc_in, t_out, t_prev_out, acc_out, c, n, s, e, w
+    + [ctypes.c_double] * 5       # immediate c, n, s, e, w
+    + [ctypes.c_void_p] * 3       # pre, post, area
+    + [ctypes.c_double]           # land_gain
+    + [ctypes.c_int] * 2          # zap, drop_pre
+    + [ctypes.c_void_p]           # stream
+)
+
+
+def _strip_library():
+    lib = _library()
+    if not getattr(lib, "_strip_bound", False):
+        for fn in (lib.local_strip_pass_f32, lib.local_strip_pass_f64):
+            fn.argtypes = _STRIP_ARGTYPES
+            fn.restype = ctypes.c_int
+        lib._strip_bound = True
+    return lib
+
+
+def _strip_launch(ops, p, start, n_ops, cells, tile, bufs, strips) -> None:
+    first, last = _kinds(p, start, n_ops)
+    if not 1 <= n_ops <= min(cells, MAX_FUSE):
+        raise ValueError(f"a fused round runs 1..min(cells, {MAX_FUSE}) steps, got {n_ops}")
+    acc = bufs["acc"]
+    dtype, device = acc.dtype, acc.device
+    if dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"local_strip_pass kernel takes float32 or float64, got {dtype}")
+    if acc.dim() != 3:
+        raise ValueError(f"local_strip_pass takes a (batch, ly, lx) acc, got {tuple(acc.shape)}")
+    batch, ly, lx = acc.shape
+    ey, ex = ly + 2 * cells, lx + 2 * cells
+    by, bx = tile
+    if batch > 65535 or -(-ly // by) > 65535:
+        raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
+    if cells > min(ly, lx):
+        raise ValueError(f"strips of {cells} cells need a core at least as wide, got {(ly, lx)}")
+    st = ops.stencil
+    if st.fold_north:
+        raise ValueError("local_strip_pass has no fold: the strips carry the seam")
+    if fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()) > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    outs = () if last else ("t_out", "t_prev_out")
+    pa, p_b = _pass_args(p, start, n_ops, first, bufs, ("acc",) + (
+        ("field_own",) if last and ops.drop_pre else ()) + outs)
+    planes = strip_planes(first, cells, bufs["field"], bufs["t"], bufs["t_prev"], strips)
+    reads = [x for own, s in planes.values() for x in (own,) + tuple(s)]
+    if any(bufs[o].untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
+           for o in outs for x in reads):
+        raise ValueError("t_out and t_prev_out must not alias the state the launch reads")
+    check = functools.partial(_check, device, dtype)
+    own = [v[0] for v in planes.values()]
+    for x in own:
+        if x.device != device or x.dtype != dtype:
+            raise ValueError(f"own plane: {x.dtype} on {x.device}, expected {dtype} on {device}")
+        if x.shape != acc.shape or x.stride(-1) != 1 or x.stride(-2) != own[0].stride(-2) or (
+                batch > 1 and x.stride(0) != own[0].stride(0)):
+            raise ValueError(f"own planes need acc's shape {tuple(acc.shape)}, a unit column "
+                             f"stride and one row pitch and batch stride, got "
+                             f"{[(tuple(y.shape), y.stride()) for y in own]}")
+    for name, *xs in zip(("south", "north", "west", "east"), *(s for _, s in planes.values())):
+        for x in xs:
+            check(name, x, tuple(x.shape))
+    if not first and any(b.data_ptr() != a.data_ptr() + a.nbytes
+                         for a, b in zip(planes["t"][1], planes["t_prev"][1])):
+        raise ValueError("the carries' strips must follow each other in one tensor")
+    ptr = {k: check(k, bufs[k], (batch, ly, lx)) if bufs[k] is not None else None
+           for k in ("field_own", "t_out", "t_prev_out", "acc")}
+    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
+    if ops.drop_pre and masks[1] is None:
+        raise ValueError("drop_pre needs the wet mask as post")
+
+    lib = _strip_library()
+    fn = lib.local_strip_pass_f32 if dtype == torch.float32 else lib.local_strip_pass_f64
+    head = planes["field" if first else "t"]
+    stream = torch.cuda.current_stream(device).cuda_stream
+    with torch.cuda.device(device):
+        err = fn(batch, ly, lx, cells, by, bx, n_ops, int(first), int(last), pa, p_b,
+                 head[0].data_ptr(), None if first else planes["t_prev"][0].data_ptr(),
+                 head[0].stride(0), head[0].stride(1), *(x.data_ptr() for x in head[1]),
+                 ptr["field_own"] if last else None, ptr["acc"], ptr["t_out"],
+                 ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
+                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre), stream)
+    if err != 0:
+        msg = lib.local_pass_error_string(err).decode()
+        raise RuntimeError(f"local_strip_pass kernel launch failed: {msg} (cudaError {err})")
+    local_strip_pass.launches += 1
+
+
+def local_strip_pass(
+    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile,
+    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
+    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
+    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
+    strips: Strips,
+) -> None:
+    """One whole round on the core and its halo strips in one launch, on
+    tiles of ``tile = (by, bx)`` core cells, as
+    :func:`local_strip_pass_reference` documents it: the sharded engine's
+    round (:func:`local_fused_pass` on the extended block is its oracle).
+
+    CUDA tensors launch the kernel (counted in ``local_strip_pass.launches``)
+    on the current stream, without synchronizing; CPU tensors run the plain
+    version. Anything else raises.
+    """
+    bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
+                t_prev_out=t_prev_out, acc=acc)
+    if acc.is_cuda:
+        _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
+    elif acc.device.type == "cpu":
+        local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)
+    else:
+        raise RuntimeError(f"local_strip_pass has no kernel for device {acc.device}")
+
+
+local_strip_pass.launches = 0  # kernel launches; the plain version does not count

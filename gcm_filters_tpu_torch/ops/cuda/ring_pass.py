@@ -60,10 +60,10 @@ live field (``w`` on a first pass, else ``t`` and ``t_prev``), then runs the
 fused K3 / K4 tile on windows cut from the extended planes.
 :func:`vec_ring_fused_pass` is its wrapper, :func:`vec_ring_fused_pass_reference`
 its plain version (the unsharded plain fused pass on each extended block) and
-:func:`vec_ring_fused_pass_tiled_reference` the kernel's tile decomposition;
-:class:`VecRingItems` mirrors the kernel's blocks: the interior tiles by
-block index, the sends and the edge tiles by ticket, and the window rows a
-tile loads before and after its flag waits.
+:func:`vec_ring_fused_pass_tiled_reference` the kernel's tile decomposition.
+:class:`RingItems` mirrors the blocks of both fused ring kernels: the
+interior tiles by block index, the sends and the edge tiles by ticket, and
+the window rows a tile loads before and after its flag waits.
 """
 from __future__ import annotations
 
@@ -693,14 +693,16 @@ def vec_ring_fused_pass_tiled_reference(state: VecRingFusedState, p, start: int,
         _store(state, r, last, out, {k: v[0] for k, v in outs.items()})
 
 
-# -- the fused vector kernel's blocks ------------------------------------------
+# -- the fused kernels' blocks -------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class VecRingItems:
-    """The blocks of one fused vector ring launch as csrc/ring_pass.cu lays
-    them out (``fused_ring``, ``vec_ring_interior``, ``vec_ring_tickets``,
-    ``vec_ring_item``) and the window rows each tile loads before and after
-    its flag waits (``vec_window_load``, ``vec_halo_load`` of vec_tile.cuh).
+class RingItems:
+    """The blocks of one fused ring launch, scalar or vector, as
+    csrc/ring_pass.cu lays them out (``fused_ring``, ``ring_interior``,
+    ``ring_tickets``, ``ring_item``) and the window rows each tile loads
+    before and after its flag waits (``RingGeo::own`` and
+    ``fused_halo_load`` of csrc/cheb_tile.cuh, ``vec_window_load`` and
+    ``vec_halo_load`` of csrc/vec_tile.cuh).
 
     A shard has ``tiles_y`` rows of ``tiles_x`` tiles of ``tile = (by, bx)``
     own cells; tile rows ``[int_lo, int_lo + n_int)`` are interior (their
@@ -763,19 +765,22 @@ class VecRingItems:
         e, tx = divmod(rem, self.tiles_x)
         return ("tile", shard, e if e < self.int_lo else e + self.n_int, tx)
 
-    def window(self, ty: int):
+    def window(self, ty: int, fold: bool = False):
         """``(own, halo, waits)`` of a tile in row ``ty``: the window rows,
         in the shard's row numbers, whose state goes by cp.async before any
-        wait; those whose state ``vec_halo_load`` loads after the waits; and
-        the flags waited for, ``(south, north)``."""
+        wait; those whose state is loaded past L1 after the waits; and the
+        flags waited for, ``(south, north)``. With ``fold`` (the scalar
+        ring's top shard of a fold grid) the rows from ``ly`` on are mirror
+        cells of the shard's own rows: copied by cp.async, no north flag."""
         by, h = self.tile[0], self.n_ops
         y0 = ty * by
         wy = by + 2 * h
-        own = [y0 - h + r for r in range(wy) if 0 <= y0 - h + r < self.ly]
+        rows = [y0 - h + r for r in range(wy)]
+        own = [g for g in rows if 0 <= g < self.ly or (fold and g >= self.ly)]
         lo = min(max(h - y0, 0), wy)
-        hi = max(min(self.ly + h - y0, wy), lo)
+        hi = wy if fold else max(min(self.ly + h - y0, wy), lo)
         halo = [y0 - h + r for r in (*range(lo), *range(hi, wy))]
-        return own, halo, (y0 - h < 0, y0 + by + h > self.ly)
+        return own, halo, (y0 - h < 0, y0 + by + h > self.ly and not fold)
 
 
 # -- kernels -------------------------------------------------------------------
@@ -944,8 +949,8 @@ def _fused_launch(state: RingFusedState, p, start: int, n_ops: int, tile, out: i
     if err != 0:
         msg = lib.ring_pass_error_string(err).decode()
         raise RuntimeError(f"ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    # every launch draws one ticket per item: two sends and every tile of each shard
-    state.drawn += ops.p_y * (2 + -(-state.ly // by) * -(-state.nx // bx))
+    # only the sends and the edge tiles draw tickets
+    state.drawn += RingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
 
 
 def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
@@ -992,7 +997,7 @@ def _vec_fused_launch(state: VecRingFusedState, p, start: int, n_ops: int, tile,
         msg = lib.ring_pass_error_string(err).decode()
         raise RuntimeError(f"vec_ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
     # only the sends and the edge tiles draw tickets
-    state.drawn += VecRingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
+    state.drawn += RingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
 
 
 def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, tile,

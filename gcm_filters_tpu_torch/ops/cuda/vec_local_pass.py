@@ -58,7 +58,7 @@ from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, FusedPlan, _check, _kinds, _pass_args,
     search_plan,
 )
-from .local_pass import _window
+from .local_pass import EAST, NORTH, SOUTH, WEST, _window, around, strip_index
 from .vec_pass import (
     BGRID, CTAP, N_COEF, VecPassOperands, _library as _vec_library,
     _vec_pass_cost, vec_fused_shared_bytes, vec_tiles,
@@ -285,30 +285,6 @@ def plan_vec_local_rounds(rounds, ly: int, lx: int, dtype: torch.dtype,
 
 # -- a round's first launch on the core and its four halo strips --------------
 
-# sources of a window cell's state on a round's first launch (strip_cell of vec_tile.cuh)
-OWN, SOUTH, NORTH, WEST, EAST = range(5)
-
-
-def strip_index(r: Tensor, c: Tensor, cells: int, ly: int, lx: int):
-    """``(source, row, column)`` of cell ``(r, c)`` of the extended block
-    ``(ly+2*cells, lx+2*cells)`` (integer tensors, broadcast), as
-    ``strip_cell`` of ``csrc/vec_tile.cuh`` maps it on a round's first
-    launch: rows below the core come from the south strip and rows above it
-    from the north strip (``(cells, lx+2*cells)`` each, corners included),
-    the other rows' columns left of the core from the west strip and right
-    of it from the east strip (``(ly, cells)`` each), the core from the own
-    planes."""
-    k = cells
-    south, north = r < k, r >= k + ly
-    mid = ~(south | north)
-    west, east = mid & (c < k), mid & (c >= k + lx)
-    src = torch.where(south, SOUTH, torch.where(north, NORTH, torch.where(
-        west, WEST, torch.where(east, EAST, OWN))))
-    row = torch.where(south, r, torch.where(north, r - k - ly, r - k))
-    col = torch.where(south | north | west, c, torch.where(east, c - k - lx, c - k))
-    return src, row, col
-
-
 def _strip_cut(own, s: Strips, ridx: Tensor, cidx: Tensor, cells: int) -> Tensor:
     """The ``(batch, 2, len(ridx), len(cidx))`` state of extended rows
     ``ridx`` and columns ``cidx``, cut from the own planes ``own = (u, v)``
@@ -388,8 +364,7 @@ def vec_local_fused_pass_reference(
     first, last = _kinds(p, start, n_ops)
     if strips is not None:
         pairs = strip_state(first, cells, w, t, t_prev, strips)
-        ext = [torch.cat([s.south, torch.cat([s.west, torch.stack(own, 1), s.east], -1),
-                          s.north], -2) for own, s in pairs]
+        ext = [around(torch.stack(own, 1), s) for own, s in pairs]
         w, t, t_prev = (ext[0], None, None) if first else (None, ext[0], ext[1])
     shrink = cells if shrink is None else shrink
     if not 1 <= n_ops <= shrink <= cells:

@@ -9,11 +9,12 @@ Communication is *round-based* (wide halos): each round exchanges a
 ``cells``-wide halo once (two message phases, corners riding the second,
 halo.py) and then advances the recurrence up to ``cells`` steps purely
 locally on the halo-extended block (ops/cuda/local_pass.py for scalars: one
-launch of the fused round where its static predicate holds;
+launch of the fused round where its static predicate holds, which reads the
+core in place and the four halo strips;
 ops/cuda/vec_local_pass.py for (u, v) pairs: the planned fused launches of
 each round, one or a few, the first of which reads the core in place and
-the four halo strips, so that no extended block of u, v or the carries is
-built; else one step launch per step; kernels on CUDA tensors, their plain
+the four halo strips; so no fused round builds an extended block of the
+state; else one step launch per step; kernels on CUDA tensors, their plain
 versions on CPU tensors). The
 tripolar fold is a reversed pairing among the ranks of the top mesh row, and the stencil
 coefficients are halo-extended once per (local shape, dtype) with the seam's
@@ -59,7 +60,7 @@ from ..ops.cuda.cheb_pass import (
     FIRST, LAST, MIDDLE, PassOperands, fused_planes, plan_fused_passes,
 )
 from ..ops.ctaps import CTAP_NAMES, cgrid_tap_arrays
-from ..ops.cuda.local_pass import local_fused_pass, local_pass
+from ..ops.cuda.local_pass import local_pass, local_strip_pass
 from ..ops.cuda.vec_local_pass import (
     plan_vec_local_rounds, vec_local_fused_pass, vec_local_pass,
 )
@@ -204,7 +205,7 @@ def local_scalar_operands(st: ScalarStencil5, cells: int, y_axis: halo.Axis,
 
 def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
                         y_axis: halo.Axis, x_axis: halo.Axis, fold: bool,
-                        pass_fn=local_pass, fused_fn=local_fused_pass) -> Tensor:
+                        pass_fn=local_pass, fused_fn=local_strip_pass) -> Tensor:
     """Wide-halo rounds on one rank: ``(batch, ly, lx) -> (batch, ly, lx)``.
 
     Counterpart of the JAX ``local_pallas_rounds_scalar``. Per round one halo
@@ -212,8 +213,9 @@ def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
     local periodic wrap -- the tripolar fold included -- on unsharded ones),
     then the round's steps run on the extended block: one ``fused_fn`` call
     for the whole round where the fused plan's static predicate holds (a core
-    of at least a tile plus its halo, ``cells <= 16``), else one ``pass_fn``
-    call per step (``fused_fn=None`` forces that). The first step consumes the
+    of at least a tile plus its halo, ``cells <= 16``), on the core and its
+    halo strips (:func:`_fused_rounds`), else one ``pass_fn`` call per step
+    (``fused_fn=None`` forces that). The first step consumes the
     raw extended field (prepare and masking fused), the last one reconstructs
     land and divides by the area on the core, reading the caller's own block.
     ``ops`` holds the extended, pre-scaled coefficient planes;
@@ -258,33 +260,33 @@ def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
 
 def _fused_rounds(fused_fn, ops: PassOperands, field: Tensor, p, cells: int, rounds,
                   y_axis: halo.Axis, x_axis: halo.Axis, fold: bool, tile) -> Tensor:
-    """The rounds of :func:`local_rounds_scalar`, one fused launch each. A
-    round writes its carries into the core of two fresh extended buffers,
-    which the next round's exchange reads (a tile reads its neighbours'
-    cells, so a round cannot update the carries it reads)."""
-    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    """The rounds of :func:`local_rounds_scalar`, one fused launch each, on
+    halo strips (:func:`~..ops.cuda.local_pass.local_strip_pass`).
+
+    No extended block of the state is built. A round exchanges only the four
+    halo strips (:func:`~.halo.exchange_strips`, the messages of
+    ``exchange_2d``, the fold's north strip unswapped): of the field for
+    round 0, of the previous round's carries for a later one, one message per
+    phase for both carries and the whole batch. The launch reads the core
+    planes in place (the caller's field, or the carries) and the strips, and
+    writes its carries core-shaped into a fresh ``(2, batch, ly, lx)`` pair,
+    T_k then T_{k-1} (a tile reads its neighbours' cells, so a round cannot
+    update the carries it reads), whose strips the next round exchanges as
+    one tensor."""
     acc = torch.empty_like(field)
-    t = t_prev = None
+    src = dict(field=field, strips=halo.exchange_strips(field, cells, y_axis, x_axis, fold))
     start = 0
     for i, n_ops in enumerate(rounds):
         last = i == len(rounds) - 1
-        ext_raw = None
-        if i == 0:
-            ext_raw = halo.exchange_2d(field, cells, y_axis, x_axis, fold)
-        else:
-            # one message per phase carries both carries and the whole batch
-            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]),
-                                   cells, y_axis, x_axis, fold)
-            t, t_prev = ext[0], ext[1]
-        shape = (ext_raw if ext_raw is not None else t).shape
         t_out = t_prev_out = None
         if not last:
-            t_out = torch.empty(shape, dtype=field.dtype, device=field.device)
-            t_prev_out = torch.empty_like(t_out)
-        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field=ext_raw,
-                 field_own=field if last else None, t=t, t_prev=t_prev, t_out=t_out,
-                 t_prev_out=t_prev_out, acc=acc)
-        t, t_prev = t_out, t_prev_out
+            carries = field.new_empty((2,) + tuple(field.shape))
+            t_out, t_prev_out = carries.unbind()
+        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field_own=field if last else None,
+                 t_out=t_out, t_prev_out=t_prev_out, acc=acc, **src)
+        if not last:
+            src = dict(t=t_out, t_prev=t_prev_out, strips=halo.exchange_strips(
+                carries, cells, y_axis, x_axis, fold))
         start += n_ops
     return acc
 
@@ -370,7 +372,7 @@ def make_sharded_scalar_apply(
     halo_steps: Optional[int] = None,
     exact_nan: bool = False,
     pass_fn=local_pass,
-    fused_fn=local_fused_pass,
+    fused_fn=local_strip_pass,
 ):
     """``field -> filtered`` with the domain sharded over ``mesh``.
 
@@ -383,8 +385,9 @@ def make_sharded_scalar_apply(
     ``spatial_axes`` (and dim 0 over ``batch_axis``); ``.full_tensor()``
     gathers it. Every rank of the mesh must call the function together.
 
-    ``fused_fn`` runs one fused round and ``pass_fn`` one local step; they
-    are :func:`local_fused_pass` and :func:`local_pass` (kernels for CUDA
+    ``fused_fn`` runs one fused round on halo strips and ``pass_fn`` one
+    local step; they are :func:`local_strip_pass` and :func:`local_pass`
+    (kernels for CUDA
     tensors, plain versions for CPU tensors) unless a caller passes the plain
     versions to compare them on one device; ``fused_fn=None`` runs the step
     chain on purpose (:func:`local_rounds_scalar`).

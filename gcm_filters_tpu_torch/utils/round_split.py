@@ -1,42 +1,49 @@
-"""Split the sharded vector apply's time on one card: the whole apply, what
-it does around its fused launches, and the launches alone, beside the
-unsharded fused K3 / K4 apply.
+"""Split a sharded apply's time on one card: the whole apply, what it does
+around its fused launches, and the launches alone, beside the unsharded
+fused apply.
 
     python3 -m gcm_filters_tpu_torch.utils.round_split [--rounds N] [--chain N] [--json PATH]
 
 Run from the root of the repository on a machine with a CUDA card and nvcc.
-The cases are the sharded vector headlines of ``chip_smoke.py`` phase 13 on
-a 1x1 ``DeviceMesh`` over a one-rank NCCL group: the 2400x3600 float32
-B-grid and C-grid, Gaussian of factor 10 (11 steps, one round), and the
-C-grid Taper (``dx_min`` 0.9, 44 steps in three rounds), on unit-scale
-metrics and fields drawn as phase 7 draws them. For each it times, with
-CUDA events (3 warm-ups, then ``--chain`` calls), every part in turn,
-``--rounds`` times:
+The cases are the sharded headlines of ``chip_smoke.py`` phases 10 and 13 on
+a 1x1 ``DeviceMesh`` over a one-rank NCCL group, 2400x3600 float32: the
+scalar headline (``TRIPOLAR_REGULAR_WITH_LAND_AREA_WEIGHTED``, drawn as
+phase 4 draws it; Gaussian of factor 10, 11 steps in one round, and the
+Taper, 39 steps in three rounds), the B-grid and C-grid, Gaussian of factor
+10 (11 steps, one round), and the C-grid Taper (``dx_min`` 0.9, 44 steps in
+three rounds), on unit-scale metrics and fields drawn as phase 7 draws them.
+For each it times, with CUDA events (3 warm-ups, then ``--chain`` calls),
+every part in turn, ``--rounds`` times:
 
-- ``apply``: one ``Filter(mesh=...).apply_to_vector`` of device tensors
-  (and ``host_enqueue``, the host's time to enqueue it);
-- ``stack``: ``torch.stack`` of u and v into one ``(1, 2, ly, lx)`` state,
-  as the apply did before its rounds read u and v in place;
+- ``apply``: one ``Filter(mesh=...).apply`` or ``apply_to_vector`` of device
+  tensors (and ``host_enqueue``, the host's time to enqueue it);
+- ``stack`` (vector): ``torch.stack`` of u and v into one ``(1, 2, ly,
+  lx)`` state, as the apply did before its rounds read u and v in place;
 - ``exchange``: the extended blocks the rounds built before they read
-  strips: ``halo.exchange_2d`` of the stacked input, and for each later
-  round ``torch.stack`` of both carries' cores and ``exchange_2d`` of it;
-- ``strips``: ``halo.exchange_strips`` of u and v and, for each later
-  round, of both carries' cores, where the tree has it;
-- ``rounds_alone``: the apply's rounds (``local_rounds_vector``) with every
-  exchange replaced by the result it gave the first time: the fused
-  launches, and in a tree that stacks the carries of a later round, those
-  stacks;
-- ``unsharded``: ``Filter(device="cuda").apply_to_vector``, the fused
-  K3 / K4 apply of the same filter on the same fields.
+  strips: ``halo.exchange_2d`` of the input, and for each later round
+  ``torch.stack`` of both carries' cores and ``exchange_2d`` of it;
+- ``strips``: ``halo.exchange_strips`` of the input and, for each later
+  round, of both carries' cores (the scalar round's carry pair, one
+  tensor), where the tree has it;
+- ``rounds_alone``: the apply's rounds (``local_rounds_scalar`` or
+  ``local_rounds_vector``) with every exchange replaced by the result it
+  gave the first time: the fused launches, and in a tree that stacks the
+  carries of a later round, those stacks;
+- ``unsharded``: ``Filter(device="cuda").apply`` or ``apply_to_vector``,
+  the fused K1 or K3 / K4 apply of the same filter on the same fields.
 
-Each sharded apply must equal the unsharded one bit for bit, and the rounds
-alone the apply. Launches per apply are read from the fused local round's
-counters (``vec_local_fused_pass.launches`` and, where the tree has it,
-``strip_launches``). The script runs in a tree that predates
-``exchange_strips`` too (copy it into a ``git archive`` of that tree): its
-parts are found by name. It prints one line per case, then the card's name
-and power limit and a JSON object of every time; ``--json`` writes that
-object to a file.
+The rounds alone must equal the apply bit for bit; a vector apply must also
+equal the unsharded one bit for bit, a scalar one (whose coefficients meet
+the tripolar seam in another order) the parent's rounds on the extended
+block (:func:`extended_scalar_rounds`, in a tree that has the strip round).
+Launches per apply are read from the fused rounds' counters
+(``local_fused_pass.launches``, ``vec_local_fused_pass.launches`` and,
+where the tree has them, ``local_strip_pass.launches`` and
+``vec_local_fused_pass.strip_launches``). The script runs in a tree that
+predates ``exchange_strips`` or the scalar strip round too (copy it into a
+``git archive`` of that tree): its parts are found by name. It prints one
+line per case, then the card's name and power limit and a JSON object of
+every time; ``--json`` writes that object to a file.
 """
 from __future__ import annotations
 
@@ -52,11 +59,12 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from .ring_split import unit_vector_grid_vars
+from .ring_split import SCALAR, scalar_headline_data, unit_vector_grid_vars
 
 SHAPE = (2400, 3600)
-# (label, grid, filter shape, dx_min) of the phase-13 sharded vector headlines
-CASES = (("B-grid", "VECTOR_B_GRID", "GAUSSIAN", 1.0), ("C-grid", "VECTOR_C_GRID", "GAUSSIAN", 1.0),
+# (label, grid, filter shape, dx_min) of the phase-10 and phase-13 sharded headlines
+CASES = (("scalar", SCALAR, "GAUSSIAN", 1.0), ("scalar Taper", SCALAR, "TAPER", 1.0),
+         ("B-grid", "VECTOR_B_GRID", "GAUSSIAN", 1.0), ("C-grid", "VECTOR_C_GRID", "GAUSSIAN", 1.0),
          ("C-grid Taper", "VECTOR_C_GRID", "TAPER", 0.9))
 
 
@@ -64,19 +72,27 @@ CASES = (("B-grid", "VECTOR_B_GRID", "GAUSSIAN", 1.0), ("C-grid", "VECTOR_C_GRID
 def frozen_exchanges(recorded):
     """Within the block, ``halo.exchange_2d`` and ``halo.exchange_strips``
     return, call by call in order, the results in ``recorded``; a call past
-    its end runs and its result is appended (the first run records)."""
+    its end runs and its result is appended (the first run records). A call
+    made inside another (``exchange_2d`` calls ``exchange_strips``) runs as
+    it is."""
     from ..parallel import halo
 
     names = [n for n in ("exchange_2d", "exchange_strips") if hasattr(halo, n)]
     real = {n: getattr(halo, n) for n in names}
-    at = [0]
+    at, inside = [0], [False]
 
     def frozen(name):
         def fn(*a, **k):
+            if inside[0]:
+                return real[name](*a, **k)
             i = at[0]
             at[0] += 1
             if i == len(recorded):
-                recorded.append(real[name](*a, **k))
+                inside[0] = True
+                try:
+                    recorded.append(real[name](*a, **k))
+                finally:
+                    inside[0] = False
             return recorded[i]
         return fn
 
@@ -164,6 +180,101 @@ def round_parts(filt, u, v):
     return parts, info
 
 
+def extended_scalar_rounds(fused_fn, ops, field, p, cells, rounds, y_axis, x_axis, fold, tile):
+    """The scalar rounds as the engine ran them before its strip round:
+    per round ``exchange_2d`` of the field, or of both carries' cores
+    stacked, and ``fused_fn`` (``local_fused_pass``) on the extended block,
+    whose carries go into the core of fresh extended buffers."""
+    from ..parallel import halo
+
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    acc = torch.empty_like(field)
+    t = t_prev = None
+    start = 0
+    for i, n_ops in enumerate(rounds):
+        last = i == len(rounds) - 1
+        ext_raw = None
+        if i == 0:
+            ext_raw = halo.exchange_2d(field, cells, y_axis, x_axis, fold)
+        else:
+            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]), cells, y_axis, x_axis,
+                                   fold)
+            t, t_prev = ext[0], ext[1]
+        shape = (ext_raw if ext_raw is not None else t).shape
+        t_out = t_prev_out = None
+        if not last:
+            t_out, t_prev_out = field.new_empty(shape), field.new_empty(shape)
+        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field=ext_raw,
+                 field_own=field if last else None, t=t, t_prev=t_prev, t_out=t_out,
+                 t_prev_out=t_prev_out, acc=acc)
+        t, t_prev = t_out, t_prev_out
+        start += n_ops
+    return acc
+
+
+def scalar_round_parts(filt, x):
+    """``({part: fn}, info)`` of one sharded scalar Filter on a 1x1 mesh and
+    an (ly, lx) device field: the functions the module docstring names (but
+    ``unsharded`` and ``stack``), and the rounds, the launches per apply, the
+    check that the rounds alone give the apply's bits and, in a tree with
+    the strip round, that the parent's rounds on the extended block give
+    them too."""
+    from ..ops.cuda import local_pass as lp
+    from ..ops.cuda.cheb_pass import fused_planes, plan_fused_passes
+    from ..parallel import halo
+    from ..parallel import sharded
+
+    fn = filt._scalar_fn()
+    ly, lx = x.shape
+    ops, cells, rounds, p = fn.operands(ly, lx, x.dtype)
+    fold = filt.operator.fold_north
+    local = (None, 1)
+    wrappers = [getattr(lp, n) for n in ("local_fused_pass", "local_strip_pass") if hasattr(lp, n)]
+    total = lambda: sum(w.launches for w in wrappers)  # noqa: E731
+    before = total()
+    out = filt.apply(x).to_local()
+    torch.cuda.synchronize()
+    launches = total() - before
+    x3 = x[None]
+    carries = torch.zeros((2,) + tuple(x3.shape), device=x.device, dtype=x.dtype)
+    ext = (1, ly + 2 * cells, lx + 2 * cells)
+    ext_carries = [torch.zeros(ext, device=x.device, dtype=x.dtype) for _ in range(2)]
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+
+    def exchange():
+        halo.exchange_2d(x3, cells, local, local, fold)
+        for _ in rounds[1:]:
+            halo.exchange_2d(torch.stack([core(c) for c in ext_carries]), cells, local, local,
+                             fold)
+
+    def strips_fn():
+        halo.exchange_strips(x3, cells, local, local, fold)
+        for _ in rounds[1:]:
+            halo.exchange_strips(carries, cells, local, local, fold)
+
+    recorded = []
+
+    def rounds_alone():
+        with frozen_exchanges(recorded):
+            return sharded.local_rounds_scalar(ops, x3, p, cells, rounds, local, local, fold)
+
+    alone = rounds_alone()
+    torch.cuda.synchronize()
+    parts = {"apply": lambda: filt.apply(x), "exchange": exchange}
+    if hasattr(halo, "exchange_strips"):
+        parts["strips"] = strips_fn
+    parts["rounds_alone"] = rounds_alone
+    info = {"cells": cells, "rounds": list(rounds), "launches_per_apply": launches,
+            "rounds_alone_equal_apply": bool(torch.equal(alone[0], out)), "out": out}
+    if hasattr(lp, "local_strip_pass"):
+        tile = plan_fused_passes(cells, ly, lx, x.dtype, fused_planes(ops), one_pass=True).tile
+        parent = extended_scalar_rounds(lp.local_fused_pass, ops, x3, p, cells, rounds, local,
+                                        local, fold, tile)
+        torch.cuda.synchronize()
+        info["extended_rounds_equal_apply"] = bool(torch.equal(parent[0], out))
+    return parts, info
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--rounds", type=int, default=3)
@@ -184,9 +295,12 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True, text=True,
                          timeout=60).stdout.strip()
+    x, wet, area = scalar_headline_data(SHAPE, np.random.default_rng(42))
+    x = torch.as_tensor(x, device=dev)
     rng = np.random.default_rng(42)
     u, v = (torch.as_tensor(rng.random(SHAPE).astype(np.float32), device=dev) for _ in "uv")
     gvs = {g: unit_vector_grid_vars(g, SHAPE, rng) for g in ("VECTOR_B_GRID", "VECTOR_C_GRID")}
+    gvs[SCALAR] = {"area": area, "wet_mask": wet}
     store = tempfile.TemporaryDirectory()
     dist.init_process_group("nccl", init_method=f"file://{store.name}/store", world_size=1,
                             rank=0)
@@ -198,15 +312,24 @@ def main(argv=None) -> int:
                       grid_type=GridType[grid], grid_vars=gvs[grid], dtype=torch.float32,
                       device=dev)
             base = Filter(**kw)
-            want = base.apply_to_vector(u, v)
-            parts, info = round_parts(Filter(mesh=mesh, spatial_axes=("y", "x"), **kw), u, v)
-            out = info.pop("out")
-            info["vs_unsharded_bitwise"] = all(
-                torch.equal(torch.isnan(o), torch.isnan(w_))
-                and torch.equal(o.nan_to_num(), w_.nan_to_num()) for o, w_ in zip(out, want))
-            if not (info["vs_unsharded_bitwise"] and info["rounds_alone_equal_apply"]):
+            sharded_filt = Filter(mesh=mesh, spatial_axes=("y", "x"), **kw)
+            if grid == SCALAR:
+                parts, info = scalar_round_parts(sharded_filt, x)
+                info.pop("out")
+                ok = info["rounds_alone_equal_apply"] and info.get(
+                    "extended_rounds_equal_apply", True)
+                parts["unsharded"] = lambda b=base: b.apply(x)
+            else:
+                want = base.apply_to_vector(u, v)
+                parts, info = round_parts(sharded_filt, u, v)
+                out = info.pop("out")
+                info["vs_unsharded_bitwise"] = all(
+                    torch.equal(torch.isnan(o), torch.isnan(w_))
+                    and torch.equal(o.nan_to_num(), w_.nan_to_num()) for o, w_ in zip(out, want))
+                ok = info["vs_unsharded_bitwise"] and info["rounds_alone_equal_apply"]
+                parts["unsharded"] = lambda b=base: b.apply_to_vector(u, v)
+            if not ok:
                 raise AssertionError(f"{label}: {info}")
-            parts["unsharded"] = lambda b=base: b.apply_to_vector(u, v)
             cases[label], infos[label] = parts, info
         times = {label: {} for label in cases}
         host = {label: [] for label in cases}
@@ -226,7 +349,7 @@ def main(argv=None) -> int:
     for label, info in infos.items():
         t = {k: min(ts) for k, ts in times[label].items()}
         around = t["apply"] - t["rounds_alone"]
-        print(f"{label}, rounds {info['rounds']} plans {info['plans']}, "
+        print(f"{label}, rounds {info['rounds']} plans {info.get('plans')}, "
               f"{info['launches_per_apply']} launches per apply: " + ", ".join(
                   f"{k} {', '.join(f'{ms:.4f}' for ms in ts)}" for k, ts in times[label].items())
               + f" ms; apply over rounds alone {around:+.4f} ms, over unsharded "

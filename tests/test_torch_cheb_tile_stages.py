@@ -343,8 +343,9 @@ def _local_operands(filt, x, halo_steps, exact_nan):
 @pytest.mark.parametrize("mode", sorted(MODES))
 @pytest.mark.parametrize("tile", NEW_TILES)
 def test_local_tiled_reference_equals_step_chain_at_the_new_tiles(tile, mode, dtype, halo_steps):
-    """The sharded round's tiled plain version (BlockGeo: no wrap, clamped)
-    against the local step chain, batch of 2, on a 1x1 mesh's block."""
+    """The sharded round's tiled plain version (BlockGeo's clamps, the state
+    cut from the core and its halo strips) against the local step chain,
+    batch of 2, on a 1x1 mesh's block."""
     filt, _, _, x = _setup(mode, dtype, batch=2)
     ops, p, cells, rounds, fold = _local_operands(filt, x, halo_steps, MODES[mode][1])
     want = local_rounds_scalar(ops, x, p, cells, rounds, (None, 1), (None, 1), fold,
@@ -353,7 +354,7 @@ def test_local_tiled_reference_equals_step_chain_at_the_new_tiles(tile, mode, dt
     fixed = tile
 
     def tiled(o, pp, start, n, *, tile, **kw):
-        return lp.local_fused_pass_tiled_reference(o, pp, start, n, tile=fixed, **kw)
+        return lp.local_strip_pass_tiled_reference(o, pp, start, n, tile=fixed, **kw)
 
     got = local_rounds_scalar(ops, x, p, cells, rounds, (None, 1), (None, 1), fold,
                               fused_fn=tiled)

@@ -12,7 +12,8 @@ carries between passes). ``cheb_fused_pass_tiled_reference`` runs the
 kernel's tile decomposition (windows, shrinking steps, mirror cells at the
 fold) and must equal the step chain bit for bit too; that is where a wrong
 mirror index shows without a card. The fused local round of the sharded
-engine (``local_fused_pass``) must equal the local step chain exactly. The
+engine (``local_strip_pass``, on halo strips) must equal the local step
+chain exactly. The
 kernels themselves are held to the step kernels, bit for bit, by
 chip_smoke.py on the card.
 """
@@ -331,7 +332,7 @@ def test_local_fused_round_equals_step_chain(grid_name, dtype, halo_steps):
     x = _field(shape, dtype)
     ops, p, cells, rounds, fold = _local_operands(tf, x, halo_steps)
     want = local_rounds_scalar(ops, x, p, cells, rounds, LOCAL, LOCAL, fold, fused_fn=None)
-    spy = _Spy(lp.local_fused_pass)
+    spy = _Spy(lp.local_strip_pass)
     got = local_rounds_scalar(ops, x, p, cells, rounds, LOCAL, LOCAL, fold, fused_fn=spy)
     assert [n for _, n in spy.calls] == list(rounds)
     np.testing.assert_array_equal(got.numpy(), want.numpy())
@@ -343,7 +344,7 @@ def test_local_fused_round_below_predicate_runs_steps():
                    filter_scale=6.0, dx_min=1.0)
     x = _field(shape, torch.float64)
     ops, p, cells, rounds, fold = _local_operands(tf, x, None)
-    spy = _Spy(lp.local_fused_pass)
+    spy = _Spy(lp.local_strip_pass)
     got = local_rounds_scalar(ops, x, p, cells, rounds, LOCAL, LOCAL, fold, fused_fn=spy)
     want = local_rounds_scalar(ops, x, p, cells, rounds, LOCAL, LOCAL, fold, fused_fn=None)
     assert not spy.calls

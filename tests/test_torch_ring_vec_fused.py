@@ -171,7 +171,7 @@ def test_tiles_shorter_than_the_halo_have_two_edge_rows_a_side(case, p_y, n_int,
     # both), drawn by ticket, and the rows between take their items from
     # blockIdx
     _, _, ops, p, u, v = _setup(case)
-    items = rp.VecRingItems(p_y, NY // p_y, NX, (4, 16), 5)
+    items = rp.RingItems(p_y, NY // p_y, NX, (4, 16), 5)
     assert (items.int_lo, items.n_int, items.tiles_y) == (2, n_int, tiles_y)
     got, _ = _fused_ring(VERSIONS[version], ops, p, u, v, p_y, (5,), tile=(4, 16))
     _assert_equal(got, _step_ring(ops, p, u, v, p_y), f"{case} p_y={p_y} (4, 16) {version}")

@@ -7,7 +7,7 @@ any flag wait and loads its halo rows through registers past L1 after it
 (``vec_window_load`` and ``vec_halo_load`` of csrc/vec_tile.cuh). The kernel
 runs only on the card (chip_smoke.py holds it to the fused K3 / K4 and to
 the step ring bit for bit); here the header's formulas, read from its text,
-are held to their Python mirror :class:`~.ring_pass.VecRingItems`, and the
+are held to their Python mirror :class:`~.ring_pass.RingItems`, and the
 mirror is held to what the protocol needs, for every plan that the ring
 planner gives at the headline and at the tests' own shapes: no row outside
 ``[0, ly)`` in a cp.async copy, every such window row loaded after the flag
@@ -47,7 +47,7 @@ def _body(text: str, head: str) -> str:
 
 def _cuh_items(p, ly, nx, tile, n_ops):
     """``fused_ring``'s tile counts and interior rows, ``fused_items``,
-    ``vec_ring_interior`` and ``vec_ring_tickets`` as ring_pass.cu states
+    ``ring_interior`` and ``ring_tickets`` as ring_pass.cu states
     them, evaluated."""
     by, bx = tile
     env = dict(p=p, ly=ly, nx=nx, by=by, bx=bx, n_ops=n_ops)
@@ -55,7 +55,7 @@ def _cuh_items(p, ly, nx, tile, n_ops):
     for name in ("tiles_x", "tiles_y", "int_lo", "n_int"):
         expr = re.search(r"q->" + name + r" = (.*?);\n", body).group(1)
         env[name] = eval(_c_expr(expr), {}, env)
-    for fn in ("fused_items", "vec_ring_interior", "vec_ring_tickets"):
+    for fn in ("fused_items", "ring_interior", "ring_tickets"):
         expr = re.search(r"return (.*?);", _body(RING_CU, f"inline long long {fn}(")).group(1)
         expr = re.sub(r"(\w+)\(q\)", lambda m: str(env[m.group(1)]), expr)
         env[fn] = eval(_c_expr(expr), {}, env)
@@ -120,18 +120,18 @@ PLANS = _plans()
 @pytest.mark.parametrize("case", list(PLANS))
 def test_the_mirror_states_the_headers_counts(case):
     p, ly, nx, tile, n = PLANS[case]
-    got = rp.VecRingItems(p, ly, nx, tile, n)
+    got = rp.RingItems(p, ly, nx, tile, n)
     want = _cuh_items(p, ly, nx, tile, n)
     assert (got.tiles_x, got.tiles_y, got.int_lo, got.n_int) == tuple(
         want[k] for k in ("tiles_x", "tiles_y", "int_lo", "n_int"))
     assert (got.total, got.interior, got.tickets) == tuple(
-        want[k] for k in ("fused_items", "vec_ring_interior", "vec_ring_tickets"))
+        want[k] for k in ("fused_items", "ring_interior", "ring_tickets"))
 
 
 @pytest.mark.parametrize("case", list(PLANS))
 def test_windows_copy_own_rows_only_and_load_halo_rows_after_their_flags(case):
     p, ly, nx, tile, n = PLANS[case]
-    items = rp.VecRingItems(p, ly, nx, tile, n)
+    items = rp.RingItems(p, ly, nx, tile, n)
     interior = range(items.int_lo, items.int_lo + items.n_int)
     for ty in range(items.tiles_y):
         own, halo, (south, north) = items.window(ty)
@@ -149,7 +149,7 @@ def test_windows_copy_own_rows_only_and_load_halo_rows_after_their_flags(case):
 @pytest.mark.parametrize("case", list(PLANS))
 def test_every_item_is_taken_once_and_the_sends_come_first(case):
     p, ly, nx, tile, n = PLANS[case]
-    items = rp.VecRingItems(p, ly, nx, tile, n)
+    items = rp.RingItems(p, ly, nx, tile, n)
     by_block = [items.block(b) for b in range(items.total)]
     ticketed = [b for b, it in enumerate(by_block) if it is None]
     # the ticketed blocks sit at both ends of blockIdx, the sends' first
@@ -173,8 +173,8 @@ def test_the_headline_launch_draws_a_ticket_for_a_tenth_of_its_blocks():
     """At p_y 4 the B-grid's 32x64 tiles leave two edge rows of 19 a shard,
     the C-grid's 16x64 two of 38: the rest of the 4340 and 8672 blocks take
     their item from blockIdx."""
-    b = rp.VecRingItems(4, 600, 3600, (32, 64), 6)
-    c = rp.VecRingItems(4, 600, 3600, (16, 64), 6)
+    b = rp.RingItems(4, 600, 3600, (32, 64), 6)
+    c = rp.RingItems(4, 600, 3600, (16, 64), 6)
     assert (b.total, b.tiles_y, b.n_int, b.tickets) == (4340, 19, 17, 8 + 4 * 2 * 57)
     assert (c.total, c.tiles_y, c.n_int, c.tickets) == (8672, 38, 36, 8 + 4 * 2 * 57)
 
@@ -202,8 +202,8 @@ def test_the_wrapper_counts_the_tickets_each_launch_draws(monkeypatch):
     for m, (n, tile) in enumerate(((3, (8, 32)), (2, (8, 32)), (3, (4, 16)), (3, (16, 64)))):
         rp._vec_fused_launch(state, p, start, n, tile, out=m % 2)
         assert seen[-1][15:17] == (drawn, m + 1)  # base, epoch
-        drawn += rp.VecRingItems(4, 12, 70, tile, n).tickets
+        drawn += rp.RingItems(4, 12, 70, tile, n).tickets
         assert state.drawn == drawn
         start += n
-    assert drawn < sum(rp.VecRingItems(4, 12, 70, t, n).total
+    assert drawn < sum(rp.RingItems(4, 12, 70, t, n).total
                        for n, t in ((3, (8, 32)), (2, (8, 32)), (3, (4, 16)), (3, (16, 64))))
