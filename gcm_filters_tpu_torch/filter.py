@@ -44,6 +44,7 @@ from .ops.cuda.dispatch import make_cuda_scalar_apply, make_cuda_vector_apply
 from .ops.custom import as_protocol_adapter, operator_is_vector
 from .ops.laplacians import build_operator
 from .ops.stencil import BGridVectorStencil, CGridVectorOperator, ScalarStencil5
+from .utils.telemetry import setup_span, span
 
 
 def _validate_dims(dims, required: bool = False):
@@ -220,14 +221,15 @@ class Filter:
                 stacklevel=2,
             )
 
-        self.filter_spec = compute_filter_spec(
-            self.filter_scale,
-            self.dx_min,
-            self.filter_shape,
-            self.transition_width,
-            self.ndim,
-            self.n_steps,
-        )
+        with setup_span("gft.setup.spec"):
+            self.filter_spec = compute_filter_spec(
+                self.filter_scale,
+                self.dx_min,
+                self.filter_shape,
+                self.transition_width,
+                self.ndim,
+                self.n_steps,
+            )
 
         # Build the grid operator (validates grid_vars names and physics),
         # unless the user supplied one directly.
@@ -244,7 +246,8 @@ class Filter:
                     "mesh= to run it single-device."
                 )
         else:
-            self.operator = build_operator(self.grid_type, self.grid_vars)
+            with setup_span("gft.setup.operator"):
+                self.operator = build_operator(self.grid_type, self.grid_vars)
             self._is_vector = is_vector_grid(self.grid_type)
         self.device = torch.device("cuda" if self.device is None else self.device)
         if self.mesh is not None and self.mesh.device_type != self.device.type:
@@ -426,17 +429,18 @@ class Filter:
             Names of the two spatial dimensions (xarray inputs, and dict
             entries given as ``(array, dims)`` pairs). Latitude first.
         """
-        if self._is_vector:
-            raise ValueError(
-                f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
-                "The ``.apply`` method is only suitable for scalar Laplacians."
-            )
-        xr = _loaded_xarray()
-        if xr is not None and isinstance(ds, (xr.DataArray, xr.Dataset)):
-            return self._apply_xarray(ds, dims)
-        if isinstance(ds, dict):
-            return self._apply_dict(ds, dims)
-        return self._scalar_fn()(self._coerce(ds))
+        with span("gft.apply"):
+            if self._is_vector:
+                raise ValueError(
+                    f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
+                    "The ``.apply`` method is only suitable for scalar Laplacians."
+                )
+            xr = _loaded_xarray()
+            if xr is not None and isinstance(ds, (xr.DataArray, xr.Dataset)):
+                return self._apply_xarray(ds, dims)
+            if isinstance(ds, dict):
+                return self._apply_dict(ds, dims)
+            return self._scalar_fn()(self._coerce(ds))
 
     def _apply_dict(self, ds: Dict, dims: Optional[Sequence[str]] = None):
         """Dataset-analogue semantics on a plain dict of arrays.
@@ -593,31 +597,32 @@ class Filter:
         spatial dimensions; plain arrays carry no dim names, so for them it
         is not read.
         """
-        if not self._is_vector:
-            raise ValueError(
-                f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
-                "The ``.apply_to_vector`` method is only suitable for vector Laplacians."
-            )
-        xr = _loaded_xarray()
-        if xr is not None and isinstance(ufield, xr.DataArray):
-            dims = _validate_dims(dims, required=True)
-            fn = self._vector_fn()
+        with span("gft.apply_to_vector"):
+            if not self._is_vector:
+                raise ValueError(
+                    f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
+                    "The ``.apply_to_vector`` method is only suitable for vector Laplacians."
+                )
+            xr = _loaded_xarray()
+            if xr is not None and isinstance(ufield, xr.DataArray):
+                dims = _validate_dims(dims, required=True)
+                fn = self._vector_fn()
 
-            def _np_fn(u, v):
-                fu, fv = fn(self._coerce(u), self._coerce(v))
-                return _to_numpy(fu), _to_numpy(fv)
+                def _np_fn(u, v):
+                    fu, fv = fn(self._coerce(u), self._coerce(v))
+                    return _to_numpy(fu), _to_numpy(fv)
 
-            out_dtype = self._xr_out_dtype(ufield)
-            return xr.apply_ufunc(
-                _np_fn,
-                ufield,
-                vfield,
-                input_core_dims=2 * [dims],
-                output_core_dims=2 * [dims],
-                output_dtypes=[out_dtype, out_dtype],
-                dask="parallelized",
-            )
-        return self._vector_fn()(self._coerce(ufield), self._coerce(vfield))
+                out_dtype = self._xr_out_dtype(ufield)
+                return xr.apply_ufunc(
+                    _np_fn,
+                    ufield,
+                    vfield,
+                    input_core_dims=2 * [dims],
+                    output_core_dims=2 * [dims],
+                    output_dtypes=[out_dtype, out_dtype],
+                    dask="parallelized",
+                )
+            return self._vector_fn()(self._coerce(ufield), self._coerce(vfield))
 
     def _empty_dtype(self, *arrays) -> np.dtype:
         """The result dtype of an empty batch: what a non-empty one returns."""
@@ -627,6 +632,32 @@ class Filter:
 
         dtypes = [self.dtype] if self.dtype is not None else [torch_dtype(a) for a in arrays]
         return torch.empty(0, dtype=_compute_dtype(*dtypes)).numpy().dtype
+
+    def _streamed(self, fn, arrays, chunk: int):
+        """``fn`` over the array-likes ``arrays`` (one a component, equal
+        shapes ``(batch..., y, x)`` with a non-empty batch) in chunks of
+        ``chunk`` slices of the flattened batch dims: one numpy array a
+        component. ``fn`` takes one tensor a component and returns a tuple."""
+        shape = tuple(arrays[0].shape)
+        lead = shape[:-2]
+        n = int(np.prod(lead))
+        outs = None
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            with span("gft.stream.read"):
+                parts = [_read_chunk(a, lead, start, stop) for a in arrays]
+            with span("gft.stream.upload", bytes=sum(p.nbytes for p in parts)):
+                xs = [self._coerce(p) for p in parts]
+            res = fn(*xs)
+            with span("gft.stream.download",
+                      bytes=sum(r.numel() * r.element_size() for r in res)):
+                res = [_to_numpy(r) for r in res]
+            with span("gft.stream.assemble"):
+                if outs is None:
+                    outs = [np.empty(shape, dtype=r.dtype) for r in res]
+                for out, r in zip(outs, res):
+                    out.reshape((n,) + shape[-2:])[start:stop] = r
+        return outs
 
     def apply_streamed(self, data, chunk: int = 16):
         """Filter an out-of-core batch by streaming leading-dim chunks.
@@ -638,27 +669,20 @@ class Filter:
         apply and is gathered (a collective: every rank streams the same
         data and gets the whole result).
         """
-        if self._is_vector:
-            raise ValueError(
-                f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
-                "The ``.apply_streamed`` method is only suitable for scalar Laplacians."
-            )
-        shape = tuple(data.shape)
-        if len(shape) < 3:
-            return _to_numpy(self.apply(np.asarray(data)))
-        lead = shape[:-2]
-        n = int(np.prod(lead))
-        if n == 0:
-            return np.empty(shape, dtype=self._empty_dtype(data))
-        fn = self._scalar_fn()
-        out = None
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
-            res = _to_numpy(fn(self._coerce(_read_chunk(data, lead, start, stop))))
-            if out is None:
-                out = np.empty(shape, dtype=res.dtype)
-            out.reshape((n,) + shape[-2:])[start:stop] = res
-        return out
+        with span("gft.apply_streamed"):
+            if self._is_vector:
+                raise ValueError(
+                    f"Provided Laplacian {self._operator_name()} is a vector Laplacian. "
+                    "The ``.apply_streamed`` method is only suitable for scalar Laplacians."
+                )
+            shape = tuple(data.shape)
+            if len(shape) < 3:
+                return _to_numpy(self.apply(np.asarray(data)))
+            if int(np.prod(shape[:-2])) == 0:
+                return np.empty(shape, dtype=self._empty_dtype(data))
+            fn = self._scalar_fn()
+            (out,) = self._streamed(lambda x: (fn(x),), (data,), chunk)
+            return out
 
     def apply_to_vector_streamed(self, ufield, vfield, chunk: int = 16):
         """Filter an out-of-core (u, v) batch by streaming leading-dim chunks.
@@ -669,36 +693,23 @@ class Filter:
         numpy arrays. With a ``mesh`` every chunk goes through the sharded
         apply and is gathered, as in :meth:`apply_streamed`.
         """
-        if not self._is_vector:
-            raise ValueError(
-                f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
-                "The ``.apply_to_vector_streamed`` method is only suitable "
-                "for vector Laplacians."
-            )
-        shape = tuple(ufield.shape)
-        if tuple(vfield.shape) != shape:
-            raise ValueError(
-                "ufield and vfield must have the same shape; got "
-                f"{shape} and {tuple(vfield.shape)}"
-            )
-        if len(shape) < 3:
-            fu, fv = self.apply_to_vector(np.asarray(ufield), np.asarray(vfield))
-            return _to_numpy(fu), _to_numpy(fv)
-        lead = shape[:-2]
-        n = int(np.prod(lead))
-        if n == 0:
-            dtype = self._empty_dtype(ufield, vfield)
-            return np.empty(shape, dtype=dtype), np.empty(shape, dtype=dtype)
-        fn = self._vector_fn()
-        out_u = out_v = None
-        for start in range(0, n, chunk):
-            stop = min(start + chunk, n)
-            ru, rv = fn(self._coerce(_read_chunk(ufield, lead, start, stop)),
-                        self._coerce(_read_chunk(vfield, lead, start, stop)))
-            ru, rv = _to_numpy(ru), _to_numpy(rv)
-            if out_u is None:
-                out_u = np.empty(shape, dtype=ru.dtype)
-                out_v = np.empty(shape, dtype=rv.dtype)
-            out_u.reshape((n,) + shape[-2:])[start:stop] = ru
-            out_v.reshape((n,) + shape[-2:])[start:stop] = rv
-        return out_u, out_v
+        with span("gft.apply_to_vector_streamed"):
+            if not self._is_vector:
+                raise ValueError(
+                    f"Provided Laplacian {self._operator_name()} is a scalar Laplacian. "
+                    "The ``.apply_to_vector_streamed`` method is only suitable "
+                    "for vector Laplacians."
+                )
+            shape = tuple(ufield.shape)
+            if tuple(vfield.shape) != shape:
+                raise ValueError(
+                    "ufield and vfield must have the same shape; got "
+                    f"{shape} and {tuple(vfield.shape)}"
+                )
+            if len(shape) < 3:
+                fu, fv = self.apply_to_vector(np.asarray(ufield), np.asarray(vfield))
+                return _to_numpy(fu), _to_numpy(fv)
+            if int(np.prod(shape[:-2])) == 0:
+                dtype = self._empty_dtype(ufield, vfield)
+                return np.empty(shape, dtype=dtype), np.empty(shape, dtype=dtype)
+            return tuple(self._streamed(self._vector_fn(), (ufield, vfield), chunk))

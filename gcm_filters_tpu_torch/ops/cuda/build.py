@@ -24,6 +24,8 @@ import threading
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
+from ...utils.telemetry import setup_span
+
 SRC_DIR = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
 
@@ -106,5 +108,7 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library built from ``csrc/<name>.cu`` (built if needed)."""
     with _lock:
         if name not in _loaded:
-            _loaded[name] = ctypes.CDLL(str(build([name])[name]))
+            with setup_span("gft.setup.kernels") as s:
+                s.counts["builds"] = int(not library_path(name).exists())
+                _loaded[name] = ctypes.CDLL(str(build([name])[name]))
         return _loaded[name]

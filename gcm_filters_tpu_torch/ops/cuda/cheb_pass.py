@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.telemetry import span
 from ..stencil import COEF_FIELDS, ScalarStencil5
 
 FIRST, MIDDLE, LAST = 0, 1, 2
@@ -219,12 +220,13 @@ def cheb_pass(
     Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_next=t_next, acc=acc, h=h)
-    if acc.is_cuda:
-        _launch(ops, kind, p_a, p_b, bufs)
-    elif acc.device.type == "cpu":
-        cheb_pass_reference(ops, kind, p_a, p_b, **bufs)
-    else:
-        raise RuntimeError(f"cheb_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _launch(ops, kind, p_a, p_b, bufs)
+        elif acc.device.type == "cpu":
+            cheb_pass_reference(ops, kind, p_a, p_b, **bufs)
+        else:
+            raise RuntimeError(f"cheb_pass has no kernel for device {acc.device}")
 
 
 cheb_pass.launches = 0  # kernel launches; the plain version does not count
@@ -689,12 +691,13 @@ def cheb_fused_pass(
     version. Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
-    if acc.is_cuda:
-        _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
-    elif acc.device.type == "cpu":
-        cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)
-    else:
-        raise RuntimeError(f"cheb_fused_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+        elif acc.device.type == "cpu":
+            cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)
+        else:
+            raise RuntimeError(f"cheb_fused_pass has no kernel for device {acc.device}")
 
 
 cheb_fused_pass.launches = 0  # kernel launches; the plain version does not count

@@ -53,6 +53,7 @@ import torch
 
 from ...engine import _compute_dtype, _laplacian_scale
 from ...filter_spec import FilterSpec
+from ...utils.telemetry import setup_span
 from ..ctaps import CTAP_NAMES, cgrid_tap_arrays
 from ..stencil import (
     ARRAY_FIELDS,
@@ -140,8 +141,9 @@ def make_cuda_scalar_apply(
         """Hot stencil and p for one (dtype, device), see :func:`scalar_operands`."""
         key = (dtype, device)
         if key not in cache:
-            ops = scalar_operands(hot_host, neg2s, drop_pre, land_gain, dtype, device)
-            cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
+            with setup_span("gft.setup.operands"):
+                ops = scalar_operands(hot_host, neg2s, drop_pre, land_gain, dtype, device)
+                cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
         return cache[key]
 
     def apply_fn(field):
@@ -274,9 +276,10 @@ def make_cuda_vector_apply(operator, spec: FilterSpec, pass_fn=vec_pass,
         """Coefficients and p for one (dtype, device), see :func:`vector_operands`."""
         key = (dtype, device)
         if key not in cache:
-            ops = vector_operands(op, host_planes(), neg2s, bool(operator.zap_nans),
-                                  dtype, device)
-            cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
+            with setup_span("gft.setup.operands"):
+                ops = vector_operands(op, host_planes(), neg2s, bool(operator.zap_nans),
+                                      dtype, device)
+                cache[key] = (ops, [float(v) for v in p_host.astype(_NP_DTYPES[dtype])])
         return cache[key]
 
     def apply_fn(u, v):

@@ -51,6 +51,7 @@ from typing import Optional
 import torch
 
 from ...parallel.halo import Strips
+from ...utils.telemetry import span
 from ..stencil import COEF_FIELDS
 from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
@@ -242,12 +243,13 @@ def local_pass(
     version. Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_next=t_next, acc=acc, h=h)
-    if acc.is_cuda:
-        _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
-    elif acc.device.type == "cpu":
-        local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
-    else:
-        raise RuntimeError(f"local_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
+        elif acc.device.type == "cpu":
+            local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
+        else:
+            raise RuntimeError(f"local_pass has no kernel for device {acc.device}")
 
 
 local_pass.launches = 0  # kernel launches; the plain version does not count
@@ -423,12 +425,13 @@ def local_fused_pass(
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    if acc.is_cuda:
-        _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs)
-    elif acc.device.type == "cpu":
-        local_fused_pass_reference(ops, p, start, n_ops, cells=cells, **bufs)
-    else:
-        raise RuntimeError(f"local_fused_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs)
+        elif acc.device.type == "cpu":
+            local_fused_pass_reference(ops, p, start, n_ops, cells=cells, **bufs)
+        else:
+            raise RuntimeError(f"local_fused_pass has no kernel for device {acc.device}")
 
 
 local_fused_pass.launches = 0  # kernel launches; the plain version does not count
@@ -677,12 +680,13 @@ def local_strip_pass(
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    if acc.is_cuda:
-        _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
-    elif acc.device.type == "cpu":
-        local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)
-    else:
-        raise RuntimeError(f"local_strip_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
+        elif acc.device.type == "cpu":
+            local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)
+        else:
+            raise RuntimeError(f"local_strip_pass has no kernel for device {acc.device}")
 
 
 local_strip_pass.launches = 0  # kernel launches; the plain version does not count

@@ -73,6 +73,7 @@ from typing import List, Tuple, Union
 
 import torch
 
+from ...utils.telemetry import span
 from ..stencil import (
     ARRAY_FIELDS, COEF_FIELDS, ScalarStencil5, east_neighbor, west_neighbor,
 )
@@ -888,13 +889,14 @@ def ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0, swap: i
     """
     if state.vector:
         raise TypeError("ring_pass takes a scalar RingState; use vec_ring_pass")
-    if state.device.type == "cuda":
-        _launch(state, kind, p_a, p_b, swap)
-        ring_pass.launches += 1
-    elif state.device.type == "cpu":
-        ring_pass_reference(state, kind, p_a, p_b, swap)
-    else:
-        raise RuntimeError(f"ring_pass has no kernel for device {state.device}")
+    with span("gft.launch"):
+        if state.device.type == "cuda":
+            _launch(state, kind, p_a, p_b, swap)
+            ring_pass.launches += 1
+        elif state.device.type == "cpu":
+            ring_pass_reference(state, kind, p_a, p_b, swap)
+        else:
+            raise RuntimeError(f"ring_pass has no kernel for device {state.device}")
 
 
 def vec_ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0,
@@ -909,13 +911,14 @@ def vec_ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0,
     """
     if not state.vector:
         raise TypeError("vec_ring_pass takes a vector RingState; use ring_pass")
-    if state.device.type == "cuda":
-        _launch(state, kind, p_a, p_b, swap)
-        vec_ring_pass.launches[state.ops.op] += 1
-    elif state.device.type == "cpu":
-        vec_ring_pass_reference(state, kind, p_a, p_b, swap)
-    else:
-        raise RuntimeError(f"vec_ring_pass has no kernel for device {state.device}")
+    with span("gft.launch"):
+        if state.device.type == "cuda":
+            _launch(state, kind, p_a, p_b, swap)
+            vec_ring_pass.launches[state.ops.op] += 1
+        elif state.device.type == "cpu":
+            vec_ring_pass_reference(state, kind, p_a, p_b, swap)
+        else:
+            raise RuntimeError(f"vec_ring_pass has no kernel for device {state.device}")
 
 
 def _fused_launch(state: RingFusedState, p, start: int, n_ops: int, tile, out: int) -> None:
@@ -964,13 +967,14 @@ def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
     synchronizing; a state on the CPU runs the plain version. Anything else
     raises.
     """
-    if state.device.type == "cuda":
-        _fused_launch(state, p, start, n_ops, tuple(tile), out)
-        ring_fused_pass.launches += 1
-    elif state.device.type == "cpu":
-        ring_fused_pass_reference(state, p, start, n_ops, out=out)
-    else:
-        raise RuntimeError(f"ring_fused_pass has no kernel for device {state.device}")
+    with span("gft.launch"):
+        if state.device.type == "cuda":
+            _fused_launch(state, p, start, n_ops, tuple(tile), out)
+            ring_fused_pass.launches += 1
+        elif state.device.type == "cpu":
+            ring_fused_pass_reference(state, p, start, n_ops, out=out)
+        else:
+            raise RuntimeError(f"ring_fused_pass has no kernel for device {state.device}")
 
 
 def _vec_fused_launch(state: VecRingFusedState, p, start: int, n_ops: int, tile,
@@ -1012,13 +1016,14 @@ def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, 
     on the current stream, without synchronizing; a state on the CPU runs the
     plain version. Anything else raises.
     """
-    if state.device.type == "cuda":
-        _vec_fused_launch(state, p, start, n_ops, tuple(tile), out)
-        vec_ring_fused_pass.launches[state.ops.op] += 1
-    elif state.device.type == "cpu":
-        vec_ring_fused_pass_reference(state, p, start, n_ops, out=out)
-    else:
-        raise RuntimeError(f"vec_ring_fused_pass has no kernel for device {state.device}")
+    with span("gft.launch"):
+        if state.device.type == "cuda":
+            _vec_fused_launch(state, p, start, n_ops, tuple(tile), out)
+            vec_ring_fused_pass.launches[state.ops.op] += 1
+        elif state.device.type == "cpu":
+            vec_ring_fused_pass_reference(state, p, start, n_ops, out=out)
+        else:
+            raise RuntimeError(f"vec_ring_fused_pass has no kernel for device {state.device}")
 
 
 # kernel launches (one per step or fused pass, whatever the number of shards);

@@ -52,6 +52,7 @@ from typing import Optional, Tuple
 import torch
 
 from ...parallel.halo import Strips
+from ...utils.telemetry import span
 from ..ctaps import CTAPS
 from ..stencil import BGRID_DIFF
 from .cheb_pass import (
@@ -236,12 +237,13 @@ def vec_local_pass(
     version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_next=t_next, acc=acc)
-    if acc.is_cuda:
-        _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
-    elif acc.device.type == "cpu":
-        vec_local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
-    else:
-        raise RuntimeError(f"vec_local_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
+        elif acc.device.type == "cpu":
+            vec_local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
+        else:
+            raise RuntimeError(f"vec_local_pass has no kernel for device {acc.device}")
 
 
 # kernel launches per contraction; the plain version does not count
@@ -632,13 +634,14 @@ def vec_local_fused_pass(
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
     shrink = cells if shrink is None else shrink
-    if acc.is_cuda:
-        _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs, strips)
-    elif acc.device.type == "cpu":
-        vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink,
-                                       strips=strips, **bufs)
-    else:
-        raise RuntimeError(f"vec_local_fused_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs, strips)
+        elif acc.device.type == "cpu":
+            vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink,
+                                           strips=strips, **bufs)
+        else:
+            raise RuntimeError(f"vec_local_fused_pass has no kernel for device {acc.device}")
 
 
 # kernel launches per contraction, of the extended-block entry and of the

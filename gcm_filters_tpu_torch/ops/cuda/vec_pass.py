@@ -38,6 +38,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ...utils.telemetry import span
 from ..ctaps import CTAP_NAMES, apply_taps
 from ..stencil import BGRID_FIELDS, BGridVectorStencil
 from .cheb_pass import (
@@ -223,12 +224,13 @@ def vec_pass(
     version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_next=t_next, acc=acc)
-    if acc.is_cuda:
-        _launch(ops, kind, p_a, p_b, bufs)
-    elif acc.device.type == "cpu":
-        vec_pass_reference(ops, kind, p_a, p_b, **bufs)
-    else:
-        raise RuntimeError(f"vec_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _launch(ops, kind, p_a, p_b, bufs)
+        elif acc.device.type == "cpu":
+            vec_pass_reference(ops, kind, p_a, p_b, **bufs)
+        else:
+            raise RuntimeError(f"vec_pass has no kernel for device {acc.device}")
 
 
 vec_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
@@ -524,12 +526,13 @@ def vec_fused_pass(
     version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
-    if acc.is_cuda:
-        _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
-    elif acc.device.type == "cpu":
-        vec_fused_pass_reference(ops, p, start, n_ops, **bufs)
-    else:
-        raise RuntimeError(f"vec_fused_pass has no kernel for device {acc.device}")
+    with span("gft.launch"):
+        if acc.is_cuda:
+            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+        elif acc.device.type == "cpu":
+            vec_fused_pass_reference(ops, p, start, n_ops, **bufs)
+        else:
+            raise RuntimeError(f"vec_fused_pass has no kernel for device {acc.device}")
 
 
 vec_fused_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
