@@ -188,9 +188,14 @@ and runs these phases; any failed check raises and the script exits non-zero:
     fallback counters at 0 just before it and read just after:
     (a) ``Filter.apply_streamed`` of 32 snapshots of the phase-4 headline
     (land NaN and a wet NaN) in chunks of 16, and of a (2, 4) lead in chunks
-    of 3: each snapshot bitwise equal to ``Filter.apply`` of it alone, one
-    fused launch per chunk per planned pass; ms per snapshot end to end and,
-    for one chunk, host->device, kernels and device->host by CUDA events;
+    of 3, of the first 5 as float64 in chunks of 3 and from a memory-mapped
+    file in chunks of 2: each snapshot bitwise equal to ``Filter.apply`` of
+    it alone, the first call's result read after the second call, one fused
+    launch per chunk per planned pass, every chunk's copies through
+    page-locked memory (``pinned=`` equal to ``bytes=`` on its spans); ms per
+    snapshot end to end and, for one chunk moved as the loop moves it, the
+    host's staging copy by the host clock and host->device, kernels and
+    device->host by CUDA events;
     (b) ``apply_to_vector_streamed`` of 16 (u, v) pairs in chunks of 8 on
     the phase-7 B-grid and C-grid headlines, the same checks and numbers;
     (c) a batch of 8 ``IRREGULAR_WITH_LAND`` fields (the flux form, on the
@@ -626,7 +631,9 @@ def user_paths(dev, counters, reset_counters, bitwise):
     from gcm_filters_tpu_torch.engine import scalar_filter_apply
     from gcm_filters_tpu_torch.utils.profiling import trace
     from gcm_filters_tpu_torch.utils.ring_split import unit_vector_grid_vars
-    from gcm_filters_tpu_torch.utils.telemetry import fallback_counts, reset_fallback_counts
+    from gcm_filters_tpu_torch.utils.telemetry import (
+        fallback_counts, recording, reset_fallback_counts, reset_spans, spans,
+    )
 
     ny, nx = 2400, 3600
     out = {}
@@ -648,22 +655,39 @@ def user_paths(dev, counters, reset_counters, bitwise):
             raise AssertionError(f"{label}: fallbacks recorded {fallback_counts()}")
 
     def split_ms(fn, *chunks):
-        """One chunk through ``fn`` as the streamed loop moves it, each part
-        timed by CUDA events: host->device (pageable numpy), the filter's
-        kernels, device->host."""
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        """One chunk through ``fn`` as the streamed loop moves it: the host's
+        copy into page-locked staging (host clock), then host->device from
+        it, the filter's kernels and device->host into a page-locked result,
+        each timed by CUDA events."""
         torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        staged = [torch.empty(c.shape, dtype=torch.float32, pin_memory=True).copy_(
+            torch.as_tensor(c)) for c in chunks]
+        stage_ms = 1e3 * (time.perf_counter() - t0)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
-        xs = [torch.as_tensor(c).to(dev) for c in chunks]
+        xs = [c.to(dev, non_blocking=True) for c in staged]
         ev[1].record()
         res = fn(*xs)
         ev[2].record()
-        for r in res if isinstance(res, tuple) else (res,):
-            r.cpu().numpy()
+        for r, c in zip(res if isinstance(res, tuple) else (res,), staged):
+            c.copy_(r, non_blocking=True)
         ev[3].record()
         torch.cuda.synchronize()
-        return {"h2d_ms": ev[0].elapsed_time(ev[1]), "kernel_ms": ev[1].elapsed_time(ev[2]),
-                "d2h_ms": ev[2].elapsed_time(ev[3])}
+        nbytes = sum(c.numel() * c.element_size() for c in staged)
+        split = {"stage_ms": stage_ms, "h2d_ms": ev[0].elapsed_time(ev[1]),
+                 "kernel_ms": ev[1].elapsed_time(ev[2]), "d2h_ms": ev[2].elapsed_time(ev[3])}
+        for k in ("stage", "h2d", "d2h"):
+            split[f"{k}_gb_per_s"] = nbytes / split[f"{k}_ms"] / 1e6
+        return split
+
+    def pinned_spans(label, n_chunks):
+        """Raise unless the recorded spans hold ``n_chunks`` chunks whose
+        uploads and downloads all went through page-locked memory."""
+        moves = [s for s in spans() if s.name in ("gft.stream.upload", "gft.stream.download")]
+        if len(moves) != 2 * n_chunks or any(
+                s.counts.get("pinned") != s.counts["bytes"] for s in moves):
+            raise AssertionError(f"{label}: copies not all page-locked: {moves}")
 
     def bitwise_host(label, got, want, what):
         bitwise(label, torch.as_tensor(np.ascontiguousarray(got), device=dev), want, what)
@@ -689,26 +713,48 @@ def user_paths(dev, counters, reset_counters, bitwise):
     snaps[:, wet == 0] = np.nan
     snaps[5, ny // 2, nx // 2] = np.nan
     start()
+    reset_spans()
     t0 = time.perf_counter()
-    streamed = head.apply_streamed(snaps, chunk=chunk)
+    with recording():
+        streamed = head.apply_streamed(snaps, chunk=chunk)
     e2e = [1e3 * (time.perf_counter() - t0) / n_snap]
     launched("apply_streamed", {"cheb_fused_pass": passes * -(-n_snap // chunk)})
+    pinned_spans("apply_streamed", -(-n_snap // chunk))
     t0 = time.perf_counter()
     head.apply_streamed(snaps, chunk=chunk)
     e2e.append(1e3 * (time.perf_counter() - t0) / n_snap)
     if streamed.shape != snaps.shape or streamed.dtype != np.float32:
         raise AssertionError(f"apply_streamed gave {streamed.dtype} {streamed.shape}")
-    for i in range(n_snap):
+    for i in range(n_snap):  # the first call's result, read after the second call
         bitwise_host(f"streamed snapshot {i}", streamed[i], head.apply(snaps[i]),
                      "Filter.apply of the snapshot alone")
+    flat = torch.as_tensor(streamed[:8], device=dev)
     lead = snaps[:8].reshape(2, 4, ny, nx)
     start()
     streamed4 = head.apply_streamed(lead, chunk=3)
     launched("apply_streamed (2, 4) lead", {"cheb_fused_pass": passes * 3})
     if streamed4.shape != lead.shape:
         raise AssertionError(f"apply_streamed of a (2, 4) lead gave {streamed4.shape}")
-    bitwise_host("streamed (2, 4) lead", streamed4.reshape(8, ny, nx),
-                 torch.as_tensor(streamed[:8], device=dev), "the flat streamed snapshots")
+    bitwise_host("streamed (2, 4) lead", streamed4.reshape(8, ny, nx), flat,
+                 "the flat streamed snapshots")
+    start()
+    reset_spans()
+    with recording():
+        streamed64 = head.apply_streamed(snaps[:5].astype(np.float64), chunk=3)
+    launched("apply_streamed float64", {"cheb_fused_pass": passes * 2})
+    pinned_spans("apply_streamed float64", 2)
+    bitwise_host("streamed float64 cast to float32", streamed64, flat[:5],
+                 "the flat streamed snapshots")
+    with tempfile.TemporaryDirectory() as d:
+        mm = np.memmap(os.path.join(d, "snaps.f32"), dtype=np.float32, mode="w+",
+                       shape=(5, ny, nx))
+        mm[:] = snaps[:5]
+        mm.flush()
+        start()
+        streamed_mm = head.apply_streamed(mm, chunk=2)
+        launched("apply_streamed memmap", {"cheb_fused_pass": passes * 3})
+        del mm
+    bitwise_host("streamed memmap", streamed_mm, flat[:5], "the flat streamed snapshots")
     out["apply_streamed"] = dict(
         snapshots=n_snap, chunk=chunk, launches_per_chunk=passes,
         ms_per_snapshot=e2e, chunk_split=split_ms(fn, snaps[:chunk]),
@@ -717,9 +763,10 @@ def user_paths(dev, counters, reset_counters, bitwise):
     log(f"18a apply_streamed {n_snap}x{ny}x{nx} float32, chunk {chunk}: {e2e[0]:.3f}, "
         f"{e2e[1]:.3f} ms per snapshot end to end; one chunk {out['apply_streamed']['chunk_split']}"
         f" (kernels alone {out['apply_streamed']['chunk_kernel_alone_ms']:.4f} ms); "
-        f"{passes} launch(es) a chunk; every snapshot and the (2, 4) lead bitwise equal to "
-        f"Filter.apply of it alone")
-    del snaps, streamed, streamed4, lead
+        f"{passes} launch(es) a chunk; every snapshot, the (2, 4) lead, the float64 input and "
+        f"the memory-mapped one bitwise equal to Filter.apply of it alone, every copy "
+        f"page-locked")
+    del snaps, streamed, streamed4, streamed64, streamed_mm, lead, flat
 
     # 18b. apply_to_vector_streamed on the phase-7 headlines: 16 (u, v)
     # pairs in chunks of 8
@@ -736,11 +783,14 @@ def user_paths(dev, counters, reset_counters, bitwise):
         vpasses = len(vfn.plan(ny, nx, torch.float32).steps)
         vf.apply_to_vector(us[0], vs[0])  # the operands (the C-grid taps) on the card
         start()
+        reset_spans()
         t0 = time.perf_counter()
-        su, sv = vf.apply_to_vector_streamed(us, vs, chunk=vchunk)
+        with recording():
+            su, sv = vf.apply_to_vector_streamed(us, vs, chunk=vchunk)
         e2e = [1e3 * (time.perf_counter() - t0) / n_pair]
         launched(f"{gname} apply_to_vector_streamed",
                  {f"vec_fused_pass_{key}": vpasses * -(-n_pair // vchunk)})
+        pinned_spans(f"{gname} apply_to_vector_streamed", -(-n_pair // vchunk))
         t0 = time.perf_counter()
         vf.apply_to_vector_streamed(us, vs, chunk=vchunk)
         e2e.append(1e3 * (time.perf_counter() - t0) / n_pair)
@@ -757,7 +807,8 @@ def user_paths(dev, counters, reset_counters, bitwise):
         log(f"18b {gname} apply_to_vector_streamed {n_pair} pairs, chunk {vchunk}: "
             f"{e2e[0]:.3f}, {e2e[1]:.3f} ms per pair end to end; one chunk "
             f"{res['chunk_split']} (kernels alone {res['chunk_kernel_alone_ms']:.4f} ms); "
-            f"{vpasses} launches a chunk; every pair bitwise equal to apply_to_vector of it alone")
+            f"{vpasses} launches a chunk; every pair bitwise equal to apply_to_vector of it alone, "
+            f"every copy page-locked")
         del vf, vfn, su, sv
     del us, vs
 

@@ -44,7 +44,7 @@ from .ops.cuda.dispatch import make_cuda_scalar_apply, make_cuda_vector_apply
 from .ops.custom import as_protocol_adapter, operator_is_vector
 from .ops.laplacians import build_operator
 from .ops.stencil import BGridVectorStencil, CGridVectorOperator, ScalarStencil5
-from .utils.telemetry import setup_span, span
+from .utils.telemetry import record_fallback, setup_span, span
 
 
 def _validate_dims(dims, required: bool = False):
@@ -101,6 +101,26 @@ def _to_numpy(t: torch.Tensor) -> np.ndarray:
     if hasattr(t, "full_tensor"):
         t = t.full_tensor()
     return t.cpu().numpy()
+
+
+def _pinned(shape, dtype: torch.dtype) -> torch.Tensor:
+    """An empty page-locked host tensor from torch's caching host allocator:
+    a freed block goes back to its cache, and is handed out again only after
+    the copies recorded on it are done."""
+    return torch.empty(shape, dtype=dtype, pin_memory=True)
+
+
+def _pinned_results(shape, dtypes) -> Optional[list]:
+    """One page-locked result of ``shape`` a dtype; None, counted as the
+    fallback ``stream_pageable_result``, where the host cannot page-lock
+    them."""
+    try:
+        return [_pinned(shape, d) for d in dtypes]
+    except RuntimeError as e:
+        record_fallback("stream_pageable_result",
+                        f"no page-locked result of {shape}, so the results come down "
+                        f"through pageable memory ({e})")
+        return None
 
 
 @dataclasses.dataclass
@@ -397,13 +417,16 @@ class Filter:
         ax.legend()
         return ax
 
-    def _coerce(self, arr) -> torch.Tensor:
+    def _require_card(self) -> None:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(
                 "Filter runs on the CUDA card by default, but torch finds no "
                 "CUDA device. Pass device='cpu' to run the plain PyTorch "
                 "version on the CPU."
             )
+
+    def _coerce(self, arr) -> torch.Tensor:
+        self._require_card()
         if not isinstance(arr, (torch.Tensor, np.ndarray)):
             # lists and scalars take numpy's dtypes (float64 for Python
             # floats), as the JAX package's inputs do, not torch's float32
@@ -637,7 +660,12 @@ class Filter:
         """``fn`` over the array-likes ``arrays`` (one a component, equal
         shapes ``(batch..., y, x)`` with a non-empty batch) in chunks of
         ``chunk`` slices of the flattened batch dims: one numpy array a
-        component. ``fn`` takes one tensor a component and returns a tuple."""
+        component. ``fn`` takes one tensor a component and returns a tuple.
+        On one CUDA device the chunks go through page-locked memory
+        (:meth:`_streamed_pinned`); a mesh's apply moves only its own block,
+        and the CPU has no page-locked memory."""
+        if self.device.type == "cuda" and self.mesh is None:
+            return self._streamed_pinned(fn, arrays, chunk)
         shape = tuple(arrays[0].shape)
         lead = shape[:-2]
         n = int(np.prod(lead))
@@ -659,15 +687,66 @@ class Filter:
                     out.reshape((n,) + shape[-2:])[start:stop] = r
         return outs
 
+    def _streamed_pinned(self, fn, arrays, chunk: int):
+        """:meth:`_streamed` through page-locked memory. Each chunk is cast
+        into a fresh page-locked tensor (torch's CPU copy, on several
+        threads) and uploaded without a wait; each result is copied by DMA
+        into its slice of one page-locked result a component; the host
+        waits for the card once, after the last chunk's download, so it
+        stages chunk i+1 while the card works on chunk i. The staging tensor
+        is dropped once its upload is enqueued: the host cache hands its
+        block out again only after the upload is done. The arrays returned
+        view the page-locked results. Where a result cannot be page-locked,
+        it is a pageable numpy array filled as the CPU's loop fills it
+        (fallback ``stream_pageable_result``). ``pinned=`` counts the bytes
+        a copy moves through page-locked memory."""
+        self._require_card()
+        shape = tuple(arrays[0].shape)
+        lead, yx = shape[:-2], shape[-2:]
+        n = int(np.prod(lead))
+        pinned = pageable = None
+        for start in range(0, n, chunk):
+            stop = min(start + chunk, n)
+            with span("gft.stream.read"):
+                parts = [torch.as_tensor(_read_chunk(a, lead, start, stop)) for a in arrays]
+            dtypes = [self.dtype or p.dtype for p in parts]
+            nbytes = sum(p.numel() * d.itemsize for p, d in zip(parts, dtypes))
+            with span("gft.stream.upload", bytes=nbytes, pinned=nbytes):
+                xs = [_pinned(p.shape, d).copy_(p).to(self.device, non_blocking=True)
+                      for p, d in zip(parts, dtypes)]
+            res = fn(*xs)
+            nbytes = sum(r.numel() * r.element_size() for r in res)
+            with span("gft.stream.download", bytes=nbytes) as s:
+                if start == 0:
+                    pinned = _pinned_results(shape, [r.dtype for r in res])
+                if pinned is None:
+                    res = [_to_numpy(r) for r in res]
+                else:
+                    for out, r in zip(pinned, res):
+                        out.view((n,) + yx)[start:stop].copy_(r, non_blocking=True)
+                if stop == n:
+                    torch.get_device_module(self.device).synchronize(self.device)
+                if s is not None:
+                    s.counts["pinned"] = 0 if pinned is None else nbytes
+            with span("gft.stream.assemble"):
+                if pinned is None:
+                    if pageable is None:
+                        pageable = [np.empty(shape, dtype=r.dtype) for r in res]
+                    for out, r in zip(pageable, res):
+                        out.reshape((n,) + yx)[start:stop] = r
+        return pageable if pinned is None else [out.numpy() for out in pinned]
+
     def apply_streamed(self, data, chunk: int = 16):
         """Filter an out-of-core batch by streaming leading-dim chunks.
 
         ``data`` may be any array-like (numpy, memory-mapped, zarr array) with
         shape ``(batch..., y, x)`` too large for device memory; chunks of
         ``chunk`` slices are moved to ``device``, filtered, and returned as
-        one numpy array. With a ``mesh`` every chunk goes through the sharded
-        apply and is gathered (a collective: every rank streams the same
-        data and gets the whole result).
+        one numpy array. On one card the chunks pass through page-locked
+        memory and the array returned lies in it (torch's host cache takes
+        the block back when the array is dropped). With a ``mesh`` every
+        chunk goes through the sharded apply and is gathered (a collective:
+        every rank streams the same data and gets the whole result).
         """
         with span("gft.apply_streamed"):
             if self._is_vector:
@@ -690,8 +769,9 @@ class Filter:
         Vector twin of :meth:`apply_streamed`: ``ufield`` and ``vfield`` are
         array-likes of equal shape ``(batch..., y, x)``; chunks of ``chunk``
         slice pairs are moved to ``device``, filtered, and returned as two
-        numpy arrays. With a ``mesh`` every chunk goes through the sharded
-        apply and is gathered, as in :meth:`apply_streamed`.
+        numpy arrays, in page-locked memory on one card. With a ``mesh``
+        every chunk goes through the sharded apply and is gathered, as in
+        :meth:`apply_streamed`.
         """
         with span("gft.apply_to_vector_streamed"):
             if not self._is_vector:

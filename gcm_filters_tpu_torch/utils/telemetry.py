@@ -4,7 +4,9 @@ PyTorch-port counterpart of ``gcm_filters_tpu/utils/telemetry.py``, with the
 same API. In the port nothing on the kernel path falls back: for a CUDA
 tensor the dispatcher launches the hand-written kernel or raises. The
 counters stay so that a run can show it: ``chip_smoke.py`` asserts that
-:func:`fallback_counts` is empty after driving the main path.
+:func:`fallback_counts` is empty after driving the main path. The one
+counter the port records is ``stream_pageable_result``: a streamed result
+the host could not page-lock, so it came down through pageable memory.
 
 Spans time the port's own layers from inside. ``with span(name, **counts)``
 records the block's name, its start and end (``time.perf_counter_ns``), the
@@ -20,8 +22,9 @@ are named ``gft.*``:
   kernel launch on the card or the plain version on the CPU;
 - ``gft.stream.read``, ``.upload``, ``.download``, ``.assemble``: the
   stages of one chunk of the streamed methods (read from the array-like, the
-  host-to-device copy, the device-to-host copy with the wait for the chunk's
-  kernels, the copy into the result), the copies with ``bytes=``;
+  host-to-device copy, the device-to-host copy, the copy into the result),
+  the copies with ``bytes=``; on one card also ``pinned=``, the bytes moved
+  through page-locked memory (``Filter._streamed_pinned``);
 - ``gft.setup.spec``, ``.operator``, ``.operands``, ``.kernels``: the
   filter's polynomial, its grid operator, an operand-cache miss of the
   applies (host planes cast and uploaded) and the loading of a kernel
