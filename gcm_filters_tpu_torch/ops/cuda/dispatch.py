@@ -47,6 +47,7 @@ there is no other route and no fallback.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import numpy as np
 import torch
@@ -216,7 +217,8 @@ def vector_setup(operator, spec: FilterSpec):
     the kernel's contraction, the grid's shape, ``-2*lap_scale``, the
     polynomial in float64 and a function that returns the coefficient planes
     in the kernel's order, float64 on the host (the C-grid taps are computed
-    once, at first use: ~1.2 GB of float64 at 2400x3600)."""
+    once, at first use, in a ``gft.setup.ctaps`` span: ~1.2 GB of float64 at
+    2400x3600)."""
     if isinstance(operator, BGridVectorStencil):
         op = BGRID
     elif isinstance(operator, CGridVectorOperator):
@@ -234,7 +236,9 @@ def vector_setup(operator, spec: FilterSpec):
         if op == BGRID:
             return [getattr(operator, k).numpy() for k in BGRID_FIELDS]
         if not taps:
-            taps.append(cgrid_tap_arrays(operator))
+            n = len(CTAP_NAMES)
+            with setup_span("gft.setup.ctaps", planes=n, bytes=n * 8 * math.prod(grid_shape)):
+                taps.append(cgrid_tap_arrays(operator))
         return [taps[0][k] for k in CTAP_NAMES]
 
     return op, grid_shape, neg2s, p_host, host_planes

@@ -28,7 +28,11 @@ are named ``gft.*``:
 - ``gft.setup.spec``, ``.operator``, ``.operands``, ``.kernels``: the
   filter's polynomial, its grid operator, an operand-cache miss of the
   applies (host planes cast and uploaded) and the loading of a kernel
-  library, with ``builds=`` the nvcc processes it started.
+  library, with ``builds=`` the nvcc processes it started;
+- ``gft.setup.ctaps``: the composition of the C-grid operator's tap planes
+  on the host (``ops/ctaps.py::cgrid_tap_arrays``, once a filter), inside
+  the first ``gft.setup.operands`` of a C-grid filter, with ``planes=`` (18)
+  and ``bytes=`` (their float64 bytes).
 
 Hot-path spans record only while recording is on: while a ``torch.profiler``
 runs, or inside :func:`recording`. Off, :func:`span` returns one shared null
