@@ -1052,14 +1052,15 @@ def main():
     def scalar_tile_ptxas(source, kernel):
         """This build's ``ptxas -v`` lines of the scalar tile kernels of one
         source (``kernel`` the regular expression of the name before its
-        dtype), by dtype and compiled mode."""
+        dtype), by dtype, compiled mode and steps (the register steps' kernels
+        named apart)."""
         modes = {"0": "GENERIC", "1": "HSPACE", "2": "FLUX"}
         out = {}
         for name, lines in ptxas_lines(build.build_logs).items():
-            m = re.search(kernel + r"I([fd])(?:NS_\d+\w+?GeoE)?Li(\d)E", name)
+            m = re.search(kernel + r"I([fd])(?:NS_\d+\w+?GeoE)?Li(\d)E(?:Lb(\d)E)?", name)
             if name.startswith(source + ":") and m and SCALAR_TILE_KERNEL.search(name):
-                out[f"{'f64' if m.group(1) == 'd' else 'f32'} {modes[m.group(2)]}"] = \
-                    "; ".join(lines)
+                out[f"{'f64' if m.group(1) == 'd' else 'f32'} {modes[m.group(2)]}"
+                    + (" registers" if m.group(3) == "1" else "")] = "; ".join(lines)
         return out or None
     dev = torch.device("cuda")
 

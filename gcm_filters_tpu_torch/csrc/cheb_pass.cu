@@ -127,7 +127,8 @@ CHEB_PASS_ENTRY(cheb_pass_f64, double)
 // pa[i] is p_a of the pass's i-th step, p_b that of FIRST. The carries of a
 // pass that does not end the filter go to t_out and t_prev_out, which must
 // not alias t or t_prev (tiles read their neighbours' cells); acc_in may be
-// acc_out.
+// acc_out. `regs`: the pass takes the register steps where they fit
+// (cheb_tile.cuh, reg_path).
 #define CHEB_FUSED_ENTRY(NAME, T)                                                       \
   extern "C" int NAME(int batch, int ny, int nx, int by, int bx, int n_ops, int first,  \
                       int last, const double* pa, double p_b, const T* field,           \
@@ -135,13 +136,15 @@ CHEB_PASS_ENTRY(cheb_pass_f64, double)
                       T* t_prev_out, T* acc_out, const T* c, const T* n, const T* s,    \
                       const T* e, const T* w, double cv, double nv, double sv,          \
                       double ev, double wv, const T* pre, const T* post, const T* area, \
-                      double land_gain, int zap, int fold, int drop_pre, void* stream) { \
+                      double land_gain, int zap, int fold, int drop_pre, int regs,       \
+                      void* stream) {                                                   \
     cudaGetLastError();                                                                 \
     if (ny < 1 || nx < 1) return (int)cudaErrorInvalidValue;                           \
     const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, field,    \
                                          field, t, t_prev, acc_in, t_out, t_prev_out,   \
                                          acc_out, c, n, s, e, w, cv, nv, sv, ev, wv,    \
-                                         pre, post, area, land_gain, zap, drop_pre);    \
+                                         pre, post, area, land_gain, zap, drop_pre,     \
+                                         regs);                                         \
     const WrapGeo g{ny, nx, fold};                                                      \
     return launch_fused<T>(a, g, ny, nx, batch, static_cast<cudaStream_t>(stream));     \
   }

@@ -19,12 +19,15 @@
 //      acc of the own cells. A first pass then computes T_0 = h in place
 //      from the raw field, area and post (t0_value), one sweep over the
 //      window between two barriers;
-//   2. run the S steps in shared memory; step j updates the window shrunk by
-//      j cells on each side, so the last one ends exactly on the own tile.
-//      A step's work items are (strip, column) pairs, one per thread, so no
-//      lane idles at a window's right edge (step_window).
-//      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
-//      it), acc of the own cells is updated in place;
+//   2. run the S steps; step j updates the window shrunk by j cells on each
+//      side, so the last one ends exactly on the own tile. In shared memory
+//      (step_window): a step's work items are (strip, column) pairs, one per
+//      thread, so no lane idles at a window's right edge; T_{k+1} overwrites
+//      T_{k-1} cell by cell (only the cell itself reads it), acc of the own
+//      cells is updated in place. Or in registers (reg_steps, a kernel of its
+//      own where the planner picks it): each thread holds a run of window
+//      rows of one column through the pass, and a step goes to shared memory
+//      only for what other threads hold (see "the register steps" below);
 //   3. write the own cells of t, t_prev and acc, or, when the pass ends the
 //      filter, only the result (land reconstruction and /area fused).
 // Every value goes through the functions of cheb_step.cuh in the same order
@@ -46,17 +49,23 @@
 // whatever its south neighbour holds (post = 0, or all coefficients 0), so
 // no real cell reads the drift.
 //
-// Bound: issue in the steps, no longer HBM. A cell-step reads about 7 shared
-// words (the centre column shared by a strip's rows, east, west, c, post,
-// t_prev, acc of an own cell) and writes one or two; the (strip, column)
-// items keep every lane of a round busy but the last round's; the redundant
-// cells of the trapezoid add (1 + 2H/by)(1 + 2H/bx) - 1 at most. Measured on
-// one H100 (PERF.md §6, python3 -m gcm_filters_tpu_torch.utils.tile_split):
-// on the 2400x3600 float32 headline (40x80 tiles, one pass of 11 steps, two
-// blocks an SM) the steps take 82% of the time, the window's burst load 13%,
-// and the two add up: the load does not hide under the other block's steps.
-// Device memory moves each input once per pass plus the halos, which
-// neighbouring tiles share through L2.
+// Bound: issue in the steps, no longer HBM. In shared memory a cell-step
+// reads about 7 shared words (the centre column shared by a strip's rows,
+// east, west, c, post, t_prev, acc of an own cell) and writes one or two; the
+// (strip, column) items keep every lane of a round busy but the last
+// round's; the redundant cells of the trapezoid add (1 + 2H/by)(1 + 2H/bx) -
+// 1 at most. In registers a cell-step reads east, west, post and 2/R of a
+// row's ends and writes one word, about 12 instructions, but every slot of a
+// run is stepped (68% of them in the shrunk windows of 11 steps on 40x80),
+// 128 registers hold one block (16 warps) an SM, and the window's load and
+// the lift no longer hide under another block's steps. Measured on one H100
+// (PERF.md §6, python3 -m gcm_filters_tpu_torch.utils.tile_split): on the
+// 2400x3600 float32 headline (40x80 tiles, one pass of 11 steps) the steps
+// took 82% of 0.444 ms in shared memory (two blocks an SM), and take 0.270
+// ms of 0.395 in registers, where a tile's window, lift and steps run about
+// 8.7k, 3.1k and 20.9k cycles a warp (clock64). Device memory moves each
+// input once per pass plus the halos, which neighbouring tiles share
+// through L2.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
@@ -92,6 +101,7 @@ struct FusedArgs {
   const T* area;
   T land_gain;
   int zap, drop_pre;
+  int regs;          // 1: the pass takes the register steps where they fit (reg_path)
 };
 
 // Planes: "in" planes (t, t_prev, the first pass's field and every
@@ -388,6 +398,140 @@ __device__ __forceinline__ void step_window(const Tile<T, MODE>& tl, const P& pl
   }
 }
 
+// -- the register steps ----------------------------------------------------
+//
+// A thread owns a run of R consecutive window rows in one column for the
+// whole pass: thread t < runs (ceil(wy / R) run rows of wx columns) takes
+// column t % wx and rows [R (t / wx), R (t / wx) + R), so a warp's lanes take
+// consecutive columns. After the window's load the thread lifts its run into
+// registers (RegRun): T_k, T_{k-1}, the coefficient arrays, pre and acc
+// (post too, but a step reads it from its plane: held, it spilled). The
+// window's planes are then dead, and two exchange planes and a post plane
+// take their room: column-major, P rows a column (P odd, so a warp's lanes,
+// a column apart, hit 32 banks), with a column of padding on each side. A
+// step reads from an exchange plane only what another thread holds: the
+// gathered T_k of each cell's east and west neighbours and of the rows just
+// below and just above the run, all at constant offsets from one address; it
+// steps its cells in registers with the value functions of cheb_step.cuh in
+// step_window's order, publishes the gathered T_{k+1} of each into the other
+// plane, and one barrier a step separates the two. Every slot of a run is
+// stepped, with no branch or select: a cell outside the step's shrunk window
+// computes values that no later step reads (the windows only shrink), and
+// the padding keeps its reads and writes inside the planes; only the own
+// cells' results leave the registers. No run holds a mirror cell: the
+// register kernel steps a window that reaches the fold (the top tiles of a
+// fold grid) in shared memory; the selects of mirror cells spilled.
+
+// Rows of a thread's run in the register steps of a dtype and mode; 0: the
+// mode keeps step_window. R is the least that lets the block's threads cover
+// the headline window (62 x 102: 5 run rows of 13) and no more, since every
+// row of a run holds its values in registers: an instantiation whose run
+// would spill keeps step_window (ptxas -v, csrc/ptxas_lines.json): float64
+// and the modes with more array planes (FLUX, GENERIC). R 14 and 16 spilled,
+// and 1024 threads a block of R 7 to 9 (64 registers) spilled and ran
+// slower (PERF.md §6).
+template <typename T, int MODE> struct RegRows { static constexpr int value = 0; };
+template <> struct RegRows<float, HSPACE> { static constexpr int value = 13; };
+
+// Rows a column of an exchange plane holds: the run rows', made odd.
+__host__ __device__ constexpr int reg_pitch(int wy, int r) { return (wy + r - 1) / r * r | 1; }
+
+// Whether a pass takes the register steps: the caller asks for them (the
+// planner weighs both steps, ops/cuda/cheb_pass.py::fused_path), the mode
+// has a run length, the block's threads cover the window's runs, and the two
+// exchange planes and the post plane fit in the window's shared memory
+// (reg_fits there mirrors
+// this). The register steps are kernels of their own (REG), so a pass in
+// shared memory keeps the registers, and the blocks an SM, of step_window.
+template <typename T, int MODE>
+__host__ __device__ inline bool reg_path(const FusedArgs<T>& a) {
+  constexpr int R = RegRows<T, MODE>::value;
+  const int wy = a.by + 2 * a.n_ops, wx = a.bx + 2 * a.n_ops;
+  return R > 0 && a.regs && (wy + R - 1) / R * wx <= FUSED_THREADS &&
+         3 * (wx + 2) * reg_pitch(wy, R) * sizeof(T) <= fused_shared_bytes(a);
+}
+
+// One thread's run: its cells' values (slot s is window row r0 + s of
+// column q) and the masks of its slots that are own cells and mirror cells.
+template <typename T, int MODE, int R>
+struct RegRun {
+  T x[R], y[R];  // T_k and T_{k-1}, the roles trading places every step
+  T cf[R][5];    // the coefficient arrays of the mode
+  T po[R], pr[R];  // post: lifted, then read from the post plane
+  T ac[R];
+  int q, r0;     // column and first row; q < 0: no run
+  int e0;        // exchange-plane offset of slot 0: (q + 1) P + r0
+  unsigned own;  // the slots that are own cells
+};
+
+// The gathered value of a cell's T from its own pre (Tile::gat's value).
+template <typename T, int MODE>
+__device__ __forceinline__ T reg_gat(const Tile<T, MODE>& tl, T x, T pre) {
+  return gather_value<true>(x, tl.zap(), tl.has_pre(), pre);
+}
+
+// One step (kind KIND) in registers: `cur` holds T_k, T_{k+1} goes over
+// `old` (T_{k-1}); the neighbours' gathered T_k come from exchange plane
+// `in` (P rows a column; plane 0 or 1, `out` the other), post from the post
+// plane (2), and with `publish` the gathered T_{k+1} goes into plane `out`.
+// No slot is a mirror cell (fused_tile steps a window that reaches the fold
+// in shared memory). LAST writes the result of the own cells.
+template <int KIND, typename T, int MODE, int R, class Geo, class P>
+__device__ __forceinline__ void reg_step(const Tile<T, MODE>& tl, const P& pl, const Geo geo,
+                                         RegRun<T, MODE, R>& v, T (&cur)[R], T (&old)[R],
+                                         int P_, int H, int y0, int x0, int in, int out,
+                                         T p_a, bool publish, int64_t b_own) {
+  const FusedArgs<T>& a = tl.a;
+  T* const sm = tl.sm;
+  const T* const se = sm + in + v.e0;  // slot 0 in plane `in`
+  // and in the post plane, after the two (in + out: one plane's words)
+  const T* const sp = sm + 2 * (in + out) + v.e0;
+  T ge[R], gw[R], g[R + 2];
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    ge[s] = se[s + P_];
+    gw[s] = se[s - P_];
+  }
+  // the rows just below and just above the run
+  g[0] = se[-1];
+  g[R + 1] = se[R];
+#pragma unroll
+  for (int s = 0; s < R; ++s) g[s + 1] = reg_gat(tl, cur[s], v.pr[s]);
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const T lap = lap_value(tl.coef_array(0) ? v.cf[s][0] : a.cval[0],
+                            tl.coef_array(1) ? v.cf[s][1] : a.cval[1],
+                            tl.coef_array(2) ? v.cf[s][2] : a.cval[2],
+                            tl.coef_array(3) ? v.cf[s][3] : a.cval[3],
+                            tl.coef_array(4) ? v.cf[s][4] : a.cval[4], g[s + 1], g[s + 2], g[s],
+                            ge[s], gw[s], tl.has_post(), sp[s]);
+    if (KIND == FIRST) {
+      const T t1 = t1_value(lap, cur[s]);
+      v.ac[s] = acc_first(p_a, a.p_b, cur[s], t1);
+      old[s] = t1;
+    } else if (KIND == MIDDLE) {
+      const T nxt = next_value(cur[s], lap, old[s]);
+      v.ac[s] = acc_add(p_a, nxt, v.ac[s]);
+      old[s] = nxt;
+    } else if ((v.own >> s) & 1u) {
+      // LAST: the result of the own cells, the window shrunk by H
+      const int gy = y0 - H + v.r0 + s, gx = x0 - H + v.q;
+      if (gy < geo.rows() && gx < geo.cols()) {
+        const T acc = acc_add(p_a, next_value(cur[s], lap, old[s]), v.ac[s]);
+        const int64_t kk = geo.in_index(geo.row(gy), geo.col(gx, false));
+        const int64_t ko = b_own + geo.own_index(gy, gx);
+        pl.acc_out[ko] = finish_value(acc, at(pl.field_own, ko), pl.area != nullptr,
+                                      at(pl.area, kk), a.drop_pre != 0, sp[s], a.land_gain);
+      }
+    }
+  }
+  if (KIND != LAST && publish) {
+    T* const so = sm + out + v.e0;
+#pragma unroll
+    for (int s = 0; s < R; ++s) so[s] = reg_gat(tl, old[s], v.pr[s]);
+  }
+}
+
 // Where a block's tile lies: the tile of its blockIdx, batch entry
 // blockIdx.z (the grid of fused_pass_kernel), with nothing to wait for
 // before the state of its halo loads (the ring's tiles, RingTile of
@@ -556,13 +700,138 @@ __device__ __forceinline__ void fused_halo_load(const Tile<T, MODE>& tl, const P
   }
 }
 
+// The lift of a thread's run (see reg_steps), with the pass's uniform flags
+// as template arguments so the slots' loads carry no branch: FIRST_PASS
+// computes T_0 from the raw field (plane 0), area (plane `prev`) and post as
+// the shared-memory steps compute it in place, where AREA or DROP; else the
+// carries and acc are read. Every load is unpredicated: a slot past the
+// window (or of a thread with no run, k0 < 0) reads a cell of the window's
+// last row (of cell 0), whose values no stepped cell reads.
+template <bool FIRST_PASS, bool AREA, bool DROP, typename T, int MODE, int R>
+__device__ __forceinline__ void reg_lift(const Tile<T, MODE>& tl, RegRun<T, MODE, R>& v, int wy,
+                                         int cur, int prev) {
+  const FusedArgs<T>& a = tl.a;
+  const T* const sm = tl.sm;
+  const int wx = tl.wx;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int k = v.q < 0 ? 0 : min(v.r0 + s, wy - 1) * wx + v.q;
+#pragma unroll
+    for (int m = 0; m < 5; ++m) v.cf[s][m] = tl.coef_array(m) ? sm[tl.o_coef[m] + k] : T(0);
+    v.po[s] = tl.has_post() ? sm[tl.o_post + k] : T(0);
+    v.pr[s] = tl.has_pre() ? sm[tl.o_pre + k] : T(0);
+    if (FIRST_PASS) {
+      v.x[s] = AREA || DROP ? t0_value<true>(sm[k], AREA, sm[prev + k], DROP, v.po[s]) : sm[k];
+      v.y[s] = T(0);
+      v.ac[s] = T(0);
+    } else {
+      const int own = (v.own >> s) & 1u;
+      v.x[s] = sm[cur + k];
+      v.y[s] = sm[prev + k];
+      v.ac[s] = sm[tl.o_acc + (own ? (v.r0 + s - a.n_ops) * a.bx + v.q - a.n_ops : 0)];
+    }
+  }
+}
+
+// Phases 2 and 3 of fused_tile in the register steps (see reg_step), after
+// the window's load: lift each thread's run, publish T_k into exchange plane
+// 0 over the dead window, step, and write the own cells of the carries and
+// acc from the registers (LAST wrote the result). `cur` and `prev` are the
+// window planes of T_k (T_0: the raw field) and T_{k-1} (a first pass: area).
+template <typename T, int MODE, class Geo, class P>
+__device__ __forceinline__ void reg_steps(const Tile<T, MODE>& tl, const P& pl, const Geo geo,
+                                          int wy, int H, int y0, int x0, int cur, int prev,
+                                          int64_t b_own, int64_t b_out) {
+  constexpr int R = RegRows<T, MODE>::value;
+  const FusedArgs<T>& a = tl.a;
+  T* const sm = tl.sm;
+  const int wx = tl.wx, P_ = reg_pitch(wy, R);
+  const bool first = a.first != 0, has_area = pl.area != nullptr, drop_pre = a.drop_pre != 0;
+  // this thread's run: column q, rows [r0, r0 + R); q < 0: none
+  RegRun<T, MODE, R> v;
+  const int t = threadIdx.x;
+  const bool runs = t < (wy + R - 1) / R * wx;
+  v.q = runs ? t % wx : -1;
+  v.r0 = runs ? t / wx * R : 0;
+  v.e0 = (v.q + 1) * P_ + v.r0;
+  v.own = 0;
+  const unsigned ox = v.q - H;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const unsigned oy = v.r0 + s - H;
+    v.own |= (unsigned)(runs && v.r0 + s < wy && oy < (unsigned)a.by && ox < (unsigned)a.bx) << s;
+  }
+  if (!first)
+    reg_lift<false, false, false>(tl, v, wy, cur, prev);
+  else if (has_area && drop_pre)
+    reg_lift<true, true, true>(tl, v, wy, cur, prev);
+  else if (has_area)
+    reg_lift<true, true, false>(tl, v, wy, cur, prev);
+  else if (drop_pre)
+    reg_lift<true, false, true>(tl, v, wy, cur, prev);
+  else
+    reg_lift<true, false, false>(tl, v, wy, cur, prev);
+  // the exchange planes over the dead window: plane 0 from word 0, plane 1
+  // from word (wx + 2) P; T_k, gathered, goes into plane 0, and post into a
+  // third plane in their layout, read every step where holding it would
+  // spill registers
+  const int plane = (wx + 2) * P_;
+  __syncthreads();
+  if (runs) {
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      sm[v.e0 + s] = reg_gat(tl, v.x[s], v.pr[s]);
+      if (tl.has_post()) sm[2 * plane + v.e0 + s] = v.po[s];
+    }
+  }
+  __syncthreads();
+
+  // the steps: T_{k+1} goes over T_{k-1}, so step i reads T_k from x where
+  // i is even and from y where it is odd; the planes trade places likewise
+  for (int i = 0; i < H; ++i) {
+    const bool odd = i & 1, publish = i + 1 < H;
+    const int in = odd ? plane : 0, out = odd ? 0 : plane;
+    const T p_a = a.pa[i];
+    if (runs) {
+      if (!odd) {
+        if (first && i == 0)
+          reg_step<FIRST>(tl, pl, geo, v, v.x, v.y, P_, H, y0, x0, in, out, p_a, publish, b_own);
+        else if (a.last && i == H - 1)
+          reg_step<LAST>(tl, pl, geo, v, v.x, v.y, P_, H, y0, x0, in, out, p_a, publish, b_own);
+        else
+          reg_step<MIDDLE>(tl, pl, geo, v, v.x, v.y, P_, H, y0, x0, in, out, p_a, publish, b_own);
+      } else {
+        if (a.last && i == H - 1)
+          reg_step<LAST>(tl, pl, geo, v, v.y, v.x, P_, H, y0, x0, in, out, p_a, publish, b_own);
+        else
+          reg_step<MIDDLE>(tl, pl, geo, v, v.y, v.x, P_, H, y0, x0, in, out, p_a, publish, b_own);
+      }
+    }
+    if (publish) __syncthreads();
+  }
+  if (a.last) return;
+
+  // 3. the own cells of the carries and of acc, from the registers: T_k is in
+  // y after an odd number of steps, in x after an even one
+  const int gx = x0 - H + v.q;
+  if (gx >= geo.cols()) return;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int gy = y0 - H + v.r0 + s;
+    if (!((v.own >> s) & 1u) || gy >= geo.rows()) continue;
+    pl.t_out[b_out + geo.out_index(gy, gx)] = H & 1 ? v.y[s] : v.x[s];
+    pl.t_prev_out[b_out + geo.out_index(gy, gx)] = H & 1 ? v.x[s] : v.y[s];
+    pl.acc_out[b_own + geo.own_index(gy, gx)] = v.ac[s];
+  }
+}
+
 // One tile's pass, all of the block's threads, the dynamic shared memory its
 // window: the own cells of the tile at `org`. `a` holds the pass (steps, p_a,
 // tile, constants), `pl` the planes (field, field_own, t, t_prev, acc_in,
 // t_out, t_prev_out, acc_out, coef, pre, post, area): the FusedArgs itself
 // for fused_pass_kernel, a shard's row of a table for the ring. The geometry
 // goes by value, here and into the load and the steps, as in vec_tile.cuh.
-template <typename T, class Geo, int MODE, class P, class Org>
+template <typename T, class Geo, int MODE, bool REG, class P, class Org>
 __device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, const Geo geo,
                                            const Org& org) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -592,25 +861,34 @@ __device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, c
   const int64_t b_out = (int64_t)org.z() * geo.out_plane();
   const int ny = geo.rows(), nx = geo.cols();
 
-  // 1. the window, in one burst (a ring tile's halo rows after their flags);
-  // on a first pass, T_0 in place
+  // 1. the window, in one burst (a ring tile's halo rows after their flags)
   fused_window_load(tl, pl, geo, wy, H, y0, x0, b_in, b_own);
   cp_async_commit();
   org.wait();
   fused_halo_load(tl, pl, geo, wy, H, y0, x0, b_in);
   cp_async_wait_all();
   __syncthreads();
+
+  // 2. the steps: in registers in a REG kernel (launched where reg_path
+  // holds; reg_steps computes T_0 of a first pass as it lifts the runs, and
+  // writes phase 3 too), but for a window that reaches the fold (the top
+  // tiles of a fold grid: no run holds a mirror cell); else in shared
+  // memory: a first pass computes T_0 in place (plane 0), and FIRST writes
+  // T_1 into plane 1.
+  int cur = a.first ? 0 : wa;
+  int prev = a.first ? wa : 0;
+  if constexpr (REG) {
+    if (!geo.mirror(y0 - H + wy - 1)) {
+      reg_steps(tl, pl, geo, wy, H, y0, x0, cur, prev, b_own, b_out);
+      return;
+    }
+  }
   if (a.first && (has_area || drop_pre)) {
     for (int k = threadIdx.x; k < wa; k += blockDim.x)
       sm[k] = t0_value<true>(sm[k], has_area, sm[wa + k], drop_pre,
                              tl.has_post() ? sm[tl.o_post + k] : T(0));
     __syncthreads();
   }
-
-  // 2. the steps. On a first pass plane 0 holds T_0 and FIRST writes T_1
-  // into plane 1.
-  int cur = a.first ? 0 : wa;
-  int prev = a.first ? wa : 0;
   for (int i = 0; i < H; ++i) {
     const int j = i + 1;  // this step's window: shrunk by j
     if (a.first && i == 0)
@@ -641,29 +919,40 @@ __device__ __forceinline__ void fused_tile(const FusedArgs<T>& a, const P& pl, c
   }
 }
 
-template <typename T, class Geo, int MODE>
+template <typename T, class Geo, int MODE, bool REG>
 __global__ void __launch_bounds__(FUSED_THREADS) fused_pass_kernel(const FusedArgs<T> a,
                                                                     const Geo geo) {
-  fused_tile<T, Geo, MODE>(a, a, geo, GridOrigin{});
+  fused_tile<T, Geo, MODE, REG>(a, a, geo, GridOrigin{});
 }
 
 // A strip round: fused_tile on BlockStripGeo, the planes and the state's
-// sources in one StripArgs.
+// sources in one StripArgs. It keeps the steps in shared memory: its
+// register steps spilled (BlockStripGeo's five state sources), as the
+// ring's did (ring_pass.cu).
 template <typename T, int MODE>
 __global__ void __launch_bounds__(FUSED_THREADS) local_strip_kernel(const StripArgs<T> a,
                                                                      const BlockStripGeo geo) {
-  fused_tile<T, BlockStripGeo, MODE>(a, a, geo, GridOrigin{});
+  fused_tile<T, BlockStripGeo, MODE, false>(a, a, geo, GridOrigin{});
 }
 
-template <typename T, class Geo, int MODE>
-int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cudaStream_t st) {
+template <typename T, class Geo, int MODE, bool REG>
+int launch_kernel(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cudaStream_t st) {
   if (bytes > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        fused_pass_kernel<T, Geo, MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+    const cudaError_t err = cudaFuncSetAttribute(fused_pass_kernel<T, Geo, MODE, REG>,
+                                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                                 (int)bytes);
     if (err != cudaSuccess) return (int)err;
   }
-  fused_pass_kernel<T, Geo, MODE><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+  fused_pass_kernel<T, Geo, MODE, REG><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   return (int)cudaGetLastError();
+}
+
+// The kernel of the pass's steps: in registers where reg_path holds.
+template <typename T, class Geo, int MODE>
+int launch_mode(const FusedArgs<T>& a, const Geo& g, dim3 grid, size_t bytes, cudaStream_t st) {
+  if constexpr (RegRows<T, MODE>::value > 0)
+    if (reg_path<T, MODE>(a)) return launch_kernel<T, Geo, MODE, true>(a, g, grid, bytes, st);
+  return launch_kernel<T, Geo, MODE, false>(a, g, grid, bytes, st);
 }
 
 template <typename T, class Geo, int MODE>
@@ -715,7 +1004,7 @@ FusedArgs<T> fused_args(int by, int bx, int n_ops, int first, int last, const do
                         const T* n, const T* s, const T* e, const T* w, double cv,
                         double nv, double sv, double ev, double wv, const T* pre,
                         const T* post, const T* area, double land_gain, int zap,
-                        int drop_pre) {
+                        int drop_pre, int regs) {
   FusedArgs<T> a;
   a.by = by; a.bx = bx; a.n_ops = n_ops; a.first = first; a.last = last;
   for (int i = 0; i < MAX_FUSE; ++i) a.pa[i] = i < n_ops ? T(pa[i]) : T(0);
@@ -727,6 +1016,7 @@ FusedArgs<T> fused_args(int by, int bx, int n_ops, int first, int last, const do
   a.pre = pre; a.post = post; a.area = area;
   a.land_gain = T(land_gain);
   a.zap = zap; a.drop_pre = drop_pre;
+  a.regs = regs;
   return a;
 }
 

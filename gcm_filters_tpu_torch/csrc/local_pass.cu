@@ -232,7 +232,7 @@ LOCAL_PASS_ENTRY(local_pass_f64, double)
                       T* t_out, T* t_prev_out, T* acc_out, const T* c, const T* n,       \
                       const T* s, const T* e, const T* w, double cv, double nv,          \
                       double sv, double ev, double wv, const T* pre, const T* post,      \
-                      const T* area, double land_gain, int zap, int drop_pre,            \
+                      const T* area, double land_gain, int zap, int drop_pre, int regs,  \
                       void* stream) {                                                    \
     cudaGetLastError();                                                                  \
     if (ly < 1 || lx < 1 || n_ops > cells) return (int)cudaErrorInvalidValue;           \
@@ -240,7 +240,7 @@ LOCAL_PASS_ENTRY(local_pass_f64, double)
                                          field_own, t, t_prev, acc_in, t_out,            \
                                          t_prev_out, acc_out, c, n, s, e, w, cv, nv, sv, \
                                          ev, wv, pre, post, area, land_gain, zap,        \
-                                         drop_pre);                                      \
+                                         drop_pre, regs);                                \
     const BlockGeo g{ly, lx, cells};                                                     \
     return launch_fused<T>(a, g, ly, lx, batch, static_cast<cudaStream_t>(stream));      \
   }
@@ -274,7 +274,7 @@ LOCAL_FUSED_ENTRY(local_fused_pass_f64, double)
     static_cast<FusedArgs<T>&>(a) = fused_args<T>(                                       \
         by, bx, n_ops, first, last, pa, p_b, nullptr, field_own, nullptr, nullptr,       \
         acc_in, t_out, t_prev_out, acc_out, c, n, s, e, w, cv, nv, sv, ev, wv, pre, post, \
-        area, land_gain, zap, drop_pre);                                                 \
+        area, land_gain, zap, drop_pre, 0);                                              \
     const int64_t row = (int64_t)batch * cells * (lx + 2 * cells);                       \
     const int64_t col = (int64_t)batch * ly * cells;                                     \
     const T* const src[5] = {south, north, west, east, own};                             \

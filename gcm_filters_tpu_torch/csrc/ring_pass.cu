@@ -628,7 +628,7 @@ ring_fused_kernel(const FusedArgs<T> a, const FusedRing q, const __grid_constant
   // the seam folds the top shard onto its own rows: it reads no north halo
   const bool folds = q.fold && it.shard == q.p - 1;
   const unsigned* const flags = q.flags + 2 * it.shard;
-  fused_tile<T, RingGeo, MODE>(
+  fused_tile<T, RingGeo, MODE, false>(
       a, tab.shard[it.shard], RingGeo{q.ly, q.nx, q.pad, folds},
       RingTile{it.ty, it.tx, y0 - H < 0 ? flags : nullptr,
                y0 + a.by + H > q.ly && !folds ? flags + 1 : nullptr, q.epoch});
@@ -871,7 +871,8 @@ VEC_RING_PASS_ENTRY(vec_ring_pass_f64, double)
     const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, nullptr,   \
                                          nullptr, nullptr, nullptr, nullptr, nullptr,    \
                                          nullptr, nullptr, c, n, s, e, w, cv, nv, sv, ev, \
-                                         wv, pre, post, area, land_gain, zap, drop_pre); \
+                                         wv, pre, post, area, land_gain, zap, drop_pre,  \
+                                         0);                                             \
     return launch_ring_fused<T>(a, p, ly, nx, pad, fold, planes, ticket, flags, base,    \
                                 epoch, static_cast<cudaStream_t>(stream));               \
   }

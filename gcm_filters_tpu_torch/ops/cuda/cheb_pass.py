@@ -239,6 +239,11 @@ SHARED_BYTES = 232448      # shared memory one block may take on sm_90
 SM_SHARED_BYTES = 233472   # shared memory of one SM (1 KB of it reserved per block)
 FUSED_THREADS = 512        # threads of a block (csrc/cheb_tile.cuh)
 STRIP = 4                  # rows of a step's work item (csrc/cheb_tile.cuh)
+# The stencil shapes the tile is compiled for (``fused_mode`` of cheb_tile.cuh)
+GENERIC, HSPACE, FLUX = 0, 1, 2
+# Rows of a thread's run in the register steps, by (mode, itemsize)
+# (``RegRows`` of cheb_tile.cuh); a mode not named steps in shared memory.
+REG_ROWS = {(HSPACE, 4): 13}
 # Tile shapes (by, bx) the planner chooses from, each with the ratio of its
 # measured time to the cost model's at the 2400x3600 float32 headline,
 # relative to 32x96 (the tile sweep that chip_smoke.py phase 4b runs and
@@ -259,6 +264,21 @@ TILES = {(32, 96): 1.0, (16, 128): 0.932, (48, 64): 1.017, (32, 64): 0.98,
 # the same sweeps: _LOAD to the headline's tiles and splits, _ONE_BLOCK to
 # the Taper's (13, 13, 13) against its (10, 10, 10, 9).
 _LOAD, _ONE_BLOCK = 1.78, 1.55
+# The register steps (``reg_steps`` of cheb_tile.cuh, a kernel of their own
+# that holds one block an SM) in the same units: a pass costs _REG_PASS a
+# tile (its barriers and the latencies of its load and lift), _REG_LOAD a
+# window cell of a plane, and each step _REG_STEP a slot of every warp that
+# holds a run (every slot of a run is stepped, in the shrunk window or not).
+# Fitted to a sweep on one H100 of every tile at one pass and at two and
+# three passes of the headline, and the Taper's splits, on both steps
+# (PERF.md §6; 7% rms).
+_REG_PASS, _REG_LOAD, _REG_STEP = 30381.0, 1.410, 0.3890
+# Each tile's ratio of the register steps' measured time to that model, the
+# geometric mean over its plans of the same sweep (the tile's load pattern
+# and its runs' lanes across run rows).
+REG_TILES = {(32, 96): 0.995, (16, 128): 0.922, (48, 64): 1.016, (32, 64): 1.012,
+             (16, 64): 0.96, (32, 32): 1.055, (16, 32): 1.021, (56, 56): 1.05,
+             (40, 80): 1.006, (64, 48): 1.031}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -280,6 +300,64 @@ def fused_planes(ops: PassOperands) -> int:
     an array, ``post`` and ``pre``."""
     st = ops.stencil
     return 2 + sum(isinstance(getattr(st, k), Tensor) for k in COEF_FIELDS + ("post", "pre"))
+
+
+def _mode(arrays: Tuple[bool, ...], zap: bool) -> int:
+    """The compiled mode of a stencil whose c, n, s, e, w, pre, post are
+    arrays where ``arrays`` says so."""
+    coefs, (pre, post) = arrays[:5], arrays[5:]
+    if not zap and not pre and post and coefs == (True, False, False, False, False):
+        return HSPACE
+    if zap and not pre and not post and all(coefs):
+        return FLUX
+    return GENERIC
+
+
+def _arrays(st: ScalarStencil5) -> Tuple[bool, ...]:
+    return (isinstance(st.c, Tensor), isinstance(st.n, Tensor), isinstance(st.s, Tensor),
+            isinstance(st.e, Tensor), isinstance(st.w, Tensor), isinstance(st.pre, Tensor),
+            isinstance(st.post, Tensor))
+
+
+def fused_mode(st: ScalarStencil5) -> int:
+    """The compiled mode that a hot stencil's launches take (``fused_mode`` of
+    cheb_tile.cuh): HSPACE without zap and pre, with post and c the only
+    array coefficient; FLUX with zap and all five, without pre and post;
+    GENERIC otherwise."""
+    return _mode(_arrays(st), bool(st.zap_nans))
+
+
+def reg_pitch(wy: int, rows: int) -> int:
+    """Rows a column of an exchange plane holds (``reg_pitch`` of
+    cheb_tile.cuh): the window's run rows, made odd."""
+    return -(-wy // rows) * rows | 1
+
+
+def reg_fits(mode: int, itemsize: int, tile, halo: int, n_planes: int) -> bool:
+    """Whether a pass of ``halo`` steps on ``tile`` takes the register steps
+    (``reg_fits`` of cheb_tile.cuh): the mode has a run length R, the block's
+    threads cover the window's ``ceil(wy / R) * wx`` runs, and the two
+    exchange planes (``wx + 2`` columns of :func:`reg_pitch` rows) fit in the
+    window's shared memory."""
+    rows = REG_ROWS.get((mode, itemsize), 0)
+    by, bx = tile
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    words = fused_shared_bytes(tile, halo, n_planes, itemsize) // itemsize
+    return (rows > 0 and -(-wy // rows) * wx <= FUSED_THREADS
+            and 3 * (wx + 2) * reg_pitch(wy, rows) <= words)
+
+
+@functools.lru_cache(maxsize=None)
+def _path(arrays: Tuple[bool, ...], zap: bool, tile, n_ops: int, itemsize: int) -> str:
+    shared, regs = pass_costs(tile, n_ops, 2 + sum(arrays), itemsize, _mode(arrays, zap))
+    return "registers" if regs is not None and regs < shared else "shared"
+
+
+def fused_path(st: ScalarStencil5, tile, n_ops: int, itemsize: int) -> str:
+    """Which steps a launch of the scalar tile runs: "registers" where the
+    pass can take them and the model (:func:`pass_costs`) finds them
+    cheaper, else "shared" (``step_window``)."""
+    return _path(_arrays(st), bool(st.zap_nans), tuple(tile), n_ops, itemsize)
 
 
 def fused_shared_bytes(tile, halo: int, n_planes: int, itemsize: int) -> int:
@@ -304,19 +382,43 @@ def step_slots(wy: int, wx: int, j: int) -> int:
     return -(-items // FUSED_THREADS) * FUSED_THREADS * STRIP
 
 
-def _pass_cost(tile, steps, n_planes: int, itemsize: int) -> float:
-    """Modelled cost per own cell of a plan, in f32 lane slots: per pass the
-    window's load and every step's lane slots, scaled by the tile's measured
-    factor (:data:`TILES`)."""
+def reg_step_slots(wy: int, wx: int, rows: int) -> int:
+    """Slots a step of the register steps issues on a wy x wx window: every
+    slot of every warp that holds a run."""
+    return -(-(-(-wy // rows) * wx) // 32) * 32 * rows
+
+
+@functools.lru_cache(maxsize=None)
+def pass_costs(tile, halo: int, n_planes: int, itemsize: int, mode: int):
+    """Modelled cost of one pass of ``halo`` steps on ``tile`` in f32 lane
+    slots: ``(shared, registers)``, the steps in shared memory (the window's
+    load and every step's lane slots, scaled by the tile's measured factor,
+    :data:`TILES`) and in registers (None where the pass cannot take them:
+    :func:`reg_fits`)."""
     by, bx = tile
-    cost = 0.0
-    for s in steps:
-        wy, wx = by + 2 * s, bx + 2 * s
-        slots = sum(step_slots(wy, wx, j) for j in range(1, s + 1))
-        two = (2 * (fused_shared_bytes(tile, s, n_planes, itemsize) + 1024) <= SM_SHARED_BYTES
-               and itemsize == 4 and n_planes == 4)
-        cost += (_LOAD * n_planes * wy * wx + slots * (1.0 if two else _ONE_BLOCK)) * itemsize / 4
-    return cost / (by * bx) * TILES.get(tuple(tile), 1.0)
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    slots = sum(step_slots(wy, wx, j) for j in range(1, halo + 1))
+    two = (2 * (fused_shared_bytes(tile, halo, n_planes, itemsize) + 1024) <= SM_SHARED_BYTES
+           and itemsize == 4 and n_planes == 4)
+    shared = ((_LOAD * n_planes * wy * wx + slots * (1.0 if two else _ONE_BLOCK)) * itemsize / 4
+              * TILES.get(tuple(tile), 1.0))
+    if not reg_fits(mode, itemsize, tile, halo, n_planes):
+        return shared, None
+    rows = REG_ROWS[mode, itemsize]
+    regs = ((_REG_PASS + _REG_LOAD * n_planes * wy * wx
+             + _REG_STEP * halo * reg_step_slots(wy, wx, rows)) * REG_TILES.get(tuple(tile), 1.0))
+    return shared, regs
+
+
+def _pass_cost(tile, steps, n_planes: int, itemsize: int, registers: bool = True) -> float:
+    """Modelled cost per own cell of a plan, in f32 lane slots: each pass on
+    the cheaper of its steps (:func:`pass_costs`; with ``registers`` a
+    stencil of four planes is taken for the h-space mode, whose f32 passes
+    may take the register steps)."""
+    by, bx = tile
+    mode = HSPACE if n_planes == 4 and registers else GENERIC
+    return sum(min(c for c in pass_costs(tuple(tile), s, n_planes, itemsize, mode)
+                   if c is not None) for s in steps) / (by * bx)
 
 
 def search_plan(n_steps: int, ny: int, nx: int, max_fuse: int, tiles, fits, cost,
@@ -352,7 +454,8 @@ def search_plan(n_steps: int, ny: int, nx: int, max_fuse: int, tiles, fits, cost
 
 @functools.lru_cache(maxsize=None)
 def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse: int,
-          tile: Optional[Tuple[int, int]], one_pass: bool, ring: bool) -> FusedPlan:
+          tile: Optional[Tuple[int, int]], one_pass: bool, ring: bool,
+          registers: bool) -> FusedPlan:
     def fits(tl, halo):
         if ring and nx < tl[1] + 2 * halo:
             return False
@@ -360,13 +463,14 @@ def _plan(n_steps: int, ny: int, nx: int, itemsize: int, n_planes: int, max_fuse
 
     return search_plan(
         n_steps, ny, nx, max_fuse, (tile,) if tile else TILES, fits,
-        lambda tl, steps: _pass_cost(tl, steps, n_planes, itemsize), one_pass,
+        lambda tl, steps: _pass_cost(tl, steps, n_planes, itemsize, registers), one_pass,
         (lambda tl, halo: ny >= halo) if ring else None)
 
 
 def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_planes: int,
                       max_fuse: int = MAX_FUSE, tile: Optional[Tuple[int, int]] = None,
-                      one_pass: bool = False, ring: bool = False) -> FusedPlan:
+                      one_pass: bool = False, ring: bool = False,
+                      registers: bool = True) -> FusedPlan:
     """The fused plan of an ``n_steps`` filter on ``(ny, nx)`` fields: the
     counterpart of the JAX ``plan_passes``.
 
@@ -379,12 +483,15 @@ def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_plan
     With ``ring`` the ``(ny, nx)`` field is a y-shard of the ring
     (parallel/ring.py), whose window rows past its edges come from the
     neighbours: only tiles whose window fits in ``nx`` are weighed, and the
-    plan is fused where ``ny >= halo``. The result depends on the shape, the
-    dtype and ``n_planes`` (:func:`fused_planes`) only.
+    plan is fused where ``ny >= halo``. ``registers`` says whether the
+    kernel that runs the plan has register steps (K1 and the sharded round
+    on the extended block; not the strip round nor the ring, whose runs
+    would spill), which the model then weighs. The result depends on the
+    shape, the dtype and ``n_planes`` (:func:`fused_planes`) only.
     """
     itemsize = torch.empty((), dtype=dtype).element_size()
     return _plan(int(n_steps), int(ny), int(nx), itemsize, int(n_planes), int(max_fuse),
-                 tuple(tile) if tile else None, bool(one_pass), bool(ring))
+                 tuple(tile) if tile else None, bool(one_pass), bool(ring), bool(registers))
 
 
 def _kinds(p, start: int, n_ops: int):
@@ -604,7 +711,7 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_double] * 5       # immediate c, n, s, e, w
     + [ctypes.c_void_p] * 3       # pre, post, area
     + [ctypes.c_double]           # land_gain
-    + [ctypes.c_int] * 3          # zap, fold, drop_pre
+    + [ctypes.c_int] * 4          # zap, fold, drop_pre, regs
     + [ctypes.c_void_p]           # stream
 )
 
@@ -629,7 +736,7 @@ def _pass_args(p, start, n_ops, first, bufs, required):
     return (ctypes.c_double * MAX_FUSE)(*pa), float(p[1]) if first else 0.0
 
 
-def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
+def _fused_launch(ops, p, start, n_ops, tile, bufs, path="shared") -> None:
     first, last = _kinds(p, start, n_ops)
     if n_ops > MAX_FUSE:
         raise ValueError(f"a fused pass runs at most {MAX_FUSE} steps, got {n_ops}")
@@ -669,7 +776,7 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
                  ptr["field"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
                  ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
                  float(ops.land_gain), int(st.zap_nans), int(st.fold_north),
-                 int(ops.drop_pre), stream)
+                 int(ops.drop_pre), int(path == "registers"), stream)
     if err != 0:
         msg = lib.cheb_pass_error_string(err).decode()
         raise RuntimeError(f"cheb_fused_pass kernel launch failed: {msg} (cudaError {err})")
@@ -686,14 +793,18 @@ def cheb_fused_pass(
     of ``tile = (by, bx)`` cells, as :func:`cheb_fused_pass_reference`
     documents them.
 
-    CUDA tensors launch the kernel (counted in ``cheb_fused_pass.launches``)
-    on the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel (counted in ``cheb_fused_pass.launches``,
+    and by the steps it runs in ``cheb_fused_pass.paths``, :func:`fused_path`,
+    which the launch's ``gft.launch`` span records as ``path=``) on the
+    current stream, without synchronizing; CPU tensors run the plain version.
+    Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
-    with span("gft.launch"):
+    path = fused_path(ops.stencil, tile, n_ops, acc.element_size()) if acc.is_cuda else None
+    with span("gft.launch", path=path) if path else span("gft.launch"):
         if acc.is_cuda:
-            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs, path)
+            cheb_fused_pass.paths[path] += 1
         elif acc.device.type == "cpu":
             cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)
         else:
@@ -701,3 +812,4 @@ def cheb_fused_pass(
 
 
 cheb_fused_pass.launches = 0  # kernel launches; the plain version does not count
+cheb_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps

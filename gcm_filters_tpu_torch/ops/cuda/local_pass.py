@@ -55,7 +55,7 @@ from ...utils.telemetry import span
 from ..stencil import COEF_FIELDS
 from .cheb_pass import (
     FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
-    coefficient_args, fused_planes, fused_shared_bytes, tiled_pass,
+    coefficient_args, fused_path, fused_planes, fused_shared_bytes, tiled_pass,
 )
 
 Tensor = torch.Tensor
@@ -342,7 +342,7 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_double] * 5       # immediate c, n, s, e, w
     + [ctypes.c_void_p] * 3       # pre, post, area
     + [ctypes.c_double]           # land_gain
-    + [ctypes.c_int] * 2          # zap, drop_pre
+    + [ctypes.c_int] * 3          # zap, drop_pre, regs
     + [ctypes.c_void_p]           # stream
 )
 
@@ -357,7 +357,7 @@ def _fused_library():
     return lib
 
 
-def _fused_launch(ops, p, start, n_ops, cells, tile, bufs) -> None:
+def _fused_launch(ops, p, start, n_ops, cells, tile, bufs, path="shared") -> None:
     first, last = _kinds(p, start, n_ops)
     if not 1 <= n_ops <= min(cells, MAX_FUSE):
         raise ValueError(f"a fused round runs 1..min(cells, {MAX_FUSE}) steps, got {n_ops}")
@@ -402,7 +402,8 @@ def _fused_launch(ops, p, start, n_ops, cells, tile, bufs) -> None:
         err = fn(batch, ly, lx, cells, by, bx, n_ops, int(first), int(last), pa, p_b,
                  ptr["field"], ptr["field_own"], ptr["t"], ptr["t_prev"], ptr["acc"],
                  ptr["t_out"], ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
-                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre), stream)
+                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre),
+                 int(path == "registers"), stream)
     if err != 0:
         msg = lib.local_pass_error_string(err).decode()
         raise RuntimeError(f"local_fused_pass kernel launch failed: {msg} (cudaError {err})")
@@ -419,15 +420,19 @@ def local_fused_pass(
     ``tile = (by, bx)`` core cells, as :func:`local_fused_pass_reference`
     documents it.
 
-    CUDA tensors launch the kernel (counted in ``local_fused_pass.launches``)
+    CUDA tensors launch the kernel (counted in ``local_fused_pass.launches``, by
+    its steps in ``local_fused_pass.paths`` and on the span as ``path=``, as
+    :func:`~.cheb_pass.cheb_fused_pass` counts them)
     on the current stream, without synchronizing; CPU tensors run the plain
     version. Anything else raises.
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    with span("gft.launch"):
+    path = fused_path(ops.stencil, tile, n_ops, acc.element_size()) if acc.is_cuda else None
+    with span("gft.launch", path=path) if path else span("gft.launch"):
         if acc.is_cuda:
-            _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs)
+            _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, path)
+            local_fused_pass.paths[path] += 1
         elif acc.device.type == "cpu":
             local_fused_pass_reference(ops, p, start, n_ops, cells=cells, **bufs)
         else:
@@ -435,6 +440,7 @@ def local_fused_pass(
 
 
 local_fused_pass.launches = 0  # kernel launches; the plain version does not count
+local_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
 
 
 # -- the engine's round: the core in place and four halo strips ----------------
@@ -674,15 +680,19 @@ def local_strip_pass(
     :func:`local_strip_pass_reference` documents it: the sharded engine's
     round (:func:`local_fused_pass` on the extended block is its oracle).
 
-    CUDA tensors launch the kernel (counted in ``local_strip_pass.launches``)
+    CUDA tensors launch the kernel (counted in ``local_strip_pass.launches``, by
+    its steps in ``local_strip_pass.paths`` and on the span as ``path=``, as
+    :func:`~.cheb_pass.cheb_fused_pass` counts them: always in shared memory,
+    since the strip round's register steps would spill)
     on the current stream, without synchronizing; CPU tensors run the plain
     version. Anything else raises.
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    with span("gft.launch"):
+    with span("gft.launch", path="shared") if acc.is_cuda else span("gft.launch"):
         if acc.is_cuda:
             _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
+            local_strip_pass.paths["shared"] += 1
         elif acc.device.type == "cpu":
             local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)
         else:
@@ -690,3 +700,4 @@ def local_strip_pass(
 
 
 local_strip_pass.launches = 0  # kernel launches; the plain version does not count
+local_strip_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps

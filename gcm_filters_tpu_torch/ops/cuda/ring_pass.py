@@ -963,14 +963,18 @@ def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
     (by, bx)`` own cells, as :func:`ring_fused_pass_reference` documents it.
 
     A state on a CUDA device launches the kernel once (counted in
-    ``ring_fused_pass.launches``) on the current stream, without
-    synchronizing; a state on the CPU runs the plain version. Anything else
-    raises.
+    ``ring_fused_pass.launches``, by its steps in ``ring_fused_pass.paths``
+    and on the span as ``path=``, as :func:`~.cheb_pass.cheb_fused_pass`
+    counts them: always in shared memory, since the ring's register steps
+    would spill) on the current stream, without synchronizing; a state on
+    the CPU runs the plain version. Anything else raises.
     """
-    with span("gft.launch"):
-        if state.device.type == "cuda":
+    cuda = state.device.type == "cuda"
+    with span("gft.launch", path="shared") if cuda else span("gft.launch"):
+        if cuda:
             _fused_launch(state, p, start, n_ops, tuple(tile), out)
             ring_fused_pass.launches += 1
+            ring_fused_pass.paths["shared"] += 1
         elif state.device.type == "cpu":
             ring_fused_pass_reference(state, p, start, n_ops, out=out)
         else:
@@ -1031,4 +1035,5 @@ def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, 
 ring_pass.launches = 0
 vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
 ring_fused_pass.launches = 0
+ring_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
 vec_ring_fused_pass.launches = {BGRID: 0, CTAP: 0}

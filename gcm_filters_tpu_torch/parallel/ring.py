@@ -256,7 +256,8 @@ def make_ring_scalar_apply(
     def build(ny, nx, dtype):
         ly = ny // p_y
         plan = plan_fused_passes(spec.n_steps, ly, nx, dtype, n_planes,
-                                 max_fuse=min(_max_fuse(halo_steps), ly), ring=True)
+                                 max_fuse=min(_max_fuse(halo_steps), ly), ring=True,
+                                 registers=False)
         chain = None
         if fused_fn is not None and _shard_plan(plan, p_y, ny, dtype) is not None:
             chain = _pass_chain(plan, lambda n_ops, first, last: functools.partial(

@@ -224,7 +224,9 @@ def local_rounds_scalar(ops: PassOperands, field: Tensor, p, cells: int, rounds,
     n_steps = sum(rounds)
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
     ly, lx = field.shape[-2:]
-    plan = plan_fused_passes(cells, ly, lx, field.dtype, fused_planes(ops), one_pass=True)
+    # the rounds run on strips, which step in shared memory
+    plan = plan_fused_passes(cells, ly, lx, field.dtype, fused_planes(ops), one_pass=True,
+                             registers=False)
     if fused_fn is not None and plan.fused:
         return _fused_rounds(fused_fn, ops, field, p, cells, rounds, y_axis, x_axis, fold,
                              plan.tile)

@@ -267,7 +267,8 @@ def scalar_round_parts(filt, x):
     info = {"cells": cells, "rounds": list(rounds), "launches_per_apply": launches,
             "rounds_alone_equal_apply": bool(torch.equal(alone[0], out)), "out": out}
     if hasattr(lp, "local_strip_pass"):
-        tile = plan_fused_passes(cells, ly, lx, x.dtype, fused_planes(ops), one_pass=True).tile
+        tile = plan_fused_passes(cells, ly, lx, x.dtype, fused_planes(ops), one_pass=True,
+                                 registers=False).tile
         parent = extended_scalar_rounds(lp.local_fused_pass, ops, x3, p, cells, rounds, local,
                                         local, fold, tile)
         torch.cuda.synchronize()

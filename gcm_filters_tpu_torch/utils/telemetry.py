@@ -12,14 +12,17 @@ Spans time the port's own layers from inside. ``with span(name, **counts)``
 records the block's name, its start and end (``time.perf_counter_ns``), the
 span around it in the same thread (``parent``), the id of the outermost one
 (``call``: every span of one public call shares it) and ``counts``, numbers
-measured at the same boundary (``bytes=`` a copy moves). The port's spans
+measured at the same boundary (``bytes=`` a copy moves) or, on a scalar
+tile's launch, ``path=``. The port's spans
 are named ``gft.*``:
 
 - ``gft.apply``, ``gft.apply_to_vector``, ``gft.apply_streamed``,
   ``gft.apply_to_vector_streamed``: a public call of ``Filter``, from the
   top of the method (input coercion included);
 - ``gft.launch``: one call of a pass wrapper (``ops/cuda/*_pass.py``), a
-  kernel launch on the card or the plain version on the CPU;
+  kernel launch on the card or the plain version on the CPU; a launch of
+  the scalar tile on the card carries ``path=``, the steps it ran
+  (``"registers"`` or ``"shared"``);
 - ``gft.stream.read``, ``.upload``, ``.download``, ``.assemble``: the
   stages of one chunk of the streamed methods (read from the array-like, the
   host-to-device copy, the device-to-host copy, the copy into the result),

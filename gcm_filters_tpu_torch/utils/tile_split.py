@@ -51,16 +51,24 @@ _STEPS = re.compile(r"\n  for \(int i = 0; i < H; \+\+i\) \{\n.*?\n  \}\n", re.S
 
 def cut(text: str, variant: str) -> str:
     """``cheb_tile.cuh`` with the parts that ``variant`` cuts taken out of
-    ``fused_tile``; raises where a marker is missing."""
+    ``fused_tile`` (the steps also out of ``reg_steps``, the register steps
+    that ``fused_tile`` runs where they fit); raises where a marker is
+    missing."""
     head, sep, body = text.partition("__device__ __forceinline__ void fused_tile(")
     if not sep:
         raise ValueError("fused_tile not found in cheb_tile.cuh")
+    pre, rsep, reg = head.partition("__device__ __forceinline__ void reg_steps(")
+    if not rsep:
+        raise ValueError("reg_steps not found in cheb_tile.cuh")
     for part, pat in (("load", _LOAD), ("steps", _STEPS)):
         if variant in ("store only", f"no {part}"):
             body, n = pat.subn("\n", body, count=1)
+            if part == "steps":
+                reg, m = pat.subn("\n", reg, count=1)
+                n = min(n, m)
             if n != 1:
                 raise ValueError(f"the {part} of fused_tile not found in cheb_tile.cuh")
-    return head + sep + body
+    return pre + rsep + reg + sep + body
 
 
 def build_variants():

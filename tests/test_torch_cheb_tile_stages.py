@@ -16,7 +16,17 @@ the step chains bit for bit). Here:
 - the refitted planner's headline plans are pinned with their launches per
   apply;
 - the tiled plain versions (unsharded, the sharded round's and the ring's)
-  at the tiles the refit added must equal the step chains bit for bit.
+  at the tiles the refit added must equal the step chains bit for bit;
+- the register steps (``reg_steps``): a Python model of their runs (thread t
+  owns rows ``[R (t // wx), R (t // wx) + R)`` of column ``t % wx``) and of
+  their two exchange planes must give every cell of every step's shrunk
+  window to exactly one (thread, slot), find each neighbour a cell reads in
+  its own run's registers or at the plane address where its owner published
+  it the step before, and keep every read and write inside the planes; a
+  window that reaches the fold steps in shared memory, so no run holds a
+  mirror cell (the header's ``lap_value`` call takes the own roles); the
+  header's run length, pitch and fit are held to their Python mirrors, and
+  the headline passes' steps (registers or shared memory) are pinned.
 """
 import dataclasses
 import re
@@ -88,7 +98,8 @@ def _blocks_per_sm(tile, halo, planes, itemsize):
 def _ring_plan(n_steps, p_y, dtype=F32, planes=4):
     ly = NY // p_y
     return cp.plan_fused_passes(n_steps, ly, NX, dtype, planes,
-                                max_fuse=min(ring._max_fuse(None), ly), ring=True)
+                                max_fuse=min(ring._max_fuse(None), ly), ring=True,
+                                registers=False)
 
 
 # name -> (the plan, tile, steps, blocks per SM of each pass by shared memory)
@@ -98,7 +109,7 @@ def _plans():
         "K1 Taper": cp.plan_fused_passes(39, NY, NX, F32, 4),
         "K1 IRREGULAR_WITH_LAND": cp.plan_fused_passes(11, NY, NX, F32, 7),
         "K1 float64": cp.plan_fused_passes(11, NY, NX, F64, 4),
-        "K2 round": cp.plan_fused_passes(11, NY, NX, F32, 4, one_pass=True),
+        "K2 round": cp.plan_fused_passes(11, NY, NX, F32, 4, one_pass=True, registers=False),
         "ring p_y 2": _ring_plan(11, 2),
         "ring p_y 4": _ring_plan(11, 4),
         "ring p_y 8": _ring_plan(11, 8),
@@ -382,3 +393,172 @@ def test_ring_tiled_reference_equals_step_chain_at_the_new_tiles(tile, mode, dty
         start += n
     want = _step_chain(cp.cheb_pass_reference, ops, p, filt.n_steps, x[None])[0]
     np.testing.assert_array_equal(torch.cat(state.acc).numpy(), want.numpy())
+
+
+# -- the register steps ------------------------------------------------------------
+
+HSPACE_F32 = (cp.HSPACE, 4)
+REG_R = cp.REG_ROWS[HSPACE_F32]
+
+
+def _header():
+    return (CSRC / "cheb_tile.cuh").read_text()
+
+
+def test_register_steps_mirror_the_header():
+    """The run length, the exchange planes' pitch and the fit of reg_path
+    are those of cheb_tile.cuh."""
+    text = _header()
+    rows = re.search(r"struct RegRows<float, HSPACE> \{ static constexpr int value = (\d+); \}",
+                     text)
+    assert rows and int(rows.group(1)) == REG_R
+    assert "struct RegRows { static constexpr int value = 0; }" in text  # no other mode
+    assert cp.REG_ROWS == {HSPACE_F32: REG_R}
+    pitch = re.search(r"int reg_pitch\(int wy, int r\) \{ return (.*?); \}", text).group(1)
+    for wy in range(3, 100):
+        assert eval(pitch.replace("/", "//"), {}, {"wy": wy, "r": REG_R}) == cp.reg_pitch(wy, REG_R)
+        assert cp.reg_pitch(wy, REG_R) % 2 == 1 and cp.reg_pitch(wy, REG_R) >= wy
+    fit = re.search(r"return R > 0 && a\.regs && (.*?);\n", text, re.S).group(1)
+    assert "(wy + R - 1) / R * wx <= FUSED_THREADS" in fit
+    assert "3 * (wx + 2) * reg_pitch(wy, R) * sizeof(T) <= fused_shared_bytes(a)" in fit
+
+
+def _reg_runs(wy, wx, rows=REG_R):
+    """The runs of reg_steps: ``(q, r0)`` of each thread that holds one."""
+    t = np.arange(-(-wy // rows) * wx)
+    return t % wx, t // wx * rows
+
+
+def _check_register_steps(by, bx, H):
+    """The runs and exchange planes of one pass of H steps on a by x bx tile."""
+    wy, wx = by + 2 * H, bx + 2 * H
+    P = cp.reg_pitch(wy, REG_R)
+    q, r0 = _reg_runs(wy, wx)
+    assert len(q) <= cp.FUSED_THREADS
+    # the exchange planes and the post plane fit in the window's shared
+    # memory, whose planes are dead
+    assert 3 * (wx + 2) * P * 4 <= cp.fused_shared_bytes((by, bx), H, 4, 4)
+    # every window cell belongs to exactly one (thread, slot)
+    owner = np.full((wy, wx), -1)
+    for t in range(len(q)):
+        for s in range(REG_R):
+            if r0[t] + s < wy:
+                assert owner[r0[t] + s, q[t]] == -1
+                owner[r0[t] + s, q[t]] = t * REG_R + s
+    assert (owner >= 0).all()
+    # where a cell's owner publishes its gathered T: e0 + s = (q + 1) P + r
+    addr = lambda r, c: (c + 1) * P + r  # noqa: E731
+    e0 = (q + 1) * P + r0
+    # every slot's reads (east, west, the rows just below and above the run)
+    # and writes lie inside a plane, on every step (slots outside the shrunk
+    # window are stepped too)
+    for s in range(REG_R):
+        for a in (e0 + s + P, e0 + s - P, e0 + s):
+            assert a.min() >= 0 and a.max() < (wx + 2) * P
+    assert (e0 - 1).min() >= 0 and (e0 + REG_R).max() < (wx + 2) * P
+    for j in range(1, H + 1):
+        rows, cols = slice(j, wy - j), slice(j, wx - j)
+        stepped = np.zeros((wy, wx), dtype=bool)
+        stepped[rows, cols] = True
+        prev = np.zeros((wy, wx), dtype=bool)  # loaded, or stepped at step j - 1
+        prev[j - 1:wy - j + 1, j - 1:wx - j + 1] = True
+        for t in range(len(q)):
+            c = q[t]
+            if not j <= c < wx - j:
+                continue
+            for s in range(REG_R):
+                r = r0[t] + s
+                if not j <= r < wy - j:
+                    continue
+                # north and south: the run's own registers, or the plane at the
+                # run's ends
+                for dr, a_end, slot in ((1, e0[t] + REG_R, s + 1), (-1, e0[t] - 1, s - 1)):
+                    assert prev[r + dr, c]
+                    if not 0 <= slot < REG_R:
+                        assert a_end == addr(r + dr, c)
+                # east and west: the plane, where their owners published them
+                assert e0[t] + s + P == addr(r, c + 1) and prev[r, c + 1]
+                assert e0[t] + s - P == addr(r, c - 1) and prev[r, c - 1]
+        assert stepped.sum() == (wy - 2 * j) * (wx - 2 * j)
+
+
+@pytest.mark.parametrize("tile", sorted(cp.TILES))
+def test_register_steps_cover_every_step_of_every_halo(tile):
+    """Every H from 1 to 16 on every tile of the planner: where the pass can
+    take the register steps, their runs and planes are checked; elsewhere the
+    pass steps in shared memory (the items of test_items_cover_*)."""
+    by, bx = tile
+    taken = 0
+    for H in range(1, cp.MAX_FUSE + 1):
+        fits = cp.reg_fits(cp.HSPACE, 4, tile, H, 4)
+        wy, wx = by + 2 * H, bx + 2 * H
+        assert fits == (-(-wy // REG_R) * wx <= cp.FUSED_THREADS
+                        and 3 * (wx + 2) * cp.reg_pitch(wy, REG_R) * 4
+                        <= cp.fused_shared_bytes(tile, H, 4, 4))
+        if fits:
+            _check_register_steps(by, bx, H)
+            taken += 1
+        else:
+            for j in range(1, H + 1):
+                _check_step(wy, wx, H, j, by, bx)
+    assert taken > 0
+    assert not cp.reg_fits(cp.HSPACE, 8, tile, 1, 4)  # float64 keeps shared memory
+    assert not any(cp.reg_fits(m, 4, tile, 1, 7) for m in (cp.FLUX, cp.GENERIC))
+
+
+def test_mirror_rows_step_in_shared_memory():
+    """No run holds a mirror cell: the register steps hand lap_value the
+    window's own roles (c, n, s, e, w: the slot, the row above, the row
+    below, east, west), and the register kernel steps a window that reaches
+    the fold in shared memory (step_window, whose mirror cells take the
+    swapped roles), the top tile row of a fold grid (cheb_tile.cuh's text,
+    evaluated)."""
+    text = _header()
+    call = re.search(r"const T lap = lap_value\(tl\.coef_array\(0\).*?\);", text, re.S).group(0)
+    args = [a.strip() for a in re.sub(r"\s+", " ", call[call.index("(") + 1:-2]).split(",")]
+    assert args[5:10] == ["g[s + 1]", "g[s + 2]", "g[s]", "ge[s]", "gw[s]"]
+    body = text[text.index("void fused_tile("):]
+    fold = re.search(r"if constexpr \(REG\) \{\n\s*if \(!geo\.mirror\((.*?)\)\) \{\n\s*reg_steps\(",
+                     body)
+    assert fold and fold.group(1) == "y0 - H + wy - 1"  # the window's top row
+    for ny in (64, 2400):
+        for by, bx in cp.TILES:
+            for H in range(1, cp.MAX_FUSE + 1):
+                wy = by + 2 * H
+                for y0 in range(0, ny, by):
+                    rows = y0 - H + np.arange(wy)
+                    # a mirror row anywhere in the window: its top row is one
+                    assert (rows >= ny).any() == (y0 - H + wy - 1 >= ny)
+
+
+# the steps each headline pass of K1 takes (fused_path on the h-space float32
+# stencil: the model weighs both, PERF.md §6); the K2 round on strips and
+# the ring have no register steps (their runs would spill) and plan without
+# them
+HEADLINE_PATHS = {
+    "K1": ["registers"],
+    "K1 Taper": ["registers"] * 4,
+}
+
+
+@pytest.mark.parametrize("name", sorted(HEADLINE_PATHS))
+def test_headline_passes_take_their_pinned_steps(name):
+    plan = _plans()[name]
+    got = []
+    for s in plan.steps:
+        shared, regs = cp.pass_costs(plan.tile, s, 4, 4, cp.HSPACE)
+        got.append("registers" if regs is not None and regs < shared else "shared")
+    assert got == HEADLINE_PATHS[name]
+
+
+def test_fused_path_follows_the_mode_and_the_dtype():
+    """The path the wrappers launch: registers only for the h-space float32
+    stencil where its model wins."""
+    for mode, dtype, want in (("hspace", F32, "registers"), ("hspace", F64, "shared"),
+                              ("flux", F32, "shared"), ("generic", F32, "shared")):
+        _, ops, _, _ = _setup(mode, dtype)
+        assert cp.fused_path(ops.stencil, (40, 80), 11, 4 if dtype == F32 else 8) == want
+    _, ops, _, _ = _setup("hspace", F32)
+    assert cp.fused_mode(ops.stencil) == cp.HSPACE
+    assert cp.fused_path(ops.stencil, (40, 80), 3, 4) == "shared"  # a short pass
+    assert cp.fused_path(ops.stencil, (48, 64), 11, 4) == "shared"  # 6 run rows: no fit
