@@ -76,27 +76,23 @@ and runs these phases; any failed check raises and the script exits non-zero:
    ``Filter(mesh=..., spatial_axes=("y", "x")).apply`` against the same
    sharded apply driven by the plain versions (``local_strip_pass_reference``,
    ``local_pass_reference``) on the card, against the chain of local
-   step-kernel launches and the parent's rounds on the extended block
-   (``exchange_2d`` and ``local_fused_pass``) bit for bit, and against the
-   unsharded ``Filter.apply``; each apply must launch the round on strips
+   step-kernel launches bit for bit, and against the unsharded
+   ``Filter.apply``; each apply must launch the round on strips
    (``local_strip_pass``) once per round (below the predicate: the local
    step kernel n_steps times) and no other kernel; then a middle round on
-   the ragged 396x601 fold grid, batch two, on the extended block and on
-   strips (the cores read in place from it), into NaN-filled t_out and
-   t_prev_out, bitwise equal to the local step-kernel chain on the same
-   inputs;
+   the ragged 396x601 fold grid, batch two, on strips (the cores read in
+   place from extended carries), into NaN-filled t_out and t_prev_out,
+   bitwise equal to the local step-kernel chain on the same inputs;
 10. sharded headline (the sharded path): the phase-4 workload through the
     mesh path, checked against the float64 eager engine and against the
     local step chain bit for bit, and timed beside it, with one strip
     launch per round x applies and no fallback; its parts timed alone
     (``utils/round_split.py``: the strips, the rounds with their strips
     frozen, the parent's halo exchange), the round on strips alone against
-    its plain version and bit for bit against the parent's round on the
-    extended block (also timed), and the chain of 11 local steps alone;
-    then (10b) the Taper (39 steps, several rounds whose later strips come
-    from the carries' cores) through the mesh, bit for bit equal to the
-    local step chain and the parent's rounds, its launches counted, timed
-    with its parts;
+    its plain version, and the chain of 11 local steps alone; then (10b)
+    the Taper (39 steps, several rounds whose later strips come from the
+    carries' cores) through the mesh, bit for bit equal to the local step
+    chain, its launches counted, timed with its parts;
 11. each step kind of the local step kernel against its plain version at the
     headline's extended shape;
 12. sharded small vector grids, on the same 1x1 mesh: both vector grids at
@@ -212,10 +208,9 @@ and runs these phases; any failed check raises and the script exits non-zero:
     finite, the ring and the sharded paths equal to the single-device
     filter), and the kernels each launched; then a ``{"user_paths": ...}``
     line of these numbers;
-19. a ``{"kernels": [...]}`` line (twenty-one entries: the step kernels,
-    timed as step chains, the fused passes and rounds, the scalar round on
-    strips timed per apply, the extended-block round it replaced as one
-    round alone, and the two strip entries of the sharded vector round,
+19. a ``{"kernels": [...]}`` line (twenty entries: the step kernels, timed
+    as step chains, the fused passes and rounds, the scalar round on strips
+    timed per apply, and the two strip entries of the sharded vector round,
     timed as one launch), then ``{"ok": true, "device": ...}`` last.
 
 Without a CUDA device it prints no result and exits 2. With
@@ -993,9 +988,12 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.dispatch import (
         _fused_chain, _vec_step_chain, make_cuda_scalar_apply, make_cuda_vector_apply,
     )
-    from gcm_filters_tpu_torch.ops.cuda.local_pass import (
-        local_fused_pass, local_pass, local_strip_pass,
+    from gcm_filters_tpu_torch.ops.cuda import (
+        cheb_pass as cp_mod, local_pass as lp_mod, ring_pass as rp_mod, vec_local_pass as vlp_mod,
+        vec_pass as vp_mod,
     )
+    from gcm_filters_tpu_torch.ops.cuda.launch import Kernel, launch_counts
+    from gcm_filters_tpu_torch.ops.cuda.local_pass import local_pass, local_strip_pass
     from gcm_filters_tpu_torch.ops.cuda.ring_pass import (
         RingItems, ring_fused_pass, ring_pass, vec_ring_fused_pass, vec_ring_pass,
     )
@@ -1064,44 +1062,27 @@ def main():
         return out or None
     dev = torch.device("cuda")
 
+    op_names = {BGRID: "bgrid", CTAP: "ctap"}
+
+    def kernel_name(entry, detail):
+        """An entry's name in :func:`counters`: a vector entry's with its
+        contraction (``vec_pass_bgrid``), a scalar one's alone."""
+        return f"{entry}_{op_names[detail]}" if entry.startswith("vec_") else entry
+
+    kernel_names = sorted({kernel_name(k.entry, op) for m in (cp_mod, lp_mod, vp_mod, vlp_mod, rp_mod)
+                           for k in vars(m).values() if isinstance(k, Kernel) for op in op_names})
+
     def counters():
-        """Every kernel's launch count, by name."""
-        return {"cheb_pass": cheb_pass.launches, "cheb_fused_pass": cheb_fused_pass.launches,
-                "local_pass": local_pass.launches,
-                "local_fused_pass": local_fused_pass.launches,
-                "local_strip_pass": local_strip_pass.launches,
-                "vec_pass_bgrid": vec_pass.launches[BGRID],
-                "vec_pass_ctap": vec_pass.launches[CTAP],
-                "vec_fused_pass_bgrid": vec_fused_pass.launches[BGRID],
-                "vec_fused_pass_ctap": vec_fused_pass.launches[CTAP],
-                "vec_local_pass_bgrid": vec_local_pass.launches[BGRID],
-                "vec_local_pass_ctap": vec_local_pass.launches[CTAP],
-                "vec_local_fused_pass_bgrid": vec_local_fused_pass.launches[BGRID],
-                "vec_local_fused_pass_ctap": vec_local_fused_pass.launches[CTAP],
-                "vec_local_strip_pass_bgrid": vec_local_fused_pass.strip_launches[BGRID],
-                "vec_local_strip_pass_ctap": vec_local_fused_pass.strip_launches[CTAP],
-                "ring_pass": ring_pass.launches,
-                "ring_fused_pass": ring_fused_pass.launches,
-                "vec_ring_pass_bgrid": vec_ring_pass.launches[BGRID],
-                "vec_ring_pass_ctap": vec_ring_pass.launches[CTAP],
-                "vec_ring_fused_pass_bgrid": vec_ring_fused_pass.launches[BGRID],
-                "vec_ring_fused_pass_ctap": vec_ring_fused_pass.launches[CTAP]}
+        """Every kernel's launches since the launch table was last reset, by
+        :func:`kernel_name` (a scalar tile's steps summed), 0 for a kernel
+        that did not launch."""
+        out = dict.fromkeys(kernel_names, 0)
+        for (entry, detail), n in launch_counts().items():
+            out[kernel_name(entry, detail)] += n
+        return out
 
     def reset_counters():
-        cheb_pass.launches = 0
-        cheb_fused_pass.launches = 0
-        local_pass.launches = 0
-        local_fused_pass.launches = 0
-        local_strip_pass.launches = 0
-        vec_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_fused_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_local_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_local_fused_pass.strip_launches = {BGRID: 0, CTAP: 0}
-        ring_pass.launches = 0
-        ring_fused_pass.launches = 0
-        vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
-        vec_ring_fused_pass.launches = {BGRID: 0, CTAP: 0}
+        launch_counts(reset=True)
 
     def launched_since(before, label, want):
         """The launches since ``before``; raises unless they are ``want``
@@ -1325,9 +1306,9 @@ def main():
     # the chain of step-kernel launches: the same bits, timed in the same run
     steps_head = make_cuda_scalar_apply(head.operator, head.filter_spec, fused_fn=None)
     head_vs_steps = bitwise("headline", out, steps_head(x_dev), "the step-kernel chain")
-    before = cheb_pass.launches
+    before = counters()["cheb_pass"]
     ms_steps, host_steps = event_ms(lambda: steps_head(x_dev), chain, host=True)
-    step_chain_launches = (cheb_pass.launches - before) // chain
+    step_chain_launches = (counters()["cheb_pass"] - before) // chain
 
     plain_head = make_cuda_scalar_apply(head.operator, head.filter_spec,
                                         pass_fn=cheb_pass_reference,
@@ -1731,9 +1712,9 @@ def main():
         steps_v = make_cuda_vector_apply(vhead.operator, vhead.filter_spec, fused_fn=None)
         v_vs_steps = max(bitwise(f"{gname} headline {comp}", g, w, "the step-kernel chain")
                          for comp, g, w in zip("uv", (fu, fv), steps_v(u_dev, v_dev)))
-        before = vec_pass.launches[op]
+        before = counters()[f"vec_pass_{key}"]
         ms_vsteps, host_vsteps = event_ms(lambda: steps_v(u_dev, v_dev), chain, host=True)
-        vstep_launches = (vec_pass.launches[op] - before) // chain
+        vstep_launches = (counters()[f"vec_pass_{key}"] - before) // chain
 
         plain_v = make_cuda_vector_apply(vhead.operator, vhead.filter_spec,
                                          pass_fn=vec_pass_reference,
@@ -1999,11 +1980,11 @@ def main():
     from torch.distributed.tensor import DTensor
 
     from gcm_filters_tpu_torch.ops.cuda.local_pass import (
-        local_fused_pass_reference, local_pass_reference, local_strip_pass_reference,
+        local_pass_reference, local_strip_pass_reference,
     )
     from gcm_filters_tpu_torch.parallel import halo
     from gcm_filters_tpu_torch.parallel.sharded import make_sharded_scalar_apply
-    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds, scalar_round_parts
+    from gcm_filters_tpu_torch.utils.round_split import scalar_round_parts
 
     torch.cuda.set_device(0)
     store_dir = tempfile.TemporaryDirectory()
@@ -2017,8 +1998,6 @@ def main():
     tol_unsharded = {"float64": dict(rtol=1e-10, atol=1e-12), "float32": TOL["float32"]}
 
     local_step_path = {"launches": 0}  # local_pass launched by Filter.apply below the predicate
-    # local_fused_pass, the strip round's oracle: the parent's rounds on the extended block
-    ext_path = {"launches": 0, "cases": 0}
     local_axis = (None, 1)
 
     def check_sharded(label, x, dtype_name, want_fused=True, **kw):
@@ -2049,16 +2028,6 @@ def main():
         a, r = compare(label, got, want, dtype_name)
         sworst[dtype_name] = [max(sworst[dtype_name][0], a), max(sworst[dtype_name][1], r)]
         bitwise(label, got, steps(xs).full_tensor(), "the local step-kernel chain")
-        if lplan.fused:
-            # the oracle: the parent's rounds, exchange_2d and the extended-block entry
-            x3_ = xs.to(device=dev, dtype=got.dtype).reshape((-1,) + tuple(xs.shape[-2:]))
-            before = local_fused_pass.launches
-            ext = extended_scalar_rounds(local_fused_pass, lops, x3_, lp_all, cells, rounds,
-                                         local_axis, local_axis, filt.operator.fold_north,
-                                         lplan.tile)
-            ext_path["launches"] += local_fused_pass.launches - before
-            ext_path["cases"] += 1
-            bitwise(label, got, ext.reshape(got.shape), "the parent's extended-block rounds")
         kw.pop("halo_steps", None)
         unsharded = Filter(device=dev, **kw).apply(x)
         if not torch.equal(torch.isnan(got), torch.isnan(unsharded)):
@@ -2069,8 +2038,7 @@ def main():
         u = float((got[ok] - unsharded[ok]).abs().max())
         log(f"  {label}: {'fused rounds' if lplan.fused else 'step chain'} {rounds} tile "
             f"{lplan.tile}: vs plain max abs {a:.3e} max rel {r:.3e}; vs the local step chain "
-            f"{'and the extended-block rounds ' if lplan.fused else ''}0 (bit for bit); vs "
-            f"unsharded max abs {u:.3e} ({sum(launched.values())} launches)")
+            f"0 (bit for bit); vs unsharded max abs {u:.3e} ({sum(launched.values())} launches)")
         return got
 
     both = ((torch.float32, "float32"), (torch.float64, "float64"))
@@ -2110,10 +2078,11 @@ def main():
                   "float64", want_fused=False, filter_scale=6.0, dx_min=1.0, grid_type=tri,
                   grid_vars=v)
 
-    # sentinel outputs (BlockGeo): a middle round on a ragged fold grid,
-    # batch 2, from finite random extended carries and acc, its t_out and
-    # t_prev_out NaN-filled: the core of each and acc bitwise equal to the
-    # chain of local step-kernel launches on the same inputs
+    # sentinel outputs (BlockStripGeo): a middle round on a ragged fold grid,
+    # batch 2, from finite random extended carries and acc, its cores read in
+    # place and its strips cut from them, its t_out and t_prev_out NaN-filled:
+    # each and acc bitwise equal to the chain of local step-kernel launches
+    # on the same inputs
     n0, n1 = SENT
     sd, sv = scalar_grid_data(tri, required_grid_vars(tri), sshape_s)
     sfilt = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri, grid_vars=sv, device=dev,
@@ -2133,13 +2102,9 @@ def main():
             local_pass(lops_, MIDDLE, lp[n0 + j], cells=cells_, shrink=j, t=cur, t_prev=prev,
                        t_next=prev, acc=acc_s)
             cur, prev = prev, cur
-        o0, o1 = (torch.full(ext, float("nan"), dtype=dt, device=dev) for _ in "ab")
-        acc_f = acc0.clone()
-        local_fused_pass(lops_, lp, n0, n1, cells=cells_, tile=tl, t=t_, t_prev=tp_, t_out=o0,
-                         t_prev_out=o1, acc=acc_f)
         core = (Ellipsis, slice(cells_, cells_ + ly_), slice(cells_, cells_ + lx_))
-        # the same round on strips: the cores read in place from the extended
-        # carries (their row pitch and batch stride), the strips cut from them
+        # the cores read in place from the extended carries (their row pitch
+        # and batch stride), the strips cut from them
         c_, e_ = cells_, cells_ + ly_
         sstr = halo.Strips(*(torch.stack([a[..., r_, q_] for a in (t_, tp_)]) for r_, q_ in (
             (slice(0, c_), slice(None)), (slice(e_, None), slice(None)),
@@ -2148,16 +2113,15 @@ def main():
         acc_st = acc0.clone()
         local_strip_pass(lops_, lp, n0, n1, cells=cells_, tile=tl, t=t_[core], t_prev=tp_[core],
                          t_out=so0, t_prev_out=so1, acc=acc_st, strips=sstr)
-        for nm, g, w in (("t", o0[core], cur[core]), ("t_prev", o1[core], prev[core]),
-                         ("acc", acc_f, acc_s), ("strips t", so0, cur[core]),
-                         ("strips t_prev", so1, prev[core]), ("strips acc", acc_st, acc_s)):
+        for nm, g, w in (("strips t", so0, cur[core]), ("strips t_prev", so1, prev[core]),
+                         ("strips acc", acc_st, acc_s)):
             bitwise(f"K2 sentinel middle round {name} {tl} {nm}", g, w,
                     "the local step-kernel chain")
         log(f"  sharded {tri.name} {sshape_s} batch 2 {name}: a middle round of {n1} steps "
-            f"(block of {cells_} cells) on {tl} tiles, on the extended block and on strips "
-            f"(cores read in place from it), into NaN-filled t_out and t_prev_out: bit for bit "
-            f"equal to the local step-kernel chain")
-    del sfilt, lops_, t_, tp_, acc0, cur, prev, acc_s, o0, o1, acc_f, sstr, so0, so1, acc_st
+            f"(block of {cells_} cells) on {tl} tiles on strips (cores read in place from the "
+            f"extended carries), into NaN-filled t_out and t_prev_out: bit for bit equal to "
+            f"the local step-kernel chain")
+    del sfilt, lops_, t_, tp_, acc0, cur, prev, acc_s, sstr, so0, so1, acc_st
 
     # 10. sharded headline: the phase-4 workload through the mesh path
     shead = Filter(filter_scale=10.0, dx_min=1.0, grid_type=tri,
@@ -2212,17 +2176,16 @@ def main():
                                             fused_fn=None)
     s_vs_steps = bitwise("sharded headline", s_full, steps_shead(x_dev).full_tensor(),
                          "the local step-kernel chain")
-    before = local_pass.launches
+    before = counters()["local_pass"]
     ms_s_steps, host_s_steps = event_ms(lambda: steps_shead(x_dev), chain, host=True)
-    s_step_chain_launches = (local_pass.launches - before) // chain
+    s_step_chain_launches = (counters()["local_pass"] - before) // chain
 
     # the apply's parts alone (utils/round_split.py): the parent's halo
     # exchange (exchange_2d, the extended block), the strips the round reads
     # now, and the round with its strips frozen; then the round on strips
-    # alone, the parent's round on the extended block alone, and the chain
-    # of local steps alone on it
+    # alone, and the chain of local steps alone on the extended block
     hparts, hinfo = scalar_round_parts(shead, x_dev)
-    if not (hinfo["rounds_alone_equal_apply"] and hinfo["extended_rounds_equal_apply"]):
+    if not hinfo["rounds_alone_equal_apply"]:
         raise AssertionError(f"sharded headline parts: {hinfo}")
     ms_exchange = event_ms(hparts["exchange"], chain)
     ms_strips = event_ms(hparts["strips"], chain)
@@ -2246,18 +2209,13 @@ def main():
     local_chain()
     ms_chain = event_ms(local_chain, chain)
     chain_err = bitwise("the local step chain alone", kbuf[2][0], s_full, "the sharded apply")
-    facc, eacc = torch.empty_like(x3), torch.empty_like(x3)
+    facc = torch.empty_like(x3)
     fused_round = lambda: local_strip_pass(  # noqa: E731
         lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=x3, field_own=x3, acc=facc,
         strips=xs_strips)
-    parent_round = lambda: local_fused_pass(  # noqa: E731
-        lops, lp_, 0, n_steps, cells=cells, tile=lplan.tile, field=xe, field_own=x3, acc=eacc)
     fused_round()
-    parent_round()
     ms_round = event_ms(fused_round, chain)
-    ms_parent_round = event_ms(parent_round, chain)
     bitwise("the round on strips alone", facc[0], s_full, "the sharded apply")
-    bitwise("the round on strips alone", facc, eacc, "the parent's round on the extended block")
     # the round on strips against its plain version, at the headline's block
     racc = torch.empty_like(x3)
     local_strip_pass_reference(lops, lp_, 0, n_steps, cells=cells, field=x3, field_own=x3,
@@ -2266,7 +2224,7 @@ def main():
         lops, lp_, 0, n_steps, cells=cells, field=x3, field_own=x3, acc=racc,
         strips=xs_strips), 3)
     lfused_err = compare("round on strips vs plain", facc, racc, "float32")[0]
-    del racc, eacc
+    del racc
     slp_bytes, slp_flops = plan_cost(lops, dataclasses.replace(lplan, steps=rounds), 1, ny, nx,
                                      item)
     slb_ms, slb_by = bound_ms(slp_bytes, slp_flops, "float32")
@@ -2284,8 +2242,8 @@ def main():
     log(f"  {s_launches // applies} strip launch(es) an apply; strips alone ({cells} cells) "
         f"{ms_strips:.4f} ms, the parent's halo exchange alone (block {tuple(xe.shape[-2:])}) "
         f"{ms_exchange:.4f} ms; the rounds with their strips frozen {ms_rounds_alone:.4f} ms; "
-        f"the round on strips alone (tile {lplan.tile}) {ms_round:.4f} ms, the parent's round "
-        f"on the extended block alone {ms_parent_round:.4f} ms, the {n_steps} local steps alone "
+        f"the round on strips alone (tile {lplan.tile}) {ms_round:.4f} ms, the {n_steps} local "
+        f"steps alone "
         f"{ms_chain:.4f} ms (all bit for bit equal to the apply); unsharded fused path "
         f"{ms_apply:.4f} ms/apply; round on strips vs plain max abs {lfused_err:.3e} (plain "
         f"{ms_round_plain:.4f} ms)")
@@ -2325,7 +2283,7 @@ def main():
                                         fused_fn=None)
     bitwise("sharded Taper", t_full, t_steps(x_dev).full_tensor(), "the local step-kernel chain")
     tparts, tinfo = scalar_round_parts(staper, x_dev)
-    if not (tinfo["rounds_alone_equal_apply"] and tinfo["extended_rounds_equal_apply"]):
+    if not tinfo["rounds_alone_equal_apply"]:
         raise AssertionError(f"sharded Taper parts: {tinfo}")
     bitwise("sharded Taper", t_full, tinfo.pop("out"), "its apply again")
     k1_taper = Filter(filter_scale=10.0, dx_min=1.0, filter_shape=FilterShape.TAPER,
@@ -2347,8 +2305,7 @@ def main():
     log(f"sharded Taper {ny}x{nx} float32 on a 1x1 mesh, {staper.n_steps} steps in rounds "
         f"{t_rounds} (cells {t_cells}, tile {tplan.tile}): {ms_staper:.4f} ms/apply (host "
         f"enqueue {host_staper:.4f}), {t_launches} local_strip_pass launches over {t_applies} "
-        f"applies; bit for bit equal to the local step chain and to the parent's rounds on the "
-        f"extended block; vs eager float64 max abs {t_err:.3e}, vs unsharded K1 max abs "
+        f"applies; bit for bit equal to the local step chain; vs eager float64 max abs {t_err:.3e}, vs unsharded K1 max abs "
         f"{t_vs_k1:.3e}; parts alone " + ", ".join(f"{k} {v:.4f}" for k, v in t_split.items())
         + f" ms; plan bound {tb_ms:.4f} ms ({tb_by}) on {smi}")
     del staper, t_first, t_full
@@ -2609,9 +2566,9 @@ def main():
         sv_vs_steps = max(bitwise(f"sharded {gname} headline {comp}", g, w.full_tensor(),
                                   "the local step-kernel chain")
                           for comp, g, w in zip("uv", (su, sv), steps_sv(u_dev, v_dev)))
-        before = vec_local_pass.launches[op]
+        before = counters()[f"vec_local_pass_{key}"]
         ms_sv_steps, host_sv_steps = event_ms(lambda: steps_sv(u_dev, v_dev), chain, host=True)
-        svstep_launches = (vec_local_pass.launches[op] - before) // chain
+        svstep_launches = (counters()[f"vec_local_pass_{key}"] - before) // chain
         plain_sv = make_sharded_vector_apply(svhead.operator, svhead.filter_spec, mesh, axes,
                                              pass_fn=vec_local_pass_reference,
                                              fused_fn=vec_local_fused_pass_reference)
@@ -3961,25 +3918,6 @@ def main():
         "steps_alone_ms": ms_chain,
         "host_enqueue_ms": host_s_steps,
     }, {
-        "name": "local_fused_pass",
-        "route": "cuda",
-        "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
-        "replaces": "gcm_filters_tpu/ops/pallas/cheb_pass.py:1296",
-        "launches": ext_path["launches"],
-        "launches_from": f"the parent's rounds on the extended block, the strip round's oracle "
-                         f"({ext_path['cases']} sharded cases of phase 9)",
-        "max_abs_err": max(sworst["float32"][0], sworst["float64"][0]),
-        "ms": ms_parent_round,
-        "plain_ms": ms_round_plain,
-        "bound_ms": slb_ms,
-        "bound_by": slb_by,
-        "library_ms": None,
-        "unit": f"one headline round alone on the extended block {tuple(xe.shape[-2:])} "
-                f"(after exchange_2d), {lplan.tile[0]}x{lplan.tile[1]} tiles, {ny}x{nx} float32",
-        "bytes_moved": slp_bytes,
-        "filter_bound_ms": sfb_ms,
-        "ptxas": scalar_tile_ptxas("local_pass", "pass_kernel"),
-    }, {
         "name": "local_strip_pass",
         "route": "cuda",
         "source": "gcm_filters_tpu_torch/csrc/local_pass.cu",
@@ -4007,7 +3945,6 @@ def main():
         "round_alone_ms": ms_round,
         "round_alone_plain_ms": ms_round_plain,
         "parent_exchange_ms": ms_exchange,
-        "parent_round_alone_ms": ms_parent_round,
         "taper": sh_taper,
         "ptxas": scalar_tile_ptxas("local_pass", "local_strip_kernel"),
     }, svec_results[BGRID], svec_results[CTAP], svfused_results[BGRID],

@@ -1,8 +1,7 @@
 // The fused scalar Chebyshev pass on shared-memory tiles: S steps per
 // launch, shared by the unsharded fused entry (cheb_pass.cu, WrapGeo), the
-// fused local round of the sharded engine (local_pass.cu: BlockGeo on the
-// extended block, BlockStripGeo on the core and four halo strips) and the
-// fused ring pass (ring_pass.cu, RingGeo). `fused_tile` is one tile's whole
+// fused local round of the sharded engine (local_pass.cu: BlockStripGeo on
+// the core and four halo strips) and the fused ring pass (ring_pass.cu, RingGeo). `fused_tile` is one tile's whole
 // pass; `fused_pass_kernel` and `local_strip_kernel` run it for the tile of
 // their blockIdx, the ring kernel for the tile its blockIdx or its ticket
 // names.
@@ -177,6 +176,7 @@ struct RingGeo {
 // A halo-extended block (ly+2c, lx+2c) of the sharded engine: the own domain
 // is its core, no wrap and no fold (the exchange placed them). Reads past
 // the block are clamped: such cells lie more than S cells from the core.
+// The base of BlockStripGeo, which launches on it.
 struct BlockGeo {
   int ly, lx, c;
   __device__ int rows() const { return ly; }

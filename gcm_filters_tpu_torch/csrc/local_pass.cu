@@ -48,25 +48,19 @@
 // windows are the redundant trapezoid work of wide halos: (1 + 2c/l)^2 cells
 // per core cell at most.
 //
-// The fused entries local_fused_pass_f32/f64 run a whole round (n_ops <= c
-// steps) in one launch on shared-memory tiles of the core (cheb_tile.cuh,
-// BlockGeo: no wrap, no fold), reading the extended planes and writing the
-// carries into the core of extended output buffers, so the next round's
-// exchange reads them as it reads the step chain's. Their result equals the
-// chain of this file's step launches bit for bit.
-//
-// The strip entries local_strip_pass_f32/f64 run the same round with no
-// extended copy of the state: the engine exchanges only the four halo strips
-// (parallel/halo.py::exchange_strips: south and north c x (lx+2c) with the
-// corners, west and east ly x c; exchange_2d is those strips concatenated
-// around the core), and the launch reads each window cell's state where it
-// lies (cheb_tile.cuh, BlockStripGeo): the core planes in place (the
+// The strip entries local_strip_pass_f32/f64 run a whole round (n_ops <= c
+// steps) in one launch on shared-memory tiles of the core (cheb_tile.cuh),
+// with no extended copy of the state: the engine exchanges only the four
+// halo strips (parallel/halo.py::exchange_strips: south and north
+// c x (lx+2c) with the corners, west and east ly x c; exchange_2d is those
+// strips concatenated around the core), and the launch reads each window
+// cell's state where it lies (BlockStripGeo): the core planes in place (the
 // caller's field on the first round, the previous round's core-shaped
 // carries later) or a strip, by cp.async; the coefficients stay on the
-// extended planes. BlockGeo's clamps pick the same cells, so each result
-// equals the fused entry's on the block the strips make, bit for bit. The
-// carries go out core-shaped, and the next round's strips are cut from them.
-// This is the engine's round; the fused entries stay as the card's oracle.
+// extended planes. BlockGeo's clamps pick the cells of the extended block,
+// so each result equals the chain of this file's step launches on the block
+// the strips make, bit for bit. The carries go out core-shaped, and the
+// next round's strips are cut from them.
 //
 // Build without --use_fast_math: it breaks the NaN test in nan_to_num and the
 // 0*fbar NaN poison.
@@ -218,41 +212,14 @@ int launch(int kind, int batch, int ey, int ex, int cells, int shrink,
 LOCAL_PASS_ENTRY(local_pass_f32, float)
 LOCAL_PASS_ENTRY(local_pass_f64, double)
 
-// One fused round on the extended block: steps start+1 .. start+n_ops of the
-// filter (n_ops <= cells) on tiles of by x bx core cells. `first`: the round
-// begins with FIRST and reads the raw extended field; `last`: it ends with
-// LAST, reconstructs land from the caller's core-shaped field_own, and writes
-// only the result into acc_out (core-shaped). Otherwise the carries go into
-// the core of the extended t_out and t_prev_out, which must not alias t or
-// t_prev; acc_in may be acc_out.
-#define LOCAL_FUSED_ENTRY(NAME, T)                                                       \
-  extern "C" int NAME(int batch, int ly, int lx, int cells, int by, int bx, int n_ops,   \
-                      int first, int last, const double* pa, double p_b, const T* field, \
-                      const T* field_own, const T* t, const T* t_prev, const T* acc_in,  \
-                      T* t_out, T* t_prev_out, T* acc_out, const T* c, const T* n,       \
-                      const T* s, const T* e, const T* w, double cv, double nv,          \
-                      double sv, double ev, double wv, const T* pre, const T* post,      \
-                      const T* area, double land_gain, int zap, int drop_pre, int regs,  \
-                      void* stream) {                                                    \
-    cudaGetLastError();                                                                  \
-    if (ly < 1 || lx < 1 || n_ops > cells) return (int)cudaErrorInvalidValue;           \
-    const FusedArgs<T> a = fused_args<T>(by, bx, n_ops, first, last, pa, p_b, field,     \
-                                         field_own, t, t_prev, acc_in, t_out,            \
-                                         t_prev_out, acc_out, c, n, s, e, w, cv, nv, sv, \
-                                         ev, wv, pre, post, area, land_gain, zap,        \
-                                         drop_pre, regs);                                \
-    const BlockGeo g{ly, lx, cells};                                                     \
-    return launch_fused<T>(a, g, ly, lx, batch, static_cast<cudaStream_t>(stream));      \
-  }
-
-LOCAL_FUSED_ENTRY(local_fused_pass_f32, float)
-LOCAL_FUSED_ENTRY(local_fused_pass_f64, double)
-
-// One fused round on strips: LOCAL_FUSED_ENTRY's round, whose state is read
-// in place from the core planes (`own`: the raw field on a first round, else
-// T_k; `own_prev`: T_{k-1}, null on a first round; core cell (0, 0) of batch
-// entry 0, one batch stride and row pitch) and from the halo strips of
-// `own` (south, north: (batch, cells, lx+2*cells); west, east: (batch, ly,
+// One fused round on strips: steps start+1 .. start+n_ops of the filter
+// (n_ops <= cells) on tiles of by x bx core cells. `first`: the round begins
+// with FIRST and reads the raw field; `last`: it ends with LAST,
+// reconstructs land from the caller's core-shaped field_own, and writes only
+// the result into acc_out. The round's state is read in place from the core
+// planes (`own`: the raw field on a first round, else T_k; `own_prev`:
+// T_{k-1}, null on a first round; core cell (0, 0) of batch entry 0, one
+// batch stride and row pitch) and from the halo strips of `own` (south, north: (batch, cells, lx+2*cells); west, east: (batch, ly,
 // cells)), T_{k-1}'s strips following T_k's in the same tensors. Unless
 // `last`, the carries go into the core-shaped t_out and t_prev_out, which
 // must not alias what the launch reads; acc_in may be acc_out.

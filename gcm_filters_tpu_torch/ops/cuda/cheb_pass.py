@@ -30,8 +30,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...utils.telemetry import span
 from ..stencil import COEF_FIELDS, ScalarStencil5
+from .launch import STEP_ROWS, Kernel, check_grid, pointer, route
 
 FIRST, MIDDLE, LAST = 0, 1, 2
 
@@ -105,7 +105,7 @@ def cheb_pass_reference(
                    t_prev=t_prev, t_next=t_next, acc=acc, h=h)
 
 
-_ARGTYPES = (
+_KERNEL = Kernel("cheb_pass", "cheb_pass", (
     [ctypes.c_int] * 4            # kind, batch, ny, nx
     + [ctypes.c_void_p] * 11      # field, t, t_prev, t_next, acc, h, c, n, s, e, w
     + [ctypes.c_double] * 5       # immediate c, n, s, e, w
@@ -113,52 +113,25 @@ _ARGTYPES = (
     + [ctypes.c_double] * 3       # p_a, p_b, land_gain
     + [ctypes.c_int] * 3          # zap, fold, drop_pre
     + [ctypes.c_void_p]           # stream
-)
-_lib = None
+))
 
 
-def _library():
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("cheb_pass")
-        for fn in (lib.cheb_pass_f32, lib.cheb_pass_f64):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.cheb_pass_error_string.argtypes = [ctypes.c_int]
-        lib.cheb_pass_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
-
-def _check(device, dtype, name, x, shape):
-    """The pointer of a tensor the kernel reads or writes, after checking it."""
-    if x is None:
-        return None
-    if x.device != device or x.dtype != dtype:
-        raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-    if tuple(x.shape) != shape:
-        raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-    if not x.is_contiguous():
-        raise ValueError(f"{name} must be contiguous")
-    return x.data_ptr()
-
-
-def coefficient_args(st, check, shape):
+def coefficient_args(st, shape, device, dtype):
     """``(pointers, immediates, masks)`` of a stencil for a kernel call:
     array coefficients as pointers (immediate 0), constants as immediates
-    (null pointer), then the pointers of pre, post and area."""
+    (null pointer), then the pointers of pre, post and area, each plane
+    checked to be a ``shape`` of ``dtype`` on ``device``."""
     ptrs, vals = [], []
     for k in COEF_FIELDS:
         v = getattr(st, k)
         if isinstance(v, Tensor):
-            ptrs.append(check(k, v, shape))
+            ptrs.append(pointer(k, v, shape, device, dtype))
             vals.append(0.0)
         else:
             ptrs.append(None)
             vals.append(float(v))
-    return ptrs, vals, [check(k, getattr(st, k), shape) for k in ("pre", "post", "area")]
+    masks = [pointer(k, getattr(st, k), shape, device, dtype) for k in ("pre", "post", "area")]
+    return ptrs, vals, masks
 
 
 _REQUIRED = {
@@ -173,38 +146,23 @@ def _launch(ops, kind, p_a, p_b, bufs) -> None:
         raise ValueError(f"unknown step kind {kind}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"cheb_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 3:
         raise ValueError(f"cheb_pass kernel takes (batch, ny, nx) carries, got {tuple(acc.shape)}")
     batch, ny, nx = acc.shape
-    if batch > 65535 or ny > 8 * 65535:
-        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
-
-    check = functools.partial(_check, device, dtype)
+    check_grid(batch, ny, STEP_ROWS, "shape", acc.shape)
     for name in _REQUIRED[kind]:
         if bufs[name] is None:
             raise ValueError(f"step kind {kind} needs {name}")
-    ptr = {k: check(k, bufs[k], (batch, ny, nx)) if k in _REQUIRED[kind] else None
+    ptr = {k: pointer(k, bufs[k], acc.shape, device, dtype) if k in _REQUIRED[kind] else None
            for k in ("field", "t", "t_prev", "t_next", "acc", "h")}
     st = ops.stencil
-    coef_ptr, coef_val, masks = coefficient_args(st, check, (ny, nx))
+    coef_ptr, coef_val, masks = coefficient_args(st, (ny, nx), device, dtype)
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
-
-    lib = _library()
-    fn = lib.cheb_pass_f32 if dtype == torch.float32 else lib.cheb_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(kind, batch, ny, nx,
-                 ptr["field"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], ptr["h"],
-                 *coef_ptr, *coef_val, *masks,
-                 float(p_a), float(p_b), float(ops.land_gain),
-                 int(st.zap_nans), int(st.fold_north), int(ops.drop_pre), stream)
-    if err != 0:
-        msg = lib.cheb_pass_error_string(err).decode()
-        raise RuntimeError(f"cheb_pass kernel launch failed: {msg} (cudaError {err})")
-    cheb_pass.launches += 1
+    _KERNEL(device, dtype, kind, batch, ny, nx,
+            ptr["field"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], ptr["h"],
+            *coef_ptr, *coef_val, *masks, float(p_a), float(p_b), float(ops.land_gain),
+            int(st.zap_nans), int(st.fold_north), int(ops.drop_pre))
 
 
 def cheb_pass(
@@ -215,21 +173,16 @@ def cheb_pass(
 ) -> None:
     """One Chebyshev step, as :func:`cheb_pass_reference` documents it.
 
-    CUDA tensors launch the kernel (counted in ``cheb_pass.launches``) on the
-    current stream, without synchronizing; CPU tensors run the plain version.
-    Anything else raises.
+    CUDA tensors launch the kernel (counted under ``("cheb_pass", None)`` in
+    :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_next=t_next, acc=acc, h=h)
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("cheb_pass", acc.device) as card:
+        if card:
             _launch(ops, kind, p_a, p_b, bufs)
-        elif acc.device.type == "cpu":
-            cheb_pass_reference(ops, kind, p_a, p_b, **bufs)
         else:
-            raise RuntimeError(f"cheb_pass has no kernel for device {acc.device}")
-
-
-cheb_pass.launches = 0  # kernel launches; the plain version does not count
+            cheb_pass_reference(ops, kind, p_a, p_b, **bufs)
 
 
 # -- the fused pass: S steps per launch on shared-memory tiles ---------------
@@ -484,9 +437,9 @@ def plan_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, n_plan
     (parallel/ring.py), whose window rows past its edges come from the
     neighbours: only tiles whose window fits in ``nx`` are weighed, and the
     plan is fused where ``ny >= halo``. ``registers`` says whether the
-    kernel that runs the plan has register steps (K1 and the sharded round
-    on the extended block; not the strip round nor the ring, whose runs
-    would spill), which the model then weighs. The result depends on the
+    kernel that runs the plan has register steps, which the model then
+    weighs: only K1 has them (the strip round's and the ring's runs would
+    spill). The result depends on the
     shape, the dtype and ``n_planes`` (:func:`fused_planes`) only.
     """
     itemsize = torch.empty((), dtype=dtype).element_size()
@@ -704,7 +657,7 @@ def tiled_pass(ops: PassOperands, p, start: int, n_ops: int, tile, rows, *,
     return outs
 
 
-_FUSED_ARGTYPES = (
+_FUSED_KERNEL = Kernel("cheb_pass", "cheb_fused_pass", (
     [ctypes.c_int] * 8            # batch, ny, nx, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 12      # field, t, t_prev, acc_in, t_out, t_prev_out, acc_out, c, n, s, e, w
@@ -713,17 +666,7 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_double]           # land_gain
     + [ctypes.c_int] * 4          # zap, fold, drop_pre, regs
     + [ctypes.c_void_p]           # stream
-)
-
-
-def _fused_library():
-    lib = _library()
-    if not getattr(lib, "_fused_bound", False):
-        for fn in (lib.cheb_fused_pass_f32, lib.cheb_fused_pass_f64):
-            fn.argtypes = _FUSED_ARGTYPES
-            fn.restype = ctypes.c_int
-        lib._fused_bound = True
-    return lib
+))
 
 
 def _pass_args(p, start, n_ops, first, bufs, required):
@@ -736,24 +679,26 @@ def _pass_args(p, start, n_ops, first, bufs, required):
     return (ctypes.c_double * MAX_FUSE)(*pa), float(p[1]) if first else 0.0
 
 
-def _fused_launch(ops, p, start, n_ops, tile, bufs, path="shared") -> None:
+def check_shared(bytes_: int, tile, n_ops: int) -> None:
+    """Raise unless a block's window of ``bytes_`` fits in its shared memory."""
+    if bytes_ > SHARED_BYTES:
+        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+
+
+def _fused_launch(ops, p, start, n_ops, tile, bufs, path) -> None:
     first, last = _kinds(p, start, n_ops)
     if n_ops > MAX_FUSE:
         raise ValueError(f"a fused pass runs at most {MAX_FUSE} steps, got {n_ops}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"cheb_fused_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 3:
         raise ValueError(f"cheb_fused_pass takes (batch, ny, nx) carries, got {tuple(acc.shape)}")
     batch, ny, nx = acc.shape
     by, bx = tile
-    if batch > 65535 or -(-ny // by) > 65535:
-        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
+    check_grid(batch, ny, by, "shape", acc.shape)
     st = ops.stencil
-    planes = fused_planes(ops)
-    if fused_shared_bytes(tile, n_ops, planes, acc.element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    check_shared(fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()), tile,
+                 n_ops)
     required = ("acc",) + (("field",) if first or last else ()) + (
         () if first else ("t", "t_prev")) + (() if last else ("t_out", "t_prev_out"))
     pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
@@ -761,26 +706,16 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs, path="shared") -> None:
                         for o in ("t_out", "t_prev_out") for i in ("t", "t_prev")
                         if bufs[i] is not None):
         raise ValueError("t_out and t_prev_out must not alias t or t_prev")
-    check = functools.partial(_check, device, dtype)
-    ptr = {k: check(k, bufs[k], (batch, ny, nx)) if k in required else None
+    ptr = {k: pointer(k, bufs[k], acc.shape, device, dtype) if k in required else None
            for k in ("field", "t", "t_prev", "t_out", "t_prev_out", "acc")}
-    coef_ptr, coef_val, masks = coefficient_args(st, check, (ny, nx))
+    coef_ptr, coef_val, masks = coefficient_args(st, (ny, nx), device, dtype)
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
-
-    lib = _fused_library()
-    fn = lib.cheb_fused_pass_f32 if dtype == torch.float32 else lib.cheb_fused_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(batch, ny, nx, by, bx, n_ops, int(first), int(last), pa, p_b,
-                 ptr["field"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
-                 ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
-                 float(ops.land_gain), int(st.zap_nans), int(st.fold_north),
-                 int(ops.drop_pre), int(path == "registers"), stream)
-    if err != 0:
-        msg = lib.cheb_pass_error_string(err).decode()
-        raise RuntimeError(f"cheb_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    cheb_fused_pass.launches += 1
+    _FUSED_KERNEL(device, dtype, batch, ny, nx, by, bx, n_ops, int(first), int(last), pa, p_b,
+                  ptr["field"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                  ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
+                  float(ops.land_gain), int(st.zap_nans), int(st.fold_north),
+                  int(ops.drop_pre), int(path == "registers"), detail=path)
 
 
 def cheb_fused_pass(
@@ -793,23 +728,17 @@ def cheb_fused_pass(
     of ``tile = (by, bx)`` cells, as :func:`cheb_fused_pass_reference`
     documents them.
 
-    CUDA tensors launch the kernel (counted in ``cheb_fused_pass.launches``,
-    and by the steps it runs in ``cheb_fused_pass.paths``, :func:`fused_path`,
-    which the launch's ``gft.launch`` span records as ``path=``) on the
-    current stream, without synchronizing; CPU tensors run the plain version.
-    Anything else raises.
+    CUDA tensors launch the kernel on the current stream, without
+    synchronizing; the launch runs the steps that :func:`fused_path` picks,
+    is counted under ``("cheb_fused_pass", path)`` in
+    :func:`~.launch.launch_counts` and carries ``path=`` on its
+    ``gft.launch`` span. CPU tensors run the plain version. Anything else
+    raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
     path = fused_path(ops.stencil, tile, n_ops, acc.element_size()) if acc.is_cuda else None
-    with span("gft.launch", path=path) if path else span("gft.launch"):
-        if acc.is_cuda:
+    with route("cheb_fused_pass", acc.device, path) as card:
+        if card:
             _fused_launch(ops, p, start, n_ops, tuple(tile), bufs, path)
-            cheb_fused_pass.paths[path] += 1
-        elif acc.device.type == "cpu":
-            cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)
         else:
-            raise RuntimeError(f"cheb_fused_pass has no kernel for device {acc.device}")
-
-
-cheb_fused_pass.launches = 0  # kernel launches; the plain version does not count
-cheb_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
+            cheb_fused_pass_reference(ops, p, start, n_ops, **bufs)

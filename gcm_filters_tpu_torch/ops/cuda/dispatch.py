@@ -41,8 +41,10 @@ acc, the last one leaves the result in acc. Below the plan's predicate they
 run as ``n_steps`` launches of the one-step kernel, t_next over t_prev. Both
 routes give the same bits.
 
-CUDA tensors go through the kernel and CPU tensors through its plain version;
-there is no other route and no fallback.
+CUDA tensors go through the kernel and CPU tensors through its plain version
+(the route of ops/cuda/launch.py, which every pass wrapper takes and which
+counts each launch in ``launch_counts``); there is no other route and no
+fallback.
 """
 from __future__ import annotations
 

@@ -19,22 +19,21 @@ torch slices. :func:`local_pass` launches the kernel for CUDA tensors and
 runs the plain version for CPU tensors; for a CUDA tensor it launches or
 raises.
 
-:func:`local_fused_pass` runs a whole round (up to ``cells`` steps) in one
-launch on shared-memory tiles of the core (entries ``local_fused_pass_f32/f64``
-of the same source, built on ``csrc/cheb_tile.cuh``), and
-:func:`local_fused_pass_reference` is its plain version: the round's steps as
-a chain of :func:`local_pass_reference`, so the two routes give the same
-bits. :func:`local_fused_pass_tiled_reference` runs the kernel's tile
-decomposition of the round in torch.
-
-:func:`local_strip_pass` is the round the sharded engine runs (entries
-``local_strip_pass_f32/f64``): the same round with no extended block of the
-state. It reads the core planes in place (the caller's field on the first
-round, the previous round's core-shaped carries later) and their four halo
-strips (``parallel/halo.py::exchange_strips``), each window cell where
+:func:`local_strip_pass` runs a whole round of the sharded engine (up to
+``cells`` steps) in one launch on shared-memory tiles of the core (entries
+``local_strip_pass_f32/f64`` of the same source, built on
+``csrc/cheb_tile.cuh``), with no extended block of the state. It reads the
+core planes in place (the caller's field on the first round, the previous
+round's core-shaped carries later) and their four halo strips
+(``parallel/halo.py::exchange_strips``), each window cell where
 :func:`strip_index` finds it, and writes core-shaped carries.
+:func:`local_fused_pass_reference` is the round on the extended block as a
+chain of :func:`local_pass_reference`, and
+:func:`local_fused_pass_tiled_reference` runs the kernel's tile
+decomposition of it in torch (the windows of ``BlockGeo``);
 :func:`local_strip_pass_reference` assembles the extended blocks from the
-strips and runs :func:`local_fused_pass_reference`;
+strips and runs :func:`local_fused_pass_reference`, so the round and the
+step chain give the same bits, and
 :func:`local_strip_pass_tiled_reference` cuts each window by the index map.
 
 The operands are a :class:`~.cheb_pass.PassOperands` whose stencil holds the
@@ -45,18 +44,17 @@ cleared.
 from __future__ import annotations
 
 import ctypes
-import functools
 from typing import Optional
 
 import torch
 
 from ...parallel.halo import Strips
-from ...utils.telemetry import span
 from ..stencil import COEF_FIELDS
 from .cheb_pass import (
-    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, _check, _kinds, _pass_args,
-    coefficient_args, fused_path, fused_planes, fused_shared_bytes, tiled_pass,
+    FIRST, LAST, MAX_FUSE, MIDDLE, PassOperands, _kinds, _pass_args, check_shared,
+    coefficient_args, fused_planes, fused_shared_bytes, tiled_pass,
 )
+from .launch import STEP_ROWS, Kernel, check_grid, placed, pointer, route
 
 Tensor = torch.Tensor
 
@@ -139,7 +137,7 @@ def local_pass_reference(
     acc.copy_(a)
 
 
-_ARGTYPES = (
+_KERNEL = Kernel("local_pass", "local_pass", (
     [ctypes.c_int] * 6            # kind, batch, ey, ex, cells, shrink
     + [ctypes.c_void_p] * 11      # field, t, t_prev, t_next, acc, h, c, n, s, e, w
     + [ctypes.c_double] * 5       # immediate c, n, s, e, w
@@ -147,24 +145,7 @@ _ARGTYPES = (
     + [ctypes.c_double] * 3       # p_a, p_b, land_gain
     + [ctypes.c_int] * 2          # zap, drop_pre
     + [ctypes.c_void_p]           # stream
-)
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("local_pass")
-        for fn in (lib.local_pass_f32, lib.local_pass_f64):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.local_pass_error_string.argtypes = [ctypes.c_int]
-        lib.local_pass_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
+))
 
 # buffers each step kind needs, and whether each is extended or core-shaped
 _EXTENDED = ("t", "t_prev", "t_next", "h")
@@ -180,8 +161,6 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         raise ValueError(f"unknown step kind {kind}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"local_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 3:
         raise ValueError(f"local_pass kernel takes a (batch, ly, lx) acc, got {tuple(acc.shape)}")
     batch, ly, lx = acc.shape
@@ -192,10 +171,8 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         shrink = cells
     if cells < 1 or shrink is None or not 1 <= shrink <= cells:
         raise ValueError(f"need 1 <= shrink <= cells, got shrink {shrink}, cells {cells}")
-    if batch > 65535 or ey > 8 * 65535:
-        raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
+    check_grid(batch, ey, STEP_ROWS, "block", (batch, ey, ex))
 
-    check = functools.partial(_check, device, dtype)
     needed = _REQUIRED[kind] + (("field",) if kind == LAST and ops.drop_pre else ())
     ptr = {}
     for name in ("field", "t", "t_prev", "t_next", "acc", "h"):
@@ -205,27 +182,18 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         if bufs[name] is None:
             raise ValueError(f"step kind {kind} needs {name}")
         extended = name in _EXTENDED or (name == "field" and kind == FIRST)
-        ptr[name] = check(name, bufs[name], (batch, ey, ex) if extended else (batch, ly, lx))
+        ptr[name] = pointer(name, bufs[name], (batch, ey, ex) if extended else (batch, ly, lx),
+                            device, dtype)
     st = ops.stencil
     if st.fold_north:
         raise ValueError("local_pass has no fold: the halos carry the seam")
-    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
+    coef_ptr, coef_val, masks = coefficient_args(st, (ey, ex), device, dtype)
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
-
-    lib = _library()
-    fn = lib.local_pass_f32 if dtype == torch.float32 else lib.local_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(kind, batch, ey, ex, cells, shrink,
-                 ptr["field"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], ptr["h"],
-                 *coef_ptr, *coef_val, *masks,
-                 float(p_a), float(p_b), float(ops.land_gain),
-                 int(st.zap_nans), int(ops.drop_pre), stream)
-    if err != 0:
-        msg = lib.local_pass_error_string(err).decode()
-        raise RuntimeError(f"local_pass kernel launch failed: {msg} (cudaError {err})")
-    local_pass.launches += 1
+    _KERNEL(device, dtype, kind, batch, ey, ex, cells, shrink,
+            ptr["field"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], ptr["h"],
+            *coef_ptr, *coef_val, *masks, float(p_a), float(p_b), float(ops.land_gain),
+            int(st.zap_nans), int(ops.drop_pre))
 
 
 def local_pass(
@@ -238,24 +206,19 @@ def local_pass(
     """One step on the extended block, as :func:`local_pass_reference`
     documents it.
 
-    CUDA tensors launch the kernel (counted in ``local_pass.launches``) on
-    the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel (counted under ``("local_pass", None)``
+    in :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_next=t_next, acc=acc, h=h)
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("local_pass", acc.device) as card:
+        if card:
             _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
-        elif acc.device.type == "cpu":
-            local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
         else:
-            raise RuntimeError(f"local_pass has no kernel for device {acc.device}")
+            local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
 
 
-local_pass.launches = 0  # kernel launches; the plain version does not count
-
-
-# -- the fused round: a whole round per launch on shared-memory tiles --------
+# -- a whole round on the extended block, in torch: the strip round's oracle --
 
 def local_fused_pass_reference(
     ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile=None,
@@ -332,115 +295,6 @@ def local_fused_pass_tiled_reference(
     if not last:
         _window(t_out, cells).copy_(outs["t"])
         _window(t_prev_out, cells).copy_(outs["t_prev"])
-
-
-_FUSED_ARGTYPES = (
-    [ctypes.c_int] * 9            # batch, ly, lx, cells, by, bx, n_ops, first, last
-    + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
-    + [ctypes.c_void_p] * 13      # field, field_own, t, t_prev, acc_in, t_out, t_prev_out,
-                                  # acc_out, c, n, s, e, w
-    + [ctypes.c_double] * 5       # immediate c, n, s, e, w
-    + [ctypes.c_void_p] * 3       # pre, post, area
-    + [ctypes.c_double]           # land_gain
-    + [ctypes.c_int] * 3          # zap, drop_pre, regs
-    + [ctypes.c_void_p]           # stream
-)
-
-
-def _fused_library():
-    lib = _library()
-    if not getattr(lib, "_fused_bound", False):
-        for fn in (lib.local_fused_pass_f32, lib.local_fused_pass_f64):
-            fn.argtypes = _FUSED_ARGTYPES
-            fn.restype = ctypes.c_int
-        lib._fused_bound = True
-    return lib
-
-
-def _fused_launch(ops, p, start, n_ops, cells, tile, bufs, path="shared") -> None:
-    first, last = _kinds(p, start, n_ops)
-    if not 1 <= n_ops <= min(cells, MAX_FUSE):
-        raise ValueError(f"a fused round runs 1..min(cells, {MAX_FUSE}) steps, got {n_ops}")
-    acc = bufs["acc"]
-    dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"local_fused_pass kernel takes float32 or float64, got {dtype}")
-    if acc.dim() != 3:
-        raise ValueError(f"local_fused_pass takes a (batch, ly, lx) acc, got {tuple(acc.shape)}")
-    batch, ly, lx = acc.shape
-    ey, ex = ly + 2 * cells, lx + 2 * cells
-    by, bx = tile
-    if batch > 65535 or -(-ly // by) > 65535:
-        raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
-    st = ops.stencil
-    if st.fold_north:
-        raise ValueError("local_fused_pass has no fold: the halos carry the seam")
-    if fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
-    required = ("acc",) + (("field",) if first else ("t", "t_prev")) + (
-        ("field_own",) if last and ops.drop_pre else ()) + (
-        () if last else ("t_out", "t_prev_out"))
-    pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
-    if not last and any(bufs[o].data_ptr() == bufs[i].data_ptr()
-                        for o in ("t_out", "t_prev_out") for i in ("t", "t_prev")
-                        if bufs[i] is not None):
-        raise ValueError("t_out and t_prev_out must not alias t or t_prev")
-    check = functools.partial(_check, device, dtype)
-    ptr = {}
-    for name in ("field", "field_own", "t", "t_prev", "t_out", "t_prev_out", "acc"):
-        core = name in ("field_own", "acc")
-        ptr[name] = (check(name, bufs[name], (batch, ly, lx) if core else (batch, ey, ex))
-                     if name in required else None)
-    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
-    if ops.drop_pre and masks[1] is None:
-        raise ValueError("drop_pre needs the wet mask as post")
-
-    lib = _fused_library()
-    fn = lib.local_fused_pass_f32 if dtype == torch.float32 else lib.local_fused_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(batch, ly, lx, cells, by, bx, n_ops, int(first), int(last), pa, p_b,
-                 ptr["field"], ptr["field_own"], ptr["t"], ptr["t_prev"], ptr["acc"],
-                 ptr["t_out"], ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
-                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre),
-                 int(path == "registers"), stream)
-    if err != 0:
-        msg = lib.local_pass_error_string(err).decode()
-        raise RuntimeError(f"local_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    local_fused_pass.launches += 1
-
-
-def local_fused_pass(
-    ops: PassOperands, p, start: int, n_ops: int, *, cells: int, tile,
-    field: Optional[Tensor] = None, field_own: Optional[Tensor] = None,
-    t: Optional[Tensor] = None, t_prev: Optional[Tensor] = None,
-    t_out: Optional[Tensor] = None, t_prev_out: Optional[Tensor] = None, acc: Tensor,
-) -> None:
-    """One whole round on the extended block in one launch, on tiles of
-    ``tile = (by, bx)`` core cells, as :func:`local_fused_pass_reference`
-    documents it.
-
-    CUDA tensors launch the kernel (counted in ``local_fused_pass.launches``, by
-    its steps in ``local_fused_pass.paths`` and on the span as ``path=``, as
-    :func:`~.cheb_pass.cheb_fused_pass` counts them)
-    on the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
-    """
-    bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
-                t_prev_out=t_prev_out, acc=acc)
-    path = fused_path(ops.stencil, tile, n_ops, acc.element_size()) if acc.is_cuda else None
-    with span("gft.launch", path=path) if path else span("gft.launch"):
-        if acc.is_cuda:
-            _fused_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, path)
-            local_fused_pass.paths[path] += 1
-        elif acc.device.type == "cpu":
-            local_fused_pass_reference(ops, p, start, n_ops, cells=cells, **bufs)
-        else:
-            raise RuntimeError(f"local_fused_pass has no kernel for device {acc.device}")
-
-
-local_fused_pass.launches = 0  # kernel launches; the plain version does not count
-local_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
 
 
 # -- the engine's round: the core in place and four halo strips ----------------
@@ -574,7 +428,7 @@ def local_strip_pass_tiled_reference(
         t_prev_out.copy_(outs["t_prev"])
 
 
-_STRIP_ARGTYPES = (
+_STRIP_KERNEL = Kernel("local_pass", "local_strip_pass", (
     [ctypes.c_int] * 9            # batch, ly, lx, cells, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 2       # own planes: the field or T_k, T_{k-1}
@@ -586,17 +440,7 @@ _STRIP_ARGTYPES = (
     + [ctypes.c_double]           # land_gain
     + [ctypes.c_int] * 2          # zap, drop_pre
     + [ctypes.c_void_p]           # stream
-)
-
-
-def _strip_library():
-    lib = _library()
-    if not getattr(lib, "_strip_bound", False):
-        for fn in (lib.local_strip_pass_f32, lib.local_strip_pass_f64):
-            fn.argtypes = _STRIP_ARGTYPES
-            fn.restype = ctypes.c_int
-        lib._strip_bound = True
-    return lib
+))
 
 
 def _strip_launch(ops, p, start, n_ops, cells, tile, bufs, strips) -> None:
@@ -605,22 +449,19 @@ def _strip_launch(ops, p, start, n_ops, cells, tile, bufs, strips) -> None:
         raise ValueError(f"a fused round runs 1..min(cells, {MAX_FUSE}) steps, got {n_ops}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"local_strip_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 3:
         raise ValueError(f"local_strip_pass takes a (batch, ly, lx) acc, got {tuple(acc.shape)}")
     batch, ly, lx = acc.shape
     ey, ex = ly + 2 * cells, lx + 2 * cells
     by, bx = tile
-    if batch > 65535 or -(-ly // by) > 65535:
-        raise ValueError(f"block {(batch, ey, ex)} exceeds the kernel's launch grid")
+    check_grid(batch, ly, by, "block", (batch, ey, ex))
     if cells > min(ly, lx):
         raise ValueError(f"strips of {cells} cells need a core at least as wide, got {(ly, lx)}")
     st = ops.stencil
     if st.fold_north:
         raise ValueError("local_strip_pass has no fold: the strips carry the seam")
-    if fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    check_shared(fused_shared_bytes(tile, n_ops, fused_planes(ops), acc.element_size()), tile,
+                 n_ops)
     outs = () if last else ("t_out", "t_prev_out")
     pa, p_b = _pass_args(p, start, n_ops, first, bufs, ("acc",) + (
         ("field_own",) if last and ops.drop_pre else ()) + outs)
@@ -629,11 +470,9 @@ def _strip_launch(ops, p, start, n_ops, cells, tile, bufs, strips) -> None:
     if any(bufs[o].untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
            for o in outs for x in reads):
         raise ValueError("t_out and t_prev_out must not alias the state the launch reads")
-    check = functools.partial(_check, device, dtype)
     own = [v[0] for v in planes.values()]
     for x in own:
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"own plane: {x.dtype} on {x.device}, expected {dtype} on {device}")
+        placed("own plane", x, device, dtype)
         if x.shape != acc.shape or x.stride(-1) != 1 or x.stride(-2) != own[0].stride(-2) or (
                 batch > 1 and x.stride(0) != own[0].stride(0)):
             raise ValueError(f"own planes need acc's shape {tuple(acc.shape)}, a unit column "
@@ -641,31 +480,23 @@ def _strip_launch(ops, p, start, n_ops, cells, tile, bufs, strips) -> None:
                              f"{[(tuple(y.shape), y.stride()) for y in own]}")
     for name, *xs in zip(("south", "north", "west", "east"), *(s for _, s in planes.values())):
         for x in xs:
-            check(name, x, tuple(x.shape))
+            pointer(name, x, x.shape, device, dtype)
     if not first and any(b.data_ptr() != a.data_ptr() + a.nbytes
                          for a, b in zip(planes["t"][1], planes["t_prev"][1])):
         raise ValueError("the carries' strips must follow each other in one tensor")
-    ptr = {k: check(k, bufs[k], (batch, ly, lx)) if bufs[k] is not None else None
+    ptr = {k: pointer(k, bufs[k], acc.shape, device, dtype)
            for k in ("field_own", "t_out", "t_prev_out", "acc")}
-    coef_ptr, coef_val, masks = coefficient_args(st, check, (ey, ex))
+    coef_ptr, coef_val, masks = coefficient_args(st, (ey, ex), device, dtype)
     if ops.drop_pre and masks[1] is None:
         raise ValueError("drop_pre needs the wet mask as post")
-
-    lib = _strip_library()
-    fn = lib.local_strip_pass_f32 if dtype == torch.float32 else lib.local_strip_pass_f64
     head = planes["field" if first else "t"]
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(batch, ly, lx, cells, by, bx, n_ops, int(first), int(last), pa, p_b,
-                 head[0].data_ptr(), None if first else planes["t_prev"][0].data_ptr(),
-                 head[0].stride(0), head[0].stride(1), *(x.data_ptr() for x in head[1]),
-                 ptr["field_own"] if last else None, ptr["acc"], ptr["t_out"],
-                 ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
-                 float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre), stream)
-    if err != 0:
-        msg = lib.local_pass_error_string(err).decode()
-        raise RuntimeError(f"local_strip_pass kernel launch failed: {msg} (cudaError {err})")
-    local_strip_pass.launches += 1
+    _STRIP_KERNEL(device, dtype, batch, ly, lx, cells, by, bx, n_ops, int(first), int(last),
+                  pa, p_b, head[0].data_ptr(),
+                  None if first else planes["t_prev"][0].data_ptr(),
+                  head[0].stride(0), head[0].stride(1), *(x.data_ptr() for x in head[1]),
+                  ptr["field_own"] if last else None, ptr["acc"], ptr["t_out"],
+                  ptr["t_prev_out"], ptr["acc"], *coef_ptr, *coef_val, *masks,
+                  float(ops.land_gain), int(st.zap_nans), int(ops.drop_pre), detail="shared")
 
 
 def local_strip_pass(
@@ -678,26 +509,19 @@ def local_strip_pass(
     """One whole round on the core and its halo strips in one launch, on
     tiles of ``tile = (by, bx)`` core cells, as
     :func:`local_strip_pass_reference` documents it: the sharded engine's
-    round (:func:`local_fused_pass` on the extended block is its oracle).
+    round.
 
-    CUDA tensors launch the kernel (counted in ``local_strip_pass.launches``, by
-    its steps in ``local_strip_pass.paths`` and on the span as ``path=``, as
-    :func:`~.cheb_pass.cheb_fused_pass` counts them: always in shared memory,
-    since the strip round's register steps would spill)
-    on the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel on the current stream, without
+    synchronizing, counted under ``("local_strip_pass", "shared")`` in
+    :func:`~.launch.launch_counts` and with ``path="shared"`` on the span, as
+    :func:`~.cheb_pass.cheb_fused_pass` counts its launches: the strip round
+    always steps in shared memory, since its register steps would spill. CPU
+    tensors run the plain version. Anything else raises.
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    with span("gft.launch", path="shared") if acc.is_cuda else span("gft.launch"):
-        if acc.is_cuda:
+    with route("local_strip_pass", acc.device, "shared") as card:
+        if card:
             _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
-            local_strip_pass.paths["shared"] += 1
-        elif acc.device.type == "cpu":
-            local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)
         else:
-            raise RuntimeError(f"local_strip_pass has no kernel for device {acc.device}")
-
-
-local_strip_pass.launches = 0  # kernel launches; the plain version does not count
-local_strip_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
+            local_strip_pass_reference(ops, p, start, n_ops, cells=cells, strips=strips, **bufs)

@@ -73,17 +73,17 @@ from typing import List, Tuple, Union
 
 import torch
 
-from ...utils.telemetry import span
 from ..stencil import (
     ARRAY_FIELDS, COEF_FIELDS, ScalarStencil5, east_neighbor, west_neighbor,
 )
 from . import cheb_pass as _scalar
 from . import vec_pass as _vector
+from .build import load
 from .cheb_pass import (
-    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, PassOperands, fused_planes,
-    fused_shared_bytes,
+    FIRST, LAST, MAX_FUSE, MIDDLE, PassOperands, check_shared, fused_planes, fused_shared_bytes,
 )
-from .vec_pass import BGRID, CTAP, N_COEF, VecPassOperands, vec_fused_shared_bytes
+from .launch import Kernel, pointer, route
+from .vec_pass import N_COEF, VecPassOperands, vec_fused_shared_bytes
 
 Tensor = torch.Tensor
 
@@ -157,22 +157,10 @@ class VecRingOperands:
                    ops.zap)
 
 
-def _checker(device, dtype):
-    """``check(name, tensor, shape)``: raises unless the tensor is a
-    contiguous ``shape`` of ``dtype`` on ``device``."""
-    def check(name, x, shape):
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    return check
-
-
-def _check_shards(ops, check, shape) -> None:
-    """Every shard's stencil of the same kind as shard 0's, its planes of
-    ``shape``, and the fold on the top shard only."""
+def _check_shards(ops, shape, device, dtype) -> None:
+    """Every shard's stencil of the same kind as shard 0's, its planes
+    contiguous ``shape`` of ``dtype`` on ``device``, and the fold on the top
+    shard only."""
     first = ops.shards[0]
     for r, st in enumerate(ops.shards):
         for k in ARRAY_FIELDS:
@@ -181,7 +169,7 @@ def _check_shards(ops, check, shape) -> None:
                     not isinstance(v, Tensor) and v != v0):
                 raise ValueError(f"{k} differs in kind or value between shards 0 and {r}")
             if isinstance(v, Tensor):
-                check(f"{k} of shard {r}", v, shape)
+                pointer(f"{k} of shard {r}", v, shape, device, dtype)
         if st.zap_nans != first.zap_nans or st.fold_north != (
                 ops.shards[-1].fold_north and r == ops.p_y - 1):
             raise ValueError(f"zap_nans or fold_north of shard {r} is inconsistent")
@@ -246,15 +234,15 @@ class RingState:
         return (self.a, self.b) if swap else (self.b, self.a)
 
     def _check_operands(self) -> None:
-        check = _checker(self.device, self.dtype)
         ops = self.ops
         if self.vector:
             if ops.op not in N_COEF:
                 raise ValueError(f"unknown vector contraction {ops.op}")
             for r, c in enumerate(ops.coefs):
-                check(f"coef of shard {r}", c, (N_COEF[ops.op], self.ly, self.nx))
+                pointer(f"coef of shard {r}", c, (N_COEF[ops.op], self.ly, self.nx), self.device,
+                        self.dtype)
             return
-        _check_shards(ops, check, (self.ly, self.nx))
+        _check_shards(ops, (self.ly, self.nx), self.device, self.dtype)
 
     def table(self) -> Tensor:
         """The kernel's pointer table, one row per shard (csrc/ring_pass.cu:
@@ -273,7 +261,7 @@ class RingState:
                     planes = [getattr(st, k) for k in ARRAY_FIELDS]
                     rows.append([self.field[r].data_ptr()] + own + [
                         v.data_ptr() if isinstance(v, Tensor) else 0 for v in planes])
-            want = _library().ring_pass_table_row(int(self.vector))
+            want = load("ring_pass").ring_pass_table_row(int(self.vector))
             if any(len(row) != want for row in rows):
                 raise RuntimeError(f"pointer table rows hold {len(rows[0])} pointers, "
                                    f"the kernel expects {want}")
@@ -465,7 +453,7 @@ class RingFusedState:
         if ly < MIN_ROWS or nx < 1:
             raise ValueError(f"a shard needs at least {MIN_ROWS} row and 1 column, got {(ly, nx)}")
         self.pad = ops.halo
-        self._check_operands(_checker(self.device, dtype))
+        self._check_operands()
 
         def new():
             return [torch.full(self.lead + (self.ly + 2 * self.pad, self.nx), float("nan"),
@@ -481,8 +469,8 @@ class RingFusedState:
         self.drawn = 0
         self._planes = {}  # out -> the kernel's table, made at first launch
 
-    def _check_operands(self, check) -> None:
-        _check_shards(self.ops, check, (self.ly + 2 * self.pad, self.nx))
+    def _check_operands(self) -> None:
+        _check_shards(self.ops, (self.ly + 2 * self.pad, self.nx), self.device, self.dtype)
 
     @property
     def input(self) -> List[Tensor]:
@@ -523,11 +511,12 @@ class VecRingFusedState(RingFusedState):
     def w(self) -> List[Tensor]:
         return self.field
 
-    def _check_operands(self, check) -> None:
+    def _check_operands(self) -> None:
         if self.ops.op not in N_COEF:
             raise ValueError(f"unknown vector contraction {self.ops.op}")
         for r, c in enumerate(self.ops.coefs):
-            check(f"coef of shard {r}", c, (N_COEF[self.ops.op], self.ly + 2 * self.pad, self.nx))
+            pointer(f"coef of shard {r}", c, (N_COEF[self.ops.op], self.ly + 2 * self.pad,
+                                              self.nx), self.device, self.dtype)
 
     def planes(self, out: int):
         """The kernel's table of a pass that writes carry pair ``out``: 8
@@ -786,7 +775,7 @@ class RingItems:
 
 # -- kernels -------------------------------------------------------------------
 
-_SCALAR_ARGTYPES = (
+_KERNEL = Kernel("ring_pass", "ring_pass", (
     [ctypes.c_int] * 5            # kind, swap, p, ly, nx
     + [ctypes.c_void_p] * 2       # table, ticket
     + [ctypes.c_uint]             # epoch
@@ -794,16 +783,16 @@ _SCALAR_ARGTYPES = (
     + [ctypes.c_double] * 3       # p_a, p_b, land_gain
     + [ctypes.c_int] * 3          # zap, fold, drop_pre
     + [ctypes.c_void_p]           # stream
-)
-_VECTOR_ARGTYPES = (
+))
+_VEC_KERNEL = Kernel("ring_pass", "vec_ring_pass", (
     [ctypes.c_int] * 6            # op, kind, swap, p, ly, nx
     + [ctypes.c_void_p] * 2       # table, ticket
     + [ctypes.c_uint]             # epoch
     + [ctypes.c_double] * 2       # p_a, p_b
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_FUSED_ARGTYPES = (
+))
+_FUSED_KERNEL = Kernel("ring_pass", "ring_fused_pass", (
     [ctypes.c_int] * 9            # p, ly, nx, pad, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 3       # planes (host pointers), ticket, flags
@@ -814,89 +803,54 @@ _FUSED_ARGTYPES = (
     + [ctypes.c_double]           # land_gain
     + [ctypes.c_int] * 3          # zap, fold, drop_pre
     + [ctypes.c_void_p]           # stream
-)
-_VEC_FUSED_ARGTYPES = (
+))
+_VEC_FUSED_KERNEL = Kernel("ring_pass", "vec_ring_fused_pass", (
     [ctypes.c_int] * 10           # op, p, ly, nx, pad, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 3       # planes (host pointers), ticket, flags
     + [ctypes.c_ulonglong, ctypes.c_uint]  # base, epoch
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("ring_pass")
-        for fn, argtypes in ((lib.ring_pass_f32, _SCALAR_ARGTYPES),
-                             (lib.ring_pass_f64, _SCALAR_ARGTYPES),
-                             (lib.vec_ring_pass_f32, _VECTOR_ARGTYPES),
-                             (lib.vec_ring_pass_f64, _VECTOR_ARGTYPES),
-                             (lib.ring_fused_pass_f32, _FUSED_ARGTYPES),
-                             (lib.ring_fused_pass_f64, _FUSED_ARGTYPES),
-                             (lib.vec_ring_fused_pass_f32, _VEC_FUSED_ARGTYPES),
-                             (lib.vec_ring_fused_pass_f64, _VEC_FUSED_ARGTYPES)):
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        lib.ring_pass_table_row.argtypes = [ctypes.c_int]
-        lib.ring_pass_table_row.restype = ctypes.c_int
-        lib.ring_pass_error_string.argtypes = [ctypes.c_int]
-        lib.ring_pass_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
+))
 
 
 def _launch(state: RingState, kind: int, p_a: float, p_b: float, swap: int) -> None:
     if kind not in (FIRST, MIDDLE, LAST):
         raise ValueError(f"unknown step kind {kind}")
-    lib = _library()
     ops = state.ops
-    f32 = state.dtype == torch.float32
     table = state.table().data_ptr()
     # the flag value of this launch: grows with every step and apply, so no
     # flag is ever reset (compared for equality; wraps after 2**32 launches)
     state.epoch = (state.epoch + 1) & 0xFFFFFFFF
     geometry = (kind, int(bool(swap)), ops.p_y, state.ly, state.nx, table,
                 state.ticket.data_ptr(), state.epoch)
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    with torch.cuda.device(state.device):
-        if state.vector:
-            fn = lib.vec_ring_pass_f32 if f32 else lib.vec_ring_pass_f64
-            err = fn(ops.op, *geometry, float(p_a), float(p_b), int(ops.zap), stream)
-        else:
-            st = ops.shards[-1]
-            consts = [0.0 if isinstance(getattr(st, k), Tensor) else float(getattr(st, k))
-                      for k in COEF_FIELDS]
-            fn = lib.ring_pass_f32 if f32 else lib.ring_pass_f64
-            err = fn(*geometry, *consts, float(p_a), float(p_b), float(ops.land_gain),
-                     int(st.zap_nans), int(st.fold_north), int(ops.drop_pre), stream)
-    if err != 0:
-        msg = lib.ring_pass_error_string(err).decode()
-        raise RuntimeError(f"ring_pass kernel launch failed: {msg} (cudaError {err})")
+    if state.vector:
+        _VEC_KERNEL(state.device, state.dtype, ops.op, *geometry, float(p_a), float(p_b),
+                    int(ops.zap), detail=ops.op)
+        return
+    st = ops.shards[-1]
+    consts = [0.0 if isinstance(getattr(st, k), Tensor) else float(getattr(st, k))
+              for k in COEF_FIELDS]
+    _KERNEL(state.device, state.dtype, *geometry, *consts, float(p_a), float(p_b),
+            float(ops.land_gain), int(st.zap_nans), int(st.fold_north), int(ops.drop_pre))
 
 
 def ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0, swap: int = 0) -> None:
     """One scalar Chebyshev step of every shard of ``state``, halo exchange
     included, as :func:`ring_pass_reference` documents it.
 
-    A state on a CUDA device launches the kernel once (counted in
-    ``ring_pass.launches``) on the current stream, without synchronizing; a
-    state on the CPU runs the plain version. Anything else raises.
+    A state on a CUDA device launches the kernel once (counted under
+    ``("ring_pass", None)`` in :func:`~.launch.launch_counts`) on the current
+    stream, without synchronizing; a state on the CPU runs the plain
+    version. Anything else raises.
     """
     if state.vector:
         raise TypeError("ring_pass takes a scalar RingState; use vec_ring_pass")
-    with span("gft.launch"):
-        if state.device.type == "cuda":
+    with route("ring_pass", state.device) as card:
+        if card:
             _launch(state, kind, p_a, p_b, swap)
-            ring_pass.launches += 1
-        elif state.device.type == "cpu":
-            ring_pass_reference(state, kind, p_a, p_b, swap)
         else:
-            raise RuntimeError(f"ring_pass has no kernel for device {state.device}")
+            ring_pass_reference(state, kind, p_a, p_b, swap)
 
 
 def vec_ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0,
@@ -904,54 +858,52 @@ def vec_ring_pass(state: RingState, kind: int, p_a: float, p_b: float = 0.0,
     """One coupled Chebyshev step of every shard of ``state``, halo exchange
     included, as :func:`vec_ring_pass_reference` documents it.
 
-    A state on a CUDA device launches the kernel once (counted per contraction
-    in ``vec_ring_pass.launches[BGRID]`` and ``[CTAP]``) on the current
-    stream, without synchronizing; a state on the CPU runs the plain version.
-    Anything else raises.
+    A state on a CUDA device launches the kernel once (counted per
+    contraction under ``("vec_ring_pass", BGRID)`` and ``("vec_ring_pass",
+    CTAP)`` in :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; a state on the CPU runs the plain version. Anything else
+    raises.
     """
     if not state.vector:
         raise TypeError("vec_ring_pass takes a vector RingState; use ring_pass")
-    with span("gft.launch"):
-        if state.device.type == "cuda":
+    with route("vec_ring_pass", state.device) as card:
+        if card:
             _launch(state, kind, p_a, p_b, swap)
-            vec_ring_pass.launches[state.ops.op] += 1
-        elif state.device.type == "cpu":
-            vec_ring_pass_reference(state, kind, p_a, p_b, swap)
         else:
-            raise RuntimeError(f"vec_ring_pass has no kernel for device {state.device}")
+            vec_ring_pass_reference(state, kind, p_a, p_b, swap)
+
+
+def _fused_args(state, p, start: int, n_ops: int, tile, out: int, first: bool, last: bool):
+    """The arguments every fused ring launch begins with, after the checks
+    both kernels share; draws the launch's epoch."""
+    by, bx = tile
+    if state.ops.p_y > MAX_RING_SHARDS:
+        raise ValueError(f"the fused ring kernel takes at most {MAX_RING_SHARDS} shards, "
+                         f"got {state.ops.p_y}")
+    pa, p_b = _scalar._pass_args(p, start, n_ops, first, {}, ())
+    # the flag value of this launch: grows with every pass and apply, so no
+    # flag is ever reset (compared for equality; wraps after 2**32 launches)
+    state.epoch = (state.epoch + 1) & 0xFFFFFFFF
+    return (state.ops.p_y, state.ly, state.nx, state.pad, by, bx, n_ops, int(first), int(last),
+            pa, p_b, state.planes(out), state.ticket.data_ptr(), state.flags.data_ptr(),
+            state.drawn, state.epoch)
 
 
 def _fused_launch(state: RingFusedState, p, start: int, n_ops: int, tile, out: int) -> None:
     first, last = _fused_kinds(state, p, start, n_ops, out)
-    by, bx = tile
-    ops, itemsize = state.ops, state.field[0].element_size()
-    if fused_shared_bytes(tile, n_ops, fused_planes(PassOperands(
-            ops.shards[0], ops.drop_pre, ops.land_gain)), itemsize) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
-    pa, p_b = _scalar._pass_args(p, start, n_ops, first, {}, ())
+    ops = state.ops
     st = ops.shards[0]
+    check_shared(fused_shared_bytes(tile, n_ops, fused_planes(PassOperands(
+        st, ops.drop_pre, ops.land_gain)), state.field[0].element_size()), tile, n_ops)
     coef_ptr = [v.data_ptr() if isinstance(v, Tensor) else None
                 for v in (getattr(st, k) for k in COEF_FIELDS)]
     coef_val = [0.0 if isinstance(v, Tensor) else float(v)
                 for v in (getattr(st, k) for k in COEF_FIELDS)]
     masks = [v.data_ptr() if v is not None else None for v in (st.pre, st.post, st.area)]
-    if ops.p_y > MAX_RING_SHARDS:
-        raise ValueError(f"the fused ring kernel takes at most {MAX_RING_SHARDS} shards, "
-                         f"got {ops.p_y}")
-    lib = _library()
-    fn = lib.ring_fused_pass_f32 if state.dtype == torch.float32 else lib.ring_fused_pass_f64
-    # the flag value of this launch: grows with every pass and apply, so no
-    # flag is ever reset (compared for equality; wraps after 2**32 launches)
-    state.epoch = (state.epoch + 1) & 0xFFFFFFFF
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    with torch.cuda.device(state.device):
-        err = fn(ops.p_y, state.ly, state.nx, state.pad, by, bx, n_ops, int(first), int(last),
-                 pa, p_b, state.planes(out), state.ticket.data_ptr(), state.flags.data_ptr(),
-                 state.drawn, state.epoch, *coef_ptr, *coef_val, *masks, float(ops.land_gain),
-                 int(st.zap_nans), int(ops.shards[-1].fold_north), int(ops.drop_pre), stream)
-    if err != 0:
-        msg = lib.ring_pass_error_string(err).decode()
-        raise RuntimeError(f"ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    _FUSED_KERNEL(state.device, state.dtype,
+                  *_fused_args(state, p, start, n_ops, tile, out, first, last), *coef_ptr,
+                  *coef_val, *masks, float(ops.land_gain), int(st.zap_nans),
+                  int(ops.shards[-1].fold_north), int(ops.drop_pre), detail="shared")
     # only the sends and the edge tiles draw tickets
     state.drawn += RingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
 
@@ -962,48 +914,29 @@ def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
     ``state`` in one launch, halo exchange included, on tiles of ``tile =
     (by, bx)`` own cells, as :func:`ring_fused_pass_reference` documents it.
 
-    A state on a CUDA device launches the kernel once (counted in
-    ``ring_fused_pass.launches``, by its steps in ``ring_fused_pass.paths``
-    and on the span as ``path=``, as :func:`~.cheb_pass.cheb_fused_pass`
-    counts them: always in shared memory, since the ring's register steps
-    would spill) on the current stream, without synchronizing; a state on
+    A state on a CUDA device launches the kernel once on the current stream,
+    without synchronizing, counted under ``("ring_fused_pass", "shared")`` in
+    :func:`~.launch.launch_counts` and with ``path="shared"`` on the span, as
+    :func:`~.cheb_pass.cheb_fused_pass` counts its launches: the ring always
+    steps in shared memory, since its register steps would spill. A state on
     the CPU runs the plain version. Anything else raises.
     """
-    cuda = state.device.type == "cuda"
-    with span("gft.launch", path="shared") if cuda else span("gft.launch"):
-        if cuda:
+    with route("ring_fused_pass", state.device, "shared") as card:
+        if card:
             _fused_launch(state, p, start, n_ops, tuple(tile), out)
-            ring_fused_pass.launches += 1
-            ring_fused_pass.paths["shared"] += 1
-        elif state.device.type == "cpu":
-            ring_fused_pass_reference(state, p, start, n_ops, out=out)
         else:
-            raise RuntimeError(f"ring_fused_pass has no kernel for device {state.device}")
+            ring_fused_pass_reference(state, p, start, n_ops, out=out)
 
 
 def _vec_fused_launch(state: VecRingFusedState, p, start: int, n_ops: int, tile,
                       out: int) -> None:
     first, last = _fused_kinds(state, p, start, n_ops, out, VecRingFusedState)
-    by, bx = tile
     ops = state.ops
-    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op],
-                              state.field[0].element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
-    if ops.p_y > MAX_RING_SHARDS:
-        raise ValueError(f"the fused ring kernel takes at most {MAX_RING_SHARDS} shards, "
-                         f"got {ops.p_y}")
-    pa, p_b = _scalar._pass_args(p, start, n_ops, first, {}, ())
-    lib = _library()
-    fn = lib.vec_ring_fused_pass_f32 if state.dtype == torch.float32 else lib.vec_ring_fused_pass_f64
-    state.epoch = (state.epoch + 1) & 0xFFFFFFFF  # as in _fused_launch
-    stream = torch.cuda.current_stream(state.device).cuda_stream
-    with torch.cuda.device(state.device):
-        err = fn(ops.op, ops.p_y, state.ly, state.nx, state.pad, by, bx, n_ops, int(first),
-                 int(last), pa, p_b, state.planes(out), state.ticket.data_ptr(),
-                 state.flags.data_ptr(), state.drawn, state.epoch, int(ops.zap), stream)
-    if err != 0:
-        msg = lib.ring_pass_error_string(err).decode()
-        raise RuntimeError(f"vec_ring_fused_pass kernel launch failed: {msg} (cudaError {err})")
+    check_shared(vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op],
+                                        state.field[0].element_size()), tile, n_ops)
+    _VEC_FUSED_KERNEL(state.device, state.dtype, ops.op,
+                      *_fused_args(state, p, start, n_ops, tile, out, first, last),
+                      int(ops.zap), detail=ops.op)
     # only the sends and the edge tiles draw tickets
     state.drawn += RingItems(ops.p_y, state.ly, state.nx, tile, n_ops).tickets
 
@@ -1016,24 +949,13 @@ def vec_ring_fused_pass(state: VecRingFusedState, p, start: int, n_ops: int, *, 
     it.
 
     A state on a CUDA device launches the kernel once (counted per
-    contraction in ``vec_ring_fused_pass.launches[BGRID]`` and ``[CTAP]``)
-    on the current stream, without synchronizing; a state on the CPU runs the
+    contraction under ``("vec_ring_fused_pass", BGRID)`` and
+    ``("vec_ring_fused_pass", CTAP)`` in :func:`~.launch.launch_counts`) on
+    the current stream, without synchronizing; a state on the CPU runs the
     plain version. Anything else raises.
     """
-    with span("gft.launch"):
-        if state.device.type == "cuda":
+    with route("vec_ring_fused_pass", state.device) as card:
+        if card:
             _vec_fused_launch(state, p, start, n_ops, tuple(tile), out)
-            vec_ring_fused_pass.launches[state.ops.op] += 1
-        elif state.device.type == "cpu":
-            vec_ring_fused_pass_reference(state, p, start, n_ops, out=out)
         else:
-            raise RuntimeError(f"vec_ring_fused_pass has no kernel for device {state.device}")
-
-
-# kernel launches (one per step or fused pass, whatever the number of shards);
-# the plain versions do not count
-ring_pass.launches = 0
-vec_ring_pass.launches = {BGRID: 0, CTAP: 0}
-ring_fused_pass.launches = 0
-ring_fused_pass.paths = {"registers": 0, "shared": 0}  # the launches by their steps
-vec_ring_fused_pass.launches = {BGRID: 0, CTAP: 0}
+            vec_ring_fused_pass_reference(state, p, start, n_ops, out=out)

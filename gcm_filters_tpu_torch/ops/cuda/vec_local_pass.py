@@ -52,17 +52,16 @@ from typing import Optional, Tuple
 import torch
 
 from ...parallel.halo import Strips
-from ...utils.telemetry import span
 from ..ctaps import CTAPS
 from ..stencil import BGRID_DIFF
 from .cheb_pass import (
-    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, FusedPlan, _check, _kinds, _pass_args,
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, FusedPlan, _kinds, _pass_args, check_shared,
     search_plan,
 )
+from .launch import STEP_ROWS, Kernel, check_grid, placed, pointer, route
 from .local_pass import EAST, NORTH, SOUTH, WEST, _window, around, strip_index
 from .vec_pass import (
-    BGRID, CTAP, N_COEF, VecPassOperands, _library as _vec_library,
-    _vec_pass_cost, vec_fused_shared_bytes, vec_tiles,
+    BGRID, CTAP, N_COEF, VecPassOperands, _vec_pass_cost, vec_fused_shared_bytes, vec_tiles,
 )
 
 Tensor = torch.Tensor
@@ -134,28 +133,13 @@ def vec_local_pass_reference(
     acc.copy_(a)
 
 
-_ARGTYPES = (
+_KERNEL = Kernel("vec_pass", "vec_local_pass", (
     [ctypes.c_int] * 7            # op, kind, batch, ey, ex, cells, shrink
     + [ctypes.c_void_p] * 6       # w, t, t_prev, t_next, acc, coef
     + [ctypes.c_double] * 2       # p_a, p_b
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_lib = None
-
-
-def _library():
-    """The library of ``csrc/vec_pass.cu`` (shared with the periodic
-    entries), with the local entries' signatures set."""
-    global _lib
-    if _lib is None:
-        lib = _vec_library()
-        for fn in (lib.vec_local_pass_f32, lib.vec_local_pass_f64):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        _lib = lib
-    return _lib
-
+))
 
 # buffers each step kind needs; all but acc are extended
 _REQUIRED = {
@@ -172,8 +156,6 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         raise ValueError(f"unknown vector contraction {ops.op}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vec_local_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 4 or acc.shape[1] != 2:
         raise ValueError(
             f"vec_local_pass kernel takes a (batch, 2, ly, lx) acc, got {tuple(acc.shape)}")
@@ -185,18 +167,7 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         shrink = cells
     if cells < 1 or shrink is None or not 1 <= shrink <= cells:
         raise ValueError(f"need 1 <= shrink <= cells, got shrink {shrink}, cells {cells}")
-    if batch > 65535 or ey > 8 * 65535:
-        raise ValueError(f"block {(batch, 2, ey, ex)} exceeds the kernel's launch grid")
-
-    def check(name, x, shape):
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return x.data_ptr()
-
+    check_grid(batch, ey, STEP_ROWS, "block", (batch, 2, ey, ex))
     ptr = {}
     for name in ("w", "t", "t_prev", "t_next", "acc"):
         if name not in _REQUIRED[kind]:
@@ -204,21 +175,12 @@ def _launch(ops, kind, p_a, p_b, cells, shrink, bufs) -> None:
         elif bufs[name] is None:
             raise ValueError(f"step kind {kind} needs {name}")
         else:
-            ptr[name] = check(name, bufs[name],
-                              (batch, 2, ly, lx) if name == "acc" else (batch, 2, ey, ex))
-    coef = check("coef", ops.coef, (N_COEF[ops.op], ey, ex))
-
-    lib = _library()
-    fn = lib.vec_local_pass_f32 if dtype == torch.float32 else lib.vec_local_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(ops.op, kind, batch, ey, ex, cells, shrink,
-                 ptr["w"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], coef,
-                 float(p_a), float(p_b), int(ops.zap), stream)
-    if err != 0:
-        msg = lib.vec_pass_error_string(err).decode()
-        raise RuntimeError(f"vec_local_pass kernel launch failed: {msg} (cudaError {err})")
-    vec_local_pass.launches[ops.op] += 1
+            ptr[name] = pointer(name, bufs[name],
+                                acc.shape if name == "acc" else (batch, 2, ey, ex), device, dtype)
+    coef = pointer("coef", ops.coef, (N_COEF[ops.op], ey, ex), device, dtype)
+    _KERNEL(device, dtype, ops.op, kind, batch, ey, ex, cells, shrink, ptr["w"], ptr["t"],
+            ptr["t_prev"], ptr["t_next"], ptr["acc"], coef, float(p_a), float(p_b),
+            int(ops.zap), detail=ops.op)
 
 
 def vec_local_pass(
@@ -231,23 +193,17 @@ def vec_local_pass(
     """One coupled step on the extended block, as
     :func:`vec_local_pass_reference` documents it.
 
-    CUDA tensors launch the kernel (counted per contraction in
-    ``vec_local_pass.launches[BGRID]`` and ``vec_local_pass.launches[CTAP]``)
-    on the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel (counted per contraction under
+    ``("vec_local_pass", BGRID)`` and ``("vec_local_pass", CTAP)`` in
+    :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_next=t_next, acc=acc)
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("vec_local_pass", acc.device) as card:
+        if card:
             _launch(ops, kind, p_a, p_b, cells, shrink, bufs)
-        elif acc.device.type == "cpu":
-            vec_local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
         else:
-            raise RuntimeError(f"vec_local_pass has no kernel for device {acc.device}")
-
-
-# kernel launches per contraction; the plain version does not count
-vec_local_pass.launches = {BGRID: 0, CTAP: 0}
+            vec_local_pass_reference(ops, kind, p_a, p_b, cells=cells, shrink=shrink, **bufs)
 
 
 # -- the fused round: a whole round, or part of one, per launch ---------------
@@ -488,14 +444,14 @@ def vec_local_fused_pass_tiled_reference(
         t_prev_out.copy_(outs["t_prev"])
 
 
-_FUSED_ARGTYPES = (
+_FUSED_KERNEL = Kernel("vec_pass", "vec_local_fused_pass", (
     [ctypes.c_int] * 11           # op, batch, ly, lx, cells, shrink, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 8       # w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_STRIP_ARGTYPES = (
+))
+_STRIP_KERNEL = Kernel("vec_pass", "vec_local_strip_pass", (
     [ctypes.c_int] * 11           # op, batch, ly, lx, cells, shrink, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 4       # own planes: u, v of T_k (w), then of T_{k-1}
@@ -504,20 +460,7 @@ _STRIP_ARGTYPES = (
     + [ctypes.c_void_p] * 5       # acc_in, t_out, t_prev_out, acc_out, coef
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-
-
-def _fused_library():
-    lib = _library()
-    if not getattr(lib, "_local_fused_bound", False):
-        for fn in (lib.vec_local_fused_pass_f32, lib.vec_local_fused_pass_f64):
-            fn.argtypes = _FUSED_ARGTYPES
-            fn.restype = ctypes.c_int
-        for fn in (lib.vec_local_strip_pass_f32, lib.vec_local_strip_pass_f64):
-            fn.argtypes = _STRIP_ARGTYPES
-            fn.restype = ctypes.c_int
-        lib._local_fused_bound = True
-    return lib
+))
 
 
 def _own_args(pairs, device, dtype):
@@ -527,8 +470,7 @@ def _own_args(pairs, device, dtype):
     planes = [x for own, _ in pairs for x in own]
     batch = planes[0].shape[0]
     for x in planes:
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"own plane: {x.dtype} on {x.device}, expected {dtype} on {device}")
+        placed("own plane", x, device, dtype)
         if x.stride(-1) != 1 or x.stride(-2) != planes[0].stride(-2) or (
                 batch > 1 and x.stride(0) != planes[0].stride(0)):
             raise ValueError(f"own planes need a unit column stride and one row pitch and "
@@ -537,13 +479,13 @@ def _own_args(pairs, device, dtype):
     return ptrs, planes[0].stride(0), planes[0].stride(-2)
 
 
-def _strip_args(pairs, check):
+def _strip_args(pairs, device, dtype):
     """The pointers of the four strips of T_k (the kernel finds T_{k-1}'s
     right after them), after checking them: contiguous, and on a later
     round's launch both carries' strips in one tensor each."""
     for name, *xs in zip(("south", "north", "west", "east"), *(s for _, s in pairs)):
         for x in xs:
-            check(name, x, tuple(x.shape))
+            pointer(name, x, x.shape, device, dtype)
         if len(xs) == 2 and xs[1].data_ptr() != xs[0].data_ptr() + xs[0].nbytes:
             raise ValueError(f"{name}: the carries' strips must follow each other in one tensor")
     return [x.data_ptr() for x in pairs[0][1]]
@@ -558,22 +500,18 @@ def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs, strips) -> No
         raise ValueError(f"unknown vector contraction {ops.op}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vec_local_fused_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 4 or acc.shape[1] != 2:
         raise ValueError(
             f"vec_local_fused_pass takes a (batch, 2, ly, lx) acc, got {tuple(acc.shape)}")
     batch, _, ly, lx = acc.shape
     ey, ex = ly + 2 * cells, lx + 2 * cells
     by, bx = tile
-    if batch > 65535 or -(-(ly + 2 * (cells - shrink)) // by) > 65535:
-        raise ValueError(f"block {(batch, 2, ey, ex)} exceeds the kernel's launch grid")
-    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    check_grid(batch, ly + 2 * (cells - shrink), by, "block", (batch, 2, ey, ex))
+    check_shared(vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()), tile,
+                 n_ops)
     outs = () if last else ("t_out", "t_prev_out")
     state = () if strips is not None else ("w",) if first else ("t", "t_prev")
     pa, p_b = _pass_args(p, start, n_ops, first, bufs, ("acc",) + state + outs)
-    check = functools.partial(_check, device, dtype)
     if strips is not None:
         pairs = strip_state(first, cells, bufs["w"], bufs["t"], bufs["t_prev"], strips)
         if pairs[0][0][0].shape[0] != batch:
@@ -584,30 +522,20 @@ def _fused_launch(ops, p, start, n_ops, cells, shrink, tile, bufs, strips) -> No
     if any(bufs[o].untyped_storage().data_ptr() == x.untyped_storage().data_ptr()
            for o in outs for x in reads):
         raise ValueError("t_out and t_prev_out must not alias the state the launch reads")
-    ptr = {k: check(k, bufs[k], (batch, 2, ly, lx) if k == "acc" else (batch, 2, ey, ex))
+    ptr = {k: pointer(k, bufs[k], acc.shape if k == "acc" else (batch, 2, ey, ex), device, dtype)
            if k in ("acc",) + state + outs else None
            for k in ("w", "t", "t_prev", "t_out", "t_prev_out", "acc")}
-    coef = check("coef", ops.coef, (N_COEF[ops.op], ey, ex))
-
-    lib = _fused_library()
-    f64 = dtype == torch.float64
-    stream = torch.cuda.current_stream(device).cuda_stream
+    coef = pointer("coef", ops.coef, (N_COEF[ops.op], ey, ex), device, dtype)
     head = (ops.op, batch, ly, lx, cells, shrink, by, bx, n_ops, int(first), int(last), pa, p_b)
-    with torch.cuda.device(device):
-        if strips is None:
-            fn = lib.vec_local_fused_pass_f64 if f64 else lib.vec_local_fused_pass_f32
-            err = fn(*head, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
-                     ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
-        else:
-            own, own_batch, own_pitch = _own_args(pairs, device, dtype)
-            fn = lib.vec_local_strip_pass_f64 if f64 else lib.vec_local_strip_pass_f32
-            err = fn(*head, *own, own_batch, own_pitch, *_strip_args(pairs, check), ptr["acc"],
-                     ptr["t_out"], ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
-    if err != 0:
-        msg = lib.vec_pass_error_string(err).decode()
-        raise RuntimeError(f"vec_local_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    counts = vec_local_fused_pass.launches if strips is None else vec_local_fused_pass.strip_launches
-    counts[ops.op] += 1
+    if strips is None:
+        _FUSED_KERNEL(device, dtype, *head, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"],
+                      ptr["t_out"], ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap),
+                      detail=ops.op)
+    else:
+        own, own_batch, own_pitch = _own_args(pairs, device, dtype)
+        _STRIP_KERNEL(device, dtype, *head, *own, own_batch, own_pitch,
+                      *_strip_args(pairs, device, dtype), ptr["acc"], ptr["t_out"],
+                      ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), detail=ops.op)
 
 
 def vec_local_fused_pass(
@@ -627,24 +555,16 @@ def vec_local_fused_pass(
     which reads the state in place from the core planes and the strips
     (:func:`strip_state`), else the extended-block entry
     ``vec_local_fused_pass_f32/f64``. CUDA tensors launch the kernel
-    (counted per contraction in ``vec_local_fused_pass.launches[BGRID|CTAP]``
-    for the extended-block entry and ``vec_local_fused_pass.strip_launches``
-    for the strip entry) on the current stream, without synchronizing; CPU
-    tensors run the plain version. Anything else raises.
+    (counted per contraction under ``("vec_local_fused_pass", op)`` for the
+    extended-block entry and ``("vec_local_strip_pass", op)`` for the strip
+    entry in :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
     shrink = cells if shrink is None else shrink
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("vec_local_fused_pass", acc.device) as card:
+        if card:
             _fused_launch(ops, p, start, n_ops, cells, shrink, tuple(tile), bufs, strips)
-        elif acc.device.type == "cpu":
+        else:
             vec_local_fused_pass_reference(ops, p, start, n_ops, cells=cells, shrink=shrink,
                                            strips=strips, **bufs)
-        else:
-            raise RuntimeError(f"vec_local_fused_pass has no kernel for device {acc.device}")
-
-
-# kernel launches per contraction, of the extended-block entry and of the
-# strip entry; the plain version does not count
-vec_local_fused_pass.launches = {BGRID: 0, CTAP: 0}
-vec_local_fused_pass.strip_launches = {BGRID: 0, CTAP: 0}

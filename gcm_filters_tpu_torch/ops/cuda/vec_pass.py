@@ -38,13 +38,13 @@ from typing import Optional, Tuple
 
 import torch
 
-from ...utils.telemetry import span
 from ..ctaps import CTAP_NAMES, apply_taps
 from ..stencil import BGRID_FIELDS, BGridVectorStencil
 from .cheb_pass import (
-    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan, _check, _kinds,
-    _pass_args, from_tiles, search_plan, tile_windows, to_tiles,
+    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan, _kinds, _pass_args,
+    check_shared, from_tiles, search_plan, tile_windows, to_tiles,
 )
+from .launch import STEP_ROWS, Kernel, check_grid, pointer, route
 
 Tensor = torch.Tensor
 
@@ -121,40 +121,20 @@ def vec_pass_reference(
                    t_next=t_next, acc=acc)
 
 
-_ARGTYPES = (
+_KERNEL = Kernel("vec_pass", "vec_pass", (
     [ctypes.c_int] * 5            # op, kind, batch, ny, nx
     + [ctypes.c_void_p] * 6       # w, t, t_prev, t_next, acc, coef
     + [ctypes.c_double] * 2       # p_a, p_b
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_FUSED_ARGTYPES = (
+))
+_FUSED_KERNEL = Kernel("vec_pass", "vec_fused_pass", (
     [ctypes.c_int] * 9            # op, batch, ny, nx, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 8       # w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef
     + [ctypes.c_int]              # zap
     + [ctypes.c_void_p]           # stream
-)
-_lib = None
-
-
-def _library():
-    global _lib
-    if _lib is None:
-        from .build import load
-
-        lib = load("vec_pass")
-        for fn in (lib.vec_pass_f32, lib.vec_pass_f64):
-            fn.argtypes = _ARGTYPES
-            fn.restype = ctypes.c_int
-        for fn in (lib.vec_fused_pass_f32, lib.vec_fused_pass_f64):
-            fn.argtypes = _FUSED_ARGTYPES
-            fn.restype = ctypes.c_int
-        lib.vec_pass_error_string.argtypes = [ctypes.c_int]
-        lib.vec_pass_error_string.restype = ctypes.c_char_p
-        _lib = lib
-    return _lib
-
+))
 
 _REQUIRED = {
     FIRST: ("w", "t_next", "acc"),
@@ -170,23 +150,10 @@ def _launch(ops, kind, p_a, p_b, bufs) -> None:
         raise ValueError(f"unknown vector contraction {ops.op}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vec_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 4 or acc.shape[1] != 2:
         raise ValueError(f"vec_pass kernel takes (batch, 2, ny, nx) carries, got {tuple(acc.shape)}")
     batch, _, ny, nx = acc.shape
-    if batch > 65535 or ny > 8 * 65535:
-        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
-
-    def check(name, x, shape):
-        if x.device != device or x.dtype != dtype:
-            raise ValueError(f"{name}: {x.dtype} on {x.device}, expected {dtype} on {device}")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: shape {tuple(x.shape)}, expected {shape}")
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-        return x.data_ptr()
-
+    check_grid(batch, ny, STEP_ROWS, "shape", acc.shape)
     ptr = {}
     for name in ("w", "t", "t_prev", "t_next", "acc"):
         if name not in _REQUIRED[kind]:
@@ -194,20 +161,11 @@ def _launch(ops, kind, p_a, p_b, bufs) -> None:
         elif bufs[name] is None:
             raise ValueError(f"step kind {kind} needs {name}")
         else:
-            ptr[name] = check(name, bufs[name], (batch, 2, ny, nx))
-    coef = check("coef", ops.coef, (N_COEF[ops.op], ny, nx))
-
-    lib = _library()
-    fn = lib.vec_pass_f32 if dtype == torch.float32 else lib.vec_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(ops.op, kind, batch, ny, nx,
-                 ptr["w"], ptr["t"], ptr["t_prev"], ptr["t_next"], ptr["acc"], coef,
-                 float(p_a), float(p_b), int(ops.zap), stream)
-    if err != 0:
-        msg = lib.vec_pass_error_string(err).decode()
-        raise RuntimeError(f"vec_pass kernel launch failed: {msg} (cudaError {err})")
-    vec_pass.launches[ops.op] += 1
+            ptr[name] = pointer(name, bufs[name], acc.shape, device, dtype)
+    coef = pointer("coef", ops.coef, (N_COEF[ops.op], ny, nx), device, dtype)
+    _KERNEL(device, dtype, ops.op, kind, batch, ny, nx, ptr["w"], ptr["t"], ptr["t_prev"],
+            ptr["t_next"], ptr["acc"], coef, float(p_a), float(p_b), int(ops.zap),
+            detail=ops.op)
 
 
 def vec_pass(
@@ -218,22 +176,17 @@ def vec_pass(
 ) -> None:
     """One coupled Chebyshev step, as :func:`vec_pass_reference` documents it.
 
-    CUDA tensors launch the kernel (counted per contraction in
-    ``vec_pass.launches[BGRID]`` and ``vec_pass.launches[CTAP]``) on the
-    current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel (counted per contraction under
+    ``("vec_pass", BGRID)`` and ``("vec_pass", CTAP)`` in
+    :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_next=t_next, acc=acc)
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("vec_pass", acc.device) as card:
+        if card:
             _launch(ops, kind, p_a, p_b, bufs)
-        elif acc.device.type == "cpu":
-            vec_pass_reference(ops, kind, p_a, p_b, **bufs)
         else:
-            raise RuntimeError(f"vec_pass has no kernel for device {acc.device}")
-
-
-vec_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
+            vec_pass_reference(ops, kind, p_a, p_b, **bufs)
 
 
 # -- the fused pass: S coupled steps per launch on shared-memory tiles -------
@@ -474,17 +427,14 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
         raise ValueError(f"unknown vector contraction {ops.op}")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
-    if dtype not in (torch.float32, torch.float64):
-        raise TypeError(f"vec_fused_pass kernel takes float32 or float64, got {dtype}")
     if acc.dim() != 4 or acc.shape[1] != 2:
         raise ValueError(
             f"vec_fused_pass takes (batch, 2, ny, nx) carries, got {tuple(acc.shape)}")
     batch, _, ny, nx = acc.shape
     by, bx = tile
-    if batch > 65535 or -(-ny // by) > 65535:
-        raise ValueError(f"shape {tuple(acc.shape)} exceeds the kernel's launch grid")
-    if vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()) > SHARED_BYTES:
-        raise ValueError(f"tile {tile} with a halo of {n_ops} does not fit in shared memory")
+    check_grid(batch, ny, by, "shape", acc.shape)
+    check_shared(vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()), tile,
+                 n_ops)
     required = ("acc",) + (("w",) if first else ("t", "t_prev")) + (
         () if last else ("t_out", "t_prev_out"))
     pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
@@ -492,22 +442,12 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
                         for o in ("t_out", "t_prev_out") for i in ("w", "t", "t_prev")
                         if i in required):
         raise ValueError("t_out and t_prev_out must not alias w, t or t_prev")
-    check = functools.partial(_check, device, dtype)
-    ptr = {k: check(k, bufs[k], (batch, 2, ny, nx)) if k in required else None
+    ptr = {k: pointer(k, bufs[k], acc.shape, device, dtype) if k in required else None
            for k in ("w", "t", "t_prev", "t_out", "t_prev_out", "acc")}
-    coef = check("coef", ops.coef, (N_COEF[ops.op], ny, nx))
-
-    lib = _library()
-    fn = lib.vec_fused_pass_f32 if dtype == torch.float32 else lib.vec_fused_pass_f64
-    stream = torch.cuda.current_stream(device).cuda_stream
-    with torch.cuda.device(device):
-        err = fn(ops.op, batch, ny, nx, by, bx, n_ops, int(first), int(last), pa, p_b,
-                 ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
-                 ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), stream)
-    if err != 0:
-        msg = lib.vec_pass_error_string(err).decode()
-        raise RuntimeError(f"vec_fused_pass kernel launch failed: {msg} (cudaError {err})")
-    vec_fused_pass.launches[ops.op] += 1
+    coef = pointer("coef", ops.coef, (N_COEF[ops.op], ny, nx), device, dtype)
+    _FUSED_KERNEL(device, dtype, ops.op, batch, ny, nx, by, bx, n_ops, int(first), int(last),
+                  pa, p_b, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
+                  ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), detail=ops.op)
 
 
 def vec_fused_pass(
@@ -520,19 +460,14 @@ def vec_fused_pass(
     on tiles of ``tile = (by, bx)`` cells, as :func:`vec_fused_pass_reference`
     documents them.
 
-    CUDA tensors launch the kernel (counted per contraction in
-    ``vec_fused_pass.launches[BGRID]`` and ``vec_fused_pass.launches[CTAP]``)
-    on the current stream, without synchronizing; CPU tensors run the plain
-    version. Anything else raises.
+    CUDA tensors launch the kernel (counted per contraction under
+    ``("vec_fused_pass", BGRID)`` and ``("vec_fused_pass", CTAP)`` in
+    :func:`~.launch.launch_counts`) on the current stream, without
+    synchronizing; CPU tensors run the plain version. Anything else raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
-    with span("gft.launch"):
-        if acc.is_cuda:
+    with route("vec_fused_pass", acc.device) as card:
+        if card:
             _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
-        elif acc.device.type == "cpu":
-            vec_fused_pass_reference(ops, p, start, n_ops, **bufs)
         else:
-            raise RuntimeError(f"vec_fused_pass has no kernel for device {acc.device}")
-
-
-vec_fused_pass.launches = {BGRID: 0, CTAP: 0}  # kernel launches; the plain version does not count
+            vec_fused_pass_reference(ops, p, start, n_ops, **bufs)

@@ -24,26 +24,19 @@ every part in turn, ``--rounds`` times:
   ``torch.stack`` of both carries' cores and ``exchange_2d`` of it;
 - ``strips``: ``halo.exchange_strips`` of the input and, for each later
   round, of both carries' cores (the scalar round's carry pair, one
-  tensor), where the tree has it;
+  tensor);
 - ``rounds_alone``: the apply's rounds (``local_rounds_scalar`` or
   ``local_rounds_vector``) with every exchange replaced by the result it
-  gave the first time: the fused launches, and in a tree that stacks the
-  carries of a later round, those stacks;
+  gave the first time: the fused launches;
 - ``unsharded``: ``Filter(device="cuda").apply`` or ``apply_to_vector``,
   the fused K1 or K3 / K4 apply of the same filter on the same fields.
 
-The rounds alone must equal the apply bit for bit; a vector apply must also
-equal the unsharded one bit for bit, a scalar one (whose coefficients meet
-the tripolar seam in another order) the parent's rounds on the extended
-block (:func:`extended_scalar_rounds`, in a tree that has the strip round).
-Launches per apply are read from the fused rounds' counters
-(``local_fused_pass.launches``, ``vec_local_fused_pass.launches`` and,
-where the tree has them, ``local_strip_pass.launches`` and
-``vec_local_fused_pass.strip_launches``). The script runs in a tree that
-predates ``exchange_strips`` or the scalar strip round too (copy it into a
-``git archive`` of that tree): its parts are found by name. It prints one
-line per case, then the card's name and power limit and a JSON object of
-every time; ``--json`` writes that object to a file.
+The rounds alone must equal the apply bit for bit, and a vector apply the
+unsharded one too (a scalar one's coefficients meet the tripolar seam in
+another order). Launches per apply are read from the launch table
+(``ops/cuda/launch.py::launch_counts``). It prints one line per case, then
+the card's name and power limit and a JSON object of every time; ``--json``
+writes that object to a file.
 """
 from __future__ import annotations
 
@@ -59,6 +52,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from ..ops.cuda.launch import launch_counts
 from .ring_split import SCALAR, scalar_headline_data, unit_vector_grid_vars
 
 SHAPE = (2400, 3600)
@@ -77,7 +71,7 @@ def frozen_exchanges(recorded):
     it is."""
     from ..parallel import halo
 
-    names = [n for n in ("exchange_2d", "exchange_strips") if hasattr(halo, n)]
+    names = ("exchange_2d", "exchange_strips")
     real = {n: getattr(halo, n) for n in names}
     at, inside = [0], [False]
 
@@ -119,12 +113,21 @@ def timed(fn, n):
     return start.elapsed_time(end) / n, host
 
 
+def _launches(apply, entries):
+    """``apply()``'s result, once the card has run it, and the launches of
+    the kernel entries ``entries`` that it made."""
+    before = launch_counts()
+    out = apply()
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, sum(n - before.get(k, 0) for k, n in after.items() if k[0] in entries)
+
+
 def round_parts(filt, u, v):
     """``({part: fn}, info)`` of one sharded vector Filter on a 1x1 mesh and
     (ly, lx) device fields: the functions the module docstring names (but
     ``unsharded``), and the rounds, the plans, the launches per apply and
     the check that the rounds alone give the apply's bits."""
-    from ..ops.cuda.vec_local_pass import vec_local_fused_pass
     from ..parallel import halo
     from ..parallel import sharded
 
@@ -132,17 +135,9 @@ def round_parts(filt, u, v):
     ly, lx = u.shape
     ops, cells, rounds, p = fn.operands(ly, lx, u.dtype)
     plans = fn.plan(ly, lx, u.dtype)
-    counters = [vec_local_fused_pass.launches]
-    if hasattr(vec_local_fused_pass, "strip_launches"):
-        counters.append(vec_local_fused_pass.strip_launches)
-    total = lambda: sum(sum(c.values()) for c in counters)  # noqa: E731
-    before = total()
-    out = [g.to_local() for g in filt.apply_to_vector(u, v)]
-    torch.cuda.synchronize()
-    launches = total() - before
+    out, launches = _launches(lambda: [g.to_local() for g in filt.apply_to_vector(u, v)],
+                              ("vec_local_fused_pass", "vec_local_strip_pass"))
     u3, v3 = u[None], v[None]
-    strips = hasattr(halo, "exchange_strips")
-    state = (u3, v3) if strips else torch.stack([u3, v3], dim=1)
     ext = (1, 2, ly + 2 * cells, lx + 2 * cells)
     carries = [torch.zeros(ext, device=u.device, dtype=u.dtype) for _ in range(2)]
     core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
@@ -162,17 +157,15 @@ def round_parts(filt, u, v):
 
     def rounds_alone():
         with frozen_exchanges(recorded):
-            return sharded.local_rounds_vector(ops, state, p, cells, rounds, (None, 1), (None, 1))
+            return sharded.local_rounds_vector(ops, (u3, v3), p, cells, rounds, (None, 1),
+                                               (None, 1))
 
     alone = rounds_alone()
     torch.cuda.synchronize()
     same = all(torch.equal(alone[0, m], out[m]) for m in (0, 1))
     parts = {"apply": lambda: filt.apply_to_vector(u, v),
              "stack": lambda: torch.stack([u3, v3], dim=1),
-             "exchange": exchange}
-    if strips:
-        parts["strips"] = strips_fn
-    parts["rounds_alone"] = rounds_alone
+             "exchange": exchange, "strips": strips_fn, "rounds_alone": rounds_alone}
     info = {"cells": cells, "rounds": list(rounds),
             "plans": [[list(pl.tile), list(pl.steps)] for pl in plans],
             "launches_per_apply": launches, "rounds_alone_equal_apply": bool(same),
@@ -180,47 +173,11 @@ def round_parts(filt, u, v):
     return parts, info
 
 
-def extended_scalar_rounds(fused_fn, ops, field, p, cells, rounds, y_axis, x_axis, fold, tile):
-    """The scalar rounds as the engine ran them before its strip round:
-    per round ``exchange_2d`` of the field, or of both carries' cores
-    stacked, and ``fused_fn`` (``local_fused_pass``) on the extended block,
-    whose carries go into the core of fresh extended buffers."""
-    from ..parallel import halo
-
-    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
-    acc = torch.empty_like(field)
-    t = t_prev = None
-    start = 0
-    for i, n_ops in enumerate(rounds):
-        last = i == len(rounds) - 1
-        ext_raw = None
-        if i == 0:
-            ext_raw = halo.exchange_2d(field, cells, y_axis, x_axis, fold)
-        else:
-            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]), cells, y_axis, x_axis,
-                                   fold)
-            t, t_prev = ext[0], ext[1]
-        shape = (ext_raw if ext_raw is not None else t).shape
-        t_out = t_prev_out = None
-        if not last:
-            t_out, t_prev_out = field.new_empty(shape), field.new_empty(shape)
-        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field=ext_raw,
-                 field_own=field if last else None, t=t, t_prev=t_prev, t_out=t_out,
-                 t_prev_out=t_prev_out, acc=acc)
-        t, t_prev = t_out, t_prev_out
-        start += n_ops
-    return acc
-
-
 def scalar_round_parts(filt, x):
     """``({part: fn}, info)`` of one sharded scalar Filter on a 1x1 mesh and
     an (ly, lx) device field: the functions the module docstring names (but
-    ``unsharded`` and ``stack``), and the rounds, the launches per apply, the
-    check that the rounds alone give the apply's bits and, in a tree with
-    the strip round, that the parent's rounds on the extended block give
-    them too."""
-    from ..ops.cuda import local_pass as lp
-    from ..ops.cuda.cheb_pass import fused_planes, plan_fused_passes
+    ``unsharded`` and ``stack``), and the rounds, the launches per apply and
+    the check that the rounds alone give the apply's bits."""
     from ..parallel import halo
     from ..parallel import sharded
 
@@ -229,12 +186,7 @@ def scalar_round_parts(filt, x):
     ops, cells, rounds, p = fn.operands(ly, lx, x.dtype)
     fold = filt.operator.fold_north
     local = (None, 1)
-    wrappers = [getattr(lp, n) for n in ("local_fused_pass", "local_strip_pass") if hasattr(lp, n)]
-    total = lambda: sum(w.launches for w in wrappers)  # noqa: E731
-    before = total()
-    out = filt.apply(x).to_local()
-    torch.cuda.synchronize()
-    launches = total() - before
+    out, launches = _launches(lambda: filt.apply(x).to_local(), ("local_strip_pass",))
     x3 = x[None]
     carries = torch.zeros((2,) + tuple(x3.shape), device=x.device, dtype=x.dtype)
     ext = (1, ly + 2 * cells, lx + 2 * cells)
@@ -260,19 +212,10 @@ def scalar_round_parts(filt, x):
 
     alone = rounds_alone()
     torch.cuda.synchronize()
-    parts = {"apply": lambda: filt.apply(x), "exchange": exchange}
-    if hasattr(halo, "exchange_strips"):
-        parts["strips"] = strips_fn
-    parts["rounds_alone"] = rounds_alone
+    parts = {"apply": lambda: filt.apply(x), "exchange": exchange, "strips": strips_fn,
+             "rounds_alone": rounds_alone}
     info = {"cells": cells, "rounds": list(rounds), "launches_per_apply": launches,
             "rounds_alone_equal_apply": bool(torch.equal(alone[0], out)), "out": out}
-    if hasattr(lp, "local_strip_pass"):
-        tile = plan_fused_passes(cells, ly, lx, x.dtype, fused_planes(ops), one_pass=True,
-                                 registers=False).tile
-        parent = extended_scalar_rounds(lp.local_fused_pass, ops, x3, p, cells, rounds, local,
-                                        local, fold, tile)
-        torch.cuda.synchronize()
-        info["extended_rounds_equal_apply"] = bool(torch.equal(parent[0], out))
     return parts, info
 
 
@@ -317,8 +260,7 @@ def main(argv=None) -> int:
             if grid == SCALAR:
                 parts, info = scalar_round_parts(sharded_filt, x)
                 info.pop("out")
-                ok = info["rounds_alone_equal_apply"] and info.get(
-                    "extended_rounds_equal_apply", True)
+                ok = info["rounds_alone_equal_apply"]
                 parts["unsharded"] = lambda b=base: b.apply(x)
             else:
                 want = base.apply_to_vector(u, v)

@@ -20,9 +20,11 @@ are named ``gft.*``:
   ``gft.apply_to_vector_streamed``: a public call of ``Filter``, from the
   top of the method (input coercion included);
 - ``gft.launch``: one call of a pass wrapper (``ops/cuda/*_pass.py``), a
-  kernel launch on the card or the plain version on the CPU; a launch of
-  the scalar tile on the card carries ``path=``, the steps it ran
-  (``"registers"`` or ``"shared"``);
+  kernel launch on the card or the plain version on the CPU, opened by
+  ``ops/cuda/launch.py::route``; a launch of the scalar tile on the card
+  carries ``path=``, the steps it ran (``"registers"`` or ``"shared"``).
+  The launches themselves are counted apart, in the one table of
+  ``ops/cuda/launch.py::launch_counts``;
 - ``gft.stream.read``, ``.upload``, ``.download``, ``.assemble``: the
   stages of one chunk of the streamed methods (read from the array-like, the
   host-to-device copy, the device-to-host copy, the copy into the result),

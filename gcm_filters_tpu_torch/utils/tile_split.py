@@ -97,13 +97,9 @@ def build_variants():
 
 
 def use(lib) -> None:
-    """Route cheb_fused_pass to ``lib`` (the wrappers bind its argtypes)."""
-    for fn in (lib.cheb_pass_f32, lib.cheb_pass_f64):
-        fn.argtypes = cp._ARGTYPES
-        fn.restype = ctypes.c_int
-    lib.cheb_pass_error_string.argtypes = [ctypes.c_int]
-    lib.cheb_pass_error_string.restype = ctypes.c_char_p
-    cp._lib = lib
+    """Route cheb_pass and cheb_fused_pass to ``lib``."""
+    cp._KERNEL.bind(lib)
+    cp._FUSED_KERNEL.bind(lib)
 
 
 def headlines(dev):

@@ -4,15 +4,14 @@ The fused scalar pass (``csrc/cheb_tile.cuh``) runs each pass either in
 registers (``reg_steps``: a thread's run of window rows held through the
 pass, a kernel of its own) or in shared memory (``step_window``), as
 ``ops/cuda/cheb_pass.py::fused_path`` picks, and counts its launches by path
-(``.paths`` of each wrapper, ``path=`` on the ``gft.launch`` span). These
-cases hold every path to the chain of one-step launches bit for bit (NaNs in
-the same cells): K1 on a fold grid with land in float32, a batch of 8, the
-Taper's four passes, float64, the flux form and an exact-NaN (GENERIC)
-stencil; the K2 rounds on halo strips and on the extended block against the
-local step chain; the scalar ring against the unsharded apply. Each also
-checks which steps ran: the float32 h-space passes of K1 and of the
-extended-block round in registers, the other modes, float64, the strip
-round and the ring in shared memory. They need a CUDA card and skip without one; run them there
+(``ops/cuda/launch.py::launch_counts``, ``path=`` on the ``gft.launch``
+span). These cases hold every path to the chain of one-step launches bit
+for bit (NaNs in the same cells): K1 on a fold grid with land in float32, a
+batch of 8, the Taper's four passes, float64, the flux form and an
+exact-NaN (GENERIC) stencil; the K2 rounds on halo strips against the local
+step chain; the scalar ring against the unsharded apply. Each also checks
+which steps ran: the float32 h-space passes of K1 in registers, the other
+modes, float64, the strip round and the ring in shared memory. They need a CUDA card and skip without one; run them there
 with ``python -m pytest --noconftest -m card tests/test_torch_fused_pass_card.py``
 (no JAX needed). Nothing in this file imports JAX.
 """
@@ -25,9 +24,8 @@ import torch
 import gcm_filters_tpu_torch as gt
 from gcm_filters_tpu_torch.engine import _laplacian_scale
 from gcm_filters_tpu_torch.ops.cuda import cheb_pass as cp
-from gcm_filters_tpu_torch.ops.cuda import local_pass as lp
-from gcm_filters_tpu_torch.ops.cuda import ring_pass as rp
 from gcm_filters_tpu_torch.ops.cuda.dispatch import _fused_chain, _step_chain
+from gcm_filters_tpu_torch.ops.cuda.launch import launch_counts
 from gcm_filters_tpu_torch.ops.stencil import hspace_drop_pre
 from gcm_filters_tpu_torch.parallel.sharded import (
     local_rounds_scalar, local_scalar_operands, plan_rounds,
@@ -81,6 +79,16 @@ def _same(got, want):
     assert torch.equal(got.nan_to_num(7.0), want.nan_to_num(7.0)), "the bits differ"
 
 
+def _by_path(entry, fn, *args, **kw):
+    """``fn(*args, **kw)`` and the launches of the entry ``entry`` it made,
+    by path."""
+    before = launch_counts()
+    got = fn(*args, **kw)
+    after = launch_counts()
+    return got, {k: after.get((entry, k), 0) - before.get((entry, k), 0)
+                 for k in ("registers", "shared")}
+
+
 def _k1(filt, x):
     """K1's planned passes and the step chain on ``(batch, ny, nx)`` x, with
     the launches each pass made by path."""
@@ -88,9 +96,7 @@ def _k1(filt, x):
     ops, p = fn.operands(x.dtype, x.device)
     plan = fn.plan(*x.shape[-2:], x.dtype)
     assert plan.fused
-    before = dict(cp.cheb_fused_pass.paths)
-    got = _fused_chain(cp.cheb_fused_pass, ops, p, plan, x)
-    paths = {k: v - before[k] for k, v in cp.cheb_fused_pass.paths.items()}
+    got, paths = _by_path("cheb_fused_pass", _fused_chain, cp.cheb_fused_pass, ops, p, plan, x)
     want = _step_chain(cp.cheb_pass, ops, p, len(p) - 1, x)
     return got, want, plan, paths
 
@@ -154,34 +160,18 @@ def _local_operands(filt, x, halo_steps):
 
 @pytest.mark.parametrize("halo_steps", [None, 6], ids=["one-round", "rounds-6-5"])
 def test_k2_rounds_equal_the_local_step_chain(dev, halo_steps):
-    """The sharded engine's rounds (a 1x1 mesh's block) against the chain of
-    local step launches: on halo strips (the engine's; shared memory, whose
-    runs would spill in registers) and on the extended block
-    (local_fused_pass, the strips' oracle; registers where the model picks
-    them)."""
-    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds
-
+    """The sharded engine's rounds (a 1x1 mesh's block) on halo strips
+    against the chain of local step launches, in shared memory (their runs
+    would spill in registers)."""
     filt = _filter(dev)
     x = _field(dev, (2,))
     ops, p, cells, rounds, fold = _local_operands(filt, x, halo_steps)
     want = local_rounds_scalar(ops, x, p, cells, rounds, (None, 1), (None, 1), fold,
                                fused_fn=None)
-    before = dict(lp.local_strip_pass.paths)
-    got = local_rounds_scalar(ops, x, p, cells, rounds, (None, 1), (None, 1), fold)
-    paths = {k: v - before[k] for k, v in lp.local_strip_pass.paths.items()}
+    got, paths = _by_path("local_strip_pass", local_rounds_scalar, ops, x, p, cells, rounds,
+                          (None, 1), (None, 1), fold)
     _same(got, want)
     assert paths == {"registers": 0, "shared": len(rounds)}
-    tile = cp.plan_fused_passes(cells, *x.shape[-2:], x.dtype, cp.fused_planes(ops),
-                                one_pass=True).tile
-    before = dict(lp.local_fused_pass.paths)
-    got = extended_scalar_rounds(lp.local_fused_pass, ops, x, p, cells, rounds, (None, 1),
-                                 (None, 1), fold, tile)
-    paths = {k: v - before[k] for k, v in lp.local_fused_pass.paths.items()}
-    _same(got, want)
-    want_paths = [cp.fused_path(ops.stencil, tile, n, 4) for n in rounds]
-    assert paths == {k: want_paths.count(k) for k in ("registers", "shared")}
-    if halo_steps is None:
-        assert want_paths == ["registers"]
 
 
 @pytest.mark.parametrize("p_y", [2, 4])
@@ -194,8 +184,6 @@ def test_scalar_ring_equals_the_unsharded_apply(dev, p_y):
                      mesh=gt.ResidentMesh(p_y, "cuda"), spatial_axes=("y", None))
     x = _field(dev)
     want = filt.apply(x)
-    before = dict(rp.ring_fused_pass.paths)
-    got = ring.apply(x)
-    paths = {k: v - before[k] for k, v in rp.ring_fused_pass.paths.items()}
+    got, paths = _by_path("ring_fused_pass", ring.apply, x)
     _same(got, want)
     assert paths["registers"] == 0 and paths["shared"] > 0

@@ -5,10 +5,10 @@ The sharded engine's fused round (``local_strip_pass``, entries
 csrc/cheb_tile.cuh) builds no extended block of the field or the carries: it
 reads the core planes in place and the four halo strips of
 ``halo.exchange_strips``, and writes core-shaped carries. Its kernel runs
-only on the card (chip_smoke.py holds it bit for bit to the extended-block
-round and to the local step-kernel chain); here its plain versions are held,
-bit for bit and with NaNs in the same cells, to the parent's rounds on the
-extended block (``utils/round_split.py::extended_scalar_rounds`` with
+only on the card (chip_smoke.py and tests/test_torch_fused_pass_card.py
+hold it bit for bit to the local step-kernel chain); here its plain versions
+are held, bit for bit and with NaNs in the same cells, to the parent's
+rounds on the extended block (:func:`extended_scalar_rounds` with
 ``local_fused_pass_tiled_reference``, ``BlockGeo``'s windows) and to the
 local step chain: the tiled plain version
 cuts every window cell from the core or a strip by ``strip_index``, the
@@ -85,13 +85,45 @@ def _filter(gt, grid, shape, dtype, halo_steps, taper, **kw):
                      **kw)
 
 
+def extended_scalar_rounds(fused_fn, ops, field, p, cells, rounds, y_axis, x_axis, fold, tile):
+    """The scalar rounds as the engine ran them before its strip round:
+    per round ``exchange_2d`` of the field, or of both carries' cores
+    stacked, and ``fused_fn`` (``local_fused_pass_tiled_reference``) on the
+    extended block, whose carries go into the core of fresh extended
+    buffers."""
+    from gcm_filters_tpu_torch.parallel import halo
+
+    core = lambda a: a[..., cells:-cells, cells:-cells]  # noqa: E731
+    acc = torch.empty_like(field)
+    t = t_prev = None
+    start = 0
+    for i, n_ops in enumerate(rounds):
+        last = i == len(rounds) - 1
+        ext_raw = None
+        if i == 0:
+            ext_raw = halo.exchange_2d(field, cells, y_axis, x_axis, fold)
+        else:
+            ext = halo.exchange_2d(torch.stack([core(t), core(t_prev)]), cells, y_axis, x_axis,
+                                   fold)
+            t, t_prev = ext[0], ext[1]
+        shape = (ext_raw if ext_raw is not None else t).shape
+        t_out = t_prev_out = None
+        if not last:
+            t_out, t_prev_out = field.new_empty(shape), field.new_empty(shape)
+        fused_fn(ops, p, start, n_ops, cells=cells, tile=tile, field=ext_raw,
+                 field_own=field if last else None, t=t, t_prev=t_prev, t_out=t_out,
+                 t_prev_out=t_prev_out, acc=acc)
+        t, t_prev = t_out, t_prev_out
+        start += n_ops
+    return acc
+
+
 def _routes(ops, x, p, cells, rounds, y_axis, x_axis, fold, tile=TILE):
     """``{route: result}`` of one rank's block: the local step chain, the
     strip rounds (plain and tiled plain) and the parent's extended-block
     rounds (tiled plain)."""
     from gcm_filters_tpu_torch.ops.cuda import local_pass as lp
     from gcm_filters_tpu_torch.parallel import sharded
-    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds
 
     def tiled(fn):
         return lambda o, pp, s, n, *, tile, **kw: fn(o, pp, s, n, tile=tile, **kw)
@@ -123,7 +155,6 @@ def _rank_main(rank, world, workdir, mesh_key):
 
     import gcm_filters_tpu_torch as gt
     from gcm_filters_tpu_torch.parallel import sharded
-    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds
 
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{workdir}/store",
@@ -336,10 +367,6 @@ def test_the_engine_reads_cores_and_strips_once_a_round():
 def test_strip_wrappers_refuse_what_they_cannot_take():
     ops, x, p, cells, rounds, fold = _one_process(TRI, (40, 72), F64, 3, 1, False)
     s = halo.exchange_strips(x, cells, LOCAL, LOCAL, fold)
-    meta = torch.empty((1, 40, 72), device="meta")
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        lp.local_strip_pass(ops, p, 0, 2, cells=cells, tile=TILE, field=meta, t_out=meta,
-                            t_prev_out=meta, acc=meta, strips=s)
     acc = torch.empty_like(x)
     with pytest.raises(TypeError, match="halo.Strips"):
         lp.local_strip_pass(ops, p, 0, 2, cells=cells, field=x, acc=acc, tile=TILE,
@@ -365,9 +392,10 @@ def test_strip_launch_checks_before_it_calls_the_library(monkeypatch):
     ops, x, p, cells, rounds, fold = _one_process(TRI, (40, 72), F64, 3, 2, False, taper=True)
     seen = []
     lib = types.SimpleNamespace(local_strip_pass_f64=lambda *a: seen.append(a) or 0,
-                                local_strip_pass_f32=None, local_pass_error_string=None,
-                                _strip_bound=True)
-    monkeypatch.setattr(lp, "_library", lambda: lib)
+                                local_strip_pass_f32=lambda *a: 0,
+                                local_pass_error_string=lambda err: b"")
+    monkeypatch.setattr(lp._STRIP_KERNEL, "fns", None)
+    lp._STRIP_KERNEL.bind(lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda device=None: contextlib.nullcontext())
@@ -406,8 +434,6 @@ def test_the_rounds_enqueue_fewer_tensor_ops_than_the_parents(taper):
     from collections import Counter
 
     from torch.utils._python_dispatch import TorchDispatchMode
-
-    from gcm_filters_tpu_torch.utils.round_split import extended_scalar_rounds
 
     class Count(TorchDispatchMode):
         def __init__(self):

@@ -190,7 +190,8 @@ def test_the_wrapper_counts_the_tickets_each_launch_draws(monkeypatch):
 
     lib = types.SimpleNamespace(vec_ring_fused_pass_f32=fake, vec_ring_fused_pass_f64=fake,
                                 ring_pass_error_string=lambda e: b"")
-    monkeypatch.setattr(rp, "_library", lambda: lib)
+    monkeypatch.setattr(rp._VEC_FUSED_KERNEL, "fns", None)
+    rp._VEC_FUSED_KERNEL.bind(lib)
     monkeypatch.setattr(torch.cuda, "current_stream",
                         lambda device=None: types.SimpleNamespace(cuda_stream=0))
     monkeypatch.setattr(torch.cuda, "device", lambda device=None: contextlib.nullcontext())

@@ -30,6 +30,7 @@ from gcm_filters_tpu_torch.ops.cuda import vec_pass as vp
 from gcm_filters_tpu_torch.ops.cuda.cheb_pass import (
     LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, FusedPlan, _balanced,
 )
+from gcm_filters_tpu_torch.ops.cuda.launch import launch_counts
 from gcm_filters_tpu_torch.parallel import halo
 from gcm_filters_tpu_torch.parallel.sharded import (
     _fused_vector_rounds, local_rounds_vector, make_sharded_vector_apply, plan_rounds,
@@ -215,14 +216,12 @@ def test_launch_sequence(grid_type):
     plans = (_plans(rounds[:1], (8, 32), 2)[0], _plans(rounds[1:2], (16, 16), 4)[0],
              _plans(rounds[2:], (8, 32), 2)[0])
     spy = _Spy()
-    before = dict(vlp.vec_local_fused_pass.launches)
-    step_before = dict(vlp.vec_local_pass.launches)
+    before = launch_counts()
     _fused_vector_rounds(spy, ops, _state(shape, torch.float64), p, cells, rounds, LOCAL, LOCAL,
                          plans)
     assert spy.calls == [(0, 2, 2, (8, 32)), (2, 2, 4, (8, 32)), (4, 4, 4, (16, 16)),
                          (8, 2, 3, (8, 32)), (10, 1, 4, (8, 32))]
-    assert vlp.vec_local_fused_pass.launches == before
-    assert vlp.vec_local_pass.launches == step_before
+    assert launch_counts() == before
 
 
 # -- the tiled plain version: the kernel's decomposition, bit for bit ----------
@@ -389,27 +388,22 @@ def test_rounds_route_by_the_predicate(grid_type):
 # -- the wrapper ---------------------------------------------------------------
 
 def test_fused_wrapper_routes_and_refuses():
-    """CPU tensors run the plain version and count no launch; other devices
-    raise, and so do a shrink outside n_ops..cells and too many steps."""
+    """CPU tensors run the plain version and count no launch; a shrink
+    outside n_ops..cells and too many steps raise."""
     shape = (24, 40)
     ops, p, cells, _ = _setup(B, shape, n_steps=9, halo_steps=5)
     e = (1, 2, shape[0] + 2 * cells, shape[1] + 2 * cells)
     we = halo.exchange_2d(_state(shape, torch.float64, batch=1), cells, LOCAL, LOCAL)
-    before = dict(vlp.vec_local_fused_pass.launches)
+    before = launch_counts()
     zeros = lambda: torch.zeros(e, dtype=torch.float64)  # noqa: E731
     t, t_prev, acc = zeros(), zeros(), torch.empty((1, 2) + shape, dtype=torch.float64)
     vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=we,
                              t_out=t, t_prev_out=t_prev, acc=acc)
-    assert vlp.vec_local_fused_pass.launches == before
+    assert launch_counts() == before
     t2, tp2, acc2 = zeros(), zeros(), torch.empty_like(acc)
     vlp.vec_local_fused_pass_reference(ops, p, 0, 3, cells=cells, shrink=4, w=we,
                                        t_out=t2, t_prev_out=tp2, acc=acc2)
     assert torch.equal(t, t2) and torch.equal(t_prev, tp2) and torch.equal(acc, acc2)
-    meta = torch.empty(e, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        vlp.vec_local_fused_pass(ops, p, 3, 2, cells=cells, tile=(8, 32), t=meta,
-                                 t_prev=meta, t_out=meta, t_prev_out=meta,
-                                 acc=torch.empty((1, 2) + shape, device="meta"))
     for n_ops, shrink in ((3, 2), (2, cells + 1)):
         with pytest.raises(ValueError, match="shrink"):
             vlp.vec_local_fused_pass_reference(ops, p, 0, n_ops, cells=cells, shrink=shrink,
@@ -585,8 +579,8 @@ def test_strip_index_assembles_the_extended_block():
 
 def test_strip_wrapper_routes_and_refuses():
     """On the CPU the strip launch runs the plain version and counts no
-    launch; strips that do not fit the planes, a first launch given t, a
-    later one given w, and a device without a kernel raise."""
+    launch; strips that do not fit the planes, a first launch given t and a
+    later one given w raise."""
     shape = (24, 40)
     ops, p, cells, _ = _setup(B, shape, n_steps=12, halo_steps=4)
     u, v = (torch.rand((1,) + shape, dtype=torch.float64) for _ in range(2))
@@ -594,10 +588,10 @@ def test_strip_wrapper_routes_and_refuses():
     e = (1, 2, shape[0] + 2 * cells, shape[1] + 2 * cells)
     t, tp, acc = torch.zeros(e), torch.zeros(e), torch.empty((1, 2) + shape)
     t, tp, acc = (x.double() for x in (t, tp, acc))
-    before = dict(vlp.vec_local_fused_pass.strip_launches)
+    before = launch_counts()
     vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=(u, v),
                              strips=strips, t_out=t, t_prev_out=tp, acc=acc)
-    assert vlp.vec_local_fused_pass.strip_launches == before
+    assert launch_counts() == before
     want = [torch.zeros(e, dtype=torch.float64) for _ in range(2)] + [torch.empty_like(acc)]
     vlp.vec_local_fused_pass_reference(
         ops, p, 0, 3, cells=cells, shrink=4, t_out=want[0], t_prev_out=want[1], acc=want[2],
@@ -617,8 +611,3 @@ def test_strip_wrapper_routes_and_refuses():
     with pytest.raises(TypeError, match="halo.Strips"):
         vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32), w=(u, v),
                                  strips=tuple(strips)[:3], t_out=t, t_prev_out=tp, acc=acc)
-    meta = torch.empty(e, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        vlp.vec_local_fused_pass(ops, p, 0, 3, cells=cells, shrink=4, tile=(8, 32),
-                                 w=(u.to("meta"), v.to("meta")), strips=strips, t_out=meta,
-                                 t_prev_out=meta, acc=torch.empty((1, 2) + shape, device="meta"))

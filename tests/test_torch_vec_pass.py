@@ -27,6 +27,7 @@ from gcm_filters_tpu_torch.ops.ctaps import CTAP_NAMES, cgrid_tap_arrays
 from gcm_filters_tpu_torch.ops.cuda import vec_pass as vp
 from gcm_filters_tpu_torch.ops.cuda.cheb_pass import FIRST, LAST, MIDDLE
 from gcm_filters_tpu_torch.ops.cuda.dispatch import make_cuda_vector_apply
+from gcm_filters_tpu_torch.ops.cuda.launch import launch_counts
 from gcm_filters_tpu_torch.ops.stencil import BGRID_FIELDS
 
 TOL = {np.float64: dict(rtol=1e-11, atol=1e-13), np.float32: dict(rtol=2e-5, atol=2e-6)}
@@ -173,12 +174,12 @@ def test_launch_sequence_and_counter(grid_type):
         kinds.append(kind)
         return vp.vec_pass(ops, kind, *a, **k)
 
-    before = dict(vp.vec_pass.launches)
+    before = launch_counts()
     u, v = (torch.as_tensor(a) for a in fields(shape))
     u0, v0 = u.clone(), v.clone()
     fu, fv = make_cuda_vector_apply(tf.operator, tf.filter_spec, pass_fn=spy)(u, v)
     assert kinds == [FIRST] + [MIDDLE] * (tf.n_steps - 2) + [LAST]
-    assert vp.vec_pass.launches == before
+    assert launch_counts() == before
     assert torch.equal(u, u0) and torch.equal(v, v0)
     assert fu.shape == fv.shape == shape
 
@@ -207,17 +208,6 @@ def test_operands_prescaled(grid_type):
     assert ops.coef.dtype == torch.float32 and ops.coef.is_contiguous()
     assert np.array_equal(ops.coef.numpy(), want)
     assert ops.zap and p == [float(x) for x in np.asarray(tf.filter_spec.p, np.float32)]
-
-
-def test_wrapper_refuses_other_devices():
-    shape = (8, 16)
-    tf = gt.Filter(filter_scale=4.0, dx_min=1.0, grid_type=gt.GridType.VECTOR_B_GRID,
-                   grid_vars=unit_grid_vars(B, shape), device="cpu")
-    ops, p = make_cuda_vector_apply(tf.operator, tf.filter_spec).operands(
-        torch.float32, torch.device("cpu"))
-    meta = torch.empty((1, 2) + shape, device="meta")
-    with pytest.raises(RuntimeError, match="no kernel for device meta"):
-        vp.vec_pass(ops, MIDDLE, p[2], t=meta, t_prev=meta, t_next=meta, acc=meta)
 
 
 def test_dispatch_rejects_bad_inputs():
