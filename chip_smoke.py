@@ -1001,7 +1001,7 @@ def main():
     from gcm_filters_tpu_torch.ops.cuda.vec_pass import (
         BGRID, CTAP, N_COEF, VEC_TILES, _vec_pass_cost, plan_vec_fused_passes, vec_fused_pass,
         vec_fused_pass_reference, vec_fused_pass_tiled_reference, vec_fused_shared_bytes,
-        vec_pass, vec_pass_reference, vec_tiles,
+        vec_pass, vec_pass_costs, vec_pass_reference, vec_reg_fits, vec_tiles,
     )
     from gcm_filters_tpu_torch.utils.profiling import bound_ms
     from gcm_filters_tpu_torch.utils.ring_split import (
@@ -1066,8 +1066,17 @@ def main():
 
     def kernel_name(entry, detail):
         """An entry's name in :func:`counters`: a vector entry's with its
-        contraction (``vec_pass_bgrid``), a scalar one's alone."""
-        return f"{entry}_{op_names[detail]}" if entry.startswith("vec_") else entry
+        contraction (``vec_pass_bgrid``; the fused periodic entry's detail is
+        its contraction and its steps, summed here), a scalar one's alone."""
+        if not entry.startswith("vec_"):
+            return entry
+        return f"{entry}_{op_names[detail[0] if isinstance(detail, tuple) else detail]}"
+
+    def vec_paths(op):
+        """The fused periodic vector launches of contraction ``op`` in the
+        launch table, by steps."""
+        return {path: launch_counts().get(("vec_fused_pass", (op, path)), 0)
+                for path in ("registers", "shared")}
 
     kernel_names = sorted({kernel_name(k.entry, op) for m in (cp_mod, lp_mod, vp_mod, vlp_mod, rp_mod)
                            for k in vars(m).values() if isinstance(k, Kernel) for op in op_names})
@@ -1636,15 +1645,16 @@ def main():
             for k in range(2, n1 + 1):
                 vec_pass(ops_, MIDDLE, p_[k], t=cur, t_prev=prev, t_next=prev, acc=acc_)
                 cur, prev = prev, cur
-            tl = sfn.plan(*sshape, dt).tile
+            spl = sfn.plan(*sshape, dt)
+            tl, path = spl.tile, spl.paths[0]  # float32: the register steps
             outs = [torch.full_like(w_, float("nan")) for _ in range(3)]
-            vec_fused_pass(ops_, p_, 0, n1, tile=tl, w=w_, t_out=outs[0], t_prev_out=outs[1],
-                           acc=outs[2])
+            vec_fused_pass(ops_, p_, 0, n1, tile=tl, path=path, w=w_, t_out=outs[0],
+                           t_prev_out=outs[1], acc=outs[2])
             for nm, g, want in zip(("t", "t_prev", "acc"), outs, (cur, prev, acc_)):
                 bitwise(f"{gname} sentinel {name} {tl} {nm}", g, want, "the step-kernel chain")
             log(f"  {gname} {sshape} batch 2 {name}: a first pass of {n1} steps on {tl} tiles "
-                f"into NaN-filled t_out, t_prev_out and acc: bit for bit equal to {n1} "
-                f"step-kernel launches")
+                f"({path} steps) into NaN-filled t_out, t_prev_out and acc: bit for bit equal "
+                f"to {n1} step-kernel launches")
         del sfilt, sfn, ops_, w_, cur, prev, acc_, outs
     for op, k in vkey.items():
         log(f"fused {k} route on {vfworst[op]['cases']} small cases: vs the step-kernel chain max "
@@ -1683,13 +1693,17 @@ def main():
         ms_v, host_v = event_ms(lambda: vhead.apply_to_vector(u_dev, v_dev), chain, host=True)
         v_other = counters()
         v_launches = v_other.pop(f"vec_fused_pass_{key}")
+        v_paths = vec_paths(op)
         v_fallbacks = fallback_counts()
         log(f"headline {ny}x{nx} float32 {gname}, n_steps {vn}, fused plan tile {vplan.tile} "
-            f"passes {vplan.steps}: {v_launches} vec_fused_pass launches over {applies} applies "
-            f"(first apply with operand set-up {first_s:.2f} s), other kernels {v_other}, "
-            f"fallbacks {v_fallbacks}")
+            f"passes {vplan.steps} on {vplan.paths}: {v_launches} vec_fused_pass launches over "
+            f"{applies} applies ({v_paths}; first apply with operand set-up {first_s:.2f} s), "
+            f"other kernels {v_other}, fallbacks {v_fallbacks}")
         if v_launches != len(vplan.steps) * applies:
             raise AssertionError(f"expected {len(vplan.steps) * applies} launches, saw {v_launches}")
+        if v_paths != {"registers": v_launches, "shared": 0}:
+            raise AssertionError(f"the float32 headline's passes must all run the register "
+                                 f"steps: {v_paths}")
         if any(v_other.values()):
             raise AssertionError(f"the vector path launched another kernel: {v_other}")
         if v_fallbacks:
@@ -1744,9 +1758,11 @@ def main():
             f"({v_filter_bytes / 1e6:.1f} MB); step chain's per-launch bound {vb_ms:.4f} ms "
             f"({v_bytes / 1e9:.3f} GB, {vb_by}); plain PyTorch {ms_v_plain:.4f} ms/apply")
 
-        # 7b. the tile sweep the planner's cost model is fitted to: every tile
-        # of its table at every split into 1 to 4 passes that fits, in float32
-        # and float64, each bitwise equal to the planned passes of its dtype
+        # 7b. the tile sweep the planner's cost models are fitted to: every
+        # tile of its table at every split into 1 to 4 passes that fits, in
+        # float32 on both steps (shared memory, and registers where every pass
+        # can take them) and in float64, each bitwise equal to the planned
+        # passes of its dtype
         vsweep = {}
         for dt_, tag, reps in ((torch.float32, "float32", 10), (torch.float64, "float64", 5)):
             ops_, p_ = fn.operands(dt_, dev)
@@ -1758,13 +1774,20 @@ def main():
                     st_ = _balanced(vn, cap)
                     if vec_fused_shared_bytes(tl, max(st_), n_coef, isz) > SHARED_BYTES:
                         continue
-                    pl = FusedPlan(tl, max(st_), st_, True)
-                    k_ = f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
-                    run = lambda: _fused_chain(vec_fused_pass, ops_, p_, pl, x_, name="w")  # noqa: E731
-                    bitwise(f"{gname} tile sweep {k_}", run(), ref_, "the planned passes")
-                    vsweep[k_] = event_ms(run, reps)
-                    log(f"  tile {k_}: {vsweep[k_]:.4f} ms/apply; model cost "
-                        f"{_vec_pass_cost(op, tl, st_, isz):.2f} per cell")
+                    for path in ("shared", "registers"):
+                        if path == "registers" and not all(vec_reg_fits(op, isz, tl, s)
+                                                           for s in st_):
+                            continue
+                        pl = FusedPlan(tl, max(st_), st_, True, (path,) * len(st_))
+                        k_ = (f"{tag} {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
+                              + (" registers" if path == "registers" else ""))
+                        run = lambda: _fused_chain(vec_fused_pass, ops_, p_, pl, x_, name="w")  # noqa: E731
+                        bitwise(f"{gname} tile sweep {k_}", run(), ref_, "the planned passes")
+                        vsweep[k_] = event_ms(run, reps)
+                        model = sum(vec_pass_costs(op, tl, s, isz)[path == "registers"]
+                                    for s in st_) / (tl[0] * tl[1])
+                        log(f"  tile {k_}: {vsweep[k_]:.4f} ms/apply; model cost "
+                            f"{model:.2f} per cell")
             del ops_, x_, ref_
         # the 44-step Taper (dx_min = 0.9, as 7c) at every tile and every
         # split into passes of 4 to 16 steps, float32: the long filters' half
@@ -1782,11 +1805,15 @@ def main():
                 st_ = _balanced(tfilt.n_steps, cap)
                 if max(st_) != cap or vec_fused_shared_bytes(tl, cap, n_coef, item) > SHARED_BYTES:
                     continue
-                pl = FusedPlan(tl, cap, st_, True)
-                k_ = f"float32 {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
-                run = lambda: _fused_chain(vec_fused_pass, tops, tp_, pl, w3, name="w")  # noqa: E731
-                bitwise(f"{gname} Taper sweep {k_}", run(), tref, "the planned passes")
-                tsweep[k_] = event_ms(run, 3)
+                for path in ("shared", "registers"):
+                    if path == "registers" and not all(vec_reg_fits(op, item, tl, s) for s in st_):
+                        continue
+                    pl = FusedPlan(tl, cap, st_, True, (path,) * len(st_))
+                    k_ = (f"float32 {tl[0]}x{tl[1]} {'+'.join(map(str, st_))}"
+                          + (" registers" if path == "registers" else ""))
+                    run = lambda: _fused_chain(vec_fused_pass, tops, tp_, pl, w3, name="w")  # noqa: E731
+                    bitwise(f"{gname} Taper sweep {k_}", run(), tref, "the planned passes")
+                    tsweep[k_] = event_ms(run, 3)
         fastest = min(tsweep, key=tsweep.get)
         log(f"  Taper ({tfilt.n_steps} steps) sweep: {len(tsweep)} plans, the planned "
             f"{tfn.plan(ny, nx, torch.float32).steps} on {tfn.plan(ny, nx, torch.float32).tile}; "
@@ -1967,7 +1994,12 @@ def main():
             "tile_sweep_ms": vsweep,
             "taper_sweep_ms": tsweep,
             "ptxas": vec_tile_ptxas("vec_pass", "vec_fused_kernel", op, "WrapGeo"),
+            "ptxas_registers": vec_tile_ptxas("vec_pass", "vec_reg_kernel", op),
             "ptxas_as_recorded": ptxas_check,
+            "paths": list(vplan.paths),
+            "launches_by_path": v_paths,
+            "headline_shared_ms": vsweep[f"float32 {vplan.tile[0]}x{vplan.tile[1]} "
+                                         f"{'+'.join(map(str, vplan.steps))}"],
             "route_ms": route,
         }
         if taper:

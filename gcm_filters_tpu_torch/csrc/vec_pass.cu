@@ -64,7 +64,9 @@
 // tiles read their neighbours' cells) and acc, the last one only acc. A
 // filter of n steps is then one launch per planned pass
 // (ops/cuda/vec_pass.py::plan_vec_fused_passes), and each result equals the
-// chain of the step entry's launches bit for bit. Bound of a fused pass:
+// chain of the step entry's launches bit for bit. A float32 pass runs its
+// steps in registers where the plan says so (`regs`: vec_reg_kernel of
+// vec_tile.cuh, the same bits). Bound of a fused pass:
 // issue (vec_tile.cuh); per pass device memory moves the n_coef coefficient
 // planes and 2 (first) or 6 (later) state planes in, 6
 // (or, last, 2) out, plus the halos. The step entry stays for fields smaller
@@ -302,18 +304,21 @@ VEC_LOCAL_PASS_ENTRY(vec_local_pass_f64, double)
 // One fused pass: steps start+1 .. start+n_ops of the filter, where the
 // caller says whether the pass begins with FIRST (`first`: reads w) and ends
 // with LAST (`last`: writes only acc_out). pa[i] is p_a of the pass's i-th
-// step, p_b that of FIRST. acc_in may be acc_out.
+// step, p_b that of FIRST. acc_in may be acc_out. `regs`: the pass runs the
+// register steps (vec_reg_kernel), as the caller's plan says; refused where
+// they do not apply (float64, a window the block's runs do not cover).
 #define VEC_FUSED_ENTRY(NAME, T)                                                          \
   extern "C" int NAME(int op, int batch, int ny, int nx, int by, int bx, int n_ops,       \
                       int first, int last, const double* pa, double p_b, const T* w,      \
                       const T* t, const T* t_prev, const T* acc_in, T* t_out,             \
-                      T* t_prev_out, T* acc_out, const T* coef, int zap, void* stream) {  \
+                      T* t_prev_out, T* acc_out, const T* coef, int zap, int regs,        \
+                      void* stream) {                                                     \
     cudaGetLastError();                                                                   \
     const VecFusedArgs<T> a = vec_fused_args<T>(by, bx, n_ops, first, last, pa, p_b, w,   \
                                                 t, t_prev, acc_in, t_out, t_prev_out,     \
                                                 acc_out, coef);                           \
     const WrapGeo g{ny, nx, 0};                                                           \
-    return launch_vec_fused<T>(op, zap, a, a, g, ny, nx, batch,                              \
+    return launch_vec_fused<T>(op, zap, regs, a, a, g, ny, nx, batch,                     \
                                static_cast<cudaStream_t>(stream));                        \
   }
 
@@ -341,7 +346,7 @@ VEC_FUSED_ENTRY(vec_fused_pass_f64, double)
                                                 t, t_prev, acc_in, t_out, t_prev_out,    \
                                                 acc_out, coef);                          \
     const RoundGeo g{ly, lx, cells, shrink};                                             \
-    return launch_vec_fused<T>(op, zap, a, a, g, g.rows(), g.cols(), batch,                 \
+    return launch_vec_fused<T>(op, zap, 0, a, a, g, g.rows(), g.cols(), batch,              \
                                static_cast<cudaStream_t>(stream));                       \
   }
 
@@ -383,7 +388,7 @@ VEC_LOCAL_FUSED_ENTRY(vec_local_fused_pass_f64, double)
     io.coef = coef; io.acc_in = acc_in;                                                   \
     io.t_out = t_out; io.t_prev_out = t_prev_out; io.acc_out = acc_out;                   \
     const StripGeo g{{ly, lx, cells, shrink}, own_batch, own_pitch};                      \
-    return launch_vec_fused<T>(op, zap, a, io, g, g.rows(), g.cols(), batch,              \
+    return launch_vec_fused<T>(op, zap, 0, a, io, g, g.rows(), g.cols(), batch,           \
                                static_cast<cudaStream_t>(stream));                        \
   }
 

@@ -20,7 +20,10 @@
 //   2. run the S steps in shared memory; step j updates the window shrunk by
 //      j cells on each side, so the last one ends exactly on the own tile.
 //      T_{k+1} overwrites T_{k-1} cell by cell (only the cell itself reads
-//      it), acc of the own cells is updated in place;
+//      it), acc of the own cells is updated in place. Or, a float32 pass of
+//      the periodic field, in registers (vec_reg_kernel, where the plan says
+//      so): each thread holds a run of window rows of one column through the
+//      pass (see "the register steps" below);
 //   3. write the own cells of t, t_prev and acc, or, when the pass ends the
 //      filter, only acc (vector grids have no finalize).
 // The window holds raw values: nan_to_num (zap) applies where a value enters
@@ -233,6 +236,7 @@ struct VecPlanes {
   int wx, wa;   // window width (pitch) and cells
   int coef;     // the coefficients, n_coef per window cell
   int acc;      // acc of the own tile: u, then v
+  int state;    // the state pairs A and B
 };
 
 // One step (kind KIND) of the window shrunk by j, rows [j, wy-j), columns
@@ -355,7 +359,14 @@ __device__ __forceinline__ void vec_step_window(const VecFusedArgs<T>& a, const 
 
 // The planes of a window of wa cells, wx wide, in shared memory.
 __host__ __device__ inline VecPlanes vec_planes(int wx, int wa, int n_coef) {
-  return VecPlanes{wx, wa, 4 * wa, (4 + n_coef) * wa};
+  return VecPlanes{wx, wa, 4 * wa, (4 + n_coef) * wa, 0};
+}
+
+// The same planes for the register steps (vec_reg_kernel), the coefficients
+// first: once a thread has lifted its run, the state and acc behind them are
+// dead, and the exchange planes take their room and what follows.
+__host__ __device__ inline VecPlanes vec_reg_planes(int wx, int wa, int n_coef) {
+  return VecPlanes{wx, wa, 0, (4 + n_coef) * wa, n_coef * wa};
 }
 
 // Issue the loads of the window of the tile at y0, x0 of batch entry z, and
@@ -367,15 +378,15 @@ __host__ __device__ inline VecPlanes vec_planes(int wx, int wa, int n_coef) {
 // that of its halo rows to vec_halo_load. Coefficients go cell-major: a
 // cell's n_coef values follow each other. The window's cells are spread over
 // the block's threads, row-major, so a warp's copies read consecutive cells
-// of a plane.
-template <typename T, typename OP, class GEO, class IO>
+// of a plane. REG: in the planes of the register steps (vec_reg_planes).
+template <typename T, typename OP, bool REG = false, class GEO, class IO>
 __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const IO& io,
                                                 const GEO geo, T* sm, int y0, int x0,
                                                 unsigned z) {
   constexpr int NC = OP::N_COEF;
   const int H = a.n_ops;
   const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
-  const VecPlanes pl = vec_planes(wx, wa, NC);
+  const VecPlanes pl = REG ? vec_reg_planes(wx, wa, NC) : vec_planes(wx, wa, NC);
   const int64_t P = geo.in_plane();
   const int64_t b_in = (int64_t)z * 2 * P;
   const T* const s0 = (a.first ? io.w : io.t) + b_in;
@@ -386,20 +397,21 @@ __device__ __forceinline__ void vec_window_load(const VecFusedArgs<T>& a, const 
     const int64_t kk = geo.in_index(geo.row(y0 - H + r), geo.col(x0 - H + q, false));
 #pragma unroll
     for (int m = 0; m < NC; ++m) cp_async(sm + pl.coef + k * NC + m, io.coef + m * P + kk);
+    T* const st = sm + pl.state;
     if constexpr (StateAsync<GEO>::value) {
 #pragma unroll
-      for (int c = 0; c < 2; ++c) cp_async(sm + c * wa + k, s0 + c * P + kk);
+      for (int c = 0; c < 2; ++c) cp_async(st + c * wa + k, s0 + c * P + kk);
       if (!a.first) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, s1 + c * P + kk);
+        for (int c = 0; c < 2; ++c) cp_async(st + (2 + c) * wa + k, s1 + c * P + kk);
       }
     } else if ((unsigned)(y0 - H + r) < (unsigned)geo.rows()) {
       // a ring shard's own rows; its halo rows wait for vec_halo_load
 #pragma unroll
-      for (int c = 0; c < 2; ++c) cp_async(sm + c * wa + k, s0 + c * P + kk);
+      for (int c = 0; c < 2; ++c) cp_async(st + c * wa + k, s0 + c * P + kk);
       if (!a.first) {
 #pragma unroll
-        for (int c = 0; c < 2; ++c) cp_async(sm + (2 + c) * wa + k, s1 + c * P + kk);
+        for (int c = 0; c < 2; ++c) cp_async(st + (2 + c) * wa + k, s1 + c * P + kk);
       }
     }
   }
@@ -625,6 +637,287 @@ __global__ void __launch_bounds__(FUSED_THREADS) vec_strip_kernel(const VecFused
   vec_window_run<T, OP, ZAP>(a, io, geo, sm, y0, x0, org.z());
 }
 
+// -- the register steps ------------------------------------------------------
+//
+// A float32 pass on the periodic field (WrapGeo) can run its steps in
+// registers instead (vec_reg_kernel, a kernel of its own, launched where the
+// plan says so: ops/cuda/vec_pass.py::plan_vec_fused_passes weighs both
+// steps per pass and the wrapper passes its choice). A thread owns a run of R
+// consecutive window rows in one column for the whole pass: thread t <
+// ceil(wy / R) wx takes column t % wx and rows [R (t / wx), R (t / wx) + R),
+// so a warp's lanes take consecutive columns and none idles at a window's
+// edge. After the window's load (the coefficients first, vec_reg_planes) the
+// thread lifts its run into registers (VecRun): the raw T_k and T_{k-1} of u
+// and v, and acc. The state and acc in shared memory are then dead, and two
+// exchange planes take their room: (u, v) pairs, column-major, P rows a
+// column (P odd, so a warp's lanes, a column apart, hit other banks), with a
+// column of padding on each side. A plane holds T_k gathered (nan_to_num
+// under zap), once, by the cell's owner when it makes the value, so a step
+// loads every value it contracts ready, one (u, v) pair a cell: east, west
+// (on the C-grid the diagonal ones too) and its own column; its own raw T_k
+// and T_{k-1} enter the recurrence from the registers, and the coefficients
+// stay in shared memory. It steps with OP::lap and the recurrence functions
+// in vec_step_window's order, publishes the gathered T_{k+1} into the other
+// plane, and one barrier a step separates the two (one plane, with a second
+// barrier between a step's reads and its writes, ran 4% slower). A slot
+// whose row lies outside the step's shrunk window is skipped (no later step
+// reads its value: the windows only shrink); the columns outside it are
+// stepped with values no later step reads, and the padding keeps their
+// reads inside the planes. Only the own cells' results leave the registers.
+// Measured on one H100 (PERF.md §6): 127-128 registers, one block an SM; at
+// the 2400x3600 headline K3's two passes take 1.02-1.07 ms against 1.22 in
+// shared memory.
+
+// Rows of a thread's run in the register steps of a contraction and dtype;
+// 0: the pass keeps vec_step_window. Every row of a run holds six values in
+// registers: the longest run that does not spill (ptxas -v,
+// csrc/ptxas_lines.json), for the C-grid's 18 coefficients a shorter one (8
+// spilled 28 B and ran 10% slower than 6). float64 would hold twice the
+// registers and keeps the shared-memory steps.
+template <typename OP, typename T> struct VecRegRows { static constexpr int value = 0; };
+template <> struct VecRegRows<BGridLap, float> { static constexpr int value = 8; };
+template <> struct VecRegRows<CTapLap, float> { static constexpr int value = 6; };
+
+// Cells a column of an exchange plane holds: the window's run rows, made odd.
+__host__ __device__ constexpr int vec_reg_pitch(int wy, int r) { return (wy + r - 1) / r * r | 1; }
+
+// Dynamic shared memory of a block on the register steps: the coefficients of
+// the window, then its state pairs and acc of the own tile (as in
+// vec_fused_shared_bytes) or, once those are lifted, the two exchange planes
+// of (u, v) pairs over them, whichever is larger.
+template <typename T>
+__host__ __device__ inline size_t vec_reg_shared_bytes(int by, int bx, int H, int n_coef, int r) {
+  const size_t wy = by + 2 * H, wx = bx + 2 * H;
+  const size_t window = 4 * wy * wx + 2 * (size_t)by * bx;
+  const size_t planes = 4 * (wx + 2) * (size_t)vec_reg_pitch((int)wy, r);
+  return (n_coef * wy * wx + (window > planes ? window : planes)) * sizeof(T);
+}
+
+// One thread's run: slot s is window row r0 + s of column q.
+template <typename T, int R>
+struct VecRun {
+  T x[2][R], y[2][R];  // raw T_k and T_{k-1} of u and v, the roles trading places every step
+  T ac[2][R];          // acc of u and v (the own slots' is the result's)
+  int q, r0;           // column and first row; q < 0: no run
+  int e0;              // exchange-plane offset of slot 0, in pairs: (q + 1) P + r0
+};
+
+// One step (kind KIND, window shrunk by j) in registers: `cur` holds T_k,
+// T_{k+1} goes over `old` (T_{k-1}); the neighbours' gathered T_k come from
+// exchange plane `in` (word offset; P rows a column), and with `publish` the
+// gathered T_{k+1} goes into plane `out`. LAST writes acc of the own cells.
+template <int KIND, typename T, typename OP, int ZAP, int R>
+__device__ __forceinline__ void vec_reg_step(const VecFusedArgs<T>& a, T* sm, const VecPlanes& pl,
+                                             const WrapGeo geo, VecRun<T, R>& v,
+                                             T (&cur)[2][R], T (&old)[2][R], int P_, int j,
+                                             int wy, int H, int y0, int x0, int in, int out,
+                                             T p_a, bool publish, int64_t b_acc) {
+  using T2 = typename Pair<T>::type;
+  constexpr int NC = OP::N_COEF;
+  const T2* const se = reinterpret_cast<const T2*>(sm + in) + v.e0;  // slot 0 in plane `in`
+  // the gathered T_k of the slot's column on the rows just below, on and
+  // just above the slot (from the plane, where this thread published it: a
+  // load is cheaper than gathering again), the east column a row below the
+  // slot's and the west column on it, carried from slot to slot (the C-grid's
+  // diagonal taps read the east column a row below and the west column a row
+  // above; a contraction that does not read them drops their loads)
+  T2 o_s = se[-1], o = se[0], e_s = se[P_ - 1], w = se[-P_];
+  // the live slots: window rows [j, wy - j)
+  const int lo = j - v.r0, hi = wy - j - v.r0;
+  const unsigned ox = v.q - H;
+  T2* const so = reinterpret_cast<T2*>(sm + out) + v.e0;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const T2 o_n = se[s + 1], e = se[P_ + s], w_n = se[s + 1 - P_];
+    const T2 g_s = o_s, g = o, g_e = e, g_se = e_s, g_w = w;
+    o_s = o;
+    o = o_n;
+    e_s = e;
+    w = w_n;
+    if (s < lo || s >= hi) continue;
+    const int k = (v.r0 + s) * pl.wx + v.q;
+    const T2* const cp = reinterpret_cast<const T2*>(sm + pl.coef + k * NC);
+    T cf[NC];
+#pragma unroll
+    for (int m = 0; m < NC / 2; ++m) {
+      const T2 c2 = cp[m];
+      cf[2 * m] = c2.x;
+      cf[2 * m + 1] = c2.y;
+    }
+    Nb<T> nb[2];
+    nb[0].c = g.x;
+    nb[0].n = o_n.x;
+    nb[0].s = g_s.x;
+    nb[0].e = g_e.x;
+    nb[0].w = g_w.x;
+    nb[0].se = g_se.x;
+    nb[0].nw = w_n.x;
+    nb[1].c = g.y;
+    nb[1].n = o_n.y;
+    nb[1].s = g_s.y;
+    nb[1].e = g_e.y;
+    nb[1].w = g_w.y;
+    nb[1].se = g_se.y;
+    nb[1].nw = w_n.y;
+    T l[2];
+    OP::lap([&](int m) { return cf[m]; }, nb[0], nb[1], l[0], l[1]);
+    if (KIND == LAST) {
+      // the live rows are the own tile's
+      const int gy = y0 + v.r0 + s - H, gx = x0 + (int)ox;
+      if (ox < (unsigned)a.bx && gy < geo.rows() && gx < geo.cols()) {
+        const int64_t ko = b_acc + geo.own_index(gy, gx);
+        const int64_t P = geo.own_plane();
+#pragma unroll
+        for (int c = 0; c < 2; ++c)
+          a.acc_out[ko + c * P] = acc_add(p_a, next_value(cur[c][s], l[c], old[c][s]), v.ac[c][s]);
+      }
+      continue;
+    }
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      if (KIND == FIRST) {
+        const T t1 = t1_value(l[c], cur[c][s]);
+        v.ac[c][s] = acc_first(p_a, a.p_b, cur[c][s], t1);
+        old[c][s] = t1;
+      } else {
+        const T nxt = next_value(cur[c][s], l[c], old[c][s]);
+        v.ac[c][s] = acc_add(p_a, nxt, v.ac[c][s]);
+        old[c][s] = nxt;
+      }
+    }
+    if (publish) {
+      T2 w2;
+      w2.x = gather_value<true>(old[0][s], ZAP != 0, false, T(0));
+      w2.y = gather_value<true>(old[1][s], ZAP != 0, false, T(0));
+      so[s] = w2;
+    }
+  }
+}
+
+// The steps of one tile in registers, after its window has arrived (in
+// vec_reg_planes), and the stores of its own cells: lift each thread's run,
+// publish T_k into exchange plane 0 over the dead state, step, and write the
+// carries and acc from the registers (LAST wrote acc).
+template <typename T, typename OP, int ZAP>
+__device__ __forceinline__ void vec_reg_steps(const VecFusedArgs<T>& a, const WrapGeo geo, T* sm,
+                                              int y0, int x0, unsigned z) {
+  using T2 = typename Pair<T>::type;
+  constexpr int R = VecRegRows<OP, T>::value;
+  constexpr int NC = OP::N_COEF;
+  const int H = a.n_ops;
+  const int wy = a.by + 2 * H, wx = a.bx + 2 * H, wa = wy * wx;
+  const VecPlanes pl = vec_reg_planes(wx, wa, NC);
+  const int P_ = vec_reg_pitch(wy, R);
+  const int own_plane = a.by * a.bx;
+  const bool first = a.first != 0;
+  // this thread's run: column q, rows [r0, r0 + R); q < 0: none
+  VecRun<T, R> v;
+  const int t = threadIdx.x;
+  const bool runs = t < (wy + R - 1) / R * wx;
+  v.q = runs ? t % wx : -1;
+  v.r0 = runs ? t / wx * R : 0;
+  v.e0 = (v.q + 1) * P_ + v.r0;
+  const unsigned ox = v.q - H;
+  // the lift: a slot past the window (or of a thread with no run) reads the
+  // window's last row (cell 0), whose values no live slot reads
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const int k = runs ? min(v.r0 + s, wy - 1) * wx + v.q : 0;
+    const unsigned oy = v.r0 + s - H;
+    const bool own = oy < (unsigned)a.by && ox < (unsigned)a.bx;
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      v.x[c][s] = sm[pl.state + c * wa + k];
+      v.y[c][s] = first ? T(0) : sm[pl.state + (2 + c) * wa + k];
+      v.ac[c][s] = first || !own ? T(0) : sm[pl.acc + c * own_plane + (int)oy * a.bx + (int)ox];
+    }
+  }
+  // the exchange planes over the dead state: plane 0 from word pl.state,
+  // plane 1 after it; T_k, gathered, goes into plane 0
+  const int plane = 2 * (wx + 2) * P_;
+  const int p0 = pl.state, p1 = pl.state + plane;
+  __syncthreads();
+  if (runs) {
+    T2* const so = reinterpret_cast<T2*>(sm + p0) + v.e0;
+#pragma unroll
+    for (int s = 0; s < R; ++s) {
+      T2 w2;
+      w2.x = gather_value<true>(v.x[0][s], ZAP != 0, false, T(0));
+      w2.y = gather_value<true>(v.x[1][s], ZAP != 0, false, T(0));
+      so[s] = w2;
+    }
+  }
+  __syncthreads();
+
+  const int64_t b_acc = (int64_t)z * 2 * geo.own_plane();
+  // the steps: T_{k+1} goes over T_{k-1}, so step i reads T_k from x where
+  // i is even and from y where it is odd; the planes trade places likewise
+  for (int i = 0; i < H; ++i) {
+    const int j = i + 1;
+    const bool odd = i & 1, publish = i + 1 < H;
+    const int in = odd ? p1 : p0, out = odd ? p0 : p1;
+    const T p_a = a.pa[i];
+    if (runs) {
+      if (!odd) {
+        if (first && i == 0)
+          vec_reg_step<FIRST, T, OP, ZAP>(a, sm, pl, geo, v, v.x, v.y, P_, j, wy, H, y0, x0, in,
+                                          out, p_a, publish, b_acc);
+        else if (a.last && i == H - 1)
+          vec_reg_step<LAST, T, OP, ZAP>(a, sm, pl, geo, v, v.x, v.y, P_, j, wy, H, y0, x0, in,
+                                         out, p_a, publish, b_acc);
+        else
+          vec_reg_step<MIDDLE, T, OP, ZAP>(a, sm, pl, geo, v, v.x, v.y, P_, j, wy, H, y0, x0, in,
+                                           out, p_a, publish, b_acc);
+      } else {
+        if (a.last && i == H - 1)
+          vec_reg_step<LAST, T, OP, ZAP>(a, sm, pl, geo, v, v.y, v.x, P_, j, wy, H, y0, x0, in,
+                                         out, p_a, publish, b_acc);
+        else
+          vec_reg_step<MIDDLE, T, OP, ZAP>(a, sm, pl, geo, v, v.y, v.x, P_, j, wy, H, y0, x0, in,
+                                           out, p_a, publish, b_acc);
+      }
+    }
+    if (publish) __syncthreads();
+  }
+  if (a.last || !runs) return;
+
+  // the own cells of the carries and of acc, from the registers: T_k is in
+  // y after an odd number of steps, in x after an even one
+  const int gx = x0 + (int)ox;
+  if (ox >= (unsigned)a.bx || gx >= geo.cols()) return;
+  const int64_t PO = geo.out_plane(), PA = geo.own_plane();
+  const int64_t b_out = (int64_t)z * 2 * PO;
+#pragma unroll
+  for (int s = 0; s < R; ++s) {
+    const unsigned oy = v.r0 + s - H;
+    const int gy = y0 + (int)oy;
+    if (oy >= (unsigned)a.by || gy >= geo.rows()) continue;
+    const int64_t ko = b_out + geo.out_index(gy, gx), ka = b_acc + geo.own_index(gy, gx);
+#pragma unroll
+    for (int c = 0; c < 2; ++c) {
+      a.t_out[ko + c * PO] = H & 1 ? v.y[c][s] : v.x[c][s];
+      a.t_prev_out[ko + c * PO] = H & 1 ? v.x[c][s] : v.y[c][s];
+      a.acc_out[ka + c * PA] = v.ac[c][s];
+    }
+  }
+}
+
+// A pass of the periodic field on the register steps: the window's load in
+// vec_reg_planes, then vec_reg_steps.
+template <typename T, typename OP, int ZAP>
+__global__ void __launch_bounds__(FUSED_THREADS) vec_reg_kernel(const VecFusedArgs<T> a,
+                                                                 const WrapGeo geo) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* const sm = reinterpret_cast<T*>(smem_raw);
+  const GridOrigin org;
+  const int y0 = org.y0(a.by), x0 = org.x0(a.bx);
+  vec_window_load<T, OP, true>(a, a, geo, sm, y0, x0, org.z());
+  cp_async_commit();
+  cp_async_wait_all();
+  __syncthreads();
+  vec_reg_steps<T, OP, ZAP>(a, geo, sm, y0, x0, org.z());
+}
+
 // Let `kernel` take `bytes` of dynamic shared memory.
 template <class K>
 int allow_shared(K kernel, size_t bytes) {
@@ -633,15 +926,39 @@ int allow_shared(K kernel, size_t bytes) {
                                    (int)bytes);
 }
 
-// The kernel of a launch: vec_strip_kernel on strips (`io` a StripIO), else
-// vec_fused_kernel, whose planes are the VecFusedArgs themselves.
+// The register steps' kernel of a pass (vec_reg_kernel): refused where the
+// contraction and dtype have no run length, the block's threads do not
+// cover the window's runs or its planes do not fit (the planner's
+// ops/cuda/vec_pass.py::vec_reg_fits mirrors this).
+template <typename T, typename OP, int ZAP>
+int launch_vec_reg(const VecFusedArgs<T>& a, const WrapGeo& g, dim3 grid, cudaStream_t st) {
+  constexpr int R = VecRegRows<OP, T>::value;
+  if constexpr (R == 0) {
+    return (int)cudaErrorInvalidValue;
+  } else {
+    const int wy = a.by + 2 * a.n_ops, wx = a.bx + 2 * a.n_ops;
+    const size_t bytes = vec_reg_shared_bytes<T>(a.by, a.bx, a.n_ops, OP::N_COEF, R);
+    if ((wy + R - 1) / R * wx > FUSED_THREADS || bytes > MAX_SHARED)
+      return (int)cudaErrorInvalidValue;
+    if (const int err = allow_shared(vec_reg_kernel<T, OP, ZAP>, bytes)) return err;
+    vec_reg_kernel<T, OP, ZAP><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
+    return (int)cudaGetLastError();
+  }
+}
+
+// The kernel of a launch: vec_strip_kernel on strips (`io` a StripIO),
+// vec_reg_kernel for a pass of the periodic field on the register steps
+// (`regs`), else vec_fused_kernel, whose planes are the VecFusedArgs
+// themselves.
 template <typename T, typename OP, int ZAP, class GEO, class IO>
 int launch_vec_mode(const VecFusedArgs<T>& a, const IO& io, const GEO& g, dim3 grid,
-                    size_t bytes, cudaStream_t st) {
+                    size_t bytes, int regs, cudaStream_t st) {
   if constexpr (std::is_same<GEO, StripGeo>::value) {
     if (const int err = allow_shared(vec_strip_kernel<T, OP, ZAP>, bytes)) return err;
     vec_strip_kernel<T, OP, ZAP><<<grid, FUSED_THREADS, bytes, st>>>(a, io, g);
   } else {
+    if constexpr (std::is_same<GEO, WrapGeo>::value)
+      if (regs) return launch_vec_reg<T, OP, ZAP>(a, g, grid, st);
     if (const int err = allow_shared(vec_fused_kernel<T, OP, ZAP, GEO>, bytes)) return err;
     vec_fused_kernel<T, OP, ZAP, GEO><<<grid, FUSED_THREADS, bytes, st>>>(a, g);
   }
@@ -651,11 +968,13 @@ int launch_vec_mode(const VecFusedArgs<T>& a, const IO& io, const GEO& g, dim3 g
 // Launch one fused vector pass over the own domain of `g` (rows x cols
 // cells), tiles of by x bx, one block per tile, with the kernel compiled for
 // the contraction and for zap; `io` the planes (the VecFusedArgs, or a
-// StripIO on strips).
+// StripIO on strips). `regs` (a pass of the periodic field only): on the
+// register steps, as the caller's plan says.
 template <typename T, class GEO, class IO>
-int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const IO& io, const GEO& g,
-                     int rows, int cols, int batch, cudaStream_t st) {
+int launch_vec_fused(int op, int zap, int regs, const VecFusedArgs<T>& a, const IO& io,
+                     const GEO& g, int rows, int cols, int batch, cudaStream_t st) {
   if (op != BGRID && op != CTAP) return (int)cudaErrorInvalidValue;
+  if (regs && !std::is_same<GEO, WrapGeo>::value) return (int)cudaErrorInvalidValue;
   if (rows < 1 || cols < 1 || a.n_ops < 1 || a.n_ops > MAX_FUSE || a.by < 1 || a.bx < 1 ||
       batch < 1 || batch > 65535)
     return (int)cudaErrorInvalidValue;
@@ -665,10 +984,10 @@ int launch_vec_fused(int op, int zap, const VecFusedArgs<T>& a, const IO& io, co
   const dim3 grid((cols + a.bx - 1) / a.bx, (rows + a.by - 1) / a.by, batch);
   if (grid.y > 65535) return (int)cudaErrorInvalidValue;
   if (op == BGRID)
-    return zap ? launch_vec_mode<T, BGridLap, 1>(a, io, g, grid, bytes, st)
-               : launch_vec_mode<T, BGridLap, 0>(a, io, g, grid, bytes, st);
-  return zap ? launch_vec_mode<T, CTapLap, 1>(a, io, g, grid, bytes, st)
-             : launch_vec_mode<T, CTapLap, 0>(a, io, g, grid, bytes, st);
+    return zap ? launch_vec_mode<T, BGridLap, 1>(a, io, g, grid, bytes, regs, st)
+               : launch_vec_mode<T, BGridLap, 0>(a, io, g, grid, bytes, regs, st);
+  return zap ? launch_vec_mode<T, CTapLap, 1>(a, io, g, grid, bytes, regs, st)
+             : launch_vec_mode<T, CTapLap, 0>(a, io, g, grid, bytes, regs, st);
 }
 
 // Fill the fields both fused entries pass the same way.

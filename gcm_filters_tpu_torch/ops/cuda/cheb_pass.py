@@ -240,12 +240,17 @@ class FusedPlan:
     ``tile = (by, bx)`` output cells, a halo of ``halo = max(steps)`` cells,
     one launch per entry of ``steps``. ``fused`` is the static predicate: where
     it is False (a field smaller than a tile plus its halo in either
-    dimension) the step chain runs instead."""
+    dimension) the step chain runs instead. ``paths``, where the planner gives
+    them, say which steps each pass's launch runs ("registers" or "shared",
+    the vector planner's :func:`~.vec_pass.vec_pass_path`); empty, the
+    wrapper's own choice (the scalar tile's :func:`fused_path`) or shared
+    memory."""
 
     tile: Tuple[int, int]
     halo: int
     steps: Tuple[int, ...]
     fused: bool
+    paths: Tuple[str, ...] = ()
 
 
 def fused_planes(ops: PassOperands) -> int:

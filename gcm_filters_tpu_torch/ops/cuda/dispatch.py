@@ -197,18 +197,21 @@ def _fused_chain(fused_fn, ops, p, pl, x, name="field"):
     vector ``w``, which only a first pass reads). A pass reads its carries
     from one pair of buffers and writes the next pass's into the other (a
     tile reads its neighbours' cells, so a pass cannot update its carries in
-    place); acc is updated in place."""
+    place); acc is updated in place. Where the plan gives ``paths``, each
+    pass's goes to ``fused_fn`` as ``path``."""
     acc = torch.empty_like(x)
     pairs = [(torch.empty_like(x), torch.empty_like(x)) for _ in range(min(2, len(pl.steps) - 1))]
     t = t_prev = None
     start = 0
     for i, n_ops in enumerate(pl.steps):
+        kw = {"path": pl.paths[i]} if pl.paths else {}
         if i == len(pl.steps) - 1:
-            fused_fn(ops, p, start, n_ops, tile=pl.tile, t=t, t_prev=t_prev, acc=acc, **{name: x})
+            fused_fn(ops, p, start, n_ops, tile=pl.tile, t=t, t_prev=t_prev, acc=acc, **kw,
+                     **{name: x})
         else:
             t_out, t_prev_out = pairs[i % 2]
             fused_fn(ops, p, start, n_ops, tile=pl.tile, t=t, t_prev=t_prev, t_out=t_out,
-                     t_prev_out=t_prev_out, acc=acc, **{name: x if i == 0 else None})
+                     t_prev_out=t_prev_out, acc=acc, **kw, **{name: x if i == 0 else None})
             t, t_prev = t_out, t_prev_out
         start += n_ops
     return acc

@@ -20,8 +20,11 @@ its C arguments. What every launch does is here:
 - :func:`launch_counts` reads, and resets, the one table of launches. It is
   keyed by ``(entry, detail)``: the detail is the contraction of a vector
   entry (``vec_pass.BGRID`` or ``CTAP``), the steps of a scalar tile's
-  launch (``"registers"`` or ``"shared"``, :func:`~.cheb_pass.fused_path`)
-  and None for the other entries. The plain versions count nothing.
+  launch (``"registers"`` or ``"shared"``, :func:`~.cheb_pass.fused_path`),
+  both for the periodic fused vector entry (``(vec_pass.BGRID,
+  "registers")``, ...: the steps its plan gave the pass,
+  :func:`~.vec_pass.plan_vec_fused_passes`) and None for the other
+  entries. The plain versions count nothing.
 """
 from __future__ import annotations
 
@@ -143,7 +146,7 @@ def route(name: str, device: torch.device, path: Optional[str] = None) -> _Route
     the call launches the kernel (a CUDA device) and False where it runs
     the plain version (the CPU). Any other device raises here. On the card
     the span carries ``path=`` where the caller gives one (the steps of a
-    scalar tile's launch)."""
+    scalar tile's or a periodic fused vector pass's launch)."""
     kind = device.type
     if kind == "cuda":
         card = True

@@ -26,8 +26,10 @@ plain step chain exactly), :func:`vec_fused_pass_tiled_reference` the
 kernel's tile decomposition in torch (periodic windows with their corners,
 shrinking steps), and :func:`plan_vec_fused_passes` the counterpart of the
 JAX ``plan_vec_passes`` / ``plan_ctap_passes``: tile, halo, the balanced
-split of the steps into passes, and the static predicate that says whether
-the fused route applies.
+split of the steps into passes, the steps each pass runs (a float32 pass of
+the periodic field in registers, ``vec_reg_kernel``, where the cost model
+finds them cheaper; else in shared memory) and the static predicate that
+says whether the fused route applies.
 """
 from __future__ import annotations
 
@@ -41,8 +43,8 @@ import torch
 from ..ctaps import CTAP_NAMES, apply_taps
 from ..stencil import BGRID_FIELDS, BGridVectorStencil
 from .cheb_pass import (
-    FIRST, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan, _kinds, _pass_args,
-    check_shared, from_tiles, search_plan, tile_windows, to_tiles,
+    FIRST, FUSED_THREADS, LAST, MAX_FUSE, MIDDLE, SHARED_BYTES, SM_SHARED_BYTES, FusedPlan,
+    _kinds, _pass_args, check_shared, from_tiles, search_plan, tile_windows, to_tiles,
 )
 from .launch import STEP_ROWS, Kernel, check_grid, pointer, route
 
@@ -132,7 +134,7 @@ _FUSED_KERNEL = Kernel("vec_pass", "vec_fused_pass", (
     [ctypes.c_int] * 9            # op, batch, ny, nx, by, bx, n_ops, first, last
     + [ctypes.c_void_p, ctypes.c_double]  # pa (host doubles), p_b
     + [ctypes.c_void_p] * 8       # w, t, t_prev, acc_in, t_out, t_prev_out, acc_out, coef
-    + [ctypes.c_int]              # zap
+    + [ctypes.c_int] * 2          # zap, regs
     + [ctypes.c_void_p]           # stream
 ))
 
@@ -245,15 +247,134 @@ def _vec_pass_cost(op: int, tile, steps, itemsize: int) -> float:
     plane) and every step's shrinking window, scaled by the tile's measured
     ratio (:func:`vec_tiles`). Comparable within one dtype only."""
     by, bx = tile
+    return sum(_vec_shared_cost(op, tuple(tile), s, itemsize) for s in steps) / (by * bx)
+
+
+def _vec_shared_cost(op: int, tile, halo: int, itemsize: int) -> float:
+    """Modelled cost of one pass of ``halo`` steps in shared memory
+    (``vec_step_window``), the tile's measured ratio included."""
+    by, bx = tile
     n_coef = N_COEF[op]
-    cost = 0.0
-    for s in steps:
-        wy, wx = by + 2 * s, bx + 2 * s
-        cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, s + 1))
-        two = 2 * (vec_fused_shared_bytes(tile, s, n_coef, itemsize) + 1024) <= SM_SHARED_BYTES
-        step = _VEC_STEP[(op, itemsize)] * (1.0 if two else _VEC_ONE_BLOCK[itemsize])
-        cost += (4 + n_coef) * wy * wx + step * cells
-    return cost / (by * bx) * vec_tiles(op, itemsize).get(tuple(tile), 1.0)
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    cells = sum((wy - 2 * j) * (wx - 2 * j) for j in range(1, halo + 1))
+    two = 2 * (vec_fused_shared_bytes(tile, halo, n_coef, itemsize) + 1024) <= SM_SHARED_BYTES
+    step = _VEC_STEP[(op, itemsize)] * (1.0 if two else _VEC_ONE_BLOCK[itemsize])
+    return ((4 + n_coef) * wy * wx + step * cells) * vec_tiles(op, itemsize).get(tuple(tile), 1.0)
+
+
+# -- the register steps (vec_reg_kernel of csrc/vec_tile.cuh) ----------------
+
+# Rows of a thread's run in the register steps, by (contraction, itemsize)
+# (``VecRegRows`` of vec_tile.cuh); a pair not named keeps the shared-memory
+# steps (float64: its runs would take twice the registers).
+VEC_REG_ROWS = {(BGRID, 4): 8, (CTAP, 4): 6}
+# The register steps' cost model, in the units of the shared-memory model
+# (window-cell loads of one plane, at the same milliseconds a unit): a pass
+# costs _VEC_REG_PASS a tile (its barriers, the latencies of its load and
+# lift), _VEC_REG_LOAD a window cell of a plane, and _VEC_REG_STEP[op] a lane
+# slot that a step issues (every lane of a warp on every live row of its
+# runs: the columns outside the shrunk window are stepped too), times the
+# tile's ratio in VEC_REG_TILES. Fitted (least squares, 7% rms) to a float32
+# sweep on one H100 of every tile at every split of the 11-step headline
+# (2400x3600 on both grids, 1080x1440 on the C-grid) and of the Taper (the
+# same sweep that chip_smoke.py phase 7b prints, on both steps; PERF.md §6).
+_VEC_REG_PASS, _VEC_REG_LOAD = 13977.7, 0.7491
+_VEC_REG_STEP = {BGRID: 1.4092, CTAP: 1.7256}
+VEC_REG_TILES = {
+    BGRID: {(16, 32): 1.089, (16, 48): 1.01, (16, 64): 0.951, (16, 96): 0.911,
+            (16, 128): 0.959, (24, 32): 1.042, (24, 64): 0.949, (32, 32): 1.019,
+            (32, 64): 1.01, (40, 32): 1.013, (48, 32): 1.04},
+    CTAP: {(8, 64): 0.923, (16, 32): 0.988, (16, 64): 0.96, (16, 96): 1.1, (24, 32): 1.006,
+           (24, 64): 1.1, (32, 32): 1.047, (40, 32): 1.108},
+}
+
+
+def vec_reg_pitch(wy: int, rows: int) -> int:
+    """Cells a column of an exchange plane holds (``vec_reg_pitch`` of
+    vec_tile.cuh): the window's run rows, made odd."""
+    return -(-wy // rows) * rows | 1
+
+
+def vec_reg_shared_bytes(tile, halo: int, n_coef: int, itemsize: int, rows: int) -> int:
+    """Dynamic shared memory of one block on the register steps
+    (``vec_reg_shared_bytes`` of vec_tile.cuh): the window's coefficients,
+    then the larger of its state and acc (:func:`vec_fused_shared_bytes`'s
+    other planes) and the two exchange planes of (u, v) pairs."""
+    by, bx = tile
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    window = 4 * wy * wx + 2 * by * bx
+    planes = 4 * (wx + 2) * vec_reg_pitch(wy, rows)
+    return (n_coef * wy * wx + max(window, planes)) * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def vec_reg_fits(op: int, itemsize: int, tile, halo: int) -> bool:
+    """Whether a pass of ``halo`` steps on ``tile`` can take the register
+    steps (``launch_vec_reg`` of vec_tile.cuh refuses it otherwise): the
+    contraction and item size have a run length R, the block's threads cover
+    the window's ``ceil(wy / R) * wx`` runs, and its planes fit in a block's
+    shared memory."""
+    rows = VEC_REG_ROWS.get((op, itemsize), 0)
+    if rows == 0:
+        return False
+    by, bx = tile
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    return (-(-wy // rows) * wx <= FUSED_THREADS
+            and vec_reg_shared_bytes(tile, halo, N_COEF[op], itemsize, rows) <= SHARED_BYTES)
+
+
+def vec_reg_runs(tile, halo: int, rows: int):
+    """The runs of a window on the register steps, in thread order: ``(q,
+    r0)``, column and first row of thread t's run (``vec_reg_steps``)."""
+    by, bx = tile
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    return [(t % wx, t // wx * rows) for t in range(-(-wy // rows) * wx)]
+
+
+def vec_reg_live(r0: int, rows: int, wy: int, j: int) -> range:
+    """The slots of a run that step j of a window ``wy`` rows high steps: the
+    rows of the window shrunk by j (``vec_reg_step``'s ``lo`` and ``hi``)."""
+    return range(max(0, j - r0), min(rows, wy - j - r0))
+
+
+@functools.lru_cache(maxsize=None)
+def vec_reg_slots(tile, halo: int, rows: int) -> int:
+    """Lane slots that a pass's steps issue on the register steps: for every
+    step and warp, 32 a slot that any of its lanes steps."""
+    by, bx = tile
+    wy = by + 2 * halo
+    runs = vec_reg_runs(tile, halo, rows)
+    total = 0
+    for j in range(1, halo + 1):
+        for w0 in range(0, len(runs), 32):
+            live = set()
+            for _, r0 in runs[w0:w0 + 32]:
+                live.update(vec_reg_live(r0, rows, wy, j))
+            total += 32 * len(live)
+    return total
+
+
+@functools.lru_cache(maxsize=None)
+def vec_pass_costs(op: int, tile, halo: int, itemsize: int):
+    """Modelled cost of one pass of ``halo`` steps on ``tile``: ``(shared,
+    registers)``, the steps in shared memory (:func:`_vec_shared_cost`) and in
+    registers (None where the pass cannot take them: :func:`vec_reg_fits`)."""
+    shared = _vec_shared_cost(op, tile, halo, itemsize)
+    if not vec_reg_fits(op, itemsize, tile, halo):
+        return shared, None
+    by, bx = tile
+    wy, wx = by + 2 * halo, bx + 2 * halo
+    regs = ((_VEC_REG_PASS + _VEC_REG_LOAD * (4 + N_COEF[op]) * wy * wx
+             + _VEC_REG_STEP[op] * vec_reg_slots(tile, halo, VEC_REG_ROWS[op, itemsize]))
+            * VEC_REG_TILES[op].get(tuple(tile), 1.0))
+    return shared, regs
+
+
+def vec_pass_path(op: int, tile, halo: int, itemsize: int) -> str:
+    """Which steps a pass takes: "registers" where it can take them and the
+    model (:func:`vec_pass_costs`) finds them cheaper, else "shared"."""
+    shared, regs = vec_pass_costs(op, tuple(tile), halo, itemsize)
+    return "registers" if regs is not None and regs < shared else "shared"
 
 
 @functools.lru_cache(maxsize=None)
@@ -264,10 +385,18 @@ def _vec_plan(n_steps: int, ny: int, nx: int, itemsize: int, op: int, max_fuse: 
             return False
         return vec_fused_shared_bytes(tl, halo, N_COEF[op], itemsize) <= SHARED_BYTES
 
-    return search_plan(
-        n_steps, ny, nx, max_fuse, (tile,) if tile else vec_tiles(op, itemsize), fits,
-        lambda tl, steps: _vec_pass_cost(op, tl, steps, itemsize),
+    def cost(tl, steps):
+        if ring:
+            return _vec_pass_cost(op, tl, steps, itemsize)
+        return sum(min(c for c in vec_pass_costs(op, tuple(tl), s, itemsize) if c is not None)
+                   for s in steps) / (tl[0] * tl[1])
+
+    plan = search_plan(
+        n_steps, ny, nx, max_fuse, (tile,) if tile else vec_tiles(op, itemsize), fits, cost,
         predicate=(lambda tl, halo: ny >= halo) if ring else None)
+    paths = tuple("shared" if ring else vec_pass_path(op, plan.tile, s, itemsize)
+                  for s in plan.steps)
+    return dataclasses.replace(plan, paths=paths)
 
 
 def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op: int,
@@ -281,14 +410,17 @@ def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op
     Every balanced split of the steps into ``ceil(n_steps / cap)`` passes
     (``cap <= max_fuse``) and every tile of ``vec_tiles(op, itemsize)`` (or only
     ``tile``) whose window fits in a block's shared memory is scored by a
-    cost model fitted to measured times (:func:`_vec_pass_cost`); the
-    cheapest wins. ``fused`` is False where the field is smaller than a tile
-    plus its halo in either dimension: the step chain runs there. With
-    ``ring`` the ``(ny, nx)`` field is a y-shard of the ring
+    cost model fitted to measured times, each pass on the cheaper of its
+    steps (:func:`vec_pass_costs`); the cheapest wins, and the plan's
+    ``paths`` say which steps each pass takes (:func:`vec_pass_path`), for
+    :func:`vec_fused_pass` to launch. ``fused`` is False where the field is
+    smaller than a tile plus its halo in either dimension: the step chain runs
+    there. With ``ring`` the ``(ny, nx)`` field is a y-shard of the ring
     (parallel/ring.py), whose window rows past its edges come from the
-    neighbours: only tiles whose window fits in ``nx`` are weighed, and the
-    plan is fused where ``ny >= halo``. The result depends on the shape, the
-    dtype and ``op`` only.
+    neighbours: only tiles whose window fits in ``nx`` are weighed, the plan
+    is fused where ``ny >= halo``, and every pass steps in shared memory (the
+    ring's kernel has no register steps). The result depends on the shape,
+    the dtype and ``op`` only.
     """
     if op not in N_COEF:
         raise ValueError(f"unknown vector contraction {op}")
@@ -298,7 +430,7 @@ def plan_vec_fused_passes(n_steps: int, ny: int, nx: int, dtype: torch.dtype, op
 
 
 def vec_fused_pass_reference(
-    ops: VecPassOperands, p, start: int, n_ops: int, *, tile=None,
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile=None, path=None,
     w: Optional[Tensor] = None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
     t_prev_out: Optional[Tensor] = None, acc: Tensor,
@@ -306,7 +438,7 @@ def vec_fused_pass_reference(
     """The plain PyTorch version of one fused launch, on any device: steps
     ``start+1 .. start+n_ops`` of the filter as a chain of
     :func:`vec_pass_reference`, so the result equals the plain step chain
-    exactly (``tile`` is not used).
+    exactly (``tile`` and ``path`` are not used).
 
     A first pass (``start == 0``) reads the stacked input ``w``; any other
     reads ``t``, ``t_prev`` and ``acc``. A pass that ends the filter leaves
@@ -333,7 +465,7 @@ def vec_fused_pass_reference(
 
 
 def vec_fused_pass_tiled_reference(
-    ops: VecPassOperands, p, start: int, n_ops: int, *, tile,
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile, path=None,
     w: Optional[Tensor] = None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
     t_prev_out: Optional[Tensor] = None, acc: Tensor,
@@ -346,7 +478,8 @@ def vec_fused_pass_tiled_reference(
     coefficient plane; run the steps on the window shrunk by j at step j; keep
     the own cells (:func:`vec_tiled_pass`). Same arguments and outputs as
     :func:`vec_fused_pass_reference`, and the same torch arithmetic per cell,
-    so the two are equal bit for bit wherever the decomposition is right.
+    so the two are equal bit for bit wherever the decomposition is right
+    (``path`` is not used: both steps compute the same cells).
     """
     _, last = _kinds(p, start, n_ops)
     ny = acc.shape[-2]
@@ -419,12 +552,14 @@ def vec_tiled_pass(ops: VecPassOperands, p, start: int, n_ops: int, tile, rows, 
     return outs
 
 
-def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
+def _fused_launch(ops, p, start, n_ops, tile, bufs, path="shared") -> None:
     first, last = _kinds(p, start, n_ops)
     if n_ops > MAX_FUSE:
         raise ValueError(f"a fused pass runs at most {MAX_FUSE} steps, got {n_ops}")
     if ops.op not in N_COEF:
         raise ValueError(f"unknown vector contraction {ops.op}")
+    if path not in ("registers", "shared"):
+        raise ValueError(f"unknown steps {path!r}: 'registers' or 'shared'")
     acc = bufs["acc"]
     dtype, device = acc.dtype, acc.device
     if acc.dim() != 4 or acc.shape[1] != 2:
@@ -435,6 +570,9 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
     check_grid(batch, ny, by, "shape", acc.shape)
     check_shared(vec_fused_shared_bytes(tile, n_ops, N_COEF[ops.op], acc.element_size()), tile,
                  n_ops)
+    if path == "registers" and not vec_reg_fits(ops.op, acc.element_size(), tile, n_ops):
+        raise ValueError(f"a pass of {n_ops} steps on tile {tile} in {dtype} cannot take the "
+                         "register steps")
     required = ("acc",) + (("w",) if first else ("t", "t_prev")) + (
         () if last else ("t_out", "t_prev_out"))
     pa, p_b = _pass_args(p, start, n_ops, first, bufs, required)
@@ -447,11 +585,12 @@ def _fused_launch(ops, p, start, n_ops, tile, bufs) -> None:
     coef = pointer("coef", ops.coef, (N_COEF[ops.op], ny, nx), device, dtype)
     _FUSED_KERNEL(device, dtype, ops.op, batch, ny, nx, by, bx, n_ops, int(first), int(last),
                   pa, p_b, ptr["w"], ptr["t"], ptr["t_prev"], ptr["acc"], ptr["t_out"],
-                  ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), detail=ops.op)
+                  ptr["t_prev_out"], ptr["acc"], coef, int(ops.zap), int(path == "registers"),
+                  detail=(ops.op, path))
 
 
 def vec_fused_pass(
-    ops: VecPassOperands, p, start: int, n_ops: int, *, tile,
+    ops: VecPassOperands, p, start: int, n_ops: int, *, tile, path: str = "shared",
     w: Optional[Tensor] = None, t: Optional[Tensor] = None,
     t_prev: Optional[Tensor] = None, t_out: Optional[Tensor] = None,
     t_prev_out: Optional[Tensor] = None, acc: Tensor,
@@ -460,14 +599,19 @@ def vec_fused_pass(
     on tiles of ``tile = (by, bx)`` cells, as :func:`vec_fused_pass_reference`
     documents them.
 
-    CUDA tensors launch the kernel (counted per contraction under
-    ``("vec_fused_pass", BGRID)`` and ``("vec_fused_pass", CTAP)`` in
-    :func:`~.launch.launch_counts`) on the current stream, without
-    synchronizing; CPU tensors run the plain version. Anything else raises.
+    CUDA tensors launch the kernel on the current stream, without
+    synchronizing: ``path`` "registers" runs the register steps (a pass the
+    plan gave them, :func:`plan_vec_fused_passes`; raises where the pass
+    cannot take them, :func:`vec_reg_fits`), "shared" the shared-memory
+    steps. The launch is counted per contraction and path under
+    ``("vec_fused_pass", (op, path))`` in :func:`~.launch.launch_counts`
+    and carries ``path=`` on its ``gft.launch`` span. CPU tensors run the
+    plain version, whose cells are the same on either path. Anything else
+    raises.
     """
     bufs = dict(w=w, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
-    with route("vec_fused_pass", acc.device) as card:
+    with route("vec_fused_pass", acc.device, path if acc.is_cuda else None) as card:
         if card:
-            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs)
+            _fused_launch(ops, p, start, n_ops, tuple(tile), bufs, path)
         else:
             vec_fused_pass_reference(ops, p, start, n_ops, **bufs)

@@ -267,10 +267,14 @@ def test_the_engine_runs_the_fused_chain_and_fused_fn_none_the_step_ring(case):
 
 @pytest.mark.parametrize("op", [BGRID, CTAP], ids=["bgrid", "ctap"])
 def test_the_ring_planner_and_shard_plan_on_vector_plans(op):
-    # at the 2400x3600 headline a shard of 600 rows gets the unsharded plan
+    # at the 2400x3600 headline a shard of 600 rows gets the unsharded plan's
+    # tile and split, on the shared-memory steps (the ring's kernel has no
+    # register steps; the unsharded passes take them)
     whole = plan_vec_fused_passes(11, 2400, 3600, torch.float32, op)
     shard = plan_vec_fused_passes(11, 600, 3600, torch.float32, op, max_fuse=16, ring=True)
-    assert shard == whole and shard.steps == (6, 5) and shard.fused
+    assert (shard.tile, shard.halo, shard.steps) == (whole.tile, whole.halo, whole.steps)
+    assert shard.steps == (6, 5) and shard.fused and whole.fused
+    assert shard.paths == ("shared", "shared") and whole.paths == ("registers", "registers")
     assert shard.tile == {BGRID: (32, 64), CTAP: (16, 64)}[op]
     assert ring._shard_plan(shard, 4, 2400, torch.float32) == 600
     # without ring the plan of a short field is not fused; with it, its rows come
