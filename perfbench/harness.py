@@ -93,7 +93,7 @@ def load_cell(workload: str, bench_path: Path = ROOT / "BENCHMARK.json") -> Cell
 class Inputs:
     device: torch.device
     grid_vars: Dict[str, torch.Tensor]  # float64, on the device
-    scales: Dict[str, float]  # filter_scale and dx_min, handed to both sides
+    scales: Dict[str, float]  # filter_scale, dx_min (and transition_width), handed to both sides
     # one (n, ny, nx) stack a component: on the device for a resident mix; for
     # the streamed mix on the host, numpy arrays and tensors on their memory
     fields: Tuple[torch.Tensor, ...]
@@ -147,11 +147,14 @@ class Program:
         import gcm_filters_tpu_torch as gft
 
         cfg = cell.cfg
+        extra = {}  # the Taper's transition width, only where the configuration sets one
+        if "transition_width" in inputs.scales:
+            extra["transition_width"] = inputs.scales["transition_width"]
         self.filter = gft.Filter(
             filter_scale=inputs.scales["filter_scale"], dx_min=inputs.scales["dx_min"],
             filter_shape=gft.FilterShape[cfg["filter_shape"]], grid_type=gft.GridType[cfg["grid_type"]],
             grid_vars={k: v.cpu().numpy() for k, v in inputs.grid_vars.items()},
-            dtype=DTYPES[cfg["dtype"]], device=device)
+            dtype=DTYPES[cfg["dtype"]], device=device, **extra)
         if self.filter.n_steps != cfg["n_steps"]:
             raise ValueError(f"the program plans {self.filter.n_steps} steps, the configuration "
                              f"states {cfg['n_steps']}")

@@ -1,6 +1,6 @@
 """Host time of the streamed loop's ``gft.stream.upload`` spans in the
-profiled calls, ms per snapshot: each chunk's host-to-device copy from
-pageable memory (``Filter._coerce``)."""
+profiled calls, ms per snapshot: each chunk's cast into page-locked staging
+and its host-to-device copy enqueued from there (``Filter._streamed_pinned``)."""
 from perfbench.metrics import _spans
 
 

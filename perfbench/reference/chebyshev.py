@@ -1,11 +1,12 @@
-"""The filter itself, written out plainly: the Chebyshev fit of the target
-response and the three-term recurrence that applies it.
+"""The filter itself, written out plainly: the target responses of both of
+GCM-Filters' shapes, their default step counts, the Chebyshev fit of a
+target and the three-term recurrence that applies it.
 
 This is the yardstick's own copy of the math of Grooms et al. (2021, JAMES)
-as GCM-Filters states it; it imports nothing of the program. The fit is a
-Galerkin projection of the target response F(t) onto T_0..T_n, in the basis
-phi_i = T_i - T_{i+2} plus a linear lift that pins F at both ends. The filter
-is then
+as GCM-Filters states it (``gcm_filters/filter.py``); it imports nothing of
+the program. The fit is a Galerkin projection of the target response F(t)
+onto T_0..T_n, in the basis phi_i = T_i - T_{i+2} plus a linear lift that
+pins F at both ends. The filter is then
 
     A = -I - scale * L,   T_0 = f,  T_1 = A f,  T_k = 2 A T_{k-1} - T_{k-2},
     filtered = sum_k p_k T_k,
@@ -21,23 +22,53 @@ from typing import Callable, Sequence, Tuple
 import numpy as np
 import torch
 
-# Default step counts, GCM-Filters' table: ceil(factor * filter_scale / dx_min).
-GAUSSIAN_STEPS_FACTOR = {1: 0.8, 2: 1.1}
+# Default step counts, GCM-Filters' table per shape and dimension:
+# ceil((offset + factor * (pi / transition_width) ** exponent)
+#      * filter_scale / dx_min), at least 3.
+STEP_RULE = {
+    "GAUSSIAN": {1: (0.8, 0.0, 1.0), 2: (1.1, 0.0, 1.0)},
+    "TAPER": {1: (2.2, 0.6, 2.5), 2: (3.2, 0.7, 2.7)},
+}
+# GCM-Filters' default transition width of the Taper (the Gaussian has none).
+TRANSITION_WIDTH = math.pi
 
 
-def n_steps_gaussian(filter_scale: float, dx_min: float, ndim: int = 2) -> int:
-    return max(3, math.ceil(GAUSSIAN_STEPS_FACTOR[ndim] * filter_scale / dx_min))
+def n_steps_default(shape: str, filter_scale: float, dx_min: float,
+                    transition_width: float = TRANSITION_WIDTH, ndim: int = 2) -> int:
+    offset, factor, exponent = STEP_RULE[shape][ndim]
+    per_scale = offset + factor * (math.pi / transition_width) ** exponent
+    return max(3, math.ceil(per_scale * filter_scale / dx_min))
 
 
-def gaussian_coefficients(filter_scale: float, dx_min: float, n_steps: int,
-                          ndim: int = 2) -> Tuple[np.ndarray, float]:
-    """``(p, s_max)``: the Chebyshev coefficients p_0..p_n of the Gaussian
-    response exp(-s L^2 / 24), s = s_max (t + 1) / 2, and s_max."""
-    s_max = ndim * (2.0 / dx_min) ** 2
+def gaussian_target(filter_scale: float, s_max: float) -> Callable:
+    """exp(-s L^2 / 24) at s = s_max (t + 1) / 2."""
 
     def target(t):
         return np.exp(-(s_max * (t + 1.0) / 2.0) * filter_scale ** 2 / 24.0)
 
+    return target
+
+
+def taper_target(filter_scale: float, s_max: float, transition_width: float) -> Callable:
+    """1 below k = 2 pi / (t_w L), 0 above 2 pi / L, and between them the
+    monotone cubic (PCHIP) through the knots k = 0, 2 pi / (t_w L),
+    2 pi / L, 8 sqrt(s_max) with the values 1, 1, 0, 0; k = sqrt(s) at
+    s = s_max (t + 1) / 2."""
+    from scipy.interpolate import PchipInterpolator
+
+    knots = np.array([0.0, 2.0 * np.pi / (transition_width * filter_scale),
+                      2.0 * np.pi / filter_scale, 8.0 * np.sqrt(s_max)])
+    pchip = PchipInterpolator(knots, np.array([1.0, 1.0, 0.0, 0.0]))
+
+    def target(t):
+        return pchip(np.sqrt(s_max * (np.asarray(t, dtype=np.float64) + 1.0) / 2.0))
+
+    return target
+
+
+def fit(target: Callable, n_steps: int) -> np.ndarray:
+    """The Chebyshev coefficients p_0..p_n of ``target`` on [-1, 1]: the
+    Galerkin projection under the Chebyshev weight, exact at both ends."""
     n = n_steps
     m = n - 1
     # <phi_i, phi_j> under the Chebyshev weight
@@ -56,7 +87,22 @@ def gaussian_coefficients(filter_scale: float, dx_min: float, n_steps: int,
     p[2:m + 2] -= c_hat
     p[0] += (1.0 + f1) / 2.0
     p[1] -= (1.0 - f1) / 2.0
-    return p, s_max
+    return p
+
+
+def filter_coefficients(shape: str, filter_scale: float, dx_min: float, n_steps: int,
+                        transition_width: float = TRANSITION_WIDTH,
+                        ndim: int = 2) -> Tuple[np.ndarray, float]:
+    """``(p, s_max)``: the Chebyshev coefficients of the ``shape``
+    ("GAUSSIAN" or "TAPER") filter's response, and s_max."""
+    s_max = ndim * (2.0 / dx_min) ** 2
+    if shape == "GAUSSIAN":
+        target = gaussian_target(filter_scale, s_max)
+    elif shape == "TAPER":
+        target = taper_target(filter_scale, s_max, transition_width)
+    else:
+        raise ValueError(f"the reference fits GAUSSIAN and TAPER, not {shape}")
+    return fit(target, n_steps), s_max
 
 
 def chebyshev_filter(laplacian: Callable[..., Tuple[torch.Tensor, ...]],

@@ -60,7 +60,7 @@ def test_traffic_calls(cell_name):
 
 @pytest.mark.parametrize("trace", [False, True])
 @pytest.mark.parametrize("cell_name", CELLS)
-def test_a_run_on_the_cpu(cell_name, trace, tmp_path):
+def test_a_run_on_the_cpu(cell_name, trace, tmp_path, traced_from_the_start):
     r = harness.run(cell_name, 2**33 + 5, 0.3, trace, "cpu", shape=SHAPE, trace_dir=tmp_path)
     assert list(r) == ["correct", "attempted", "failed", "metrics", "device", *(
         ["breakdown"] if trace else []), "checks"]

@@ -1,5 +1,7 @@
-"""The yardstick's own arithmetic: the work count, the Gaussian fit and the
-plain filter, held to hand-checked values and to the port's plain path."""
+"""The yardstick's own arithmetic: the work count, the Gaussian and Taper
+fits, their step counts and the plain filter, held to hand-checked values,
+to the values the Gaussian fit gave before the Taper joined it, and to the
+port's plain path."""
 import math
 
 import numpy as np
@@ -7,14 +9,15 @@ import pytest
 import torch
 
 from perfbench import harness, workcount
-from perfbench.reference.chebyshev import gaussian_coefficients, n_steps_gaussian
+from perfbench.reference.chebyshev import filter_coefficients, n_steps_default
 from perfbench.reference.filter import reference_filter
 
 SHAPE = (48, 72)
 
 
 def cfg(name):
-    return harness.load_cell({"sst": "pop_sst.resident1", "uv": "pop_uv.resident1"}[name]).cfg
+    return harness.load_cell({"sst": "pop_sst.resident1", "uv": "pop_uv.resident1",
+                              "taper": "pop_sst_taper.resident1"}[name]).cfg
 
 
 @pytest.mark.parametrize("name, snapshots, planes", [
@@ -38,8 +41,17 @@ def test_call_bound_hand_values():
     assert workcount.call_bound_ms(cfg("sst"), 8) == pytest.approx(0.185696, abs=1e-6)
 
 
+def test_call_bound_of_the_taper_is_its_operations():
+    """39 steps of 15 operations a cell: 15 * 8,640,000 * 39 / 67e12 s, over
+    the 0.041266 ms that its four planes take to move."""
+    nbytes, flops = workcount.call_work(cfg("taper"), 1)
+    assert flops == 15 * 2400 * 3600 * 39
+    assert workcount.bound_ms(nbytes, flops, "float32")[1] == "operations"
+    assert workcount.call_bound_ms(cfg("taper"), 1) == pytest.approx(0.075439, abs=1e-6)
+
+
 def test_gaussian_fit_pins_both_ends():
-    p, s_max = gaussian_coefficients(10.0, 1.0, 11)
+    p, s_max = filter_coefficients("GAUSSIAN", 10.0, 1.0, 11)
     assert s_max == 8.0 and len(p) == 12
     cheb = np.polynomial.chebyshev.chebval
     assert cheb(-1.0, p) == pytest.approx(1.0, abs=1e-14)  # the mean is kept
@@ -49,9 +61,82 @@ def test_gaussian_fit_pins_both_ends():
     assert np.abs(cheb(t, p) - gauss).max() < 0.02
 
 
+# The Gaussian's p for 11 steps as the Gaussian-only fit gave it, bit for
+# bit: every Gaussian configuration's scales fit these (float.hex).
+GAUSSIAN_11 = [
+    "0x1.94fcb50a0ebb0p-4", "-0x1.883e7005c62cep-3", "0x1.660ea2381f3ebp-3",
+    "-0x1.32b212e9bc8a7p-3", "0x1.f01f0e809740bp-4", "-0x1.78c518568dbc4p-4",
+    "0x1.0f5e7846519bep-4", "-0x1.6ef237e3baab4p-5", "0x1.da73cd3a60aabp-6",
+    "-0x1.1d012d395f911p-6", "0x1.465c63818e3f6p-7", "-0x1.2a07a8a3793c0p-8",
+]
+
+
+@pytest.mark.parametrize("filter_scale, dx_min", [
+    (10.0, 1.0),  # pop_0.1deg_sst
+    (22187.668084077566, 2218.766808407757),  # pop_0.1deg_uv at 2400x3600
+    (48375.81216624173, 4837.581216624173),  # mom6_om4p25_uv at 1080x1440
+])
+def test_gaussian_fit_is_frozen(filter_scale, dx_min):
+    assert n_steps_default("GAUSSIAN", filter_scale, dx_min) == 11
+    p, s_max = filter_coefficients("GAUSSIAN", filter_scale, dx_min, 11)
+    assert [float(v).hex() for v in p] == GAUSSIAN_11
+    assert s_max == 2 * (2.0 / dx_min) ** 2
+
+
 @pytest.mark.parametrize("factor, steps", [(10.0, 11), (20.0, 22), (2.0, 3)])
 def test_step_count(factor, steps):
-    assert n_steps_gaussian(factor, 1.0) == steps
+    assert n_steps_default("GAUSSIAN", factor, 1.0) == steps
+
+
+@pytest.mark.parametrize("factor, dx_min, width, ndim, steps", [
+    (10.0, 1.0, math.pi, 2, 39),  # pop_0.1deg_sst_taper
+    (10.0, 1.0, math.pi, 1, 29),
+    (7.3, 0.9, 2.0, 2, 46),
+    (3.0, 1.0, 1.5, 2, 26),
+    (0.5, 1.0, math.pi, 2, 3),  # the floor
+])
+def test_taper_step_count(factor, dx_min, width, ndim, steps):
+    """GCM-Filters' rule, and the port's copy of it, give the same count."""
+    from gcm_filters_tpu_torch.filter_spec import FilterShape, compute_n_steps_default
+
+    assert n_steps_default("TAPER", factor, dx_min, width, ndim) == steps
+    assert compute_n_steps_default(ndim, FilterShape.TAPER, factor, dx_min, width) == steps
+
+
+@pytest.mark.parametrize("factor, dx_min, width, ndim", [
+    (10.0, 1.0, math.pi, 2),  # pop_0.1deg_sst_taper
+    (10.0, 1.0, math.pi, 1),
+    (7.3, 0.9, 2.0, 2),
+    (30.0, 1.0, 4.0, 2),
+])
+def test_taper_fit_equals_the_ports_spec(factor, dx_min, width, ndim):
+    """The reference's Taper fit, written out apart from the program, and
+    the port's ``compute_filter_spec`` agree (the test may import the
+    program; the reference does not)."""
+    from gcm_filters_tpu_torch.filter_spec import FilterShape, compute_filter_spec
+
+    n = n_steps_default("TAPER", factor, dx_min, width, ndim)
+    p, s_max = filter_coefficients("TAPER", factor, dx_min, n, width, ndim)
+    spec = compute_filter_spec(factor, dx_min, FilterShape.TAPER, width, ndim, n)
+    assert s_max == spec.s_max
+    np.testing.assert_allclose(p, np.asarray(spec.p), rtol=0, atol=1e-12)
+
+
+def test_taper_fit_is_a_sharp_low_pass():
+    """1 at k = 0 and 0 at s_max, near 1 below the transition band and near
+    0 above the cutoff; bounded coefficients (sum of |p_k| 1.295)."""
+    p, s_max = filter_coefficients("TAPER", 10.0, 1.0, 39)
+    assert len(p) == 40 and s_max == 8.0
+    cheb = np.polynomial.chebyshev.chebval
+    assert cheb(-1.0, p) == pytest.approx(1.0, abs=1e-13)
+    assert cheb(1.0, p) == pytest.approx(0.0, abs=1e-13)
+
+    def t(k):  # k = sqrt(s_max (t + 1) / 2)
+        return 2 * k ** 2 / s_max - 1
+
+    assert abs(cheb(t(0.5 * 2 * math.pi / (math.pi * 10)), p) - 1) < 0.05
+    assert abs(cheb(t(np.linspace(1.5 * 2 * math.pi / 10, math.sqrt(8), 50)), p)).max() < 0.05
+    assert np.abs(p).sum() == pytest.approx(1.295035, abs=1e-6)
 
 
 def inputs(name, seed=7):

@@ -22,7 +22,8 @@ READERS = ("dispatch_host_ms", "launch_host_ms", "upload_ms_per_snapshot",
 
 
 @pytest.mark.parametrize("cell_name", ["pop_sst.resident1", "pop_sst.streamed"])
-def test_the_span_readers_answer_on_the_cpu(cell_name, tmp_path, monkeypatch, capsys):
+def test_the_span_readers_answer_on_the_cpu(cell_name, tmp_path, monkeypatch, capsys,
+                                           traced_from_the_start):
     kept = {}
     window = harness.window
 
@@ -32,7 +33,6 @@ def test_the_span_readers_answer_on_the_cpu(cell_name, tmp_path, monkeypatch, ca
         return out
 
     monkeypatch.setattr(harness, "window", keep)
-    # a window long enough for the profiled calls to start in it on a busy CPU
     r = harness.run(cell_name, 2**33 + 11, 2.0, True, "cpu", shape=SHAPE, trace_dir=tmp_path)
     assert r["correct"] is True
     mine = [m["name"] for m in harness.load_cell(cell_name).per_layer
