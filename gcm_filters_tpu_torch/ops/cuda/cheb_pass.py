@@ -737,12 +737,12 @@ def cheb_fused_pass(
     synchronizing; the launch runs the steps that :func:`fused_path` picks,
     is counted under ``("cheb_fused_pass", path)`` in
     :func:`~.launch.launch_counts` and carries ``path=`` on its
-    ``gft.launch`` span. CPU tensors run the plain version. Anything else
-    raises.
+    ``gft.launch`` span. CPU tensors run the plain version. On both, the
+    span carries ``steps=n_ops``. Anything else raises.
     """
     bufs = dict(field=field, t=t, t_prev=t_prev, t_out=t_out, t_prev_out=t_prev_out, acc=acc)
     path = fused_path(ops.stencil, tile, n_ops, acc.element_size()) if acc.is_cuda else None
-    with route("cheb_fused_pass", acc.device, path) as card:
+    with route("cheb_fused_pass", acc.device, path, n_ops) as card:
         if card:
             _fused_launch(ops, p, start, n_ops, tuple(tile), bufs, path)
         else:

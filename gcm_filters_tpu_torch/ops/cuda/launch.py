@@ -140,13 +140,16 @@ class _Route:
 _CARD, _CPU = _Route(True, _OFF), _Route(False, _OFF)  # the routes while spans are off
 
 
-def route(name: str, device: torch.device, path: Optional[str] = None) -> _Route:
+def route(name: str, device: torch.device, path: Optional[str] = None,
+          steps: Optional[int] = None) -> _Route:
     """The ``gft.launch`` span of one call of the wrapper ``name`` on
     ``device``; ``with route(...) as card`` opens it and gives True where
     the call launches the kernel (a CUDA device) and False where it runs
     the plain version (the CPU). Any other device raises here. On the card
     the span carries ``path=`` where the caller gives one (the steps of a
-    scalar tile's or a periodic fused vector pass's launch)."""
+    scalar tile's or a periodic fused vector pass's launch); on both sides
+    it carries ``steps=`` where the caller gives one (the filter steps a
+    scalar tile's launch runs)."""
     kind = device.type
     if kind == "cuda":
         card = True
@@ -154,7 +157,10 @@ def route(name: str, device: torch.device, path: Optional[str] = None) -> _Route
         card, path = False, None
     else:
         raise RuntimeError(f"{name} has no kernel for device {device}")
-    inner = span("gft.launch", path=path) if path else span("gft.launch")
+    counts = {} if path is None else {"path": path}
+    if steps is not None:
+        counts["steps"] = steps
+    inner = span("gft.launch", **counts)
     if inner is _OFF:
         return _CARD if card else _CPU
     return _Route(card, inner)

@@ -516,11 +516,12 @@ def local_strip_pass(
     :func:`~.launch.launch_counts` and with ``path="shared"`` on the span, as
     :func:`~.cheb_pass.cheb_fused_pass` counts its launches: the strip round
     always steps in shared memory, since its register steps would spill. CPU
-    tensors run the plain version. Anything else raises.
+    tensors run the plain version. On both, the span carries
+    ``steps=n_ops``. Anything else raises.
     """
     bufs = dict(field=field, field_own=field_own, t=t, t_prev=t_prev, t_out=t_out,
                 t_prev_out=t_prev_out, acc=acc)
-    with route("local_strip_pass", acc.device, "shared") as card:
+    with route("local_strip_pass", acc.device, "shared", n_ops) as card:
         if card:
             _strip_launch(ops, p, start, n_ops, cells, tuple(tile), bufs, strips)
         else:

@@ -919,9 +919,10 @@ def ring_fused_pass(state: RingFusedState, p, start: int, n_ops: int, *, tile,
     :func:`~.launch.launch_counts` and with ``path="shared"`` on the span, as
     :func:`~.cheb_pass.cheb_fused_pass` counts its launches: the ring always
     steps in shared memory, since its register steps would spill. A state on
-    the CPU runs the plain version. Anything else raises.
+    the CPU runs the plain version. On both, the span carries
+    ``steps=n_ops``. Anything else raises.
     """
-    with route("ring_fused_pass", state.device, "shared") as card:
+    with route("ring_fused_pass", state.device, "shared", n_ops) as card:
         if card:
             _fused_launch(state, p, start, n_ops, tuple(tile), out)
         else:

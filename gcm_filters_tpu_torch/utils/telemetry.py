@@ -13,7 +13,7 @@ records the block's name, its start and end (``time.perf_counter_ns``), the
 span around it in the same thread (``parent``), the id of the outermost one
 (``call``: every span of one public call shares it) and ``counts``, numbers
 measured at the same boundary (``bytes=`` a copy moves) or, on a scalar
-tile's launch, ``path=``. The port's spans
+tile's launch, ``path=`` and ``steps=``. The port's spans
 are named ``gft.*``:
 
 - ``gft.apply``, ``gft.apply_to_vector``, ``gft.apply_streamed``,
@@ -22,7 +22,9 @@ are named ``gft.*``:
 - ``gft.launch``: one call of a pass wrapper (``ops/cuda/*_pass.py``), a
   kernel launch on the card or the plain version on the CPU, opened by
   ``ops/cuda/launch.py::route``; a launch of the scalar tile on the card
-  carries ``path=``, the steps it ran (``"registers"`` or ``"shared"``).
+  carries ``path=``, the steps it ran (``"registers"`` or ``"shared"``),
+  and on the card and the CPU alike ``steps=``, the number of filter steps
+  it ran (a call's add up to the filter's ``n_steps``).
   The launches themselves are counted apart, in the one table of
   ``ops/cuda/launch.py::launch_counts``;
 - ``gft.stream.read``, ``.upload``, ``.download``, ``.assemble``: the

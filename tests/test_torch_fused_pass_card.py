@@ -141,7 +141,20 @@ def test_the_span_records_the_path(dev):
     with recording():
         filt.apply(x)
     launches = [s for s in spans() if s.name == "gft.launch"]
-    assert launches and all(s.counts == {"path": "registers"} for s in launches)
+    assert launches and all(s.counts["path"] == "registers" for s in launches)
+    assert sum(s.counts["steps"] for s in launches) == filt.n_steps
+
+
+def test_the_float64_span_records_shared_steps(dev):
+    filt = _filter(dev, dtype=torch.float64)
+    x = _field(dev, dtype=torch.float64)
+    filt.apply(x)  # operands cached
+    reset_spans()
+    with recording():
+        filt.apply(x)
+    launches = [s for s in spans() if s.name == "gft.launch"]
+    assert launches and all(s.counts["path"] == "shared" for s in launches)
+    assert sum(s.counts["steps"] for s in launches) == filt.n_steps
 
 
 def _local_operands(filt, x, halo_steps):

@@ -207,7 +207,7 @@ def test_a_cpu_call_runs_the_plain_version_counts_no_launch_and_opens_one_span()
         cp.cheb_fused_pass(ops, p, 0, 2, tile=(8, 8), field=x, t_out=outs[0],
                            t_prev_out=outs[1], acc=outs[2])
     found = [s for s in spans() if s.name == "gft.launch"]
-    assert len(found) == 1 and found[0].counts == {}
+    assert len(found) == 1 and found[0].counts == {"steps": 2}
     assert launch.launch_counts() == before
     cp.cheb_fused_pass_reference(ops, p, 0, 2, field=x, t_out=outs[3], t_prev_out=outs[4],
                                  acc=outs[5])
@@ -217,7 +217,8 @@ def test_a_cpu_call_runs_the_plain_version_counts_no_launch_and_opens_one_span()
 
 def test_a_route_to_the_card_carries_its_path():
     """On a CUDA device the route says "launch" and its span carries the
-    path; while spans are off, a route is one shared object per side."""
+    path and the steps; while spans are off, a route is one shared object
+    per side."""
     cuda = torch.device("cuda", 0)
     assert launch.route("x", cuda, "shared") is launch.route("y", cuda)
     with launch.route("x", torch.device("cpu"), "shared") as card:
@@ -228,4 +229,7 @@ def test_a_route_to_the_card_carries_its_path():
             assert card is True
         with launch.route("vec_fused_pass", cuda) as card:
             assert card is True
-    assert [s.counts for s in spans() if s.name == "gft.launch"] == [{"path": "registers"}, {}]
+        with launch.route("ring_fused_pass", cuda, "shared", 9) as card:
+            assert card is True
+    assert [s.counts for s in spans() if s.name == "gft.launch"] == [
+        {"path": "registers"}, {}, {"path": "shared", "steps": 9}]

@@ -403,3 +403,63 @@ def test_the_ring_engine_launches_under_the_call(grid):
     root = hot[0]
     assert root.name == ("gft.apply" if grid == "scalar" else "gft.apply_to_vector")
     assert len(hot) > 1 and all(s.name == "gft.launch" and s.parent == root.id for s in hot[1:])
+
+
+STEP_CASES = {  # filter shape -> its steps at factor 10 (one pass, and four)
+    "GAUSSIAN": 11,
+    "TAPER": 39,
+}
+
+
+def _step_filter(shape_name, shape, **kw):
+    return gt.Filter(device="cpu", filter_shape=gt.FilterShape[shape_name],
+                     **{**_scalar_kw(shape, 10.0), **kw})
+
+
+def _steps_per_call(filt, calls, batch=()):
+    """The ``steps=`` of each call's ``gft.launch`` spans, summed a call."""
+    _run(filt, False, False, batch=batch, shape=FUSED_SHAPE)  # operands cached
+    reset_spans()
+    with recording():
+        for _ in range(calls):
+            _run(filt, False, False, batch=batch, shape=FUSED_SHAPE)
+    hot = _hot()
+    roots = [s for s in hot if s.parent is None]
+    assert [r.name for r in roots] == ["gft.apply"] * calls
+    launches = [s for s in hot if s.name == "gft.launch"]
+    assert launches and all("steps" in s.counts and "path" not in s.counts for s in launches)
+    return [sum(s.counts["steps"] for s in launches if s.call == r.id) for r in roots]
+
+
+@pytest.mark.parametrize("batch", [(), (3,)], ids=["one_field", "batch_of_3"])
+@pytest.mark.parametrize("shape_name", sorted(STEP_CASES))
+def test_the_scalar_tile_launches_count_the_filter_steps(shape_name, batch):
+    """On the CPU each launch of the scalar tile carries ``steps=`` (and no
+    ``path=``, which is the card's), and a call's add up to ``n_steps``."""
+    filt = _step_filter(shape_name, FUSED_SHAPE)
+    assert filt.n_steps == STEP_CASES[shape_name]
+    plan = filt._scalar_fn().plan(*FUSED_SHAPE, torch.float32)
+    assert plan.fused and len(plan.steps) == (1 if shape_name == "GAUSSIAN" else 4)
+    assert _steps_per_call(filt, 2, batch) == [filt.n_steps] * 2
+
+
+@pytest.mark.parametrize("shape_name", sorted(STEP_CASES))
+def test_the_ring_launches_count_the_filter_steps(shape_name):
+    filt = _step_filter(shape_name, FUSED_SHAPE, mesh=gt.ResidentMesh(2, "cpu"),
+                        spatial_axes=("y", None))
+    assert _steps_per_call(filt, 2) == [filt.n_steps] * 2
+
+
+def test_the_sharded_rounds_count_the_filter_steps(tmp_path):
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", world_size=1,
+                            rank=0)
+    try:
+        mesh = init_device_mesh("cpu", (1, 1), mesh_dim_names=("y", "x"))
+        for shape_name in sorted(STEP_CASES):
+            filt = _step_filter(shape_name, FUSED_SHAPE, mesh=mesh, spatial_axes=("y", "x"))
+            assert _steps_per_call(filt, 2) == [filt.n_steps] * 2
+    finally:
+        dist.destroy_process_group()
